@@ -1,0 +1,57 @@
+"""Carry weights and engine state over from the JAX package.
+
+Both functions take plain numpy data (what ``np.asarray`` makes of the
+JAX package's arrays), so nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.cohort.engine import CohortState
+
+
+def dqn_params_from_jax(params: Sequence[Mapping]) -> dict:
+    """``QNet`` state dict from the JAX Q-network's parameter list.
+
+    ``params`` is the list of ``{"w": (in, out), "b": (out,)}`` layers of
+    ``qnet_init``; ``w`` is transposed to ``nn.Linear``'s ``(out, in)``.
+    Load the result with ``QNet.load_state_dict``.
+    """
+    state = {}
+    for i, p in enumerate(params):
+        w = np.asarray(p["w"], np.float32)
+        if w.ndim != 2:
+            raise ValueError(f"layer {i}: w must be 2-D, got {w.shape}")
+        b = np.asarray(p["b"], np.float32)
+        if b.shape != (w.shape[1],):
+            raise ValueError(f"layer {i}: b {b.shape} does not match w "
+                             f"{w.shape}")
+        state[f"layers.{i}.weight"] = torch.from_numpy(w.T.copy())
+        state[f"layers.{i}.bias"] = torch.from_numpy(b.copy())
+    return state
+
+
+def cohort_state_from_jax(state) -> CohortState:
+    """The port's :class:`CohortState` with the JAX engine's warm-start
+    payload: landmark indices, bandwidth and the two eigenbases, plus the
+    drift sketch the warm-start gate measures against (the sketch is the
+    same numpy function of the table and seed in both packages).
+
+    The fingerprint and cached result stay empty, so the next select
+    solves (warm, if the table drifted little) instead of replaying a
+    JAX result.
+    """
+    def arr(v, dtype):
+        return None if v is None else np.array(v, dtype)
+
+    return CohortState(
+        sketch=arr(state.sketch, np.float32),
+        num_clients=int(state.num_clients),
+        landmark_idx=arr(state.landmark_idx, np.int64),
+        gamma=None if state.gamma is None else float(state.gamma),
+        w_basis=arr(state.w_basis, np.float32),
+        mm_basis=arr(state.mm_basis, np.float32))

@@ -1,0 +1,514 @@
+// Fused Nystrom kernels for Hopper (sm_90a): C -> S -> S^T S with no (N, m)
+// cross-affinity in device memory.
+//
+// Ports of the four Pallas kernels on the cohort server's select path,
+// src/repro/kernels/nystrom_pallas.py:
+//
+//   rt_quantized_cross_affinity  <- quantized_cross_affinity_pallas (l.340)
+//   rt_nystrom_colsum            <- nystrom_colsum_pallas (l.208)
+//   rt_nystrom_gram              <- nystrom_gram_pallas (l.240)
+//   rt_nystrom_extension         <- nystrom_extension_pallas (l.275)
+//
+// The TPU kernels walk the row panels in order on one core and carry the
+// column sum / Gram in the output block across grid steps.  Here blocks run
+// in parallel on 132 SMs, so every cross-block sum goes through a scratch
+// array of per-block partials that a second launch reduces in index order.
+// No float atomics anywhere: every sum has a fixed order, so a launch on
+// the same inputs is bit-identical (the engine's determinism contract).
+//
+// Every C entry takes device pointers and a cudaStream_t, launches on that
+// stream, allocates nothing (scratch comes from the caller), and returns
+// cudaGetLastError() (cudaErrorInvalidValue for a shape it does not take).
+//
+// Bounds at the select path's shape (N = 100 000, d = 8, m = 512, k = 8,
+// f32) on an H100 (67 TFLOP/s f32 on the CUDA cores, 3.35 TB/s):
+//   colsum     N*m = 5.1e7 affinity entries (~1.2 GFLOP) on 3.6 MB read:
+//              operation-bound, ~20 us.
+//   gram       2*N*m^2 = 5.2e10 FLOP of S^T S in exact f32 (no TF32):
+//              operation-bound, ~0.8 ms.
+//   extension  like colsum twice plus 2*N*m*k FLOP: operation-bound.
+//   cross      W = A(z, z), 512 x 512: 1 MB written, launch-bound.
+
+#include <cuda_runtime.h>
+
+#include "affinity_tile.cuh"
+
+namespace rt {
+
+// ---------------------------------------------------------------------------
+// dispatch on (affinity dtype, d): d <= 8 and d <= 32 get their own
+// register-array bound
+// ---------------------------------------------------------------------------
+
+template <int DT, int MAXD>
+struct Cfg {
+  static constexpr int kDt = DT;
+  static constexpr int kMaxD = MAXD;
+};
+
+template <int MAXD, typename F>
+bool with_dtype(int dtype, F&& f) {
+  switch (dtype) {
+    case kF32: f(Cfg<kF32, MAXD>{}); return true;
+    case kBF16: f(Cfg<kBF16, MAXD>{}); return true;
+    case kINT8: f(Cfg<kINT8, MAXD>{}); return true;
+    default: return false;
+  }
+}
+
+template <typename F>
+bool dispatch(int dtype, int d, F&& f) {
+  if (d >= 1 && d <= 8) return with_dtype<8>(dtype, f);
+  if (d > 8 && d <= 32) return with_dtype<32>(dtype, f);
+  return false;
+}
+
+inline unsigned blocks_for(long long work, int threads) {
+  return static_cast<unsigned>((work + threads - 1) / threads);
+}
+
+// ---------------------------------------------------------------------------
+// shared pieces: in-order reduction of per-block partials, tiled f32 matmul
+// ---------------------------------------------------------------------------
+
+// out[j] = sum_p partial[p, j], p ascending.
+__global__ void sum_rows_kernel(const float* __restrict__ partial,
+                                float* __restrict__ out, int rows,
+                                long long cols) {
+  const long long j = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (j >= cols) return;
+  float acc = 0.f;
+#pragma unroll 8
+  for (int p = 0; p < rows; ++p) acc += partial[p * cols + j];
+  out[j] = acc;
+}
+
+constexpr int kMmTile = 64;     // output tile edge
+constexpr int kMmDepth = 16;    // k-slice held in shared memory
+constexpr int kTileThreads = 256;   // 16 x 16 threads, 4 x 4 outputs each
+
+// C (M, N) = A (M, K) @ B (K, N), row-major f32.  Each thread sums its 4 x 4
+// outputs over k in ascending order.
+__global__ void __launch_bounds__(kTileThreads)
+matmul_kernel(const float* __restrict__ a, const float* __restrict__ b,
+              float* __restrict__ c, int M, int N, int K) {
+  __shared__ __align__(16) float as[kMmDepth][kMmTile];
+  __shared__ __align__(16) float bs[kMmDepth][kMmTile];
+  const int r0 = blockIdx.y * kMmTile, c0 = blockIdx.x * kMmTile;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < K; k0 += kMmDepth) {
+    for (int e = threadIdx.x; e < kMmTile * kMmDepth; e += kTileThreads) {
+      const int ar = e / kMmDepth, ak = e % kMmDepth;
+      as[ak][ar] = (r0 + ar < M && k0 + ak < K)
+                       ? a[static_cast<size_t>(r0 + ar) * K + k0 + ak] : 0.f;
+      const int bk = e / kMmTile, bc = e % kMmTile;
+      bs[bk][bc] = (k0 + bk < K && c0 + bc < N)
+                       ? b[static_cast<size_t>(k0 + bk) * N + c0 + bc] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kMmDepth; ++kk) {
+      const float4 av = *reinterpret_cast<const float4*>(&as[kk][ty * 4]);
+      const float4 bv = *reinterpret_cast<const float4*>(&bs[kk][tx * 4]);
+      const float ar[4] = {av.x, av.y, av.z, av.w};
+      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + ty * 4 + i;
+    if (r >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int cc = c0 + tx * 4 + j;
+      if (cc < N) c[static_cast<size_t>(r) * N + cc] = acc[i][j];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// kernel 1: materialized cross-affinity, one thread per output entry
+// ---------------------------------------------------------------------------
+
+constexpr int kCrossThreads = 256;
+
+template <int DT, int MAXD>
+__global__ void __launch_bounds__(kCrossThreads)
+cross_affinity_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                      float gamma, float* __restrict__ out, int n, int m,
+                      int d) {
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (e >= static_cast<long long>(n) * m) return;
+  const int i = static_cast<int>(e / m), j = static_cast<int>(e % m);
+  float xv[MAXD], yv[MAXD];
+  float xn, xs, yn, ys;
+  prepare_point<DT, MAXD>(x + static_cast<size_t>(i) * d, d, xv, xn, xs);
+  prepare_point<DT, MAXD>(y + static_cast<size_t>(j) * d, d, yv, yn, ys);
+  out[e] = affinity<DT, MAXD>(xv, 1, xn, xs, yv, 1, yn, ys, d, gamma);
+}
+
+// ---------------------------------------------------------------------------
+// kernel 2: column sum.  Block (panel, column tile): the panel's rows sit in
+// shared memory, each thread owns one landmark column and sums the panel's
+// rows in order into partial[panel, j]; sum_rows_kernel then adds the
+// panels in index order.
+// ---------------------------------------------------------------------------
+
+constexpr int kColsumCols = 128;   // threads = landmark columns per block
+constexpr int kColsumRows = 256;   // rows per panel
+
+template <int DT, int MAXD>
+__global__ void __launch_bounds__(kColsumCols)
+colsum_partial_kernel(const float* __restrict__ x,
+                      const float* __restrict__ z, float gamma,
+                      const float* __restrict__ mask,
+                      float* __restrict__ partial, int n, int m, int d) {
+  extern __shared__ float smem[];
+  float* xv = smem;                        // d * kColsumRows
+  float* xn = xv + d * kColsumRows;
+  float* xs = xn + kColsumRows;
+  float* xm = xs + kColsumRows;
+  const int row0 = blockIdx.x * kColsumRows;
+  const int rows = min(kColsumRows, n - row0);
+  load_points<DT, MAXD>(x, row0, rows, kColsumRows, d, xv, xn, xs);
+  for (int t = threadIdx.x; t < kColsumRows; t += blockDim.x)
+    xm[t] = t < rows ? (mask ? mask[row0 + t] : 1.f) : 0.f;
+  __syncthreads();
+  const int j = blockIdx.y * kColsumCols + threadIdx.x;
+  if (j >= m) return;
+  float zv[MAXD];
+  float zn, zs;
+  prepare_point<DT, MAXD>(z + static_cast<size_t>(j) * d, d, zv, zn, zs);
+  float acc = 0.f;
+  for (int t = 0; t < rows; ++t)
+    acc += affinity<DT, MAXD>(xv + t, kColsumRows, xn[t], xs[t], zv, 1, zn,
+                              zs, d, gamma) * xm[t];
+  partial[static_cast<size_t>(blockIdx.x) * m + j] = acc;
+}
+
+// ---------------------------------------------------------------------------
+// row kernels: one thread per client row, landmarks streamed through shared
+// memory in chunks.  row_degree is pass 1 of both the Gram pre-pass and the
+// extension: d^_i = sum_j C_ij u_j, j ascending.
+// ---------------------------------------------------------------------------
+
+constexpr int kRowThreads = 128;
+constexpr int kChunk = 64;         // landmarks per shared-memory chunk
+
+// Every thread of the block calls this (it synchronizes); `live` says
+// whether the calling thread owns a real row.
+template <int DT, int MAXD>
+__device__ __forceinline__ float row_degree(const float* xv, float xn, float xs, bool live,
+                            const float* __restrict__ z,
+                            const float* __restrict__ u, int m, int d,
+                            float gamma, float* smem) {
+  float* zv = smem;                  // d * kChunk
+  float* zn = zv + d * kChunk;
+  float* zs = zn + kChunk;
+  float* zu = zs + kChunk;
+  float dh = 0.f;
+  for (int c0 = 0; c0 < m; c0 += kChunk) {
+    const int cnt = min(kChunk, m - c0);
+    __syncthreads();
+    load_points<DT, MAXD>(z, c0, cnt, kChunk, d, zv, zn, zs);
+    for (int t = threadIdx.x; t < cnt; t += blockDim.x) zu[t] = u[c0 + t];
+    __syncthreads();
+    if (live) {
+      for (int t = 0; t < cnt; ++t)
+        dh = fmaf(affinity<DT, MAXD>(xv, 1, xn, xs, zv + t, kChunk, zn[t],
+                                     zs[t], d, gamma),
+                  zu[t], dh);
+    }
+  }
+  return dh;
+}
+
+// r_i = mask_i * rsqrt(max(mask_i * d^_i, eps)): S = diag(r) C.
+template <int DT, int MAXD>
+__global__ void __launch_bounds__(kRowThreads)
+degree_kernel(const float* __restrict__ x, const float* __restrict__ z,
+              float gamma, const float* __restrict__ u,
+              const float* __restrict__ mask, float* __restrict__ r, int n,
+              int m, int d) {
+  extern __shared__ float smem[];
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = i < n;
+  float xv[MAXD];
+  float xn = 0.f, xs = 1.f;
+#pragma unroll
+  for (int k = 0; k < MAXD; ++k) xv[k] = 0.f;
+  if (live)
+    prepare_point<DT, MAXD>(x + static_cast<size_t>(i) * d, d, xv, xn, xs);
+  const float dh = row_degree<DT, MAXD>(xv, xn, xs, live, z, u, m, d, gamma,
+                                        smem);
+  if (live) {
+    const float mk = mask ? mask[i] : 1.f;
+    r[i] = mk * rsqrtf(fmaxf(mk * dh, kEps));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// kernel 3: the S^T S Gram.  Block (P, Q, slab) owns output tile (P, Q) of
+// one slab of rows.  For each chunk of kGramRows rows it rebuilds the S
+// columns of tiles P and Q in shared memory and accumulates their outer
+// products in registers (4 x 4 per thread, rows in ascending order).  The
+// slabs' partial Grams are added in slab order by sum_rows_kernel, then the
+// W^-1/2 G W^-1/2 rotation runs as two matmul_kernel launches.
+// ---------------------------------------------------------------------------
+
+constexpr int kGramTile = 64;
+constexpr int kGramRows = 32;
+
+template <int DT, int MAXD>
+__global__ void __launch_bounds__(kTileThreads)
+gram_tile_kernel(const float* __restrict__ x, const float* __restrict__ z,
+                 float gamma, const float* __restrict__ r,
+                 float* __restrict__ partial, int n, int m, int d,
+                 int slab_rows) {
+  __shared__ __align__(16) float sp[kGramRows][kGramTile];
+  __shared__ __align__(16) float sq[kGramRows][kGramTile];
+  extern __shared__ float smem[];
+  float* pv = smem;                     // landmark tile P: d * kGramTile
+  float* pn = pv + d * kGramTile;
+  float* ps = pn + kGramTile;
+  float* qv = ps + kGramTile;           // landmark tile Q
+  float* qn = qv + d * kGramTile;
+  float* qs = qn + kGramTile;
+  float* xv = qs + kGramTile;           // row chunk: d * kGramRows
+  float* xn = xv + d * kGramRows;
+  float* xs = xn + kGramRows;
+  float* xr = xs + kGramRows;
+
+  const int p0 = blockIdx.x * kGramTile, q0 = blockIdx.y * kGramTile;
+  const int pc = min(kGramTile, m - p0), qc = min(kGramTile, m - q0);
+  load_points<DT, MAXD>(z, p0, pc, kGramTile, d, pv, pn, ps);
+  load_points<DT, MAXD>(z, q0, qc, kGramTile, d, qv, qn, qs);
+  const int i_begin = blockIdx.z * slab_rows;
+  const int i_end = min(n, i_begin + slab_rows);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float acc[4][4] = {};
+  for (int i0 = i_begin; i0 < i_end; i0 += kGramRows) {
+    const int rows = min(kGramRows, i_end - i0);
+    __syncthreads();   // the previous chunk's tiles are consumed
+    load_points<DT, MAXD>(x, i0, rows, kGramRows, d, xv, xn, xs);
+    for (int t = threadIdx.x; t < kGramRows; t += blockDim.x)
+      xr[t] = t < rows ? r[i0 + t] : 0.f;
+    __syncthreads();
+    for (int e = threadIdx.x; e < kGramRows * 2 * kGramTile;
+         e += kTileThreads) {
+      const int t = e / (2 * kGramTile);
+      const int c = e % (2 * kGramTile);
+      const bool in_q = c >= kGramTile;
+      const int cc = in_q ? c - kGramTile : c;
+      float s = 0.f;
+      if (t < rows && cc < (in_q ? qc : pc) && xr[t] != 0.f) {
+        const float* lv = in_q ? qv : pv;
+        const float* ln = in_q ? qn : pn;
+        const float* ls = in_q ? qs : ps;
+        s = affinity<DT, MAXD>(xv + t, kGramRows, xn[t], xs[t], lv + cc,
+                               kGramTile, ln[cc], ls[cc], d, gamma) * xr[t];
+      }
+      (in_q ? sq : sp)[t][cc] = s;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int t = 0; t < kGramRows; ++t) {
+      const float4 av = *reinterpret_cast<const float4*>(&sp[t][ty * 4]);
+      const float4 bv = *reinterpret_cast<const float4*>(&sq[t][tx * 4]);
+      const float ar[4] = {av.x, av.y, av.z, av.w};
+      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(ar[a], br[b], acc[a][b]);
+    }
+  }
+  float* out = partial + static_cast<size_t>(blockIdx.z) * m * m;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int p = p0 + ty * 4 + a;
+    if (p >= m) continue;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int q = q0 + tx * 4 + b;
+      if (q < m) out[static_cast<size_t>(p) * m + q] = acc[a][b];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// kernel 4: extension, one thread per row.  Pass 1 is row_degree; pass 2
+// streams the landmarks again with their proj rows and accumulates
+// v = sum_j S_ij proj_j; the row is then normalized with the 1e-12 floor.
+// Masked rows have r = 0 and come out 0.
+// ---------------------------------------------------------------------------
+
+template <int DT, int MAXD, int MAXK>
+__global__ void __launch_bounds__(kRowThreads)
+extension_kernel(const float* __restrict__ x, const float* __restrict__ z,
+                 float gamma, const float* __restrict__ u,
+                 const float* __restrict__ proj,
+                 const float* __restrict__ mask, float* __restrict__ out,
+                 int n, int m, int d, int k) {
+  extern __shared__ float smem[];
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = i < n;
+  float xv[MAXD];
+  float xn = 0.f, xs = 1.f;
+#pragma unroll
+  for (int kk = 0; kk < MAXD; ++kk) xv[kk] = 0.f;
+  if (live)
+    prepare_point<DT, MAXD>(x + static_cast<size_t>(i) * d, d, xv, xn, xs);
+  const float dh = row_degree<DT, MAXD>(xv, xn, xs, live, z, u, m, d, gamma,
+                                        smem);
+  const float mk = live ? (mask ? mask[i] : 1.f) : 0.f;
+  const float r = mk * rsqrtf(fmaxf(mk * dh, kEps));
+
+  float* zv = smem;                  // d * kChunk
+  float* zn = zv + d * kChunk;
+  float* zs = zn + kChunk;
+  float* pj = zs + 2 * kChunk;       // kChunk * k, after row_degree's u slot
+  float v[MAXK];
+#pragma unroll
+  for (int kk = 0; kk < MAXK; ++kk) v[kk] = 0.f;
+  for (int c0 = 0; c0 < m; c0 += kChunk) {
+    const int cnt = min(kChunk, m - c0);
+    __syncthreads();
+    load_points<DT, MAXD>(z, c0, cnt, kChunk, d, zv, zn, zs);
+    for (int e = threadIdx.x; e < cnt * k; e += blockDim.x)
+      pj[e] = proj[static_cast<size_t>(c0) * k + e];
+    __syncthreads();
+    if (live && r != 0.f) {
+      for (int t = 0; t < cnt; ++t) {
+        const float s = affinity<DT, MAXD>(xv, 1, xn, xs, zv + t, kChunk,
+                                           zn[t], zs[t], d, gamma) * r;
+#pragma unroll
+        for (int kk = 0; kk < MAXK; ++kk)
+          if (kk < k) v[kk] = fmaf(s, pj[t * k + kk], v[kk]);
+      }
+    }
+  }
+  if (!live) return;
+  float sq = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < MAXK; ++kk)
+    if (kk < k) sq = fmaf(v[kk], v[kk], sq);
+  const float norm = fmaxf(sqrtf(sq), kEps);
+#pragma unroll
+  for (int kk = 0; kk < MAXK; ++kk)
+    if (kk < k) out[static_cast<size_t>(i) * k + kk] = v[kk] / norm;
+}
+
+size_t row_smem_bytes(int d) { return (d + 3) * kChunk * sizeof(float); }
+
+}  // namespace rt
+
+using namespace rt;
+
+extern "C" {
+
+int rt_quantized_cross_affinity(const float* x, const float* y, float gamma,
+                                float* out, int n, int m, int d, int dtype,
+                                void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool ok = dispatch(dtype, d, [&](auto c) {
+    using C = decltype(c);
+    cross_affinity_kernel<C::kDt, C::kMaxD>
+        <<<blocks_for(static_cast<long long>(n) * m, kCrossThreads),
+           kCrossThreads, 0, s>>>(x, y, gamma, out, n, m, d);
+  });
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// partial: (ceil(n / 256), m) scratch.
+int rt_nystrom_colsum(const float* x, const float* z, float gamma,
+                      const float* mask, float* partial, float* out, int n,
+                      int m, int d, int dtype, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned panels = blocks_for(n, kColsumRows);
+  const dim3 grid(panels, blocks_for(m, kColsumCols));
+  const size_t smem = (d + 3) * kColsumRows * sizeof(float);
+  const bool ok = dispatch(dtype, d, [&](auto c) {
+    using C = decltype(c);
+    colsum_partial_kernel<C::kDt, C::kMaxD>
+        <<<grid, kColsumCols, smem, s>>>(x, z, gamma, mask, partial, n, m, d);
+  });
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sum_rows_kernel<<<blocks_for(m, 256), 256, 0, s>>>(partial, out, panels, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// r: (n,), partial: (slabs, m, m), g and t: (m, m) scratch.
+int rt_nystrom_gram(const float* x, const float* z, float gamma,
+                    const float* u, const float* w_isqrt, const float* mask,
+                    float* r, float* partial, float* g, float* t, float* out,
+                    int n, int m, int d, int slabs, int slab_rows, int dtype,
+                    void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned tiles = blocks_for(m, kGramTile);
+  const size_t gram_smem =
+      ((d + 2) * 2 * kGramTile + (d + 3) * kGramRows) * sizeof(float);
+  cudaError_t err = cudaSuccess;
+  const bool ok = dispatch(dtype, d, [&](auto c) {
+    using C = decltype(c);
+    degree_kernel<C::kDt, C::kMaxD>
+        <<<blocks_for(n, kRowThreads), kRowThreads, row_smem_bytes(d), s>>>(
+            x, z, gamma, u, mask, r, n, m, d);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return;
+    gram_tile_kernel<C::kDt, C::kMaxD>
+        <<<dim3(tiles, tiles, slabs), kTileThreads, gram_smem, s>>>(
+            x, z, gamma, r, partial, n, m, d, slab_rows);
+    err = cudaGetLastError();
+  });
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long mm = static_cast<long long>(m) * m;
+  sum_rows_kernel<<<blocks_for(mm, 256), 256, 0, s>>>(partial, g, slabs, mm);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const dim3 mgrid(blocks_for(m, kMmTile), blocks_for(m, kMmTile));
+  matmul_kernel<<<mgrid, kTileThreads, 0, s>>>(w_isqrt, g, t, m, m, m);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  matmul_kernel<<<mgrid, kTileThreads, 0, s>>>(t, w_isqrt, out, m, m, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int rt_nystrom_extension(const float* x, const float* z, float gamma,
+                         const float* u, const float* proj, const float* mask,
+                         float* out, int n, int m, int d, int k, int dtype,
+                         void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = (d + 3 + k) * kChunk * sizeof(float);
+  const unsigned grid = blocks_for(n, kRowThreads);
+  bool ok;
+  if (k >= 1 && k <= 16) {
+    ok = dispatch(dtype, d, [&](auto c) {
+      using C = decltype(c);
+      extension_kernel<C::kDt, C::kMaxD, 16><<<grid, kRowThreads, smem, s>>>(
+          x, z, gamma, u, proj, mask, out, n, m, d, k);
+    });
+  } else if (k > 16 && k <= 64) {
+    ok = dispatch(dtype, d, [&](auto c) {
+      using C = decltype(c);
+      extension_kernel<C::kDt, C::kMaxD, 64><<<grid, kRowThreads, smem, s>>>(
+          x, z, gamma, u, proj, mask, out, n, m, d, k);
+    });
+  } else {
+    ok = false;
+  }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

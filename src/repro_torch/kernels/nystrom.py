@@ -1,0 +1,249 @@
+"""Wrappers of the fused Nyström CUDA kernels (``csrc/nystrom.cu``).
+
+The PyTorch counterpart of the JAX package's ``kernels/nystrom_pallas.py``,
+with the same signatures (``x, z, gamma, mask, *, affinity_dtype,
+block_m``).  The device of the inputs decides the route:
+
+* tensors on the CPU run the plain PyTorch versions in
+  :mod:`repro_torch.kernels.ref`;
+* tensors on a CUDA device launch the hand-written kernel, or raise —
+  there is no fallback to the plain version.
+
+Each wrapper checks device, dtype, shape and contiguity, allocates its
+outputs and scratch with ``torch.empty``, launches on the current stream
+without synchronizing, and adds one to its entry of :data:`LAUNCH_COUNTS`
+when it launches.  ``block_m`` is kept for signature parity: the CUDA
+kernels fix their own row panels (see the kernel source), and the plain
+versions have none.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+AFFINITY_DTYPES = ("f32", "bf16", "int8")
+_DTYPE_CODE = {"f32": 0, "bf16": 1, "int8": 2}
+_MAX_D = 32              # widest point the kernels hold in registers
+_MAX_K = 64              # widest projection the extension kernel holds
+_COLSUM_ROWS = 256       # kColsumRows in nystrom.cu
+_GRAM_ROWS = 32          # kGramRows
+_GRAM_TILE = 64          # kGramTile
+# the Gram kernel splits the rows into slabs until about this many blocks
+# are in flight (8 per SM of a 132-SM H100); a function of the shapes
+# only, so the summation order never depends on the card
+_GRAM_TARGET_BLOCKS = 1056
+
+#: kernel launches per wrapper since the last :func:`reset_launch_counts`
+LAUNCH_COUNTS = {"quantized_cross_affinity": 0, "nystrom_colsum": 0,
+                 "nystrom_gram": 0, "nystrom_extension": 0}
+_COUNT_LOCK = threading.Lock()
+
+
+def reset_launch_counts() -> None:
+    with _COUNT_LOCK:
+        for name in LAUNCH_COUNTS:
+            LAUNCH_COUNTS[name] = 0
+
+
+def _launched(name: str) -> None:
+    with _COUNT_LOCK:
+        LAUNCH_COUNTS[name] += 1
+
+
+def _check(name, affinity_dtype, block_m, **tensors) -> torch.device:
+    """Validate the inputs; returns their common device."""
+    if affinity_dtype not in AFFINITY_DTYPES:
+        raise ValueError(f"{name}: unknown affinity_dtype "
+                         f"{affinity_dtype!r}; expected one of "
+                         f"{AFFINITY_DTYPES}")
+    if int(block_m) < 1:
+        raise ValueError(f"{name}: block_m={block_m} must be >= 1")
+    given = {k: t for k, t in tensors.items() if t is not None}
+    for k, t in given.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name}: {k} must be a torch.Tensor, got "
+                            f"{type(t).__name__}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {k} must be float32, got {t.dtype}")
+    devices = {t.device for t in given.values()}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: inputs lie on different devices "
+                         f"{sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if dev.type == "cuda":
+        for k, t in given.items():
+            if not t.is_contiguous():
+                raise ValueError(f"{name}: {k} must be contiguous")
+    return dev
+
+
+def _check_points(name, x, z):
+    if x.dim() != 2 or z.dim() != 2 or x.shape[1] != z.shape[1]:
+        raise ValueError(f"{name}: x {tuple(x.shape)} and z "
+                         f"{tuple(z.shape)} must be (n, d) and (m, d)")
+    n, d = x.shape
+    m = z.shape[0]
+    return n, m, d
+
+
+def _check_kernel_shape(name, n, m, d):
+    if n < 1 or m < 1:
+        raise ValueError(f"{name}: the CUDA kernel needs n >= 1 and m >= 1, "
+                         f"got n={n}, m={m}")
+    if not 1 <= d <= _MAX_D:
+        raise ValueError(f"{name}: the CUDA kernel takes 1 <= d <= "
+                         f"{_MAX_D}, got d={d}")
+
+
+def _check_vector(name, label, v, length):
+    if v is not None and tuple(v.shape) != (length,):
+        raise ValueError(f"{name}: {label} must have shape ({length},), got "
+                         f"{tuple(v.shape)}")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def quantized_cross_affinity(x, y, gamma, *, affinity_dtype: str = "f32",
+                             block_m: int = 128):
+    """(n, m) cross-affinity exp(-γ d²) at the chosen tile precision."""
+    name = "quantized_cross_affinity"
+    dev = _check(name, affinity_dtype, block_m, x=x, y=y)
+    n, m, d = _check_points(name, x, y)
+    g = float(gamma)
+    if dev.type == "cpu":
+        return ref.quantized_cross_affinity_ref(
+            x, y, g, affinity_dtype=affinity_dtype)
+    _check_kernel_shape(name, n, m, d)
+    lib = _build.library()
+    out = torch.empty((n, m), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.rt_quantized_cross_affinity(
+            x.data_ptr(), y.data_ptr(), g, out.data_ptr(), n, m, d,
+            _DTYPE_CODE[affinity_dtype], _stream(dev))
+    _build.check(err, name)
+    _launched(name)
+    return out
+
+
+def nystrom_colsum(x, z, gamma, mask=None, *, affinity_dtype: str = "f32",
+                   block_m: int = 1024):
+    """``col = Σᵢ exp(-γ d²(xᵢ, z))·maskᵢ`` without materializing C, (m,)."""
+    name = "nystrom_colsum"
+    dev = _check(name, affinity_dtype, block_m, x=x, z=z, mask=mask)
+    n, m, d = _check_points(name, x, z)
+    _check_vector(name, "mask", mask, n)
+    g = float(gamma)
+    if dev.type == "cpu":
+        return ref.nystrom_colsum_ref(x, z, g, mask,
+                                      affinity_dtype=affinity_dtype)
+    _check_kernel_shape(name, n, m, d)
+    lib = _build.library()
+    panels = math.ceil(n / _COLSUM_ROWS)
+    partial = torch.empty((panels, m), dtype=torch.float32, device=dev)
+    out = torch.empty((m,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.rt_nystrom_colsum(
+            x.data_ptr(), z.data_ptr(), g, _ptr(mask), partial.data_ptr(),
+            out.data_ptr(), n, m, d, _DTYPE_CODE[affinity_dtype],
+            _stream(dev))
+    _build.check(err, name)
+    _launched(name)
+    return out
+
+
+def gram_slabs(n: int, m: int):
+    """(slabs, rows per slab) of the Gram kernel's split over the rows."""
+    tiles = math.ceil(m / _GRAM_TILE)
+    slabs = max(1, min(math.ceil(n / _GRAM_ROWS),
+                       math.ceil(_GRAM_TARGET_BLOCKS / tiles ** 2)))
+    slab_rows = math.ceil(math.ceil(n / slabs) / _GRAM_ROWS) * _GRAM_ROWS
+    return math.ceil(n / slab_rows), slab_rows
+
+
+def nystrom_gram(x, z, gamma, u, w_isqrt, mask=None, *,
+                 affinity_dtype: str = "f32", block_m: int = 1024):
+    """Fused ``W⁻¹ᐟ² (SᵀS) W⁻¹ᐟ²`` where S is the degree-normalized C.
+
+    ``u`` (m,) is ``W⁻¹ᐟ²(W⁻¹ᐟ² col)``; ``w_isqrt`` (m, m).  Returns the
+    rotated (m, m) Gram; the caller symmetrizes and eigensolves.
+    """
+    name = "nystrom_gram"
+    dev = _check(name, affinity_dtype, block_m, x=x, z=z, u=u,
+                 w_isqrt=w_isqrt, mask=mask)
+    n, m, d = _check_points(name, x, z)
+    _check_vector(name, "mask", mask, n)
+    _check_vector(name, "u", u, m)
+    if tuple(w_isqrt.shape) != (m, m):
+        raise ValueError(f"{name}: w_isqrt must be ({m}, {m}), got "
+                         f"{tuple(w_isqrt.shape)}")
+    g = float(gamma)
+    if dev.type == "cpu":
+        return ref.nystrom_gram_ref(x, z, g, u, w_isqrt, mask,
+                                    affinity_dtype=affinity_dtype)
+    _check_kernel_shape(name, n, m, d)
+    lib = _build.library()
+    slabs, slab_rows = gram_slabs(n, m)
+    f32 = dict(dtype=torch.float32, device=dev)
+    r = torch.empty((n,), **f32)
+    partial = torch.empty((slabs, m, m), **f32)
+    gram = torch.empty((m, m), **f32)
+    rotated_half = torch.empty((m, m), **f32)
+    out = torch.empty((m, m), **f32)
+    with torch.cuda.device(dev):
+        err = lib.rt_nystrom_gram(
+            x.data_ptr(), z.data_ptr(), g, u.data_ptr(), w_isqrt.data_ptr(),
+            _ptr(mask), r.data_ptr(), partial.data_ptr(), gram.data_ptr(),
+            rotated_half.data_ptr(), out.data_ptr(), n, m, d, slabs,
+            slab_rows, _DTYPE_CODE[affinity_dtype], _stream(dev))
+    _build.check(err, name)
+    _launched(name)
+    return out
+
+
+def nystrom_extension(x, z, gamma, u, proj, mask=None, *,
+                      affinity_dtype: str = "f32", block_m: int = 1024):
+    """Fused row-normalized extension ``row_normalize(S · proj)``, (n, k).
+
+    Masked rows come out zero.
+    """
+    name = "nystrom_extension"
+    dev = _check(name, affinity_dtype, block_m, x=x, z=z, u=u, proj=proj,
+                 mask=mask)
+    n, m, d = _check_points(name, x, z)
+    _check_vector(name, "mask", mask, n)
+    _check_vector(name, "u", u, m)
+    if proj.dim() != 2 or proj.shape[0] != m:
+        raise ValueError(f"{name}: proj must be ({m}, k), got "
+                         f"{tuple(proj.shape)}")
+    k = proj.shape[1]
+    g = float(gamma)
+    if dev.type == "cpu":
+        return ref.nystrom_extension_ref(x, z, g, u, proj, mask,
+                                         affinity_dtype=affinity_dtype)
+    _check_kernel_shape(name, n, m, d)
+    if not 1 <= k <= _MAX_K:
+        raise ValueError(f"{name}: the CUDA kernel takes 1 <= k <= "
+                         f"{_MAX_K}, got k={k}")
+    lib = _build.library()
+    out = torch.empty((n, k), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.rt_nystrom_extension(
+            x.data_ptr(), z.data_ptr(), g, u.data_ptr(), proj.data_ptr(),
+            _ptr(mask), out.data_ptr(), n, m, d, k,
+            _DTYPE_CODE[affinity_dtype], _stream(dev))
+    _build.check(err, name)
+    _launched(name)
+    return out

@@ -1,0 +1,82 @@
+"""Plain PyTorch versions of the fused Nyström kernels.
+
+Twins of the oracles in the JAX package's ``kernels/ref.py``: the
+semantic ground truth, deliberately naive (the (n, m) affinity is
+materialized).  A kernel wrapper in :mod:`repro_torch.kernels.nystrom`
+runs these for tensors on the CPU; on the card they are what each CUDA
+kernel is held against.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_EPS = 1e-12
+
+
+def pairwise_sq_dists_ref(x, y):
+    """(n, d), (m, d) -> (n, m) squared euclidean distances, f32."""
+    x = x.float()
+    y = y.float()
+    diff = x[:, None, :] - y[None, :, :]
+    return (diff * diff).sum(-1)
+
+
+def _quantized_points_ref(a, affinity_dtype: str):
+    """The (de)quantized operand the tile math actually dots.
+
+    Per-row symmetric int8 scales / bf16 rounding: row-wise, so the
+    result does not depend on how a kernel partitions rows into tiles.
+    ``torch.round`` rounds half to even, like ``jnp.round``.
+    """
+    a = a.float()
+    if affinity_dtype == "f32":
+        return a
+    if affinity_dtype == "bf16":
+        return a.to(torch.bfloat16).float()
+    if affinity_dtype == "int8":
+        scale = torch.clamp_min(a.abs().amax(-1, keepdim=True) / 127.0, 1e-8)
+        return torch.clamp(torch.round(a / scale), -127.0, 127.0) * scale
+    raise ValueError(f"unknown affinity_dtype {affinity_dtype!r}")
+
+
+def quantized_cross_affinity_ref(x, y, gamma, *, affinity_dtype="f32"):
+    """Cross-affinity exp(-γ d²) on the quantized points."""
+    xq = _quantized_points_ref(x, affinity_dtype)
+    yq = _quantized_points_ref(y, affinity_dtype)
+    return torch.exp(-gamma * pairwise_sq_dists_ref(xq, yq))
+
+
+def _masked_c_ref(x, z, gamma, mask, affinity_dtype):
+    c = quantized_cross_affinity_ref(x, z, gamma,
+                                     affinity_dtype=affinity_dtype)
+    if mask is not None:
+        c = c * mask.float().reshape(-1)[:, None]
+    return c
+
+
+def nystrom_colsum_ref(x, z, gamma, mask=None, *, affinity_dtype="f32"):
+    """col = Σᵢ maskᵢ·C_ij, (m,)."""
+    return _masked_c_ref(x, z, gamma, mask, affinity_dtype).sum(0)
+
+
+def _s_ref(c, u):
+    d_hat = c @ u.float().reshape(-1)
+    return c * torch.rsqrt(torch.clamp_min(d_hat, _EPS))[:, None]
+
+
+def nystrom_gram_ref(x, z, gamma, u, w_isqrt, mask=None, *,
+                     affinity_dtype="f32"):
+    """W⁻¹ᐟ² (SᵀS) W⁻¹ᐟ² with S = C·rsqrt(max(C·u, 1e-12)), (m, m)."""
+    s = _s_ref(_masked_c_ref(x, z, gamma, mask, affinity_dtype), u)
+    w_isqrt = w_isqrt.float()
+    return w_isqrt @ (s.T @ s) @ w_isqrt
+
+
+def nystrom_extension_ref(x, z, gamma, u, proj, mask=None, *,
+                          affinity_dtype="f32"):
+    """row_normalize(S @ proj) with a 1e-12 floor, (n, k)."""
+    s = _s_ref(_masked_c_ref(x, z, gamma, mask, affinity_dtype), u)
+    v = s @ proj.float()
+    norm = torch.sqrt((v * v).sum(-1, keepdim=True))
+    return v / torch.clamp_min(norm, _EPS)
