@@ -6,20 +6,45 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. Card and build: prints the card's name and power limit, checks that
-   float32 matmuls are not routed through TF32, and builds the CUDA
-   kernels of ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a).
-2. Kernels against their plain PyTorch versions, on the card: the four
-   fused Nyström kernels x f32/bf16/int8, at the cohort server's path
-   shape (N=100 000, d=8, m=512, k=8) and at a ragged small shape, with
-   the error printed beside its limit; then each kernel's median time
-   (CUDA events, 20 runs) at the path shape beside its plain version's
-   and the least time the card could take for the same work.
-3. The path: ``CohortServer(policy="dqn")`` over the fused Nyström engine
-   at N=100 000 on the card, 5 rounds of select -> observe -> drift
-   update, with every kernel's launch count read afterwards; checks of
-   the result (purity, cold-then-warm, the same partition as the CPU
-   solve, bit-identical cold re-solve), and one select each at bf16 and
-   int8.
+   float32 matmuls and convolutions are not routed through TF32, and
+   builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` with nvcc
+   (sm_90a, one nvcc per source, in parallel).
+2. Kernels against their plain PyTorch versions, on the card, with the
+   error printed beside its limit: the four fused Nyström kernels x
+   f32/bf16/int8 at the cohort server's path shape (N=100 000, d=8,
+   m=512, k=8) and at a ragged shape; the panel matmul at the subspace
+   solver's shapes ((4096, 4096) @ (4096, 64) and @ (4096, 8)); the
+   affinity kernels at the fed loop's (100 x 100), the dense path's
+   (2048 x 2048) and the unfused Nyström path's (100 000 x 512) shapes;
+   each also at a ragged shape.  Then each kernel's median time (CUDA
+   events, 20 runs) at its path shape beside its plain version's, the
+   least time the card could take for the same work, and one PyTorch
+   call computing the same function where there is one; beside it the
+   kernel's own device time (torch.profiler, without launch overhead).
+3. The cohort server: ``CohortServer(policy="dqn")`` over the fused
+   Nyström engine at N=100 000 on the card, 5 rounds of select ->
+   observe -> drift update, with the fused kernels' launch counts read
+   afterwards; checks of the result (purity, cold-then-warm, the same
+   partition as the CPU solve, bit-identical cold re-solve), and one
+   select each at bf16 and int8.
+4. The paper's federated loop: ``FederatedRunner(policy="dqre_sc",
+   use_pallas=True)`` at paper scale (100 clients, 10 a round, 20 local
+   steps of batch 32, the 60 000-image synthetic MNIST, eval 2048,
+   embed_dim 8, 8 clusters, sigma 0.8), warm-up plus 3 rounds (the last
+   under torch.profiler); checks finite losses, 10 distinct ids per
+   cohort and one pairwise-distance launch per engine solve.  Then, at a
+   small configuration: one dqre_sc round on the card, whose select state
+   is handed to a CPU policy, which must give the card engine's partition
+   and the same cohort; and one fedavg round on the card and on the CPU,
+   printed with the Gumbel pooling noise, and held with decisive noise
+   (see ``decisive_pool_noise``) to the same cohort, accuracy within 0.01
+   and loss within 1e-3 relative.
+5. The other routes of Algorithm I: the engine at m=4096 landmarks
+   (subspace solver, panel-matmul launches 82 cold / 18 warm, purity),
+   ``spectral_cluster(method="nystrom", use_pallas=True)`` at N=100 000
+   (purity), ``spectral_cluster(method="dense", use_pallas=True)`` at
+   n=2048 (the CPU's partition) and ``kernels.ops.rbf_affinity`` at
+   n=2048.
 
 It prints the kernel table as one JSON line, then the card's name and
 power limit, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -29,6 +54,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import re
@@ -50,22 +76,55 @@ SEED = 0          # the table and the kernel inputs
 # that happens for engine seed 0 (purity 0.874, on the CPU too) and for
 # about 4 seedings in 10.  Seed 1 is one of the others.
 ENGINE_SEED = 1
+# the CPU generator of phase 5's spectral_cluster runs (k-means and
+# landmarks)
+SPECTRAL_SEED = 0
 
 # H100 SXM peaks (NVIDIA data sheet): f32 on the CUDA cores, HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
 
-# the four kernels of the slice: the TPU kernel each one replaces
-# (function definition in the JAX package) and its error limit
+# every kernel: the TPU kernel it replaces (function definition in the
+# JAX package) and its source
+NYSTROM_CU = "src/repro_torch/kernels/csrc/nystrom.cu"
+AFFINITY_CU = "src/repro_torch/kernels/csrc/affinity.cu"
 KERNELS = {
-    "quantized_cross_affinity": "src/repro/kernels/nystrom_pallas.py:340",
-    "nystrom_colsum": "src/repro/kernels/nystrom_pallas.py:208",
-    "nystrom_gram": "src/repro/kernels/nystrom_pallas.py:240",
-    "nystrom_extension": "src/repro/kernels/nystrom_pallas.py:275",
+    "quantized_cross_affinity": ("src/repro/kernels/nystrom_pallas.py:340",
+                                 NYSTROM_CU),
+    "nystrom_colsum": ("src/repro/kernels/nystrom_pallas.py:208", NYSTROM_CU),
+    "nystrom_gram": ("src/repro/kernels/nystrom_pallas.py:240", NYSTROM_CU),
+    "nystrom_extension": ("src/repro/kernels/nystrom_pallas.py:275",
+                          NYSTROM_CU),
+    "panel_matmul": ("src/repro/kernels/nystrom_pallas.py:311", NYSTROM_CU),
+    "rbf_cross_affinity": ("src/repro/kernels/affinity_pallas.py:128",
+                           AFFINITY_CU),
+    "pairwise_sq_dists": ("src/repro/kernels/affinity_pallas.py:79",
+                          AFFINITY_CU),
+    "rbf_affinity": ("src/repro/kernels/affinity_pallas.py:103", AFFINITY_CU),
 }
-SOURCE = "src/repro_torch/kernels/csrc/nystrom.cu"
+FUSED = ("quantized_cross_affinity", "nystrom_colsum", "nystrom_gram",
+         "nystrom_extension")
 LIMIT_MAX_REL = 1e-4     # max-abs error over the largest entry
 LIMIT_FRO_REL = 1e-5     # gram: relative Frobenius error
+# squared distances in the norm form cancel: max-abs error over
+# max|x|^2 + max|y|^2
+LIMIT_DIST_REL = 1e-5
+
+M_SUBSPACE = 4096        # landmarks that put the engine on the subspace solver
+N_DENSE = 2048           # the dense path's largest n (dense_cutoff)
+N_LOOP = 100             # the fed loop's clients
+# the paper-scale loop of benchmarks/fl_common.py under
+# REPRO_BENCH_SCALE=full, with mnist's target
+PAPER_FL = dict(dataset="mnist", num_clients=100, clients_per_round=10,
+                local_steps=20, batch_size=32, train_size=None,
+                eval_size=2048, embed_dim=8, num_clusters=8, sigma=0.8,
+                target_accuracy=0.90, policy="dqre_sc", use_pallas=True,
+                seed=0)
+# the integration test's configuration (tests/test_fed.py)
+SMALL_FL = dict(dataset="mnist", num_clients=12, clients_per_round=4,
+                local_steps=8, batch_size=16, train_size=1200, eval_size=256,
+                num_clusters=3, embed_dim=4, sigma=0.8, policy="dqre_sc",
+                use_pallas=True, seed=0)
 
 
 def card_line() -> str:
@@ -102,6 +161,25 @@ def time_ms(fn, reps=REPS) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps=REPS) -> float:
+    """Mean device time of one call: the kernels' own time from
+    torch.profiler, without the host's launch overhead that CUDA events
+    around a small call include."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total / 1e3 / reps
+
+
 # -- phase 1 ----------------------------------------------------------------
 
 def phase1():
@@ -111,6 +189,10 @@ def phase1():
     print("phase 1: card", card_line())
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 matmul is on: the f32 path must be exact")
+    # cuDNN runs f32 convolutions in TF32 unless told not to
+    torch.backends.cudnn.allow_tf32 = False
+    if torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 convolutions are on")
     t0 = time.perf_counter()
     _build.library()
     print(f"phase 1: kernels built in {time.perf_counter() - t0:.2f} s "
@@ -225,8 +307,8 @@ def phase2(x_path, gamma_path):
         "ragged": _inputs(rng, RAGGED["n"], RAGGED["m"], RAGGED["d"],
                           RAGGED["k"]),
     }
-    records = {name: {"name": name, "route": "cuda", "source": SOURCE,
-                      "replaces": where} for name, where in KERNELS.items()}
+    records = {name: {"name": name, "route": "cuda", "source": KERNELS[name][1],
+                      "replaces": KERNELS[name][0]} for name in FUSED}
     for shape, t in shapes.items():
         for dtype in DTYPES:
             for name, (kern, plain) in _calls(t, dtype, t["mask"]).items():
@@ -255,9 +337,151 @@ def phase2(x_path, gamma_path):
         rec["bound_ms"], rec["bound_by"] = _bound(name, N, M, D, K)
         # no single PyTorch call computes any of these four functions
         rec["library_ms"] = None
-        print(f"phase 2: {name:25s} {rec['ms']:.4f} ms "
-              f"(plain {rec['plain_ms']:.4f} ms, bound "
-              f"{rec['bound_ms']:.4f} ms by {rec['bound_by']})")
+        print(f"phase 2: {name:25s} {rec['ms']:.4f} ms (device "
+              f"{device_ms(kern):.4f} ms; plain {rec['plain_ms']:.4f} ms, "
+              f"bound {rec['bound_ms']:.4f} ms by {rec['bound_by']})")
+    return records
+
+
+def _bound_of(ops, nbytes):
+    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _bound_slice2(name, shape):
+    """(bound_ms, bound_by) of one call of a slice-2 kernel at ``shape``.
+
+    Each input read once, each output written once; operations: a
+    multiply-add counts 2, an affinity entry 2d + 5 (as in ``_bound``),
+    a difference-form squared distance 3d + 1.
+    """
+    if name == "panel_matmul":
+        m, p, r = shape
+        return _bound_of(2 * m * p * r, 4 * (m * p + p * r + m * r))
+    n, m, d = shape
+    nbytes = 4 * (n * d + m * d + n * m) if name != "rbf_affinity" else \
+        4 * (n * d + n * m)
+    per_entry = 3 * d + 1 if name == "pairwise_sq_dists" else 2 * d + 5
+    return _bound_of(n * m * per_entry, nbytes)
+
+
+def _slice2_calls(x_path, gamma_path):
+    """{kernel: [(label, shape, kernel call, plain call, error, library
+    call)]}: every path shape first, then a ragged one."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    rng = np.random.default_rng(SEED + 3)
+    dev = "cuda"
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=dev)
+
+    def dist_err(got, want, x, y):
+        scale = float((x * x).sum(1).max() + (y * y).sum(1).max())
+        return float((got - want).abs().max()) / scale, LIMIT_DIST_REL
+
+    def rel_err(got, want, *_):
+        return float((got - want).abs().max() / want.abs().max()), \
+            LIMIT_MAX_REL
+
+    x_big = t(x_path)
+    z = t(x_path[rng.choice(len(x_path), M, replace=False)])
+    dense = t(x_path[:N_DENSE])
+    loop = t(rng.normal(size=(N_LOOP, D)) * 0.01)     # embedding-sized
+    rx, ry = t(rng.normal(size=(37, 7))), t(rng.normal(size=(21, 7)))
+    zs = t(x_path[rng.choice(len(x_path), M_SUBSPACE, replace=False)])
+    w_op = ref.rbf_cross_affinity_ref(zs, zs, gamma_path)   # W at m=4096
+    q64 = t(rng.normal(size=(M_SUBSPACE, 64)))
+    q8 = t(rng.normal(size=(M_SUBSPACE, K)))
+    rw, rq = t(rng.normal(size=(130, 70))), t(rng.normal(size=(70, 9)))
+    g = gamma_path
+
+    # (kernel call, plain call, error, library call): torch.matmul (TF32
+    # off) is the one PyTorch call that computes the panel product; no
+    # single call computes the other three
+    def dist(a, b):
+        return (lambda: ops.pairwise_sq_dists(a, b),
+                lambda: ref.pairwise_sq_dists_ref(a, b),
+                lambda got, want: dist_err(got, want, a, b), None)
+
+    def cross(a, b):
+        return (lambda: ops.rbf_cross_affinity(a, b, g),
+                lambda: ref.rbf_cross_affinity_ref(a, b, g), rel_err, None)
+
+    def square(a):
+        return (lambda: ops.rbf_affinity(a, g),
+                lambda: ref.rbf_affinity_ref(a, g), rel_err, None)
+
+    def panel(w, q):
+        return (lambda: ops.panel_matmul(w, q),
+                lambda: ref.panel_matmul_ref(w, q), rel_err,
+                lambda: torch.matmul(w, q))
+
+    return {
+        "panel_matmul": [
+            ("W", (M_SUBSPACE, M_SUBSPACE, 64), *panel(w_op, q64)),
+            ("M", (M_SUBSPACE, M_SUBSPACE, K), *panel(w_op, q8)),
+            ("ragged", (130, 70, 9), *panel(rw, rq))],
+        "rbf_cross_affinity": [
+            ("path", (N, M, D), *cross(x_big, z)),
+            ("ragged", (37, 21, 7), *cross(rx, ry))],
+        "pairwise_sq_dists": [
+            ("loop", (N_LOOP, N_LOOP, D), *dist(loop, loop)),
+            ("dense", (N_DENSE, N_DENSE, D), *dist(dense, dense)),
+            ("ragged", (37, 21, 7), *dist(rx, ry))],
+        "rbf_affinity": [
+            ("dense", (N_DENSE, N_DENSE, D), *square(dense)),
+            ("ragged", (37, 37, 7), *square(rx))],
+    }
+
+
+def phase2_slice2(x_path, gamma_path):
+    """B5–B8 against their plain versions, then timed at the path shapes.
+
+    The JSON row of each kernel is timed at its first (path) shape: the
+    subspace solver's W product for the panel matmul, the fed loop's
+    100 x 100 for the pairwise distances; the other path shapes are
+    printed beside it.  Returns {name: record}.
+    """
+    import torch
+
+    records = {}
+    for name, cases in _slice2_calls(x_path, gamma_path).items():
+        rec = records[name] = {"name": name, "route": "cuda",
+                               "source": KERNELS[name][1],
+                               "replaces": KERNELS[name][0],
+                               "max_abs_err": 0.0}
+        for i, (label, shape, kern, plain, error, library) in enumerate(
+                cases):
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all() or got.shape != want.shape:
+                raise AssertionError(f"{name} {label}: malformed output")
+            err, limit = error(got, want)
+            ok = err <= limit
+            print(f"phase 2: {name:25s} {label:6s} {shape} err {err:.3e} "
+                  f"(limit {limit:.0e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name} {label}: error {err:.3e} > "
+                                     f"{limit:.0e}")
+            rec["max_abs_err"] = max(rec["max_abs_err"],
+                                     float((got - want).abs().max()))
+            if label == "ragged":
+                continue
+            ms, plain_ms = time_ms(kern), time_ms(plain)
+            bound_ms, bound_by = _bound_slice2(name, shape)
+            library_ms = None if library is None else time_ms(library)
+            print(f"phase 2: {name:25s} {label:6s} {ms:.4f} ms (device "
+                  f"{device_ms(kern):.4f} ms; plain "
+                  f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms by "
+                  f"{bound_by}, library "
+                  f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'})")
+            if i == 0:
+                rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=library_ms)
     return records
 
 
@@ -274,9 +498,10 @@ def same_partition(a, b):
     return len(pairs) == len(set(a.tolist())) == len(set(b.tolist()))
 
 
-def _plain_on_card_forbidden():
-    """Make every plain kernel version raise on CUDA tensors: the path
-    must go through the kernels."""
+@contextlib.contextmanager
+def plain_on_card_forbidden():
+    """Every plain kernel version raises on CUDA tensors inside the block:
+    the path must go through the kernels."""
     from repro_torch.kernels import ref
 
     def guard(fn):
@@ -286,18 +511,20 @@ def _plain_on_card_forbidden():
             return fn(x, *args, **kwargs)
         return wrapped
 
-    saved = {}
-    for name in ("quantized_cross_affinity_ref", "nystrom_colsum_ref",
-                 "nystrom_gram_ref", "nystrom_extension_ref"):
-        saved[name] = getattr(ref, name)
-        setattr(ref, name, guard(saved[name]))
-    return saved
+    saved = {f"{name}_ref": getattr(ref, f"{name}_ref") for name in KERNELS}
+    for name, fn in saved.items():
+        setattr(ref, name, guard(fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ref, name, fn)
 
 
-def _profile_round(server, labels):
-    """One more warm round under torch.profiler: where a select's time
-    goes (host phases, device busy time, the kernels by device time)."""
-    import numpy as np
+def profile_device(phase, what, fn):
+    """Run ``fn()`` once under torch.profiler; prints the wall time, the
+    device's busy time and idle share and the top device operations.
+    Returns (fn's result, wall ms, busy ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -305,41 +532,51 @@ def _profile_round(server, labels):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ids, res = server.select_cohort(64)
+        out = fn()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    server.observe_round(0.5 + 0.4 * float(np.mean(labels[ids] != 0)))
+        wall = (time.perf_counter() - t0) * 1e3
     # device-side events only (kernels, copies): an operator's own row
     # repeats the device time of the kernels it launched
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in events) / 1e3   # ms
-    print(f"phase 3: profiled {res.source} select: wall "
-          f"{wall * 1e3:.3f} ms, engine solve {res.seconds * 1e3:.3f} ms, "
-          f"device busy {busy:.3f} ms"
-          + (f" (idle share {1 - busy / (wall * 1e3):.4f})" if busy
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    print(f"phase {phase}: profiled {what}: wall {wall:.3f} ms, device "
+          f"busy {busy:.3f} ms"
+          + (f" (idle share {1 - busy / wall:.4f})" if busy
              else " (device time not measured)"))
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"phase 3:   {e.self_device_time_total / 1e3:9.3f} ms "
-              f"x{e.count:<4d} {e.key[:90]}")
+        print(f"phase {phase}:   {e.self_device_time_total / 1e3:9.3f} ms "
+              f"x{e.count:<5d} {e.key[:90]}")
+    return out, wall, busy
+
+
+def _profile_round(server, labels):
+    """One more warm round under torch.profiler: where a select's time
+    goes (host phases, device busy time, the kernels by device time)."""
+    import numpy as np
+
+    (ids, res), _, _ = profile_device(
+        3, "select", lambda: server.select_cohort(64))
+    print(f"phase 3: profiled select was {res.source}, engine solve "
+          f"{res.seconds * 1e3:.3f} ms")
+    server.observe_round(0.5 + 0.4 * float(np.mean(labels[ids] != 0)))
 
 
 def phase3(x, labels):
-    """Drive the server on the card; returns the path's launch counts."""
+    """Drive the server on the card; returns the fused kernels' launch
+    counts on this path."""
     import dataclasses
 
     import numpy as np
     import torch
     from repro_torch.cohort import CohortConfig, CohortEngine
     from repro_torch.kernels import nystrom as kn
-    from repro_torch.kernels import ref
     from repro_torch.launch.serve import CohortServer
 
     config = CohortConfig(num_clusters=K, method="nystrom", use_pallas=True,
                           num_landmarks=M)
-    saved = _plain_on_card_forbidden()
-    try:
+    with plain_on_card_forbidden():
         server = CohortServer(N, D, policy="dqn", seed=ENGINE_SEED,
                               config=config)
         if server.device.type != "cuda":
@@ -362,7 +599,7 @@ def phase3(x, labels):
                   f"{res.method}/{res.source}, select "
                   f"{server.last_select_s:.4f} s, reward {reward:+.3f}")
         torch.cuda.synchronize()
-        launches = dict(kn.LAUNCH_COUNTS)
+        launches = {name: kn.LAUNCH_COUNTS[name] for name in FUSED}
         print("phase 3: launches", json.dumps(launches))
         for name, count in launches.items():
             if count <= 0:
@@ -404,15 +641,285 @@ def phase3(x, labels):
                 raise AssertionError(f"{dtype} select purity {p:.4f} < 0.95")
             print(f"phase 3: {dtype} select {res.seconds:.4f} s, "
                   f"purity {p:.4f}")
-    finally:
-        for name, fn in saved.items():
-            setattr(ref, name, fn)
 
     cpu = CohortEngine(config, seed=ENGINE_SEED, device="cpu").select(table0)
     if not same_partition(cpu.assign, first.assign):
         raise AssertionError("the card's partition differs from the CPU's")
     print(f"phase 3: CPU solve ({cpu.seconds:.2f} s) gives the same "
           f"partition")
+    return launches
+
+
+# -- phase 4 ----------------------------------------------------------------
+
+def _print_round(phase, res):
+    t = " ".join(f"{k} {v:.4f}" for k, v in res.timings.items())
+    print(f"phase {phase}: round {res.round_idx}: acc {res.accuracy:.4f} "
+          f"loss {res.loss:.4f} reward {res.reward:+.3f} selected "
+          f"{res.selected.tolist()} | {res.seconds:.4f} s: {t}")
+
+
+def decisive_pool_noise(runner):
+    """A runner's ``_pool_noise`` giving 64 to one random entry of each
+    pooling window and 0 to the rest, drawn from the runner's own CPU
+    seed: the winner never depends on the probabilities (log p lies in
+    [-20.7, 0]), so no decision can flip between two devices."""
+    import torch
+    from repro_torch.models.cnn import pool_noise_shape
+
+    cfg = runner.cfg
+
+    def pool_noise(k):
+        gen = torch.Generator().manual_seed(cfg.seed * 100_003
+                                            + runner.round_idx)
+        shape = (k, *pool_noise_shape(cfg.batch_size,
+                                      runner.spec.image_size))
+
+        def draw(step):
+            win = torch.randint(0, shape[-1], shape[:-1], generator=gen)
+            one_hot = torch.nn.functional.one_hot(win, shape[-1])
+            return (64.0 * one_hot.float()).to(runner.device)
+
+        return draw
+
+    return pool_noise
+
+
+def _small_dqre_sc_select():
+    """One small dqre_sc round on the card; its selection is held against
+    a CPU policy fed the same state.
+
+    The engine seeds k-means from the SHA-1 of the embeddings' bytes
+    (cohort/engine.py), and training on two devices does not give the
+    same bytes, so a whole CPU round would cluster other points.  Here
+    the CPU policy gets the card round's own state: the same bytes, so
+    the same seeds, and the card's engine (B7 on the card) must give the
+    CPU engine's partition and the same ClusterPolicy draw.
+    """
+    import numpy as np
+    from repro_torch.fed.rounds import FederatedRunner, RunnerConfig
+    from repro_torch.kernels import ops
+
+    cfg = RunnerConfig(**SMALL_FL)
+    card = FederatedRunner(cfg, device="cuda")
+    states = []
+    select = card.policy.select
+
+    def recording_select(state):
+        states.append(state)
+        return select(state)
+
+    card.policy.select = recording_select
+    with plain_on_card_forbidden():
+        ops.reset_launch_counts()
+        res = card.run_round()
+        launches = ops.LAUNCH_COUNTS["pairwise_sq_dists"]
+    if launches == 0:
+        raise AssertionError("the small dqre_sc round launched no B7")
+    # the policy keeps the select's partition (update does not touch it)
+    card_policy, card_ids = card.policy, res.selected
+    cpu_policy = FederatedRunner(cfg, device="cpu").policy
+    cpu_ids = cpu_policy.select(states[0])
+    same_labels = np.array_equal(card_policy._last_assign,
+                                 cpu_policy._last_assign)
+    print(f"phase 4: small dqre_sc round on the card: acc "
+          f"{res.accuracy:.4f} loss {res.loss:.5f}, {launches} B7 launches; "
+          f"cohort {card_ids.tolist()}, CPU policy on the same state "
+          f"{cpu_ids.tolist()}; partition label for label: {same_labels}")
+    if not same_partition(card_policy._last_assign, cpu_policy._last_assign):
+        raise AssertionError("the card's partition differs from the CPU's "
+                             "on the same embeddings")
+    if not np.array_equal(card_ids, cpu_ids):
+        raise AssertionError("the card's cohort differs from the CPU's on "
+                             "the same embeddings")
+    if len(set(card_ids.tolist())) != cfg.clients_per_round:
+        raise AssertionError(f"cohort {card_ids.tolist()}")
+
+
+def phase4():
+    """The paper's loop on the card; returns its pairwise-distance
+    launches."""
+    import numpy as np
+    import torch
+    from repro_torch.fed.rounds import FederatedRunner, RunnerConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models.cnn import gumbel_noise, pool_noise_shape
+
+    cfg = RunnerConfig(**PAPER_FL)
+    t0 = time.perf_counter()
+    runner = FederatedRunner(cfg)
+    if runner.device.type != "cuda":
+        raise AssertionError(f"runner on {runner.device}")
+    print(f"phase 4: runner set up in {time.perf_counter() - t0:.2f} s "
+          f"({len(runner.x_train)} training images, "
+          f"{cfg.num_clients} clients)")
+    # the host's share of a local step: one pooling-noise draw
+    for k in (cfg.clients_per_round, 32):
+        draw = gumbel_noise(0, (k, *pool_noise_shape(cfg.batch_size, 28)),
+                            "cuda")
+        times = []
+        for step in range(5):
+            t0 = time.perf_counter()
+            draw(step)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        print(f"phase 4: pooling noise of {k} clients, one step: median "
+              f"{statistics.median(times) * 1e3:.2f} ms on the host "
+              f"(drawn on the CPU, then copied)")
+    history = []
+    with plain_on_card_forbidden():
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        runner.warmup()
+        torch.cuda.synchronize()
+        print(f"phase 4: warm-up of {cfg.num_clients} clients "
+              f"{time.perf_counter() - t0:.3f} s")
+        for _ in range(2):
+            history.append(runner.run_round())
+            _print_round(4, history[-1])
+        res, wall, busy = profile_device(4, "round", runner.run_round)
+        history.append(res)
+        _print_round(4, res)
+        torch.cuda.synchronize()
+        launches = ops.LAUNCH_COUNTS["pairwise_sq_dists"]
+        solves = runner.policy.engine.stats["solves"]
+    print(f"phase 4: pairwise_sq_dists launches {launches}, engine solves "
+          f"{solves}, launches {json.dumps(ops.LAUNCH_COUNTS)}")
+    if launches != solves or launches == 0:
+        raise AssertionError(f"{launches} pairwise_sq_dists launches for "
+                             f"{solves} engine solves")
+    for res in history:
+        if not np.isfinite(res.loss):
+            raise AssertionError(f"round {res.round_idx}: loss {res.loss}")
+        if len(set(res.selected.tolist())) != cfg.clients_per_round:
+            raise AssertionError(f"round {res.round_idx}: cohort "
+                                 f"{res.selected.tolist()}")
+    print(f"phase 4: the profiled round's device idle share "
+          f"{1 - busy / wall:.4f}")
+
+    _small_dqre_sc_select()
+
+    # one small round on the card and on the CPU, under fedavg: its
+    # cohort is numpy's draw on both, so the round's training is compared
+    # on the same clients
+    small = RunnerConfig(**dict(SMALL_FL, policy="fedavg"))
+    for noise in ("gumbel", "decisive"):
+        rounds = []
+        for device in ("cuda", "cpu"):
+            runner = FederatedRunner(small, device=device)
+            if noise == "decisive":
+                runner._pool_noise = decisive_pool_noise(runner)
+            rounds.append(runner.run_round())
+        card, cpu = rounds
+        print(f"phase 4: small round, {noise} pooling noise: card acc "
+              f"{card.accuracy:.4f} loss {card.loss:.5f} "
+              f"{card.selected.tolist()}; CPU acc {cpu.accuracy:.4f} loss "
+              f"{cpu.loss:.5f} {cpu.selected.tolist()}")
+    # held with decisive noise: with Gumbel noise a pooling decision
+    # whose two best scores lie within one f32 ulp can flip between
+    # cuDNN's and the CPU's convolutions (ROADMAP §C)
+    if not np.array_equal(card.selected, cpu.selected):
+        raise AssertionError("the card's cohort differs from the CPU's")
+    if abs(card.accuracy - cpu.accuracy) > 0.01:
+        raise AssertionError("card and CPU accuracy differ by > 0.01")
+    if abs(card.loss - cpu.loss) > 1e-3 * abs(cpu.loss):
+        raise AssertionError("card and CPU loss differ by > 1e-3 relative")
+    return launches
+
+
+# -- phase 5 ----------------------------------------------------------------
+
+def phase5(x, labels):
+    """The other routes of Algorithm I; returns the launches of B5, B6
+    and B8 on them."""
+    import numpy as np
+    import torch
+    from repro_torch.cohort import CohortConfig, CohortEngine
+    from repro_torch.core import spectral
+    from repro_torch.kernels import ops, ref
+
+    launches = {}
+    rng = np.random.default_rng(SEED + 4)
+    with plain_on_card_forbidden():
+        # the engine on the subspace solver: m > eigh_cutoff
+        eng = CohortEngine(CohortConfig(
+            num_clusters=K, method="nystrom", num_landmarks=M_SUBSPACE,
+            use_pallas=True), seed=ENGINE_SEED)
+        counts = []
+        results = []
+        for table in (x, x + 0.01 * rng.normal(size=x.shape).astype(
+                np.float32)):
+            ops.reset_launch_counts()
+            results.append(eng.select(table))
+            torch.cuda.synchronize()
+            counts.append(ops.LAUNCH_COUNTS["panel_matmul"])
+        cold, warm = results
+        p_cold, p_warm = purity(cold.assign, labels), purity(warm.assign,
+                                                             labels)
+        print(f"phase 5: m={M_SUBSPACE} engine: {cold.source} select "
+              f"{cold.seconds:.4f} s, {counts[0]} panel_matmul launches, "
+              f"purity {p_cold:.5f}; {warm.source} select "
+              f"{warm.seconds:.4f} s, {counts[1]} launches, purity "
+              f"{p_warm:.5f}")
+        if (cold.source, warm.source) != ("cold", "warm"):
+            raise AssertionError(f"sources {cold.source}, {warm.source}")
+        if counts != [82, 18]:
+            raise AssertionError(f"panel_matmul launches {counts}, "
+                                 f"expected [82, 18]")
+        if p_cold < 0.95:
+            raise AssertionError(f"m={M_SUBSPACE} purity {p_cold:.4f}")
+        launches["panel_matmul"] = sum(counts)
+
+        xt = torch.tensor(x, device="cuda")
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        assign, y, _ = spectral.spectral_cluster(
+            torch.Generator().manual_seed(SPECTRAL_SEED), xt, K,
+            method="nystrom", use_pallas=True, num_landmarks=M)
+        torch.cuda.synchronize()
+        p = purity(assign.cpu().numpy(), labels)
+        launches["rbf_cross_affinity"] = ops.LAUNCH_COUNTS[
+            "rbf_cross_affinity"]
+        print(f"phase 5: unfused nystrom spectral_cluster at N={N}, m={M}: "
+              f"{time.perf_counter() - t0:.4f} s, "
+              f"{launches['rbf_cross_affinity']} rbf_cross_affinity "
+              f"launches, purity {p:.5f}")
+        if launches["rbf_cross_affinity"] != 1 or p < 0.95:
+            raise AssertionError("unfused nystrom route failed")
+        if not torch.isfinite(y).all():
+            raise AssertionError("non-finite nystrom embedding")
+
+        dense = xt[:N_DENSE]
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        card, _, _ = spectral.spectral_cluster(
+            torch.Generator().manual_seed(SPECTRAL_SEED), dense, K,
+            use_pallas=True)
+        torch.cuda.synchronize()
+        dense_s = time.perf_counter() - t0
+        if ops.LAUNCH_COUNTS["pairwise_sq_dists"] != 1:
+            raise AssertionError("dense route did not launch B7 once")
+
+        ops.reset_launch_counts()
+        a = ops.rbf_affinity(dense, 0.37)
+        torch.cuda.synchronize()
+        launches["rbf_affinity"] = ops.LAUNCH_COUNTS["rbf_affinity"]
+    want = ref.rbf_affinity_ref(dense, 0.37)
+    if launches["rbf_affinity"] != 1 or not torch.all(a.diagonal() == 0):
+        raise AssertionError("rbf_affinity route failed")
+    if float((a - want).abs().max()) > LIMIT_MAX_REL:
+        raise AssertionError("rbf_affinity disagrees with its plain version")
+    t0 = time.perf_counter()
+    cpu, _, _ = spectral.spectral_cluster(
+        torch.Generator().manual_seed(SPECTRAL_SEED), dense.cpu(), K,
+        use_pallas=True)
+    print(f"phase 5: dense spectral_cluster at n={N_DENSE}: card "
+          f"{dense_s:.4f} s, CPU {time.perf_counter() - t0:.4f} s, purity "
+          f"{purity(card.cpu().numpy(), labels[:N_DENSE]):.5f}")
+    if not same_partition(card.cpu().numpy(), cpu.numpy()):
+        raise AssertionError("dense: the card's partition differs from the "
+                             "CPU's")
+    print(f"phase 5: rbf_affinity at n={N_DENSE}: 1 launch, diagonal zero")
     return launches
 
 
@@ -439,14 +946,17 @@ def main() -> int:
     xt = torch.tensor(x, device="cuda")
     gamma = float(auto_gamma(pairwise_sq_dists(xt[:4096], xt[:M])))
     records = phase2(x, gamma)
+    records.update(phase2_slice2(x, gamma))
     launches = phase3(x, labels)
+    launches["pairwise_sq_dists"] = phase4()
+    launches.update(phase5(x, labels))
     for name, rec in records.items():
         rec["launches"] = launches[name]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    print(json.dumps({"kernels": [{key: rec[key] for key in keys}
-                                  for rec in records.values()]}))
+    print(json.dumps({"kernels": [{key: records[name][key] for key in keys}
+                                  for name in KERNELS]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""DQRE-SCnet cohort selection in PyTorch, with CUDA kernels for Hopper.
+"""DQRE-SCnet in PyTorch, with CUDA kernels for Hopper: cohort selection
+(Algorithm I + II) and the paper's federated loop.
 
 A port of the JAX package ``repro`` (which stays the reference): the
 module tree mirrors it (``repro_torch.cohort.engine`` ports

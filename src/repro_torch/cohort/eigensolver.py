@@ -4,9 +4,11 @@
 (``torch.linalg.eigh``) or runs blocked subspace iteration: the W·Q
 product in row panels of ``block_rows``, Householder QR
 (``torch.linalg.qr``) on the (m, r) panel, and a final Rayleigh–Ritz
-rotation.  The iteration warm-starts from a caller-provided basis
-``q0``; a cold start draws its range from an explicit CPU
-``torch.Generator`` and moves it to the operator's device.
+rotation.  With ``use_pallas=True`` the panel product is the
+hand-written panel-matmul kernel (CUDA on the card).  The iteration
+warm-starts from a caller-provided basis ``q0``; a cold start draws its
+range from an explicit CPU ``torch.Generator`` and moves it to the
+operator's device.
 
 All inputs are symmetric PSD (both W and M are), so the dominant
 subspace of the operator itself is the wanted top-k.
@@ -16,22 +18,24 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import ops as kernel_ops
+
 _EPS = 1e-12
 
 
 def _blocked_matmul(w, q, block_rows: int, use_pallas: bool = False):
     """(m, m) @ (m, r) evaluated in row panels of w.
 
-    ``use_pallas=True`` with ``block_rows < m`` needs the panel-matmul
-    kernel, which the port does not have yet.
+    ``use_pallas=True`` runs the whole panel loop as one launch of the
+    panel-matmul kernel (``kernels.ops.panel_matmul``); each entry sums in
+    one fixed order, so the result does not depend on the panels.
     """
     m = w.shape[0]
     if block_rows >= m:
         return w @ q
     if use_pallas:
-        raise NotImplementedError(
-            "panel_matmul has no CUDA kernel in the port yet (ROADMAP B5); "
-            f"use block_rows >= m ({m}) or the eigh solver")
+        # QR hands back column-major factors; the kernel reads row-major
+        return kernel_ops.panel_matmul(w.contiguous(), q.contiguous())
     return torch.cat([panel @ q for panel in torch.split(w, block_rows)])
 
 

@@ -79,9 +79,11 @@ class CohortConfig:
     eigh_cutoff      — "auto" solver: largest m factored with dense eigh.
     w_rank           — rank of the blocked W^{-1/2} (default max(8k, 64)).
     block_rows       — row-panel height inside the blocked eigensolver.
-    use_pallas       — route the landmark paths through the fused
-                       kernels (CUDA on the card; the (N, m)
-                       cross-affinity is never materialized).
+    use_pallas       — route the solve through the hand-written kernels
+                       (CUDA on the card): the dense path's pairwise
+                       distances, and the landmark paths' fused passes
+                       (the (N, m) cross-affinity is never
+                       materialized) and subspace panel products.
     affinity_dtype   — "f32" | "bf16" | "int8": tile precision of the
                        fused affinity passes.  Non-f32 requires
                        use_pallas=True.

@@ -28,18 +28,11 @@ import torch
 
 from repro_torch.cohort.eigensolver import isqrt_from_eigs, topk_eigh
 from repro_torch.core.kmeans import pairwise_sq_dists
-from repro_torch.core.spectral import cross_affinity, row_normalize
+from repro_torch.core.spectral import (cross_affinity, row_normalize,
+                                      split_generator)
 from repro_torch.kernels import ops as kernel_ops
 
 _EPS = 1e-12
-
-
-def _split_generator(generator):
-    """Two independent CPU generators seeded from ``generator`` (or None)."""
-    if generator is None:
-        return None, None
-    seeds = torch.randint(0, 2 ** 62, (2,), generator=generator)
-    return tuple(torch.Generator().manual_seed(int(s)) for s in seeds)
 
 
 def _nystrom_core(c, w_isqrt, k: int, *, mm_solver: str = "eigh",
@@ -136,7 +129,7 @@ def nystrom_from_landmarks(x, idx, k: int, gamma, *,
     """
     x = x.float()
     z = x[idx].contiguous()
-    w_gen, mm_gen = _split_generator(generator)
+    w_gen, mm_gen = split_generator(generator)
     if fused:
         # W through the same quantized tile math as the streamed C tiles
         w = kernel_ops.quantized_cross_affinity(

@@ -1,6 +1,6 @@
 """Carry weights and engine state over from the JAX package.
 
-Both functions take plain numpy data (what ``np.asarray`` makes of the
+Every function takes plain numpy data (what ``np.asarray`` makes of the
 JAX package's arrays), so nothing here imports JAX.
 """
 
@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from repro_torch.cohort.engine import CohortState
+from repro_torch.core.embedding import WeightEmbedder
 
 
 def dqn_params_from_jax(params: Sequence[Mapping]) -> dict:
@@ -55,3 +56,37 @@ def cohort_state_from_jax(state) -> CohortState:
         gamma=None if state.gamma is None else float(state.gamma),
         w_basis=arr(state.w_basis, np.float32),
         mm_basis=arr(state.mm_basis, np.float32))
+
+
+def cnn_params_from_jax(params: Mapping) -> dict:
+    """The CNN's state dict from the JAX package's ``cnn_init`` tree.
+
+    ``params`` maps each layer (``conv0``…``conv3``, ``fc1``, ``fc2``) to
+    ``{"w", "b"}``: conv weights HWIO become OIHW, dense weights (in, out)
+    become (out, in).  :func:`repro_torch.core.embedding.jax_layout` is
+    the inverse.  Load the result with ``CNN.load_state_dict`` or use it
+    as the runner's ``global_params``.
+    """
+    state = {}
+    for layer, leaves in params.items():
+        w = np.asarray(leaves["w"], np.float32)
+        b = np.asarray(leaves["b"], np.float32)
+        if w.ndim == 4:
+            w = w.transpose(3, 2, 0, 1)
+        elif w.ndim == 2:
+            w = w.T
+        else:
+            raise ValueError(f"{layer}: w must be 2-D or 4-D, got {w.shape}")
+        if b.shape != (w.shape[0],):
+            raise ValueError(f"{layer}: b {b.shape} does not match "
+                             f"{w.shape[0]} outputs")
+        state[f"{layer}.weight"] = torch.from_numpy(
+            np.ascontiguousarray(w))
+        state[f"{layer}.bias"] = torch.from_numpy(b.copy())
+    return state
+
+
+def embedder_from_jax(proj, *, device=None) -> WeightEmbedder:
+    """A :class:`WeightEmbedder` applying the JAX embedder's (dim, n)
+    projection (``np.asarray(embedder.proj)``)."""
+    return WeightEmbedder.from_projection(proj, device=device)

@@ -1,30 +1,30 @@
-"""Spectral clustering pieces of Algorithm I that the cohort engine uses.
+"""Spectral clustering — Algorithm I of the paper, in PyTorch.
 
   A       = affinity matrix (RBF over pairwise distances)
   L_norm  = I - D^{-1/2} A D^{-1/2}    (normalized Laplacian)
   X       = first k eigenvectors of L_norm (smallest eigenvalues)
   Y       = row-normalized X
+  cluster rows of Y with k-means; assign point i to cluster of row i.
 
-The dense path (``affinity_matrix`` + ``spectral_embedding``) is plain
-PyTorch; its Pallas affinity kernel (``use_pallas=True``) is not ported
-yet.  The Nyström path lives in :mod:`repro_torch.cohort.nystrom`.
+``use_pallas=True`` routes the affinity through the hand-written kernels
+(:mod:`repro_torch.kernels.ops`: CUDA on the card, the plain versions on
+the CPU).  ``method="dense"`` is the exact path; ``method="nystrom"``
+samples m landmarks and delegates to the landmark-explicit core in
+:mod:`repro_torch.cohort.nystrom`.  Random draws come from explicit CPU
+``torch.Generator``s, so the same generator picks the same landmarks and
+k-means++ seeds on the card and on the CPU.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.kmeans import pairwise_sq_dists
+from repro_torch.core.kmeans import kmeans, pairwise_sq_dists
+from repro_torch.kernels import ops as kernel_ops
 
 _EPS = 1e-12
 # gamma estimation subsamples the distance matrix beyond this many rows
 _GAMMA_SAMPLE_ROWS = 4096
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} has no CUDA kernel in the port yet (ROADMAP {item}); "
-        f"use use_pallas=False")
 
 
 def auto_gamma(d2):
@@ -52,8 +52,10 @@ def affinity_matrix(x, *, gamma: float | None = None,
                     use_pallas: bool = False):
     """RBF affinity A_ij = exp(-gamma ||x_i - x_j||^2), zero diagonal."""
     if use_pallas:
-        raise _not_ported("the dense pairwise-distance path", "B7")
-    d2 = pairwise_sq_dists(x, x)
+        xc = x.contiguous()
+        d2 = kernel_ops.pairwise_sq_dists(xc, xc)
+    else:
+        d2 = pairwise_sq_dists(x, x)
     eye = torch.eye(x.shape[0], dtype=d2.dtype, device=d2.device)
     if gamma is None:
         # zero the diagonal first: the matmul form leaves tiny positive
@@ -65,7 +67,8 @@ def affinity_matrix(x, *, gamma: float | None = None,
 def cross_affinity(x, z, *, gamma, use_pallas: bool = False):
     """Rectangular RBF affinity exp(-gamma ||x_i - z_j||²), (n, m)."""
     if use_pallas:
-        raise _not_ported("the unfused cross-affinity path", "B6")
+        return kernel_ops.rbf_cross_affinity(x.contiguous(), z.contiguous(),
+                                             gamma)
     return torch.exp(-gamma * pairwise_sq_dists(x, z))
 
 
@@ -119,6 +122,33 @@ def _subspace_smallest_k(a, k: int, *, iters: int = 60):
     return q @ u, evals
 
 
+def nystrom_spectral_embedding(generator, x, k: int, num_landmarks: int, *,
+                               gamma: float | None = None,
+                               use_pallas: bool = False):
+    """Approximate normalized-Laplacian embedding via Nyström landmarks.
+
+    Samples m UNIFORM landmarks (without replacement, from the CPU
+    ``generator``) and delegates the one-shot Nyström extension to
+    :func:`repro_torch.cohort.nystrom.nystrom_from_landmarks`.  Returns
+    (Y row-normalized (n, k), evals of L_norm ascending (m,)).
+    """
+    # deferred import: cohort builds on core, not the other way around
+    from repro_torch.cohort.nystrom import nystrom_from_landmarks
+
+    n = x.shape[0]
+    m = min(int(num_landmarks), n)
+    if m < k:
+        raise ValueError(f"num_landmarks={m} must be >= k={k}")
+    x = x.float()
+    idx = torch.randperm(n, generator=generator)[:m].to(x.device)
+    if gamma is None:
+        rows = x[:min(n, _GAMMA_SAMPLE_ROWS)]
+        gamma = auto_gamma(pairwise_sq_dists(rows, x[idx]))
+    y, evals, _, _ = nystrom_from_landmarks(x, idx, k, gamma,
+                                            use_pallas=use_pallas)
+    return y, evals
+
+
 def default_num_landmarks(n: int, k: int) -> int:
     return min(n, max(8 * k, 64))
 
@@ -128,3 +158,49 @@ def eigengap_k(evals, max_k: int = 10) -> int:
     evals = torch.as_tensor(evals)
     gaps = torch.diff(evals[: max_k + 1])
     return int(torch.argmax(gaps)) + 1
+
+
+def split_generator(generator):
+    """Two independent CPU generators seeded from ``generator`` (or two
+    ``None``s for a ``None``)."""
+    if generator is None:
+        return None, None
+    seeds = torch.randint(0, 2 ** 62, (2,), generator=generator)
+    return tuple(torch.Generator().manual_seed(int(v)) for v in seeds)
+
+
+def spectral_cluster(generator, x, k: int, *, gamma: float | None = None,
+                     use_pallas: bool = False, method: str = "dense",
+                     num_landmarks: int | None = None, solver: str = "eigh",
+                     landmark_generator=None):
+    """Full Algorithm I.  x: (n, d) points -> (assignments, Y, evals).
+
+    ``method="dense"`` computes the exact n×n affinity (``solver`` picks
+    the eigensolver); ``method="nystrom"`` uses ``num_landmarks`` sampled
+    landmarks (default min(n, max(8k, 64))).  ``generator`` (CPU) is
+    split into a k-means and a landmark generator; ``landmark_generator``
+    pins the landmark draw independently of k-means.
+    """
+    km_gen, lm_gen = split_generator(generator)
+    if landmark_generator is not None:
+        if method != "nystrom":
+            raise ValueError(
+                "landmark_generator only applies to method='nystrom'")
+        lm_gen = landmark_generator
+    if method == "dense":
+        if num_landmarks is not None:
+            raise ValueError("num_landmarks only applies to method='nystrom'")
+        a = affinity_matrix(x, gamma=gamma, use_pallas=use_pallas)
+        y, evals = spectral_embedding(a, k, solver=solver)
+    elif method == "nystrom":
+        if solver != "eigh":
+            raise ValueError("solver only applies to method='dense' "
+                             "(the Nyström eigenproblem is m×m and always "
+                             "uses eigh)")
+        m = num_landmarks or default_num_landmarks(x.shape[0], k)
+        y, evals = nystrom_spectral_embedding(
+            lm_gen, x, k, m, gamma=gamma, use_pallas=use_pallas)
+    else:
+        raise ValueError(f"unknown method: {method!r}")
+    assign, _ = kmeans(km_gen, y, k)
+    return assign, y, evals

@@ -1,9 +1,11 @@
-"""Serving-state statistics for the cluster-level DQN policy.
+"""Serving-state statistics and evaluation criteria.
 
-Copies of the numpy helpers of the JAX package's ``fed/metrics.py`` that
-the cohort server feeds :class:`repro_torch.policy.ClusterPolicy` with,
-plus FAVOR's reward shaping (``core/selection.py::favor_reward`` there).
-Pure numpy: the state vector is built on the host either way.
+Copies of the numpy helpers of the JAX package's ``fed/metrics.py``: the
+serving state the cohort server feeds
+:class:`repro_torch.policy.ClusterPolicy` with, the paper's Table 3
+criteria (:func:`classification_metrics`), plus FAVOR's reward shaping
+(``core/selection.py::favor_reward`` there).  Pure numpy: all of it is
+computed on the host.
 
 * ``"basic"`` — ``3k + 1``: population fraction ‖ participation
   fraction ‖ reward EMA ‖ previous accuracy.
@@ -132,3 +134,74 @@ def cluster_policy_state(assign: np.ndarray, k: int,
         parts.append(lat / (1.0 + lat))
     parts.append([prev_accuracy])
     return np.concatenate(parts).astype(np.float32)
+
+
+def confusion(y_true: np.ndarray, y_pred: np.ndarray, k: int) -> np.ndarray:
+    cm = np.zeros((k, k), np.int64)
+    np.add.at(cm, (y_true, y_pred), 1)
+    return cm
+
+
+def _midranks(scores: np.ndarray) -> np.ndarray:
+    """1-based midranks: tied scores share the mean of their positions.
+
+    The double-argsort trick assigns ties arbitrary *ordinal* ranks
+    (whichever came first in memory wins), which biases the
+    Mann–Whitney U statistic whenever logits tie — e.g. saturated
+    softmax outputs or integer-ish scores.  Midranks are the standard
+    tie correction: AUC under ties is then the probability of a correct
+    ranking with ties counted as 1/2.
+    """
+    order = np.argsort(scores, kind="stable")
+    sorted_scores = scores[order]
+    n = len(scores)
+    ranks = np.empty(n, np.float64)
+    i = 0
+    while i < n:
+        j = i
+        while j < n and sorted_scores[j] == sorted_scores[i]:
+            j += 1
+        ranks[i:j] = 0.5 * (i + j - 1) + 1.0     # mean of 1-based i+1..j
+        i = j
+    out = np.empty(n, np.float64)
+    out[order] = ranks
+    return out
+
+
+def classification_metrics(y_true: np.ndarray, logits: np.ndarray) -> dict:
+    k = logits.shape[-1]
+    y_pred = np.argmax(logits, axis=-1)
+    cm = confusion(y_true, y_pred, k)
+    total = cm.sum()
+    acc = np.trace(cm) / max(total, 1)
+
+    per_class_recall = np.divide(np.diag(cm), cm.sum(axis=1),
+                                 out=np.zeros(k), where=cm.sum(axis=1) > 0)
+    per_class_prec = np.divide(np.diag(cm), cm.sum(axis=0),
+                               out=np.zeros(k), where=cm.sum(axis=0) > 0)
+    balanced_acc = per_class_recall.mean()
+    recall = per_class_recall.mean()
+    precision = per_class_prec.mean()
+
+    # Cohen's kappa
+    pe = float((cm.sum(axis=0) * cm.sum(axis=1)).sum()) / max(total ** 2, 1)
+    kappa = (acc - pe) / max(1 - pe, 1e-12)
+
+    # macro one-vs-rest AUC via the Mann–Whitney rank statistic, with
+    # midranks so tied logits contribute 1/2 instead of an order-of-
+    # appearance bias
+    aucs = []
+    for c in range(k):
+        pos = logits[y_true == c, c]
+        neg = logits[y_true != c, c]
+        if len(pos) == 0 or len(neg) == 0:
+            continue
+        ranks = _midranks(np.concatenate([pos, neg]))
+        auc = (ranks[: len(pos)].sum() - len(pos) * (len(pos) + 1) / 2) \
+            / (len(pos) * len(neg))
+        aucs.append(auc)
+    auc = float(np.mean(aucs)) if aucs else 0.5
+
+    return {"balanced_accuracy": float(balanced_acc), "accuracy": float(acc),
+            "recall": float(recall), "kappa": float(kappa),
+            "precision": float(precision), "auc": auc}

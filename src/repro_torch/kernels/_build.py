@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels (``csrc/``).
 
-The sources compile with ``nvcc`` straight into a shared library with a
+Each source compiles with ``nvcc`` straight into a shared library with a
 plain C interface, loaded through :mod:`ctypes` (no PyTorch headers, so a
-build takes seconds, not minutes).  The library lands in
+build takes seconds, not minutes).  The nvcc processes of all sources
+start together and run in parallel.  The libraries land in
 ``build/repro_torch_kernels/`` at the repository root, named by a hash of
 the sources and flags: a changed source rebuilds, an unchanged one loads
 the library already there.  Nothing is built at import time; the first
@@ -21,7 +22,6 @@ import threading
 from typing import Optional
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("nystrom.cu",)
 HEADERS = ("affinity_tile.cuh",)
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
@@ -31,15 +31,24 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C entry points of nystrom.cu: every pointer and the stream as c_void_p
+# the C entry points of each source: every pointer and the stream as c_void_p
 _SIGNATURES = {
-    "rt_quantized_cross_affinity": [_P, _P, _F, _P, _I, _I, _I, _I, _P],
-    "rt_nystrom_colsum": [_P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _P],
-    "rt_nystrom_gram": [_P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _I, _P],
-    "rt_nystrom_extension": [_P, _P, _F, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _P],
+    "nystrom.cu": {
+        "rt_quantized_cross_affinity": [_P, _P, _F, _P, _I, _I, _I, _I, _P],
+        "rt_nystrom_colsum": [_P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _P],
+        "rt_nystrom_gram": [_P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _I, _P],
+        "rt_nystrom_extension": [_P, _P, _F, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _P],
+        "rt_panel_matmul": [_P, _P, _P, _I, _I, _I, _P],
+    },
+    "affinity.cu": {
+        "rt_pairwise_sq_dists": [_P, _P, _P, _I, _I, _I, _P],
+        "rt_rbf_cross_affinity": [_P, _P, _F, _P, _I, _I, _I, _P],
+        "rt_rbf_affinity": [_P, _F, _P, _I, _I, _P],
+    },
 }
+SOURCES = tuple(_SIGNATURES)
 
 
 class KernelBuildError(RuntimeError):
@@ -74,55 +83,80 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+class Kernels:
+    """The C entry points of every loaded library, as attributes."""
+
+    def __init__(self, libraries):
+        self.libraries = libraries        # keeps the CDLLs alive
+        for source, lib in libraries.items():
+            for name, argtypes in _SIGNATURES[source].items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                setattr(self, name, fn)
+
+
 class _Library:
-    """The loaded kernel library, built on first use (thread-safe)."""
+    """The loaded kernel libraries, built on first use (thread-safe)."""
 
     def __init__(self):
         self._lock = threading.Lock()
-        self._lib: Optional[ctypes.CDLL] = None   # guarded-by: _lock
+        self._kernels: Optional[Kernels] = None   # guarded-by: _lock
         # nvcc's output, with ptxas's registers and spills per kernel
         self.build_log = ""                       # guarded-by: _lock
 
-    def get(self) -> ctypes.CDLL:
+    def get(self) -> Kernels:
         with self._lock:
-            if self._lib is None:
-                path, log = _compile()
-                lib = ctypes.CDLL(str(path))
-                for name, argtypes in _SIGNATURES.items():
-                    fn = getattr(lib, name)
-                    fn.argtypes = argtypes
-                    fn.restype = ctypes.c_int
-                self._lib = lib
+            if self._kernels is None:
+                paths, log = _compile()
+                self._kernels = Kernels({src: ctypes.CDLL(str(path))
+                                         for src, path in paths.items()})
                 self.build_log = log
-            return self._lib
+            return self._kernels
 
 
 def _compile():
-    """nvcc the sources into ``BUILD_DIR``; returns (library path, log)."""
-    out = BUILD_DIR / f"librepro_torch_kernels_{source_hash()}.so"
-    if out.is_file():
-        return out, f"loaded {out.name} (already built)"
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # unique temp name + atomic rename: concurrent builders never load a
-    # half-written library
-    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise KernelBuildError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
+    """nvcc every source into ``BUILD_DIR``, all in parallel; returns
+    ({source: library path}, log)."""
+    tag = source_hash()
+    outs = {src: BUILD_DIR / f"librepro_torch_{pathlib.Path(src).stem}_"
+                             f"{tag}.so" for src in SOURCES}
+    todo = {src: out for src, out in outs.items() if not out.is_file()}
+    logs = [f"loaded {out.name} (already built)"
+            for src, out in outs.items() if src not in todo]
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = find_nvcc()
+        procs = {}
+        for src, out in todo.items():
+            # unique temp name + atomic rename: concurrent builds never
+            # load a half-written library
+            tmp = out.with_suffix(
+                f".{os.getpid()}.{threading.get_ident()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+            procs[src] = (cmd, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True))
+        failures = []
+        for src, (cmd, tmp, proc) in procs.items():
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                failures.append(f"nvcc failed (exit {proc.returncode}): "
+                                f"{' '.join(cmd)}\n{stderr}")
+                continue
+            os.replace(tmp, todo[src])
+            logs.append(stdout + stderr)
+        if failures:
+            raise KernelBuildError("\n".join(failures))
+    return outs, "\n".join(logs)
 
 
 LIBRARY = _Library()
 
 
-def library() -> ctypes.CDLL:
-    """The kernel library, compiled at first call."""
+def library() -> Kernels:
+    """The kernels' C entry points, compiled at first call."""
     return LIBRARY.get()
 
 

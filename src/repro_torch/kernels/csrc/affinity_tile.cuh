@@ -1,4 +1,5 @@
-// Shared affinity-tile math of the fused Nystrom kernels (nystrom.cu).
+// Shared affinity-tile math of the fused Nystrom kernels (nystrom.cu) and
+// the affinity kernels (affinity.cu).
 //
 // Replaces `_affinity_tile` and `_quantize_rows` of
 // src/repro/kernels/nystrom_pallas.py (l.58-103): one RBF cross-affinity
@@ -39,6 +40,10 @@ enum AffinityDtype : int { kF32 = 0, kBF16 = 1, kINT8 = 2 };
 constexpr float kEps = 1e-12f;   // degree / row-norm floor
 constexpr float kQEps = 1e-8f;   // int8 scale floor for all-zero rows
 
+inline unsigned blocks_for(long long work, int threads) {
+  return static_cast<unsigned>((work + threads - 1) / threads);
+}
+
 // Round one (d,) row to the tile precision.  Loops run to the
 // compile-time bound MAXD with a `k < d` guard so that a register array
 // `v` stays in registers.
@@ -76,14 +81,14 @@ __device__ __forceinline__ void prepare_point(const float* __restrict__ row,
   }
 }
 
-// One affinity entry between two prepared points; element k of `a` is
-// a[k * sa], of `b` is b[k * sb].
+// Squared distance between two prepared points in the norm form
+// max(|a|^2 + |b|^2 - 2 a.b, 0); element k of `a` is a[k * sa], of `b` is
+// b[k * sb].
 template <int DT, int MAXD>
-__device__ __forceinline__ float affinity(const float* a, int sa,
-                                          float a_norm, float a_scale,
-                                          const float* b, int sb,
-                                          float b_norm, float b_scale, int d,
-                                          float gamma) {
+__device__ __forceinline__ float sq_dist(const float* a, int sa,
+                                         float a_norm, float a_scale,
+                                         const float* b, int sb,
+                                         float b_norm, float b_scale, int d) {
   float xy;
   if (DT == kINT8) {
     int acc = 0;
@@ -97,8 +102,18 @@ __device__ __forceinline__ float affinity(const float* a, int sa,
     for (int k = 0; k < MAXD; ++k)
       if (k < d) xy = fmaf(a[k * sa], b[k * sb], xy);
   }
-  const float d2 = fmaxf(a_norm + b_norm - 2.f * xy, 0.f);
-  return expf(-gamma * d2);
+  return fmaxf(a_norm + b_norm - 2.f * xy, 0.f);
+}
+
+// One affinity entry exp(-gamma * d^2) between two prepared points.
+template <int DT, int MAXD>
+__device__ __forceinline__ float affinity(const float* a, int sa,
+                                          float a_norm, float a_scale,
+                                          const float* b, int sb,
+                                          float b_norm, float b_scale, int d,
+                                          float gamma) {
+  return expf(-gamma * sq_dist<DT, MAXD>(a, sa, a_norm, a_scale, b, sb,
+                                         b_norm, b_scale, d));
 }
 
 // Prepare rows [first, first + count) of the row-major (., d) array `src`

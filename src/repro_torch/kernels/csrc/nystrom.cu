@@ -1,13 +1,13 @@
 // Fused Nystrom kernels for Hopper (sm_90a): C -> S -> S^T S with no (N, m)
 // cross-affinity in device memory.
 //
-// Ports of the four Pallas kernels on the cohort server's select path,
-// src/repro/kernels/nystrom_pallas.py:
+// Ports of the five Pallas kernels of src/repro/kernels/nystrom_pallas.py:
 //
 //   rt_quantized_cross_affinity  <- quantized_cross_affinity_pallas (l.340)
 //   rt_nystrom_colsum            <- nystrom_colsum_pallas (l.208)
 //   rt_nystrom_gram              <- nystrom_gram_pallas (l.240)
 //   rt_nystrom_extension         <- nystrom_extension_pallas (l.275)
+//   rt_panel_matmul              <- panel_matmul_pallas (l.311)
 //
 // The TPU kernels walk the row panels in order on one core and carry the
 // column sum / Gram in the output block across grid steps.  Here blocks run
@@ -28,6 +28,9 @@
 //              operation-bound, ~0.8 ms.
 //   extension  like colsum twice plus 2*N*m*k FLOP: operation-bound.
 //   cross      W = A(z, z), 512 x 512: 1 MB written, launch-bound.
+//   panel      the subspace solver's W Q at m = 4096: (4096, 4096) @
+//              (4096, 64) is 2.1 GFLOP, operation-bound (~32 us); with 8
+//              columns it reads the 67 MB W once, byte-bound (~20 us).
 
 #include <cuda_runtime.h>
 
@@ -61,10 +64,6 @@ bool dispatch(int dtype, int d, F&& f) {
   if (d >= 1 && d <= 8) return with_dtype<8>(dtype, f);
   if (d > 8 && d <= 32) return with_dtype<32>(dtype, f);
   return false;
-}
-
-inline unsigned blocks_for(long long work, int threads) {
-  return static_cast<unsigned>((work + threads - 1) / threads);
 }
 
 // ---------------------------------------------------------------------------
@@ -481,6 +480,20 @@ int rt_nystrom_gram(const float* x, const float* z, float gamma,
   matmul_kernel<<<mgrid, kTileThreads, 0, s>>>(w_isqrt, g, t, m, m, m);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   matmul_kernel<<<mgrid, kTileThreads, 0, s>>>(t, w_isqrt, out, m, m, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out (m, r) = w (m, p) @ q (p, r) in exact f32, one launch of the tiled
+// matmul_kernel over every 64-row panel.  The TPU kernel walks row panels
+// of block_rows in order to bound VMEM residency; a CUDA block already
+// owns one 64-row panel, and each output entry sums k in ascending order
+// whatever the panel height, so block_rows does not reach the kernel and
+// the product is bit-identical for every block_rows.
+int rt_panel_matmul(const float* w, const float* q, float* out, int m, int p,
+                    int r, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(blocks_for(r, kMmTile), blocks_for(m, kMmTile));
+  matmul_kernel<<<grid, kTileThreads, 0, s>>>(w, q, out, m, r, p);
   return static_cast<int>(cudaGetLastError());
 }
 

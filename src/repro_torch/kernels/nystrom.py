@@ -2,7 +2,8 @@
 
 The PyTorch counterpart of the JAX package's ``kernels/nystrom_pallas.py``,
 with the same signatures (``x, z, gamma, mask, *, affinity_dtype,
-block_m``).  The device of the inputs decides the route:
+block_m``; ``w, q`` for the eigensolver's panel matmul).
+The device of the inputs decides the route:
 
 * tensors on the CPU run the plain PyTorch versions in
   :mod:`repro_torch.kernels.ref`;
@@ -12,47 +13,39 @@ block_m``).  The device of the inputs decides the route:
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs and scratch with ``torch.empty``, launches on the current stream
 without synchronizing, and adds one to its entry of :data:`LAUNCH_COUNTS`
-when it launches.  ``block_m`` is kept for signature parity: the CUDA
-kernels fix their own row panels (see the kernel source), and the plain
-versions have none.
+(shared by every kernel wrapper) when it launches.
+``block_m`` is kept for signature parity: the CUDA kernels fix their own
+row panels (see the kernel source), and the plain versions have none.
 """
 
 from __future__ import annotations
 
 import math
-import threading
 
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels._common import (LAUNCH_COUNTS, check_block,
+                                         check_kernel_shape, check_points,
+                                         check_tensors, launched, ptr,
+                                         reset_launch_counts, stream)
+
+__all__ = ["LAUNCH_COUNTS", "reset_launch_counts", "quantized_cross_affinity",
+           "nystrom_colsum", "nystrom_gram", "nystrom_extension",
+           "panel_matmul", "gram_slabs"]
 
 AFFINITY_DTYPES = ("f32", "bf16", "int8")
 _DTYPE_CODE = {"f32": 0, "bf16": 1, "int8": 2}
-_MAX_D = 32              # widest point the kernels hold in registers
 _MAX_K = 64              # widest projection the extension kernel holds
 _COLSUM_ROWS = 256       # kColsumRows in nystrom.cu
 _GRAM_ROWS = 32          # kGramRows
 _GRAM_TILE = 64          # kGramTile
+_MM_TILE = 64            # kMmTile: rows of one matmul_kernel block
+_MAX_GRID_Y = 65535      # CUDA's limit on gridDim.y
 # the Gram kernel splits the rows into slabs until about this many blocks
 # are in flight (8 per SM of a 132-SM H100); a function of the shapes
 # only, so the summation order never depends on the card
 _GRAM_TARGET_BLOCKS = 1056
-
-#: kernel launches per wrapper since the last :func:`reset_launch_counts`
-LAUNCH_COUNTS = {"quantized_cross_affinity": 0, "nystrom_colsum": 0,
-                 "nystrom_gram": 0, "nystrom_extension": 0}
-_COUNT_LOCK = threading.Lock()
-
-
-def reset_launch_counts() -> None:
-    with _COUNT_LOCK:
-        for name in LAUNCH_COUNTS:
-            LAUNCH_COUNTS[name] = 0
-
-
-def _launched(name: str) -> None:
-    with _COUNT_LOCK:
-        LAUNCH_COUNTS[name] += 1
 
 
 def _check(name, affinity_dtype, block_m, **tensors) -> torch.device:
@@ -61,45 +54,8 @@ def _check(name, affinity_dtype, block_m, **tensors) -> torch.device:
         raise ValueError(f"{name}: unknown affinity_dtype "
                          f"{affinity_dtype!r}; expected one of "
                          f"{AFFINITY_DTYPES}")
-    if int(block_m) < 1:
-        raise ValueError(f"{name}: block_m={block_m} must be >= 1")
-    given = {k: t for k, t in tensors.items() if t is not None}
-    for k, t in given.items():
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name}: {k} must be a torch.Tensor, got "
-                            f"{type(t).__name__}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {k} must be float32, got {t.dtype}")
-    devices = {t.device for t in given.values()}
-    if len(devices) != 1:
-        raise ValueError(f"{name}: inputs lie on different devices "
-                         f"{sorted(map(str, devices))}")
-    dev = devices.pop()
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {dev}")
-    if dev.type == "cuda":
-        for k, t in given.items():
-            if not t.is_contiguous():
-                raise ValueError(f"{name}: {k} must be contiguous")
-    return dev
-
-
-def _check_points(name, x, z):
-    if x.dim() != 2 or z.dim() != 2 or x.shape[1] != z.shape[1]:
-        raise ValueError(f"{name}: x {tuple(x.shape)} and z "
-                         f"{tuple(z.shape)} must be (n, d) and (m, d)")
-    n, d = x.shape
-    m = z.shape[0]
-    return n, m, d
-
-
-def _check_kernel_shape(name, n, m, d):
-    if n < 1 or m < 1:
-        raise ValueError(f"{name}: the CUDA kernel needs n >= 1 and m >= 1, "
-                         f"got n={n}, m={m}")
-    if not 1 <= d <= _MAX_D:
-        raise ValueError(f"{name}: the CUDA kernel takes 1 <= d <= "
-                         f"{_MAX_D}, got d={d}")
+    check_block(name, "block_m", block_m)
+    return check_tensors(name, **tensors)
 
 
 def _check_vector(name, label, v, length):
@@ -108,33 +64,25 @@ def _check_vector(name, label, v, length):
                          f"{tuple(v.shape)}")
 
 
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def quantized_cross_affinity(x, y, gamma, *, affinity_dtype: str = "f32",
                              block_m: int = 128):
     """(n, m) cross-affinity exp(-γ d²) at the chosen tile precision."""
     name = "quantized_cross_affinity"
     dev = _check(name, affinity_dtype, block_m, x=x, y=y)
-    n, m, d = _check_points(name, x, y)
+    n, m, d = check_points(name, x, y)
     g = float(gamma)
     if dev.type == "cpu":
         return ref.quantized_cross_affinity_ref(
             x, y, g, affinity_dtype=affinity_dtype)
-    _check_kernel_shape(name, n, m, d)
+    check_kernel_shape(name, n, m, d)
     lib = _build.library()
     out = torch.empty((n, m), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.rt_quantized_cross_affinity(
             x.data_ptr(), y.data_ptr(), g, out.data_ptr(), n, m, d,
-            _DTYPE_CODE[affinity_dtype], _stream(dev))
+            _DTYPE_CODE[affinity_dtype], stream(dev))
     _build.check(err, name)
-    _launched(name)
+    launched(name)
     return out
 
 
@@ -143,24 +91,24 @@ def nystrom_colsum(x, z, gamma, mask=None, *, affinity_dtype: str = "f32",
     """``col = Σᵢ exp(-γ d²(xᵢ, z))·maskᵢ`` without materializing C, (m,)."""
     name = "nystrom_colsum"
     dev = _check(name, affinity_dtype, block_m, x=x, z=z, mask=mask)
-    n, m, d = _check_points(name, x, z)
+    n, m, d = check_points(name, x, z)
     _check_vector(name, "mask", mask, n)
     g = float(gamma)
     if dev.type == "cpu":
         return ref.nystrom_colsum_ref(x, z, g, mask,
                                       affinity_dtype=affinity_dtype)
-    _check_kernel_shape(name, n, m, d)
+    check_kernel_shape(name, n, m, d)
     lib = _build.library()
     panels = math.ceil(n / _COLSUM_ROWS)
     partial = torch.empty((panels, m), dtype=torch.float32, device=dev)
     out = torch.empty((m,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.rt_nystrom_colsum(
-            x.data_ptr(), z.data_ptr(), g, _ptr(mask), partial.data_ptr(),
+            x.data_ptr(), z.data_ptr(), g, ptr(mask), partial.data_ptr(),
             out.data_ptr(), n, m, d, _DTYPE_CODE[affinity_dtype],
-            _stream(dev))
+            stream(dev))
     _build.check(err, name)
-    _launched(name)
+    launched(name)
     return out
 
 
@@ -183,7 +131,7 @@ def nystrom_gram(x, z, gamma, u, w_isqrt, mask=None, *,
     name = "nystrom_gram"
     dev = _check(name, affinity_dtype, block_m, x=x, z=z, u=u,
                  w_isqrt=w_isqrt, mask=mask)
-    n, m, d = _check_points(name, x, z)
+    n, m, d = check_points(name, x, z)
     _check_vector(name, "mask", mask, n)
     _check_vector(name, "u", u, m)
     if tuple(w_isqrt.shape) != (m, m):
@@ -193,7 +141,7 @@ def nystrom_gram(x, z, gamma, u, w_isqrt, mask=None, *,
     if dev.type == "cpu":
         return ref.nystrom_gram_ref(x, z, g, u, w_isqrt, mask,
                                     affinity_dtype=affinity_dtype)
-    _check_kernel_shape(name, n, m, d)
+    check_kernel_shape(name, n, m, d)
     lib = _build.library()
     slabs, slab_rows = gram_slabs(n, m)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -205,11 +153,11 @@ def nystrom_gram(x, z, gamma, u, w_isqrt, mask=None, *,
     with torch.cuda.device(dev):
         err = lib.rt_nystrom_gram(
             x.data_ptr(), z.data_ptr(), g, u.data_ptr(), w_isqrt.data_ptr(),
-            _ptr(mask), r.data_ptr(), partial.data_ptr(), gram.data_ptr(),
+            ptr(mask), r.data_ptr(), partial.data_ptr(), gram.data_ptr(),
             rotated_half.data_ptr(), out.data_ptr(), n, m, d, slabs,
-            slab_rows, _DTYPE_CODE[affinity_dtype], _stream(dev))
+            slab_rows, _DTYPE_CODE[affinity_dtype], stream(dev))
     _build.check(err, name)
-    _launched(name)
+    launched(name)
     return out
 
 
@@ -222,7 +170,7 @@ def nystrom_extension(x, z, gamma, u, proj, mask=None, *,
     name = "nystrom_extension"
     dev = _check(name, affinity_dtype, block_m, x=x, z=z, u=u, proj=proj,
                  mask=mask)
-    n, m, d = _check_points(name, x, z)
+    n, m, d = check_points(name, x, z)
     _check_vector(name, "mask", mask, n)
     _check_vector(name, "u", u, m)
     if proj.dim() != 2 or proj.shape[0] != m:
@@ -233,7 +181,7 @@ def nystrom_extension(x, z, gamma, u, proj, mask=None, *,
     if dev.type == "cpu":
         return ref.nystrom_extension_ref(x, z, g, u, proj, mask,
                                          affinity_dtype=affinity_dtype)
-    _check_kernel_shape(name, n, m, d)
+    check_kernel_shape(name, n, m, d)
     if not 1 <= k <= _MAX_K:
         raise ValueError(f"{name}: the CUDA kernel takes 1 <= k <= "
                          f"{_MAX_K}, got k={k}")
@@ -242,8 +190,40 @@ def nystrom_extension(x, z, gamma, u, proj, mask=None, *,
     with torch.cuda.device(dev):
         err = lib.rt_nystrom_extension(
             x.data_ptr(), z.data_ptr(), g, u.data_ptr(), proj.data_ptr(),
-            _ptr(mask), out.data_ptr(), n, m, d, k,
-            _DTYPE_CODE[affinity_dtype], _stream(dev))
+            ptr(mask), out.data_ptr(), n, m, d, k,
+            _DTYPE_CODE[affinity_dtype], stream(dev))
     _build.check(err, name)
-    _launched(name)
+    launched(name)
+    return out
+
+
+def panel_matmul(w, q):
+    """(m, p) @ (p, r) in exact f32: the subspace solver's W·Q product.
+
+    The TPU kernel walks row panels of ``block_rows``; this kernel covers
+    every row in one launch, and each output entry sums over p in one
+    fixed order, so the JAX ``block_rows`` has no counterpart here.
+    """
+    name = "panel_matmul"
+    dev = check_tensors(name, w=w, q=q)
+    if w.dim() != 2 or q.dim() != 2 or w.shape[1] != q.shape[0]:
+        raise ValueError(f"{name}: w {tuple(w.shape)} and q "
+                         f"{tuple(q.shape)} must be (m, p) and (p, r)")
+    m, p = w.shape
+    r = q.shape[1]
+    if dev.type == "cpu":
+        return ref.panel_matmul_ref(w, q)
+    if min(m, p, r) < 1:
+        raise ValueError(f"{name}: the CUDA kernel needs m, p, r >= 1, got "
+                         f"({m}, {p}, {r})")
+    if math.ceil(m / _MM_TILE) > _MAX_GRID_Y:
+        raise ValueError(f"{name}: the CUDA kernel takes m <= "
+                         f"{_MAX_GRID_Y * _MM_TILE} rows, got {m}")
+    lib = _build.library()
+    out = torch.empty((m, r), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.rt_panel_matmul(w.data_ptr(), q.data_ptr(), out.data_ptr(),
+                                  m, p, r, stream(dev))
+    _build.check(err, name)
+    launched(name)
     return out

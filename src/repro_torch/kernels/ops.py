@@ -3,7 +3,7 @@
 Counterpart of the JAX package's ``kernels/ops.py``.  There is no
 interpret mode: the device of the tensors decides, CPU tensors running
 the plain PyTorch versions and CUDA tensors the CUDA kernels (see
-:mod:`repro_torch.kernels.nystrom`).  ``set_use_pallas`` keeps the
+:mod:`repro_torch.kernels.nystrom` and :mod:`repro_torch.kernels.affinity`).  ``set_use_pallas`` keeps the
 process-wide substrate switch of the JAX package under the same name;
 the toggle is lock-guarded and ``use_pallas_scoped`` restores the
 previous value on exit.
@@ -14,7 +14,15 @@ from __future__ import annotations
 import contextlib
 import threading
 
+from repro_torch.kernels import affinity as _affinity
 from repro_torch.kernels import nystrom as _nystrom
+from repro_torch.kernels._common import LAUNCH_COUNTS, reset_launch_counts
+
+__all__ = ["LAUNCH_COUNTS", "reset_launch_counts", "set_use_pallas",
+           "use_pallas", "use_pallas_scoped", "pairwise_sq_dists",
+           "rbf_affinity", "rbf_cross_affinity", "nystrom_colsum",
+           "nystrom_gram", "nystrom_extension", "panel_matmul",
+           "quantized_cross_affinity"]
 
 
 class _PallasToggle:
@@ -63,6 +71,18 @@ def use_pallas_scoped(flag: bool = True):
         _TOGGLE.swap(prev)
 
 
+def pairwise_sq_dists(x, y, **kw):
+    return _affinity.pairwise_sq_dists(x, y, **kw)
+
+
+def rbf_affinity(x, gamma, **kw):
+    return _affinity.rbf_affinity(x, gamma, **kw)
+
+
+def rbf_cross_affinity(x, y, gamma, **kw):
+    return _affinity.rbf_cross_affinity(x, y, gamma, **kw)
+
+
 def nystrom_colsum(x, z, gamma, mask=None, **kw):
     return _nystrom.nystrom_colsum(x, z, gamma, mask, **kw)
 
@@ -73,6 +93,10 @@ def nystrom_gram(x, z, gamma, u, w_isqrt, mask=None, **kw):
 
 def nystrom_extension(x, z, gamma, u, proj, mask=None, **kw):
     return _nystrom.nystrom_extension(x, z, gamma, u, proj, mask, **kw)
+
+
+def panel_matmul(w, q, **kw):
+    return _nystrom.panel_matmul(w, q, **kw)
 
 
 def quantized_cross_affinity(x, y, gamma, **kw):

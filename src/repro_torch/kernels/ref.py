@@ -1,10 +1,10 @@
-"""Plain PyTorch versions of the fused Nyström kernels.
+"""Plain PyTorch versions of the hand-written kernels.
 
 Twins of the oracles in the JAX package's ``kernels/ref.py``: the
 semantic ground truth, deliberately naive (the (n, m) affinity is
 materialized).  A kernel wrapper in :mod:`repro_torch.kernels.nystrom`
-runs these for tensors on the CPU; on the card they are what each CUDA
-kernel is held against.
+or :mod:`repro_torch.kernels.affinity` runs these for tensors on the CPU;
+on the card they are what each CUDA kernel is held against.
 """
 
 from __future__ import annotations
@@ -20,6 +20,22 @@ def pairwise_sq_dists_ref(x, y):
     y = y.float()
     diff = x[:, None, :] - y[None, :, :]
     return (diff * diff).sum(-1)
+
+
+def rbf_affinity_ref(x, gamma):
+    """exp(-gamma * d2) with zero diagonal (spectral-clustering affinity)."""
+    a = torch.exp(-gamma * pairwise_sq_dists_ref(x, x))
+    return a * (1.0 - torch.eye(x.shape[0], dtype=a.dtype, device=a.device))
+
+
+def rbf_cross_affinity_ref(x, y, gamma):
+    """Rectangular exp(-gamma * d2(x, y)): the Nyström cross-affinity."""
+    return torch.exp(-gamma * pairwise_sq_dists_ref(x, y))
+
+
+def panel_matmul_ref(w, q):
+    """The eigensolver's row-panel product: the plain f32 matmul."""
+    return w.float() @ q.float()
 
 
 def _quantized_points_ref(a, affinity_dtype: str):

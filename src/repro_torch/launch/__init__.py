@@ -1,1 +1,1 @@
-"""Serving entry points of the port."""
+"""Entry points of the port: the cohort server and the training launcher."""

@@ -6,7 +6,8 @@ has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Each kernel is held to its plain PyTorch version on the same CUDA
-tensors; only the summation order differs.
+tensors; only the summation order differs.  The float32 products and
+convolutions must not run in TF32, so the fixture checks both switches.
 """
 
 import numpy as np
@@ -14,16 +15,21 @@ import pytest
 import torch
 
 from repro_torch.cohort import CohortConfig, CohortEngine
+from repro_torch.core import spectral
 from repro_torch.kernels import nystrom as kn
-from repro_torch.kernels import ref
+from repro_torch.kernels import ops, ref
 
 DTYPES = ("f32", "bf16", "int8")
+FUSED = ("quantized_cross_affinity", "nystrom_colsum", "nystrom_gram",
+         "nystrom_extension")
 
 
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    torch.backends.cudnn.allow_tf32 = False
+    assert not torch.backends.cuda.matmul.allow_tf32
     return torch.device("cuda")
 
 
@@ -55,7 +61,7 @@ def test_kernels_match_plain_versions(cuda_device, dtype):
          ref.quantized_cross_affinity_ref(x, z, g, **kw)),
     ]
     torch.cuda.synchronize()
-    assert all(v == 1 for v in kn.LAUNCH_COUNTS.values())
+    assert all(kn.LAUNCH_COUNTS[name] == 1 for name in FUSED)
     for got, want in pairs:
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                    rtol=1e-4, atol=1e-4)
@@ -78,8 +84,77 @@ def test_engine_on_the_card_partitions_like_the_cpu(cuda_device):
                        num_landmarks=64)
     kn.reset_launch_counts()
     card = CohortEngine(cfg, seed=1, device=cuda_device).select(x)
-    assert all(v == 1 for v in kn.LAUNCH_COUNTS.values())
+    assert all(kn.LAUNCH_COUNTS[name] == 1 for name in FUSED)
+    assert kn.LAUNCH_COUNTS["panel_matmul"] == 0          # m <= eigh_cutoff
     cpu = CohortEngine(cfg, seed=1, device="cpu").select(x)
     pairs = {(int(a), int(b)) for a, b in zip(card.assign, cpu.assign)}
     assert len(pairs) == len(set(card.assign.tolist())) == len(
         set(cpu.assign.tolist()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, m, d", [(37, 21, 7), (100, 100, 8),
+                                     (300, 50, 20)])
+def test_affinity_kernels_match_plain_versions(cuda_device, n, m, d):
+    rng = np.random.default_rng(1)
+    x = torch.tensor(rng.normal(size=(n, d)), dtype=torch.float32,
+                     device=cuda_device)
+    y = torch.tensor(rng.normal(size=(m, d)), dtype=torch.float32,
+                     device=cuda_device)
+    ops.reset_launch_counts()
+    dist = ops.pairwise_sq_dists(x, y)
+    cross = ops.rbf_cross_affinity(x, y, 0.3)
+    square = ops.rbf_affinity(x, 0.3)
+    torch.cuda.synchronize()
+    for name in ("pairwise_sq_dists", "rbf_cross_affinity", "rbf_affinity"):
+        assert ops.LAUNCH_COUNTS[name] == 1
+    scale = float((x * x).sum(1).max() + (y * y).sum(1).max())
+    np.testing.assert_allclose(dist.cpu().numpy(),
+                               ref.pairwise_sq_dists_ref(x, y).cpu().numpy(),
+                               rtol=0, atol=1e-5 * scale)
+    np.testing.assert_allclose(
+        cross.cpu().numpy(), ref.rbf_cross_affinity_ref(x, y, 0.3).cpu(
+        ).numpy(), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(
+        square.cpu().numpy(), ref.rbf_affinity_ref(x, 0.3).cpu().numpy(),
+        rtol=0, atol=1e-5)
+    assert torch.all(square.diagonal() == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m, p, r", [(40, 40, 5), (130, 70, 9),
+                                     (4096, 4096, 8)])
+def test_panel_matmul_matches_plain_version(cuda_device, m, p, r):
+    rng = np.random.default_rng(2)
+    w = torch.tensor(rng.normal(size=(m, p)), dtype=torch.float32,
+                     device=cuda_device)
+    q = torch.tensor(rng.normal(size=(p, r)), dtype=torch.float32,
+                     device=cuda_device)
+    ops.reset_launch_counts()
+    got = ops.panel_matmul(w, q)
+    again = ops.panel_matmul(w, q)
+    torch.cuda.synchronize()
+    assert ops.LAUNCH_COUNTS["panel_matmul"] == 2
+    assert torch.equal(got, again)          # one fixed summation order
+    want = ref.panel_matmul_ref(w, q)
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err <= 1e-5
+
+
+@pytest.mark.cuda
+def test_dense_spectral_cluster_on_the_card_launches_b7(cuda_device):
+    rng = np.random.default_rng(3)
+    centers = rng.normal(size=(4, 8)) * 6
+    x = (centers[rng.integers(0, 4, 500)]
+         + rng.normal(size=(500, 8))).astype(np.float32)
+    ops.reset_launch_counts()
+    card, _, _ = spectral.spectral_cluster(
+        torch.Generator().manual_seed(0), torch.tensor(x, device=cuda_device),
+        4, use_pallas=True)
+    assert ops.LAUNCH_COUNTS["pairwise_sq_dists"] == 1
+    cpu, _, _ = spectral.spectral_cluster(
+        torch.Generator().manual_seed(0), torch.from_numpy(x), 4,
+        use_pallas=True)
+    pairs = {(int(a), int(b)) for a, b in zip(card.cpu().numpy(),
+                                              cpu.numpy())}
+    assert len(pairs) == len(set(cpu.tolist()))

@@ -152,13 +152,19 @@ def test_topk_eigh_and_isqrt_match_jax():
 
 
 def test_blocked_matmul_panels_and_missing_panel_kernel():
+    """Both panel routes give the plain product; the kernel route (now
+    ported, B5) runs its plain version on CPU tensors without counting."""
+    from repro_torch.kernels import ops
     rng = np.random.default_rng(5)
     w = torch.from_numpy(rng.normal(size=(130, 130)).astype(np.float32))
     q = torch.from_numpy(rng.normal(size=(130, 9)).astype(np.float32))
     np.testing.assert_allclose(eigensolver._blocked_matmul(w, q, 32),
                                w @ q, rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="panel_matmul"):
-        eigensolver._blocked_matmul(w, q, 32, use_pallas=True)
+    ops.reset_launch_counts()
+    np.testing.assert_allclose(
+        eigensolver._blocked_matmul(w, q, 32, use_pallas=True), w @ q,
+        rtol=1e-5, atol=1e-5)
+    assert ops.LAUNCH_COUNTS["panel_matmul"] == 0
 
 
 # -- landmarks ----------------------------------------------------------------
@@ -226,14 +232,19 @@ def test_sharded_runs_the_single_device_core():
 
 
 def test_dense_use_pallas_is_not_ported_yet():
-    x, _ = blobs(n=64)
-    eng = CohortEngine(CohortConfig(num_clusters=4, method="dense",
-                                    use_pallas=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.select(x)
+    """The dense path's pairwise-distance kernel (B7) is ported now: the
+    use_pallas engine partitions like the plain one and like JAX's."""
+    x, labels = blobs(n=64)
+    kw = dict(num_clusters=4, method="dense", use_pallas=True)
+    got = CohortEngine(CohortConfig(**kw), device="cpu").select(x)
     plain = CohortEngine(CohortConfig(num_clusters=4, method="dense"),
                          device="cpu").select(x)
-    assert plain.method == "dense" and plain.assign.shape == (64,)
+    want = JaxEngine(JaxConfig(**kw), seed=0).select(x)
+    assert got.method == plain.method == "dense"
+    assert got.assign.shape == plain.assign.shape == (64,)
+    assert same_partition(got.assign, plain.assign)
+    assert same_partition(got.assign, want.assign)
+    assert purity(got.assign, labels) == 1.0
 
 
 def test_engine_without_a_device_raises_when_cuda_is_absent(monkeypatch):
