@@ -16,7 +16,13 @@ Phases (any failure raises and the script exits non-zero):
    solver's shapes ((4096, 4096) @ (4096, 64) and @ (4096, 8)); the
    affinity kernels at the fed loop's (100 x 100), the dense path's
    (2048 x 2048) and the unfused Nyström path's (100 000 x 512) shapes;
-   each also at a ragged shape.  Then each kernel's median time (CUDA
+   each also at a ragged shape; flash attention (B9) at the qwen2-7b
+   prefill's shape (q (1, 2048, 28, 128) against a 2112-row cache) in
+   bf16 and in f32, and the SSD chunk (B10) at the mamba2-2.7b prefill's
+   (8 chunks of 256, 80 heads, P=64, N=128), each also at ragged shapes.
+   The bf16 outputs of B9 are held elementwise (see LIMIT_BF16_ELEM),
+   the f32 ones to 1e-5 of the largest entry.  Then each kernel's median
+   time (CUDA
    events, 20 runs) at its path shape beside its plain version's, the
    least time the card could take for the same work, and one PyTorch
    call computing the same function where there is one; beside it the
@@ -45,6 +51,13 @@ Phases (any failure raises and the script exits non-zero):
    (purity), ``spectral_cluster(method="dense", use_pallas=True)`` at
    n=2048 (the CPU's partition) and ``kernels.ops.rbf_affinity`` at
    n=2048.
+6. The LM server: ``Server`` with the kernels on, at full width and
+   depth in bf16 for qwen2-7b and mamba2-2.7b, 4 slots and 6 requests of
+   256-2048 prompt tokens; checks exactly 28 B9 launches (qwen2) and 64
+   B10 launches (mamba2) a prefill, and profiles one prefill and one
+   decode step.  Then the reduced f32 configs on the card and on the
+   CPU: the same prefill logits, the same greedy tokens, and the card's
+   batch-served tokens equal to its batch-1 oracle.
 
 It prints the kernel table as one JSON line, then the card's name and
 power limit, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -80,14 +93,18 @@ ENGINE_SEED = 1
 # landmarks)
 SPECTRAL_SEED = 0
 
-# H100 SXM peaks (NVIDIA data sheet): f32 on the CUDA cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet): f32 on the CUDA cores, bf16 on the
+# tensor cores (dense), HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
 
 # every kernel: the TPU kernel it replaces (function definition in the
 # JAX package) and its source
 NYSTROM_CU = "src/repro_torch/kernels/csrc/nystrom.cu"
 AFFINITY_CU = "src/repro_torch/kernels/csrc/affinity.cu"
+FLASH_CU = "src/repro_torch/kernels/csrc/flash_attention.cu"
+SSD_CU = "src/repro_torch/kernels/csrc/ssd.cu"
 KERNELS = {
     "quantized_cross_affinity": ("src/repro/kernels/nystrom_pallas.py:340",
                                  NYSTROM_CU),
@@ -101,6 +118,9 @@ KERNELS = {
     "pairwise_sq_dists": ("src/repro/kernels/affinity_pallas.py:79",
                           AFFINITY_CU),
     "rbf_affinity": ("src/repro/kernels/affinity_pallas.py:103", AFFINITY_CU),
+    "flash_attention": ("src/repro/kernels/flash_attention_pallas.py:87",
+                        FLASH_CU),
+    "ssd_chunk": ("src/repro/kernels/ssd_pallas.py:54", SSD_CU),
 }
 FUSED = ("quantized_cross_affinity", "nystrom_colsum", "nystrom_gram",
          "nystrom_extension")
@@ -125,6 +145,25 @@ SMALL_FL = dict(dataset="mnist", num_clients=12, clients_per_round=4,
                 local_steps=8, batch_size=16, train_size=1200, eval_size=256,
                 num_clusters=3, embed_dim=4, sigma=0.8, policy="dqre_sc",
                 use_pallas=True, seed=0)
+
+# the LM server (phase 6): full width and depth, bf16
+LM_ARCHS = ("qwen2-7b", "mamba2-2.7b")
+LM_BATCH, LM_REQUESTS, LM_NEW_TOKENS, LM_BUCKET = 4, 6, 32, 8
+LM_PROMPT = (256, 2048)          # prompt lengths, drawn from the seed
+LM_MAX_SEQ = 2112                # the longest prompt + 32 new tokens, /64
+LM_SEED = 0
+# B9 and B10 at the prefill's shapes: qwen2 (28 heads over 4, dh 128)
+# and mamba2 (80 heads, P 64, N 128, chunks of 256), S = 2048
+FLASH_PATH = dict(B=1, S=2048, T=LM_MAX_SEQ, H=28, K=4, dh=128)
+SSD_PATH = dict(B=1, c=8, Q=256, H=80, P=64, G=1, N=128)
+LIMIT_F32_REL = 1e-5     # f32 output: summation order only
+# bf16 output, elementwise: |got - want| <= 2^-7 |want| + 1e-3 rms(want).
+# Both sides round an f32 result to bf16, so they may differ by one unit
+# in the last place, at most 2^-7 of the value; the floor covers entries
+# near zero.  A long causal row's output is small (~sqrt(e / s)), so a
+# fraction of the largest entry would not hold it.
+LIMIT_BF16_ELEM = (2.0 ** -7, 1e-3)
+LIMIT_LOGIT_REL = 1e-4   # reduced LM, card vs CPU
 
 
 def card_line() -> str:
@@ -521,10 +560,11 @@ def plain_on_card_forbidden():
             setattr(ref, name, fn)
 
 
-def profile_device(phase, what, fn):
+def profile_device(phase, what, fn, host_top=0):
     """Run ``fn()`` once under torch.profiler; prints the wall time, the
-    device's busy time and idle share and the top device operations.
-    Returns (fn's result, wall ms, busy ms)."""
+    device's busy time and idle share and the top device operations (and,
+    with ``host_top``, the operators with the most host time and the
+    count of kernel launches).  Returns (fn's result, wall ms, busy ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -548,6 +588,16 @@ def profile_device(phase, what, fn):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"phase {phase}:   {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:<5d} {e.key[:90]}")
+    if host_top:
+        host = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CPU]
+        launches = sum(e.count for e in host if e.key == "cudaLaunchKernel")
+        print(f"phase {phase}:   host: {launches} cudaLaunchKernel calls; "
+              f"operators by host self time:")
+        for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[
+                :host_top]:
+            print(f"phase {phase}:   {e.self_cpu_time_total / 1e3:9.3f} ms "
+                  f"x{e.count:<5d} {e.key[:90]}")
     return out, wall, busy
 
 
@@ -923,6 +973,361 @@ def phase5(x, labels):
     return launches
 
 
+# -- phase 2, the LM kernels -----------------------------------------------
+
+def _flash_bound(B, S, T, H, K, dh, causal, window, dtype):
+    """(bound_ms, bound_by, f32 CUDA-core bound ms) of one B9 call.
+
+    Operations over the score entries the masks leave (this call's data):
+    q.k and p.v are 4·dh, the softmax ~5 (scale, max, subtract, exp,
+    sum).  bf16 inputs take the tensor cores' peak, f32 ones the CUDA
+    cores'; the f32 figure is also returned, the bound of this kernel's
+    f32 arithmetic.  Bytes: q, k, v read once, out written once.
+    """
+    import numpy as np
+    s = np.arange(S)[:, None]
+    t = np.arange(T)[None, :]
+    live = np.ones((S, T), bool)
+    if causal:
+        live &= t <= s
+    if window is not None:
+        live &= t > s - window
+    ops = B * H * int(live.sum()) * (4 * dh + 5)
+    size = 2 if dtype == "bf16" else 4
+    nbytes = size * (2 * B * S * H * dh + 2 * B * T * K * dh)
+    peak = PEAK_BF16_FLOPS if dtype == "bf16" else PEAK_F32_FLOPS
+    t_ops = ops / peak * 1e3
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    bound = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return (*bound, max(ops / PEAK_F32_FLOPS * 1e3, t_bytes))
+
+
+def _ssd_bound(B, c, Q, H, P, G, N, bc_dtype):
+    """(bound_ms, bound_by) of one B10 call: the lower triangle the mask
+    keeps.  C.B^T (2N a kept entry) runs at the peak of B and C's type;
+    the decay (2), M.x (2P), the state (2PN a row, plus the B scale) at
+    f32.  Bytes: xdt, cs, B, C read once, y and the states written once.
+    """
+    tri = Q * (Q + 1) // 2
+    cells = B * c * H
+    ops_bc = cells * tri * 2 * N
+    ops_f32 = cells * (tri * (2 + 2 * P) + Q * (2 * P * N + N + 1))
+    peak_bc = PEAK_BF16_FLOPS if bc_dtype == "bf16" else PEAK_F32_FLOPS
+    t_ops = (ops_bc / peak_bc + ops_f32 / PEAK_F32_FLOPS) * 1e3
+    size_bc = 2 if bc_dtype == "bf16" else 4
+    nbytes = (4 * (2 * B * c * Q * H * P + B * c * Q * H + B * c * H * P * N)
+              + size_bc * 2 * B * c * Q * G * N)
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _lm_kernel_cases():
+    """{kernel: [(label, shape, kernel call, plain call, limit, bound,
+    library call)]}: the path shape first, then ragged ones."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    rng = np.random.default_rng(SEED + 5)
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+    def t(shape, dtype="f32", scale=1.0):
+        return torch.tensor(rng.normal(size=shape) * scale,
+                            dtype=dt[dtype], device="cuda")
+
+    def flash(B, S, T, H, K, dh, dtype, causal=True, window=None,
+              library=False):
+        q, k, v = t((B, S, H, dh), dtype), t((B, T, K, dh), dtype), \
+            t((B, T, K, dh), dtype)
+        kw = dict(causal=causal, window=window)
+        lib = None
+        if library:
+            def lib():
+                # the yardstick: one PyTorch call, the same function
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    is_causal=causal, enable_gqa=True).transpose(1, 2)
+        limit = "bf16" if dtype == "bf16" else LIMIT_F32_REL
+        return ((B, S, T, H, K, dh, dtype, causal, window),
+                lambda: ops.flash_attention(q, k, v, **kw),
+                lambda: ref.flash_attention_ref(q, k, v, **kw), limit,
+                _flash_bound(B, S, T, H, K, dh, causal, window, dtype), lib)
+
+    def ssd(B, c, Q, H, P, G, N, bc_dtype):
+        xdt = t((B, c, Q, H, P))
+        # the cumulative dt·A of a chunk: falling, steps of up to -0.1
+        cs = torch.cumsum(-torch.tensor(rng.random((B, c, Q, H)) * 0.1,
+                                        dtype=torch.float32, device="cuda"),
+                          dim=2)
+        Bm, Cm = t((B, c, Q, G, N), bc_dtype), t((B, c, Q, G, N), bc_dtype)
+        return ((B, c, Q, H, P, G, N, bc_dtype),
+                lambda: ops.ssd_chunk(xdt, cs, Bm, Cm),
+                lambda: ref.ssd_chunk_ref(xdt, cs, Bm, Cm), LIMIT_F32_REL,
+                (*_ssd_bound(B, c, Q, H, P, G, N, bc_dtype), None), None)
+
+    fp = FLASH_PATH
+    sp = SSD_PATH
+    flash_cases = [("path", *flash(**fp, dtype="bf16", library=True)),
+                   # the same 33 KV tiles a row, held to the f32 limit
+                   ("path f32", *flash(**fp, dtype="f32"))]
+    for dtype in ("f32", "bf16"):
+        flash_cases += [
+            ("ragged", *flash(2, 33, 33, 4, 4, 32, dtype)),          # G = 1
+            ("T>S G=7", *flash(1, 50, 90, 7, 1, 64, dtype)),
+            ("noncausal", *flash(2, 70, 70, 8, 2, 128, dtype,
+                                 causal=False)),
+            ("window 8", *flash(1, 97, 130, 4, 2, 64, dtype, window=8)),
+        ]
+    ssd_cases = [("path", *ssd(**sp, bc_dtype="bf16"))]
+    for bc in ("f32", "bf16"):
+        ssd_cases += [
+            ("Q=8 G=2", *ssd(2, 3, 8, 4, 16, 2, 16, bc)),
+            ("Q=19", *ssd(1, 2, 19, 2, 16, 1, 16, bc)),
+        ]
+    return {"flash_attention": flash_cases, "ssd_chunk": ssd_cases}
+
+
+def _case_error(got, want, limit):
+    """(error, its limit, text of the limit) of one output: max |diff|
+    over the largest |want| for a float limit; for "bf16" the largest
+    |diff| over 2^-7 |want| + 1e-3 rms(want), elementwise."""
+    import torch
+    diff = (got.float() - want.float()).abs()
+    w = want.float()
+    if limit == "bf16":
+        rel, floor = LIMIT_BF16_ELEM
+        den = rel * w.abs() + floor * torch.sqrt(torch.mean(w * w))
+        return (float((diff / den).max()), 1.0,
+                "1 of 2^-7|want| + 1e-3 rms(want)")
+    return float(diff.max()) / float(w.abs().max()), limit, \
+        f"{limit:.0e} of max|want|"
+
+
+def phase2_lm():
+    """B9 and B10 against their plain versions; timed at the path shape.
+    Returns {name: record}."""
+    import torch
+
+    records = {}
+    for name, cases in _lm_kernel_cases().items():
+        rec = records[name] = {"name": name, "route": "cuda",
+                               "source": KERNELS[name][1],
+                               "replaces": KERNELS[name][0],
+                               "max_abs_err": 0.0}
+        worst = (0.0, None, None)
+        for label, shape, kern, plain, limit, bound, library in cases:
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            err, lim, lim_text, abs_err = 0.0, None, None, 0.0
+            for g, w in zip(got, want):
+                if g.shape != w.shape or g.dtype != w.dtype \
+                        or not torch.isfinite(g).all():
+                    raise AssertionError(f"{name} {label}: malformed output")
+                e, lim, lim_text = _case_error(g, w, limit)
+                err = max(err, e)
+                abs_err = max(abs_err, float((g.float() - w.float()).abs()
+                                             .max()))
+            rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
+            ok = err <= lim
+            print(f"phase 2: {name:25s} {label:9s} {shape} err {err:.3e} "
+                  f"(limit {lim_text}; max abs {abs_err:.3e}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name} {label}: error {err:.3e} > "
+                                     f"{lim_text}")
+            if err / lim > worst[0]:
+                worst = (err / lim, label, f"{err:.3e} against {lim_text}")
+            if label != "path":
+                continue
+            ms, plain_ms = time_ms(kern), time_ms(plain)
+            bound_ms, bound_by, f32_bound = bound
+            library_ms = None
+            if library is not None:
+                lib_out = library()
+                torch.cuda.synchronize()
+                lib_err = float((lib_out.float() - want[0].float()).abs()
+                                .max() / want[0].float().abs().max())
+                library_ms = time_ms(library)
+                print(f"phase 2: {name:25s} library call (SDPA) agrees to "
+                      f"{lib_err:.3e}")
+            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=library_ms)
+            f32_note = ("" if f32_bound is None else
+                        f", f32 CUDA-core bound {f32_bound:.4f} ms")
+            print(f"phase 2: {name:25s} {label:9s} {ms:.4f} ms (device "
+                  f"{device_ms(kern):.4f} ms; plain {plain_ms:.4f} ms, bound "
+                  f"{bound_ms:.5f} ms by {bound_by}{f32_note}, library "
+                  f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'})")
+        print(f"phase 2: {name:25s} worst error {worst[2]} ({worst[1]})")
+    return records
+
+
+# -- phase 6 ----------------------------------------------------------------
+
+def _lm_requests(cfg, arch, rng):
+    """LM_REQUESTS prompts of 256–2048 tokens (multiples of the bucket for
+    the SSM arch: the reference pads them into the recurrence)."""
+    import numpy as np
+    from repro_torch.launch.serve import Request
+
+    lo, hi = LM_PROMPT
+    reqs = []
+    for i in range(LM_REQUESTS):
+        if arch.startswith("mamba"):
+            plen = LM_BUCKET * int(rng.integers(lo // LM_BUCKET,
+                                                hi // LM_BUCKET + 1))
+        else:
+            plen = int(rng.integers(lo, hi + 1))
+        reqs.append(Request(i, rng.integers(0, cfg.vocab_size, plen).astype(
+            np.int32), LM_NEW_TOKENS))
+    return reqs
+
+
+def _serve_full(arch):
+    """One full-width arch on the card; returns its kernel launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(arch)
+    attn_layers = sum(m == "attn" for m, _ in T.layer_types(cfg))
+    ssm_layers = sum(m == "ssm" for m, _ in T.layer_types(cfg))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    server = Server(cfg, LM_BATCH, LM_MAX_SEQ, seed=LM_SEED,
+                    prefill_bucket=LM_BUCKET)
+    torch.cuda.synchronize()
+    if server.device.type != "cuda":
+        raise AssertionError(f"server on {server.device}")
+    print(f"phase 6: {arch}: {cfg.param_count() / 1e9:.3f}e9 parameters in "
+          f"{cfg.param_dtype}, {cfg.num_layers} layers, drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    reqs = _lm_requests(cfg, arch, np.random.default_rng(LM_SEED))
+    print(f"phase 6: {arch}: prompt lengths {[len(r.prompt) for r in reqs]}")
+    with plain_on_card_forbidden(), ops.use_pallas_scoped(True):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        done = server.serve_batch(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: ops.LAUNCH_COUNTS[k] for k in ("flash_attention",
+                                                       "ssd_chunk")}
+    stats = server.stats()
+    prefills = stats["prefills"]
+    print(f"phase 6: {arch}: {len(done)} requests answered in {wall:.3f} s; "
+          f"{prefills} prefills, {stats['prefill_seconds'] / prefills * 1e3:.2f}"
+          f" ms a request; {stats['decode_steps']} decode steps, "
+          f"{stats['decode_tokens']} tokens, {server.last_decode_tok_s:.1f} "
+          f"decode tok/s (EMA {stats['tok_s_ema']:.1f}); launches "
+          f"{json.dumps(launches)}")
+    want = {"flash_attention": attn_layers * prefills,
+            "ssd_chunk": ssm_layers * prefills}
+    if launches != want:
+        raise AssertionError(f"{arch}: launches {launches}, expected {want}")
+    if len(done) != LM_REQUESTS or stats["truncated"] or any(
+            len(r.generated) != LM_NEW_TOKENS
+            or not all(0 <= x < cfg.vocab_size for x in r.generated)
+            for r in done):
+        raise AssertionError(f"{arch}: malformed answers")
+    print(f"phase 6: {arch}: request 0 generated {done[0].generated[:8]}")
+
+    # one profiled prefill of the longest prompt, one decode step
+    sched = server.scheduler
+    toks = torch.tensor(np.random.default_rng(LM_SEED + 1).integers(
+        0, cfg.vocab_size, (1, LM_PROMPT[1])), device="cuda")
+    with ops.use_pallas_scoped(True):
+        (logits, _), _, _ = profile_device(
+            6, f"{arch} prefill S={LM_PROMPT[1]}",
+            lambda: T.lm_prefill_slot(server.params, cfg, {"tokens": toks},
+                                      sched.caches, 0), host_top=6)
+        if logits.shape != (1, cfg.vocab_size) or \
+                not torch.isfinite(logits).all():
+            raise AssertionError(f"{arch}: malformed prefill logits")
+        pos = torch.full((LM_BATCH,), LM_PROMPT[1], device="cuda")
+        tok = torch.zeros((LM_BATCH, 1), dtype=torch.long, device="cuda")
+        profile_device(6, f"{arch} decode step (batch {LM_BATCH})",
+                       lambda: T.lm_decode_step(server.params, cfg, tok,
+                                                sched.caches, pos),
+                       host_top=6)
+    print(f"phase 6: {arch}: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del server, sched
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _reduced_card_vs_cpu(arch):
+    """Reduced f32 config, the same weights on the card and the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import DecodeScheduler, Request
+    from repro_torch.models import transformer as T
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmul is on")
+    cfg = get_config(arch).reduced()
+    params = T.init_lm(torch.Generator().manual_seed(LM_SEED), cfg,
+                       device="cpu")
+    on_card = T.params_to(params, "cuda")
+    rng = np.random.default_rng(LM_SEED + 2)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (2, 37)))
+    logits = {}
+    with ops.use_pallas_scoped(True):
+        for dev, p in (("cuda", on_card), ("cpu", params)):
+            caches = T.init_lm_cache(cfg, 2, 64, device=dev)
+            out, _ = T.lm_prefill(p, cfg, {"tokens": toks.to(dev)}, caches)
+            logits[dev] = out.cpu()
+    err = float((logits["cuda"] - logits["cpu"]).abs().max()
+                / logits["cpu"].abs().max())
+    print(f"phase 6: reduced {arch}: prefill logits card vs CPU {err:.3e} "
+          f"of max |logit| (limit {LIMIT_LOGIT_REL:.0e})")
+    if err > LIMIT_LOGIT_REL:
+        raise AssertionError(f"reduced {arch}: logits differ by {err:.3e}")
+
+    lens = ([(16, 6), (40, 4), (24, 7)] if arch.startswith("mamba")
+            else [(5, 6), (37, 4), (18, 7)])
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n, _ in lens]
+
+    def serve(dev, p, batch, which):
+        sched = DecodeScheduler(cfg, p, batch, 64, device=dev)
+        for i in which:
+            sched.submit(Request(i, prompts[i], lens[i][1]))
+        with ops.use_pallas_scoped(True):
+            return {r.uid: r.generated for r in sched.drain()}
+
+    card = serve("cuda", on_card, 2, range(3))
+    cpu = serve("cpu", params, 2, range(3))
+    solo = {}
+    for i in range(3):
+        solo.update(serve("cuda", on_card, 1, [i]))
+    print(f"phase 6: reduced {arch}: card {card}; CPU same: {card == cpu}; "
+          f"batch-1 oracle same: {card == solo}")
+    if card != cpu:
+        raise AssertionError(f"reduced {arch}: card tokens != CPU tokens")
+    if card != solo:
+        raise AssertionError(f"reduced {arch}: batch != batch-1 oracle")
+
+
+def phase6():
+    """The LM server on the card; returns {kernel: launches}."""
+    launches = {"flash_attention": 0, "ssd_chunk": 0}
+    for arch in LM_ARCHS:
+        for name, n in _serve_full(arch).items():
+            launches[name] += n
+    for arch in LM_ARCHS:
+        _reduced_card_vs_cpu(arch)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -947,9 +1352,11 @@ def main() -> int:
     gamma = float(auto_gamma(pairwise_sq_dists(xt[:4096], xt[:M])))
     records = phase2(x, gamma)
     records.update(phase2_slice2(x, gamma))
+    records.update(phase2_lm())
     launches = phase3(x, labels)
     launches["pairwise_sq_dists"] = phase4()
     launches.update(phase5(x, labels))
+    launches.update(phase6())
     for name, rec in records.items():
         rec["launches"] = launches[name]
     keys = ("name", "route", "source", "replaces", "launches",

@@ -90,3 +90,52 @@ def embedder_from_jax(proj, *, device=None) -> WeightEmbedder:
     """A :class:`WeightEmbedder` applying the JAX embedder's (dim, n)
     projection (``np.asarray(embedder.proj)``)."""
     return WeightEmbedder.from_projection(proj, device=device)
+
+
+def _leaf(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":      # ml_dtypes' bfloat16: via f32
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _tree(node, index=None):
+    """Dicts of leaves as tensors; ``index`` picks one entry along each
+    leaf's leading (``repeats``) axis."""
+    if isinstance(node, Mapping):
+        return {k: _tree(v, index) for k, v in node.items()}
+    return _leaf(node if index is None else np.asarray(node)[index])
+
+
+def lm_params_from_jax(params_np: Mapping, cfg) -> dict:
+    """The port's LM parameters from the JAX package's ``init_lm`` tree.
+
+    ``params_np`` is that tree with numpy leaves: ``segments`` stacked on
+    a leading ``repeats`` axis, dense ``w`` as (in, out).  The port keeps
+    the (in, out) layout and lists the layers in order, so segment s's
+    repeat r, period position j becomes ``layers[...]`` in the order the
+    JAX scan applies them.
+    """
+    from repro_torch.models.transformer import _check_supported, build_plan
+
+    _check_supported(cfg)
+    if "mtp" in params_np:
+        raise NotImplementedError("multi-token prediction heads are not "
+                                  "ported to repro_torch yet")
+    out = {k: _tree(params_np[k]) for k in ("embed", "final_norm", "lm_head")
+           if k in params_np}
+    layers = []
+    plan = build_plan(cfg)
+    if len(params_np["segments"]) != len(plan):
+        raise ValueError(f"{len(params_np['segments'])} segments, expected "
+                         f"{len(plan)}")
+    for (repeats, types), seg in zip(plan, params_np["segments"]):
+        blocks = seg["blocks"]
+        if len(blocks) != len(types):
+            raise ValueError(f"a segment of period {len(types)} has "
+                             f"{len(blocks)} blocks")
+        for r in range(repeats):
+            for pos in range(len(types)):
+                layers.append(_tree(blocks[pos], r))
+    out["layers"] = layers
+    return out

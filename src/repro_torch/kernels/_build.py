@@ -31,7 +31,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# the C entry points of each source: every pointer and the stream as c_void_p
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)
+# the C entry points of each source: every pointer and the stream as
+# c_void_p, a stride array as a pointer to c_longlong
 _SIGNATURES = {
     "nystrom.cu": {
         "rt_quantized_cross_affinity": [_P, _P, _F, _P, _I, _I, _I, _I, _P],
@@ -46,6 +48,14 @@ _SIGNATURES = {
         "rt_pairwise_sq_dists": [_P, _P, _P, _I, _I, _I, _P],
         "rt_rbf_cross_affinity": [_P, _P, _F, _P, _I, _I, _I, _P],
         "rt_rbf_affinity": [_P, _F, _P, _I, _I, _P],
+    },
+    "flash_attention.cu": {
+        "rt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _F, _I, _I, _STRIDES, _P],
+    },
+    "ssd.cu": {
+        "rt_ssd_chunk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _P],
     },
 }
 SOURCES = tuple(_SIGNATURES)
@@ -97,7 +107,14 @@ class Kernels:
 
 
 class _Library:
-    """The loaded kernel libraries, built on first use (thread-safe)."""
+    """The loaded kernel libraries, built on first use (thread-safe).
+
+    The build runs outside ``_lock``, which guards only the two fields:
+    a caller holding another lock (a serving thread's scheduler lock)
+    never waits on nvcc under this one.  Two threads that both miss
+    build twice; the atomic rename in :func:`_compile` makes that safe,
+    and the first library loaded is the one kept.
+    """
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -107,10 +124,15 @@ class _Library:
 
     def get(self) -> Kernels:
         with self._lock:
+            kernels = self._kernels
+        if kernels is not None:
+            return kernels
+        paths, log = _compile()
+        built = Kernels({src: ctypes.CDLL(str(path))
+                         for src, path in paths.items()})
+        with self._lock:
             if self._kernels is None:
-                paths, log = _compile()
-                self._kernels = Kernels({src: ctypes.CDLL(str(path))
-                                         for src, path in paths.items()})
+                self._kernels = built
                 self.build_log = log
             return self._kernels
 

@@ -17,7 +17,8 @@ MAX_D = 32               # widest point the kernels hold in registers
 LAUNCH_COUNTS = {"quantized_cross_affinity": 0, "nystrom_colsum": 0,
                  "nystrom_gram": 0, "nystrom_extension": 0,
                  "panel_matmul": 0, "pairwise_sq_dists": 0,
-                 "rbf_affinity": 0, "rbf_cross_affinity": 0}
+                 "rbf_affinity": 0, "rbf_cross_affinity": 0,
+                 "flash_attention": 0, "ssd_chunk": 0}
 _COUNT_LOCK = threading.Lock()
 
 
@@ -32,16 +33,20 @@ def launched(name: str) -> None:
         LAUNCH_COUNTS[name] += 1
 
 
-def check_tensors(name, **tensors) -> torch.device:
-    """float32 tensors on one CPU or CUDA device, contiguous on CUDA;
-    returns that device.  ``None`` entries are skipped."""
+def check_tensors(name, *, dtypes=(torch.float32,), contiguous=True,
+                  **tensors) -> torch.device:
+    """Tensors of one of ``dtypes`` on one CPU or CUDA device, contiguous
+    on CUDA unless ``contiguous=False``; returns that device.  ``None``
+    entries are skipped."""
     given = {k: t for k, t in tensors.items() if t is not None}
     for k, t in given.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name}: {k} must be a torch.Tensor, got "
                             f"{type(t).__name__}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {k} must be float32, got {t.dtype}")
+        if t.dtype not in dtypes:
+            allowed = " or ".join(str(d).replace("torch.", "")
+                                  for d in dtypes)
+            raise TypeError(f"{name}: {k} must be {allowed}, got {t.dtype}")
     devices = {t.device for t in given.values()}
     if len(devices) != 1:
         raise ValueError(f"{name}: inputs lie on different devices "
@@ -49,7 +54,7 @@ def check_tensors(name, **tensors) -> torch.device:
     dev = devices.pop()
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {dev}")
-    if dev.type == "cuda":
+    if dev.type == "cuda" and contiguous:
         for k, t in given.items():
             if not t.is_contiguous():
                 raise ValueError(f"{name}: {k} must be contiguous")

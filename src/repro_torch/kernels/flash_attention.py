@@ -1,0 +1,73 @@
+"""Wrapper of the flash-attention CUDA kernel (``csrc/flash_attention.cu``).
+
+The PyTorch counterpart of the JAX package's
+``kernels/flash_attention_pallas.py``, with its signature less the TPU
+tile sizes.  CPU tensors run the plain version
+(:func:`repro_torch.kernels.ref.flash_attention_ref`); CUDA tensors launch
+the kernel, or raise.  The kernel reads q, k and v in the JAX layout
+through their strides (only the head dimension must be unit-stride), so
+the TPU wrapper's pads and transposes have no counterpart.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels._common import check_tensors, launched, stream
+
+#: head widths the kernel is instantiated for
+HEAD_DIMS = (32, 64, 128)
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None):
+    """GQA attention with an online softmax.
+
+    q (B, S, H, dh); k, v (B, T, K, dv) with H = K·G (q head h attends
+    KV head h // G), scores scaled by 1/sqrt(dh).  Masks: causal
+    ``t <= s``, window ``t > s - window``, with q and k positions 0..S-1
+    and 0..T-1.  Returns (B, S, H, dv) in v's dtype.
+    """
+    name = "flash_attention"
+    dev = check_tensors(name, dtypes=_DTYPES, contiguous=False, q=q, k=k,
+                        v=v)
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"{name}: q, k and v must be 4-D (B, S, H, d)")
+    B, S, H, dh = q.shape
+    T, K = k.shape[1], k.shape[2]
+    if k.shape[0] != B or v.shape[:3] != k.shape[:3] or k.shape[3] != dh:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)} "
+                         f"and v {tuple(v.shape)} do not match")
+    if H % K:
+        raise ValueError(f"{name}: {H} query heads over {K} KV heads")
+    if window is not None and int(window) < 1:
+        raise ValueError(f"{name}: window={window} must be >= 1")
+    if dev.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    if not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"{name}: q, k and v must share a dtype, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if dh not in HEAD_DIMS or v.shape[3] != dh:
+        raise ValueError(f"{name}: the CUDA kernel takes dh = dv in "
+                         f"{HEAD_DIMS}, got dh={dh}, dv={v.shape[3]}")
+    for label, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1:
+            raise ValueError(f"{name}: {label} must have unit stride along "
+                             f"its head dimension")
+    scale = 1.0 / np.sqrt(dh)
+    strides = (ctypes.c_longlong * 9)(*(t.stride(i) for t in (q, k, v)
+                                        for i in range(3)))
+    out = torch.empty((B, S, H, dh), dtype=v.dtype, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.rt_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _DTYPES.index(q.dtype), B, S, T, H, K, dh, scale, int(causal),
+            0 if window is None else int(window), strides, stream(dev))
+    _build.check(err, name)
+    launched(name)
+    return out

@@ -1,12 +1,17 @@
 """Public dispatch for the hand-written kernels.
 
-Counterpart of the JAX package's ``kernels/ops.py``.  There is no
-interpret mode: the device of the tensors decides, CPU tensors running
-the plain PyTorch versions and CUDA tensors the CUDA kernels (see
-:mod:`repro_torch.kernels.nystrom` and :mod:`repro_torch.kernels.affinity`).  ``set_use_pallas`` keeps the
-process-wide substrate switch of the JAX package under the same name;
-the toggle is lock-guarded and ``use_pallas_scoped`` restores the
-previous value on exit.
+Counterpart of the JAX package's ``kernels/ops.py``, for all ten
+kernels.  There is no interpret mode: the device of the tensors decides,
+CPU tensors running the plain PyTorch versions and CUDA tensors the CUDA
+kernels (see :mod:`repro_torch.kernels.nystrom`,
+:mod:`~repro_torch.kernels.affinity`,
+:mod:`~repro_torch.kernels.flash_attention` and
+:mod:`~repro_torch.kernels.ssd`).  ``set_use_pallas`` keeps the
+process-wide substrate switch of the JAX package under the same name:
+with it on, the LM's prefill attention runs :func:`flash_attention` and
+its SSD layers :func:`ssd_chunk` (``models/attention.py``,
+``models/mamba.py``).  The toggle is lock-guarded and
+``use_pallas_scoped`` restores the previous value on exit.
 """
 
 from __future__ import annotations
@@ -15,14 +20,16 @@ import contextlib
 import threading
 
 from repro_torch.kernels import affinity as _affinity
+from repro_torch.kernels import flash_attention as _flash_attention
 from repro_torch.kernels import nystrom as _nystrom
+from repro_torch.kernels import ssd as _ssd
 from repro_torch.kernels._common import LAUNCH_COUNTS, reset_launch_counts
 
 __all__ = ["LAUNCH_COUNTS", "reset_launch_counts", "set_use_pallas",
            "use_pallas", "use_pallas_scoped", "pairwise_sq_dists",
            "rbf_affinity", "rbf_cross_affinity", "nystrom_colsum",
            "nystrom_gram", "nystrom_extension", "panel_matmul",
-           "quantized_cross_affinity"]
+           "quantized_cross_affinity", "flash_attention", "ssd_chunk"]
 
 
 class _PallasToggle:
@@ -101,3 +108,11 @@ def panel_matmul(w, q, **kw):
 
 def quantized_cross_affinity(x, y, gamma, **kw):
     return _nystrom.quantized_cross_affinity(x, y, gamma, **kw)
+
+
+def flash_attention(q, k, v, **kw):
+    return _flash_attention.flash_attention(q, k, v, **kw)
+
+
+def ssd_chunk(xdt, cs, Bm, Cm):
+    return _ssd.ssd_chunk(xdt, cs, Bm, Cm)

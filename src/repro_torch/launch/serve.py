@@ -1,15 +1,35 @@
-"""The cohort-selection service, in PyTorch.
+"""Serving launchers in PyTorch: the LM decode engine and the cohort server.
 
-Port of ``CohortServer`` from the JAX package's ``launch/serve.py``: it
-owns the live client-embedding table (versioned, copy-on-write, so an
-update never tears a selection in flight) and a
+``Server`` is the continuous-batching LM server, a port of the JAX
+package's ``launch/serve.py::Server``.  A :class:`DecodeScheduler` owns a
+**slot table** (one KV-cache or SSM-state slot per batch lane,
+independently resettable) and a request queue.  Finished or cache-full
+requests retire their slot mid-decode and the next queued request is
+admitted into it by a slot-targeted prefill (``lm_prefill_slot``), so
+decode keeps running at full batch width with per-slot active masking.
+Decode uses per-request cache positions: row i writes its token's KV at
+``pos[i]`` and attends only ``[0, pos[i]]``, so each request's
+continuation equals decoding it alone.  The weights are drawn from an
+explicit generator on ``device`` (``"cuda"`` unless the caller passes
+``device="cpu"``).  With ``--use-pallas`` (``ops.set_use_pallas``) every
+prefill runs the flash-attention kernel (attention layers) or the SSD
+kernel (Mamba-2 layers); decode is plain PyTorch.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
+      --reduced --device cpu --batch 2 --requests 5 --mixed
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
+      --use-pallas --batch 4 --prompt-len 1024 --gen-len 32 --requests 6
+
+``CohortServer`` is the port of the JAX package's cohort-selection
+service: it owns the live client-embedding table (versioned,
+copy-on-write, so an update never tears a selection in flight) and a
 :class:`repro_torch.cohort.CohortEngine`, and answers cohort requests
 with a cluster-stratified draw (``policy="stratified"``) or with the
 paper's Algorithm II (``policy="dqn"``): a
 :class:`repro_torch.policy.ClusterPolicy` scores the clusters and draws
 the cohort ε-greedily, trained online from the accuracy reported back
 through ``observe_round``.  The engine and the Q-networks run on
-``device`` (``"cuda"`` unless the caller passes ``device="cpu"``).
+``device``.
 
 Not ported yet (they raise ``NotImplementedError``): background
 streaming re-clustering (``streaming=``), client-realism outcomes
@@ -23,17 +43,323 @@ that feed on them.
 from __future__ import annotations
 
 import argparse
+import collections
+import dataclasses
 import json
 import threading
 import time
-from typing import List, Optional
+from typing import Deque, List, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.cohort import CohortConfig, CohortEngine
+from repro_torch.device import resolve_device
 from repro_torch.fed.metrics import (cluster_policy_state, favor_reward,
                                      serving_state_dim)
+from repro_torch.models import transformer as T
 from repro_torch.policy import ClusterPolicy
+
+#: smoothing factor for the decode tokens/sec EMA in DecodeScheduler.stats().
+_TOK_S_EMA = 0.2
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray            # (prompt_len,) int32
+    max_new_tokens: int
+    generated: Optional[List[int]] = None
+
+
+class DecodeScheduler:
+    """Continuous-batching decode engine: slot table + request queue.
+
+    One cache **slot** per batch lane (``repro_torch.models.transformer.
+    init_lm_cache``: every leaf has the slot on axis 0).  Per
+    :meth:`step`:
+
+    1. **admit**: every free slot pops the queue; the new request's prompt
+       is prefilled into that slot only (``lm_prefill_slot`` zeroes the
+       lane and fills it), its first token is sampled from its own
+       last-prompt-position logits, and the slot's position starts at the
+       true (unpadded) prompt length.
+    2. **decode**: ONE ``lm_decode_step`` over the full batch with
+       per-request positions; empty slots ride along masked inactive
+       (their logits are dropped and they generate nothing).
+    3. **retire**: requests that produced ``max_new_tokens`` tokens, or
+       filled the cache (``truncated``), free their slot for the next
+       admit.
+
+    Sampling is greedy argmax, or Gumbel-max for temperature sampling
+    (``argmax(logits/T + Gumbel)``, one exact softmax draw per row) from a
+    numpy generator: the JAX package's numbers under the same seed.
+
+    Prompts are right-padded to a multiple of ``prefill_bucket``, as in
+    the JAX package (there it bounds jit retraces).  For attention the
+    padding changes nothing: the first token is sampled at the true last
+    prompt position and each padded KV entry is overwritten before the
+    mask exposes it.  The SSM recurrence and conv tail do run over the
+    padding, so for SSM archs the continuation depends on the bucket —
+    the JAX package's behaviour, reproduced here (ROADMAP §C).
+
+    Thread-safe: ``submit`` may race ``step``/``drain`` from another
+    thread.  ``_sched_lock`` (slot table + queue) ranks before
+    ``_stats_lock`` (counters, innermost), as in the JAX package's
+    serving lock order.
+    """
+
+    def __init__(self, cfg, params, batch: int, max_seq: int, *,
+                 seed: int = 0, temperature: float = 0.0,
+                 prefill_bucket: int = 8, device=None):
+        self.cfg = cfg
+        self.params = params
+        self.batch = batch
+        self.max_seq = max_seq
+        self.temperature = temperature
+        self.prefill_bucket = max(1, int(prefill_bucket))
+        self.device = resolve_device(device)
+        self._rng = np.random.default_rng(seed)
+
+        self._sched_lock = threading.Lock()
+        self._stats_lock = threading.Lock()
+        caches = T.init_lm_cache(cfg, batch, max_seq, device=self.device)
+        self.caches = caches                        # guarded-by: _sched_lock
+        self._reqs: List[Optional[Request]] = [None] * batch  # guarded-by: _sched_lock
+        self._pos = np.zeros(batch, np.int32)       # guarded-by: _sched_lock
+        self._tok = np.zeros(batch, np.int32)       # guarded-by: _sched_lock
+        self._need = np.zeros(batch, np.int64)      # guarded-by: _sched_lock
+        self._queue: Deque[Request] = collections.deque()  # guarded-by: _sched_lock
+        self._completed: List[Request] = []         # guarded-by: _sched_lock
+        self._counters = {  # guarded-by: _stats_lock
+            "admitted": 0, "retired": 0, "truncated": 0, "prefills": 0,
+            "decode_steps": 0, "decode_tokens": 0, "tokens_generated": 0}
+        self._decode_seconds = 0.0                  # guarded-by: _stats_lock
+        self._prefill_seconds = 0.0                 # guarded-by: _stats_lock
+        self._tok_s_ema = 0.0                       # guarded-by: _stats_lock
+
+    # -- sampling ---------------------------------------------------------
+    def _sample(self, logits: np.ndarray) -> np.ndarray:
+        """Greedy argmax, or one vectorized Gumbel-max softmax draw per
+        row (identical in distribution to ``rng.choice(p=softmax)``)."""
+        if self.temperature <= 0:
+            return np.argmax(logits, axis=-1).astype(np.int32)
+        z = logits / self.temperature
+        g = self._rng.gumbel(size=z.shape)
+        return np.argmax(z + g, axis=-1).astype(np.int32)
+
+    def _tokens(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(a, dtype=torch.long, device=self.device)
+
+    # -- request intake ---------------------------------------------------
+    def submit(self, request: Request) -> None:
+        """Enqueue one request; it is admitted when a slot frees up."""
+        plen = len(request.prompt)
+        if plen < 1:
+            raise ValueError(f"request {request.uid}: empty prompt")
+        if plen > self.max_seq:
+            raise ValueError(
+                f"request {request.uid}: prompt length {plen} exceeds "
+                f"max_seq {self.max_seq}")
+        with self._sched_lock:
+            self._queue.append(request)
+
+    # -- scheduler core ---------------------------------------------------
+    def step(self) -> bool:
+        """One scheduler tick: admit, decode once, retire.
+
+        A request with ``max_new_tokens <= 0`` completes at admission
+        without touching a slot.  Returns False only when the engine is
+        idle (no queued requests, no active slots).
+        """
+        with self._sched_lock:
+            # -- admit -------------------------------------------------
+            worked = False
+            for i in range(self.batch):
+                if self._reqs[i] is not None:
+                    continue
+                if not self._queue:
+                    break
+                req = self._queue.popleft()
+                worked = True
+                req.generated = []
+                if req.max_new_tokens <= 0:
+                    self._completed.append(req)
+                    with self._stats_lock:
+                        self._counters["retired"] += 1
+                    continue
+                plen = len(req.prompt)
+                bucket = self.prefill_bucket
+                padded = min(self.max_seq, -(-plen // bucket) * bucket)
+                toks = np.zeros((1, padded), np.int32)
+                toks[0, :plen] = req.prompt
+                t0 = time.perf_counter()
+                logits, self.caches = T.lm_prefill_slot(
+                    self.params, self.cfg, {"tokens": self._tokens(toks)},
+                    self.caches, i, last_pos=[plen - 1])
+                first = int(self._sample(logits.cpu().numpy())[0])
+                dt_prefill = time.perf_counter() - t0
+                req.generated.append(first)
+                # done at admit: single-token request, or no cache room
+                # left to write the first token's KV for further decode
+                done_now = req.max_new_tokens == 1 or plen >= self.max_seq
+                with self._stats_lock:
+                    self._counters["admitted"] += 1
+                    self._counters["prefills"] += 1
+                    self._counters["tokens_generated"] += 1
+                    self._prefill_seconds += dt_prefill
+                    if done_now:
+                        self._counters["retired"] += 1
+                        if req.max_new_tokens > 1:
+                            self._counters["truncated"] += 1
+                if done_now:
+                    self._completed.append(req)
+                    continue
+                self._reqs[i] = req
+                self._pos[i] = plen
+                self._tok[i] = first
+                self._need[i] = req.max_new_tokens - 1
+
+            # -- decode ------------------------------------------------
+            active = np.flatnonzero(self._need > 0)
+            if active.size == 0:
+                return worked
+            t0 = time.perf_counter()
+            logits, self.caches = T.lm_decode_step(
+                self.params, self.cfg, self._tokens(self._tok[:, None]),
+                self.caches, self._tokens(self._pos))
+            nxt = self._sample(logits.cpu().numpy())
+            dt = time.perf_counter() - t0
+
+            # -- retire ------------------------------------------------
+            retired = truncated = 0
+            for i in active:
+                req = self._reqs[i]
+                req.generated.append(int(nxt[i]))
+                self._tok[i] = nxt[i]
+                self._pos[i] += 1
+                self._need[i] -= 1
+                if self._need[i] <= 0:
+                    self._reqs[i] = None
+                    self._need[i] = 0
+                    self._completed.append(req)
+                    retired += 1
+                elif self._pos[i] >= self.max_seq:
+                    # cache full: retire mid-decode with what we have
+                    self._reqs[i] = None
+                    self._need[i] = 0
+                    self._completed.append(req)
+                    retired += 1
+                    truncated += 1
+            with self._stats_lock:
+                # only REAL generated tokens count: inactive slots
+                # produce nothing
+                self._counters["retired"] += retired
+                self._counters["truncated"] += truncated
+                self._counters["decode_steps"] += 1
+                self._counters["decode_tokens"] += int(active.size)
+                self._counters["tokens_generated"] += int(active.size)
+                self._decode_seconds += dt
+                rate = active.size / max(dt, 1e-9)
+                self._tok_s_ema = (
+                    rate if self._counters["decode_steps"] == 1
+                    else self._tok_s_ema
+                    + _TOK_S_EMA * (rate - self._tok_s_ema))
+        return True
+
+    def completed(self) -> List[Request]:
+        """Harvest requests finished so far without driving the engine."""
+        with self._sched_lock:
+            done, self._completed = self._completed, []
+        return done
+
+    def drain(self) -> List[Request]:
+        """Run the scheduler until idle; return newly completed requests."""
+        while self.step():
+            pass
+        return self.completed()
+
+    # -- observability ----------------------------------------------------
+    def stats(self) -> dict:
+        """Serving dashboard: slot occupancy, queue depth, counters.
+
+        The JAX package's keys, plus ``prefill_seconds`` (host clock from
+        the prefill call to the first token's sample, which waits for the
+        device).  ``decode_tokens`` counts only tokens generated by decode
+        steps; ``tokens_generated`` adds each request's first token;
+        ``tok_s_ema`` smooths the per-step decode rate.
+        """
+        with self._sched_lock:
+            occupied = sum(r is not None for r in self._reqs)
+            queue_depth = len(self._queue)
+            with self._stats_lock:
+                counters = dict(self._counters)
+                decode_seconds = self._decode_seconds
+                prefill_seconds = self._prefill_seconds
+                tok_s_ema = self._tok_s_ema
+        return {
+            **counters,
+            "slots": self.batch,
+            "occupied": occupied,
+            "queue_depth": queue_depth,
+            "decode_seconds": decode_seconds,
+            "prefill_seconds": prefill_seconds,
+            "tok_s_ema": tok_s_ema,
+        }
+
+
+class Server:
+    """Continuous-batching LM server over a :class:`DecodeScheduler`.
+
+    The weights are drawn from a ``torch.Generator`` on ``device`` seeded
+    with ``seed``.  ``serve_batch`` submits every request, drains, and
+    returns them (mutated in place, original order).
+    """
+
+    def __init__(self, cfg, batch: int, max_seq: int, *, seed: int = 0,
+                 temperature: float = 0.0, prefill_bucket: int = 8,
+                 device=None):
+        self.cfg = cfg
+        self.batch = batch
+        self.max_seq = max_seq
+        self.temperature = temperature
+        self.device = resolve_device(device)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.params = T.init_lm(gen, cfg, device=self.device)
+        self.scheduler = DecodeScheduler(
+            cfg, self.params, batch, max_seq, seed=seed,
+            temperature=temperature, prefill_bucket=prefill_bucket,
+            device=self.device)
+        self.last_decode_tok_s = 0.0
+
+    def submit(self, request: Request) -> None:
+        self.scheduler.submit(request)
+
+    def drain(self) -> List[Request]:
+        return self.scheduler.drain()
+
+    def stats(self) -> dict:
+        """Scheduler stats plus the last ``serve_batch`` decode rate."""
+        return {**self.scheduler.stats(),
+                "last_decode_tok_s": self.last_decode_tok_s}
+
+    def serve_batch(self, requests: List[Request]) -> List[Request]:
+        """Serve ``requests`` to completion and return them in order.
+
+        ``last_decode_tok_s`` counts only real generated tokens over the
+        decode wall time of this call.
+        """
+        if not requests:
+            return []
+        before = self.scheduler.stats()
+        for req in requests:
+            self.scheduler.submit(req)
+        self.scheduler.drain()
+        after = self.scheduler.stats()
+        toks = after["decode_tokens"] - before["decode_tokens"]
+        secs = after["decode_seconds"] - before["decode_seconds"]
+        self.last_decode_tok_s = toks / max(secs, 1e-9)
+        return list(requests)
 
 #: smoothing factor for the server's per-phase latency EMAs.
 _LATENCY_EMA = 0.2
@@ -416,10 +742,61 @@ def _cohort_main(args) -> None:
                                       default=float))
 
 
+def _lm_main(args) -> None:
+    """LM demo: random weights, random prompts, served to completion."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    rng = np.random.default_rng(args.seed)
+    server = Server(cfg, args.batch, args.prompt_len + args.gen_len,
+                    temperature=args.temperature, seed=args.seed,
+                    device=args.device)
+    reqs = []
+    for i in range(args.requests or args.batch):
+        if args.mixed:
+            plen = int(rng.integers(1, args.prompt_len + 1))
+            gen = int(rng.integers(1, args.gen_len + 1))
+        else:
+            plen, gen = args.prompt_len, args.gen_len
+        reqs.append(Request(i, rng.integers(0, cfg.vocab_size,
+                                            plen).astype(np.int32), gen))
+    t0 = time.perf_counter()
+    with ops.use_pallas_scoped(args.use_pallas):
+        done = server.serve_batch(reqs)
+    stats = server.stats()
+    print(f"served {len(done)} requests in {time.perf_counter() - t0:.1f}s "
+          f"on {server.device} ({server.last_decode_tok_s:,.1f} decode "
+          f"tok/s)")
+    print(f"scheduler: admitted={stats['admitted']} "
+          f"retired={stats['retired']} truncated={stats['truncated']} "
+          f"decode_steps={stats['decode_steps']} "
+          f"decode_tokens={stats['decode_tokens']} "
+          f"tok_s_ema={stats['tok_s_ema']:,.1f}")
+    for r in done[:2]:
+        print(f"req {r.uid}: first 10 generated tokens {r.generated[:10]}")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--cohort", type=int, required=True, metavar="N",
-                    help="serve cohort selection for N clients")
+    ap.add_argument("--arch", default="gemma-2b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen-len", type=int, default=32)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--requests", type=int, default=0, metavar="R",
+                    help="total LM requests to serve (default: one per "
+                         "batch slot); R > batch exercises the "
+                         "admit/retire scheduler")
+    ap.add_argument("--mixed", action="store_true",
+                    help="draw mixed prompt/generation lengths instead "
+                         "of uniform --prompt-len/--gen-len")
+    ap.add_argument("--cohort", type=int, default=0, metavar="N",
+                    help="serve cohort selection for N clients instead "
+                         "of the LM loop")
     ap.add_argument("--cohort-size", type=int, default=64)
     ap.add_argument("--num-clusters", type=int, default=8)
     ap.add_argument("--num-landmarks", default=None,
@@ -431,13 +808,19 @@ def main(argv=None) -> None:
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--use-pallas", action="store_true",
-                    help="run the landmark solve through the fused CUDA "
-                         "kernels (the JAX package's use_pallas knob)")
+                    help="run the hand-written CUDA kernels: the fused "
+                         "landmark solve (--cohort), or the flash-attention "
+                         "and SSD prefill (LM mode); the JAX package's "
+                         "use_pallas knob")
     ap.add_argument("--affinity-dtype", default="f32",
                     choices=["f32", "bf16", "int8"])
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
-    _cohort_main(ap.parse_args(argv))
+    args = ap.parse_args(argv)
+    if args.cohort:
+        _cohort_main(args)
+    else:
+        _lm_main(args)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,269 @@
+"""Grouped-query attention with a KV cache: prefill, per-row decode, window.
+
+Port of the JAX package's ``models/attention.py`` for causal
+self-attention: GQA and MQA, qk-norm, QKV bias, sliding windows, the
+scalar and per-request ``cache_pos`` cache writes, and the windowed
+long-context decode slice.  Cross-attention (``memory=``/``cross=``)
+raises ``NotImplementedError`` (the encoder-decoder slice).
+
+Modes
+-----
+* full   : (B, S, d) -> (B, S, d), causal mask.
+* cache  : ``cache`` {k, v: (B, S_max, K, hd)} and ``cache_pos``, a
+           scalar (every row writes at one position: a prefill block) or
+           a per-request (B,) vector (decode, S == 1: row i writes at
+           ``cache_pos[i]`` and attends only ``[0, cache_pos[i]]``).
+
+The port writes the cache in place (the JAX package returns new arrays):
+a decode step touches one row per request instead of copying every
+layer's cache.  The returned cache is the dict it was given.
+
+With ``ops.use_pallas()`` on, causal self-attention of a prompt (S > 1,
+no logit softcap, q positions ``0..S-1`` when a cache is given) runs the
+flash-attention kernel (:func:`repro_torch.kernels.ops.flash_attention`,
+B9); in the cache case k/v are the whole ``max_seq`` cache, and the
+kernel's causal mask and block skip keep the entries past the prompt
+out of reach.  Everything else is the plain path: the einsum below
+``BLOCKED_ATTN_THRESHOLD`` and :func:`blocked_attention` at or above it,
+as in the JAX package, whose own decode is an einsum too.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+
+NEG_INF = -1e30
+# sequence length at/above which the plain full-attention path switches
+# from the einsum to the memory-bounded blocked path
+BLOCKED_ATTN_THRESHOLD = 2048
+
+
+def attn_init(gen, cfg, *, device=None):
+    dt = cfg.param_dtype
+    d = cfg.d_model
+    kw = dict(dtype=dt, device=device)
+    p = {"wq": L.dense_init(gen, d, cfg.q_dim, bias=cfg.qkv_bias, **kw),
+         "wk": L.dense_init(gen, d, cfg.kv_dim, bias=cfg.qkv_bias, **kw),
+         "wv": L.dense_init(gen, d, cfg.kv_dim, bias=cfg.qkv_bias, **kw),
+         "wo": L.dense_init(gen, cfg.q_dim, d, **kw)}
+    if cfg.qk_norm:
+        p["q_norm"] = L.rmsnorm_init(cfg.head_dim, **kw)
+        p["k_norm"] = L.rmsnorm_init(cfg.head_dim, **kw)
+    return p
+
+
+def init_kv_cache(cfg, batch: int, max_seq: int, dtype=None, device=None):
+    dtype = L.dtype_of(dtype or cfg.compute_dtype)
+    shape = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _split_heads(x, n, hd):
+    return x.reshape(*x.shape[:-1], n, hd)
+
+
+def _gqa_scores(q, k):
+    """(B,S,H,hd) x (B,T,K,hd) -> (B,K,H/K,S,T) grouped scores, f32."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    q = q.reshape(B, S, K, H // K, hd)
+    return torch.einsum("bskgd,btkd->bkgst", q.float(), k.float())
+
+
+def _gqa_out(w, v):
+    """(B,K,H/K,S,T) x (B,T,K,hd) -> (B,S,H,hd) in v's dtype."""
+    B, K, G, S, T = w.shape
+    out = torch.einsum("bkgst,btkd->bskgd", w.to(v.dtype), v)
+    return out.reshape(B, S, K * G, v.shape[-1])
+
+
+def make_mask(q_positions, k_positions, *, causal: bool, window=None):
+    """Boolean mask broadcastable to (..., S_q, S_k); True = attend."""
+    qp = q_positions[..., :, None]
+    kp = k_positions[..., None, :]
+    mask = torch.ones(torch.broadcast_shapes(qp.shape, kp.shape),
+                      dtype=torch.bool, device=qp.device)
+    if causal:
+        mask &= kp <= qp
+    if window is not None:
+        mask &= kp > qp - window
+    return mask
+
+
+def blocked_attention(q, k, v, *, causal=True, window=None, softcap=None,
+                      q_positions=None, k_positions=None, q_chunk=256,
+                      kv_chunk=512):
+    """Online-softmax attention over (q_chunk, kv_chunk) blocks, plain
+    PyTorch: the JAX package's memory-bounded path for long prompts.
+
+    q: (B, Sq, H, d); k/v: (B, T, K, dv) with H = K * G.  Returns
+    (B, Sq, H, dv) in v's dtype.
+    """
+    B, Sq, H, dh = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    dv = v.shape[-1]
+    dev = q.device
+    scale = 1.0 / np.sqrt(dh)
+    if q_positions is None:
+        q_positions = torch.arange(Sq, device=dev)
+    if k_positions is None:
+        k_positions = torch.arange(T, device=dev)
+    q_chunk = min(q_chunk, Sq)
+    kv_chunk = min(kv_chunk, T)
+    pq = (-Sq) % q_chunk
+    pk = (-T) % kv_chunk
+    qp = torch.nn.functional.pad(q_positions, (0, pq), value=-1)
+    kp = torch.nn.functional.pad(k_positions, (0, pk), value=2 ** 30)
+    qq = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pq))
+    kk = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pk))
+    vv = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pk))
+    nq, nk = (Sq + pq) // q_chunk, (T + pk) // kv_chunk
+    qq = qq.reshape(B, nq, q_chunk, K, G, dh)
+    kk = kk.reshape(B, nk, kv_chunk, K, dh)
+    vv = vv.reshape(B, nk, kv_chunk, K, dv)
+    qp = qp.reshape(nq, q_chunk)
+    kp = kp.reshape(nk, kv_chunk)
+
+    outs = []
+    for qi in range(nq):
+        q_blk, qpos = qq[:, qi], qp[qi]
+        m = torch.full((B, K, G, q_chunk), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, K, G, q_chunk), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, K, G, q_chunk, dv), dtype=torch.float32,
+                          device=dev)
+        for kj in range(nk):
+            k_blk, v_blk, kpos = kk[:, kj], vv[:, kj], kp[kj]
+            s = torch.einsum("bqkgd,btkd->bkgqt", q_blk.float(),
+                             k_blk.float()) * scale
+            if softcap:
+                s = torch.tanh(s / softcap) * softcap
+            msk = kpos[None, :] < T
+            if causal:
+                msk = msk & (kpos[None, :] <= qpos[:, None])
+            if window is not None:
+                msk = msk & (kpos[None, :] > qpos[:, None] - window)
+            s = torch.where(msk, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(-1))
+            p_ = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p_.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqt,btkd->bkgqd", p_.to(v_blk.dtype).float(),
+                v_blk.float())
+            m = m_new
+        out = acc / torch.clamp_min(l, 1e-30)[..., None]   # (B,K,G,Qc,dv)
+        outs.append(out.permute(0, 3, 1, 2, 4))             # (B,Qc,K,G,dv)
+    out = torch.stack(outs, 1).reshape(B, Sq + pq, H, dv)
+    return out[:, :Sq].to(v.dtype)
+
+
+def _write_cache(cache, k, v, cache_pos, per_row):
+    """Write this step's k/v into the cache in place."""
+    if per_row:
+        rows = torch.arange(k.shape[0], device=k.device)
+        pos = torch.as_tensor(cache_pos, device=k.device)
+        cache["k"][rows, pos] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][rows, pos] = v[:, 0].to(cache["v"].dtype)
+    else:
+        # the JAX dynamic_update_slice clamps the start so the block fits
+        S = k.shape[1]
+        start = max(0, min(int(cache_pos), cache["k"].shape[1] - S))
+        cache["k"][:, start:start + S] = k.to(cache["k"].dtype)
+        cache["v"][:, start:start + S] = v.to(cache["v"].dtype)
+
+
+def _flash_route(S, cfg, positions, cache, cache_pos) -> bool:
+    """Whether this call's attention runs the flash-attention kernel."""
+    if not ops.use_pallas() or S <= 1 or cfg.logit_softcap:
+        return False
+    if positions.dim() != 1:
+        return False
+    # with a cache, the kernel's q positions 0..S-1 are the prompt's
+    return cache is None or (isinstance(cache_pos, int) and cache_pos == 0)
+
+
+def attention(p, x, cfg, *, positions, causal=True, window=None,
+              memory=None, cross=False, cache=None, cache_pos=None):
+    """Unified attention entry point.
+
+    Args:
+      p: params from :func:`attn_init`.
+      x: (B, S, d) queries' residual stream.
+      positions: (S,) or (B, S) absolute positions for RoPE and masking.
+      causal / window: mask controls.
+      cache / cache_pos: KV cache, written in place; ``cache_pos`` is the
+        write position (an int, or a (B,) tensor for per-row decode).
+
+    Returns (out, cache) — cache is None unless one was given.
+    """
+    if cross or memory is not None:
+        raise NotImplementedError(
+            "cross-attention is not ported to repro_torch yet (ROADMAP "
+            "A11: the encoder-decoder family)")
+    B, S, _ = x.shape
+    x = x.to(L.dtype_of(cfg.compute_dtype))
+    q = _split_heads(L.dense(p["wq"], x), cfg.num_heads, cfg.head_dim)
+    k = _split_heads(L.dense(p["wk"], x), cfg.num_kv_heads, cfg.head_dim)
+    v = _split_heads(L.dense(p["wv"], x), cfg.num_kv_heads, cfg.head_dim)
+    if "q_norm" in p:
+        q = L.rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = L.rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+
+    flash = _flash_route(S, cfg, positions, cache, cache_pos)
+    if cache is not None:
+        per_row = torch.is_tensor(cache_pos) and cache_pos.dim() == 1
+        if per_row and S != 1:
+            raise ValueError(
+                "per-request cache_pos requires S == 1 (decode); "
+                "slot-targeted prefill goes through lm_prefill_slot")
+        _write_cache(cache, k, v, cache_pos, per_row)
+        k, v = cache["k"], cache["v"]
+        k_positions = torch.arange(k.shape[1], device=x.device)
+        causal = True
+        if window is not None and S == 1 and not per_row \
+                and k.shape[1] > 2 * window:
+            # windowed long-context decode reads only the live window of
+            # the cache instead of masking all of it
+            start = max(0, min(int(cache_pos) - window + 1,
+                               k.shape[1] - window))
+            k = k[:, start:start + window]
+            v = v[:, start:start + window]
+            k_positions = start + torch.arange(window, device=x.device)
+    else:
+        k_positions = positions
+
+    if flash:
+        out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    else:
+        q_pos1d = positions if positions.dim() == 1 else positions[0]
+        k_pos1d = k_positions if k_positions.dim() == 1 else k_positions[0]
+        # per-request positions keep their (B, S) shape, so every row
+        # masks against its own write position
+        q_pos2d = positions if positions.dim() == 2 else q_pos1d[None]
+        if S >= BLOCKED_ATTN_THRESHOLD:
+            out = blocked_attention(
+                q, k, v, causal=causal, window=window,
+                softcap=cfg.logit_softcap, q_positions=q_pos1d,
+                k_positions=k_pos1d)
+        else:
+            mask = make_mask(q_pos2d, k_pos1d[None], causal=causal,
+                             window=window if causal else None)
+            scores = _gqa_scores(q, k) / np.sqrt(cfg.head_dim)
+            if cfg.logit_softcap:
+                cap = cfg.logit_softcap
+                scores = torch.tanh(scores / cap) * cap
+            scores = torch.where(mask[:, None, None], scores,
+                                 torch.full_like(scores, NEG_INF))
+            w = torch.softmax(scores, dim=-1)
+            out = _gqa_out(w, v)
+    out = L.dense(p["wo"], out.reshape(B, S, cfg.q_dim))
+    return out, cache

@@ -1,0 +1,240 @@
+"""Mamba-2 mixer via the SSD (state-space duality) chunked algorithm.
+
+Port of the JAX package's ``models/mamba.py`` (arXiv:2405.21060).  A
+prompt runs the chunked SSD form: within a chunk a masked-decay
+quadratic form, across chunks a small recurrence over (H, P, N) states;
+decode is the O(1)-per-token recurrence.
+
+Shapes: d_inner = expand·d_model, H = d_inner/P heads, G groups for B/C,
+N state dim.  Cache = {"conv": (B, W-1, d_conv_ch), "ssm": (B, H, P, N)}.
+
+With ``ops.use_pallas()`` on, :func:`_ssd_chunked` computes the
+intra-chunk outputs and the per-chunk states of every chunk with one
+launch of the SSD kernel (:func:`repro_torch.kernels.ops.ssd_chunk`,
+B10), then runs the inter-chunk recurrence as a loop over chunks in
+plain PyTorch: the split ``kernels/ssd_pallas.py`` prescribes.  With it
+off, every chunk runs the JAX package's plain step.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+
+
+def mamba_init(gen, cfg, *, device=None):
+    s = cfg.ssm
+    d = cfg.d_model
+    di = s.d_inner(d)
+    H = s.num_heads(d)
+    gn = s.num_groups * s.d_state
+    conv_ch = di + 2 * gn
+    dt = L.dtype_of(cfg.param_dtype)
+    f32 = dict(dtype=torch.float32, device=device)
+    in_proj = L.dense_init(gen, d, 2 * di + 2 * gn + H,
+                           dtype=cfg.param_dtype, device=device)
+    conv_w = (torch.randn((s.conv_width, conv_ch), generator=gen, **f32)
+              / np.sqrt(s.conv_width)).to(dt)
+    # dt bias: softplus^-1 of dt ~ logU[1e-3, 0.1] (the mamba2 init)
+    u = torch.rand((H,), generator=gen, **f32)
+    dt0 = torch.exp(u * (np.log(0.1) - np.log(1e-3)) + np.log(1e-3))
+    dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
+    return {
+        "in_proj": in_proj,
+        "conv_w": conv_w,
+        "conv_b": torch.zeros((conv_ch,), dtype=dt, device=device),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, H, **f32)),
+        "D": torch.ones((H,), **f32),
+        "dt_bias": dt_bias,
+        "gated_norm": L.rmsnorm_init(di, dtype=cfg.param_dtype,
+                                     device=device),
+        "out_proj": L.dense_init(gen, di, d, dtype=cfg.param_dtype,
+                                 device=device),
+    }
+
+
+def init_mamba_cache(cfg, batch: int, dtype=None, device=None):
+    s = cfg.ssm
+    d = cfg.d_model
+    di = s.d_inner(d)
+    H = s.num_heads(d)
+    gn = s.num_groups * s.d_state
+    dtype = L.dtype_of(dtype or cfg.compute_dtype)
+    return {
+        "conv": torch.zeros((batch, s.conv_width - 1, di + 2 * gn),
+                            dtype=dtype, device=device),
+        "ssm": torch.zeros((batch, H, s.head_dim, s.d_state),
+                           dtype=torch.float32, device=device),
+    }
+
+
+def _causal_conv(u, w, b):
+    """Depthwise causal conv via shifted adds (the width is tiny)."""
+    W = w.shape[0]
+    out = u * w[-1].to(u.dtype)
+    for i in range(1, W):
+        shifted = F.pad(u[:, :-i], (0, 0, i, 0))
+        out = out + shifted * w[W - 1 - i].to(u.dtype)
+    return out + b.to(u.dtype)
+
+
+def _split_in_proj(p, x, cfg):
+    s = cfg.ssm
+    di = s.d_inner(cfg.d_model)
+    gn = s.num_groups * s.d_state
+    zxbcdt = L.dense(p["in_proj"], x)
+    return (zxbcdt[..., :di], zxbcdt[..., di: 2 * di + 2 * gn],
+            zxbcdt[..., 2 * di + 2 * gn:])
+
+
+def _intra_chunk_plain(xg, csg, bc, cc, mask):
+    """One chunk's (y_diag, state), the JAX package's plain step.
+
+    xg (b,Q,G,R,P), csg (b,Q,G,R), bc/cc (b,Q,G,N) -> ((b,Q,G,R,P),
+    (b,G,R,P,N)).
+    """
+    att = torch.einsum("bqgn,blgn->bgql", cc.float(), bc.float())
+    diff = csg[:, :, :, :, None] - torch.movedim(csg, 1, -1)[:, None]
+    ldec = torch.where(mask[None], torch.exp(diff), torch.zeros_like(diff))
+    m = torch.einsum("bgql,bqgrl->bqgrl", att, ldec)
+    y_diag = torch.einsum("bqgrl,blgrp->bqgrp", m, xg)
+    decay_last = torch.exp(csg[:, -1:] - csg)
+    state = torch.einsum("bqgn,bqgr,bqgrp->bgrpn", bc.float(), decay_last,
+                         xg)
+    return y_diag, state
+
+
+def _ssd_chunked(xh, dt, A, Bm, Cm, cfg, h0):
+    """Chunked SSD scan.
+
+    xh (b,s,H,P), dt (b,s,H) post-softplus, A (H,) negative, Bm/Cm
+    (b,s,G,N).  Returns (y (b,s,H,P) f32, h_final (b,H,P,N) f32).
+    """
+    s_cfg = cfg.ssm
+    b, S, H, P = xh.shape
+    G = s_cfg.num_groups
+    N = s_cfg.d_state
+    R = H // G
+    Q = min(s_cfg.chunk_size, S)
+    pad = (-S) % Q
+    if pad:
+        # dt pads with ZEROS (post-softplus): a padded step neither decays
+        # the carried state (exp(dt*A) = 1) nor injects input (dt*B*x = 0),
+        # so the final state handed to decode stays right
+        def pz(a):
+            return F.pad(a, (0, 0) * (a.dim() - 2) + (0, pad))
+        xh, dt, Bm, Cm = pz(xh), pz(dt), pz(Bm), pz(Cm)
+    Sp = S + pad
+    c = Sp // Q
+
+    xdt = xh * dt[..., None]                                  # (b,Sp,H,P)
+    dA = (dt * A).reshape(b, c, Q, H).float()                 # negative
+    cs = torch.cumsum(dA, dim=2)                              # (b,c,Q,H)
+    x_g = xdt.reshape(b, c, Q, G, R, P).float()
+    cs_g = cs.reshape(b, c, Q, G, R)
+    Bc = Bm.reshape(b, c, Q, G, N)
+    Cc = Cm.reshape(b, c, Q, G, N)
+
+    # one read of the process-wide toggle serves both branches below
+    kernel = ops.use_pallas()
+    if kernel:
+        # every chunk's intra-chunk half in one kernel launch
+        y_diag_all, states = ops.ssd_chunk(
+            xdt.reshape(b, c, Q, H, P).float().contiguous(), cs.contiguous(),
+            Bc.contiguous(), Cc.contiguous())
+        y_diag_all = y_diag_all.reshape(b, c, Q, G, R, P)
+        states = states.reshape(b, c, G, R, P, N)
+    else:
+        mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
+                                     device=xh.device))[:, None, None, :]
+
+    h = (torch.zeros((b, G, R, P, N), dtype=torch.float32, device=xh.device)
+         if h0 is None else h0.float())
+    ys = []
+    for ci in range(c):
+        csg = cs_g[:, ci]
+        cc = Cc[:, ci]
+        if kernel:
+            y_diag, state = y_diag_all[:, ci], states[:, ci]
+        else:
+            y_diag, state = _intra_chunk_plain(x_g[:, ci], csg, Bc[:, ci],
+                                               cc, mask)
+        y_off = torch.einsum("bqgn,bgrpn,bqgr->bqgrp", cc.float(), h,
+                             torch.exp(csg))
+        chunk_decay = torch.exp(csg[:, -1])                   # (b,G,R)
+        h = h * chunk_decay[..., None, None] + state
+        ys.append(y_diag + y_off)
+    y = torch.stack(ys, 1).reshape(b, Sp, H, P)
+    if pad:
+        y = y[:, :S]
+    return y, h.reshape(b, H, P, N)
+
+
+def mamba_apply(p, x, cfg, *, cache=None):
+    """Mamba2 mixer.  x: (B,S,d) -> (out, new_cache)."""
+    s = cfg.ssm
+    di = s.d_inner(cfg.d_model)
+    H = s.num_heads(cfg.d_model)
+    P = s.head_dim
+    G, N = s.num_groups, s.d_state
+    cdt = L.dtype_of(cfg.compute_dtype)
+    x = x.to(cdt)
+    B_, S, _ = x.shape
+
+    z, xbc_pre, dt_raw = _split_in_proj(p, x, cfg)
+    A = -torch.exp(p["A_log"])                                 # (H,)
+
+    if cache is None or S > 1:
+        if cache is not None:
+            # continuation: the causal conv needs the previous W-1 inputs
+            tail = cache["conv"].to(xbc_pre.dtype)
+            xbc_in = torch.cat([tail, xbc_pre], dim=1)
+            xbc = F.silu(_causal_conv(xbc_in, p["conv_w"],
+                                      p["conv_b"]))[:, tail.shape[1]:]
+        else:
+            xbc = F.silu(_causal_conv(xbc_pre, p["conv_w"], p["conv_b"]))
+        xh = xbc[..., :di].reshape(B_, S, H, P)
+        Bm = xbc[..., di: di + G * N].reshape(B_, S, G, N)
+        Cm = xbc[..., di + G * N:].reshape(B_, S, G, N)
+        dt = F.softplus(dt_raw.float() + p["dt_bias"])         # (B,S,H)
+        h0 = None
+        if cache is not None:
+            h0 = cache["ssm"].reshape(B_, G, H // G, P, N)
+        y, h_fin = _ssd_chunked(xh, dt, A, Bm, Cm, cfg, h0)
+        new_cache = None
+        if cache is not None:
+            tail = s.conv_width - 1
+            conv_tail = xbc_pre[:, -tail:] if S >= tail else torch.cat(
+                [cache["conv"][:, S:], xbc_pre], dim=1)
+            new_cache = {"conv": conv_tail.to(cache["conv"].dtype),
+                         "ssm": h_fin}
+        xh_full = xh
+    else:
+        # -- single-token recurrent decode --------------------------------
+        window = torch.cat([cache["conv"].to(cdt), xbc_pre], dim=1)  # (B,W,ch)
+        xbc = torch.einsum("bwc,wc->bc", window, p["conv_w"].to(cdt))
+        xbc = F.silu(xbc + p["conv_b"].to(cdt))
+        xh = xbc[:, :di].reshape(B_, H, P)
+        Bm = xbc[:, di: di + G * N].reshape(B_, G, N)
+        Cm = xbc[:, di + G * N:].reshape(B_, G, N)
+        dt = F.softplus(dt_raw[:, 0].float() + p["dt_bias"])  # (B,H)
+        h = cache["ssm"]                                       # (B,H,P,N)
+        decay = torch.exp(dt * A)                              # (B,H)
+        Bh = torch.repeat_interleave(Bm, H // G, dim=1)        # (B,H,N)
+        Ch = torch.repeat_interleave(Cm, H // G, dim=1)
+        upd = (dt[..., None] * xh).float()                     # (B,H,P)
+        h = h * decay[..., None, None] + upd[..., None] * Bh[:, :, None,
+                                                             :].float()
+        y = torch.einsum("bhpn,bhn->bhp", h, Ch.float()).reshape(B_, 1, H, P)
+        new_cache = {"conv": window[:, 1:].to(cache["conv"].dtype),
+                     "ssm": h}
+        xh_full = xh.reshape(B_, 1, H, P)
+
+    y = y + p["D"][None, None, :, None] * xh_full.to(y.dtype)
+    y = y.reshape(B_, S, di).to(cdt)
+    y = L.rmsnorm(p["gated_norm"], y * F.silu(z), cfg.norm_eps)
+    return L.dense(p["out_proj"], y), new_cache

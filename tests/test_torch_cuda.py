@@ -15,9 +15,11 @@ import pytest
 import torch
 
 from repro_torch.cohort import CohortConfig, CohortEngine
+from repro_torch.configs import get_config
 from repro_torch.core import spectral
 from repro_torch.kernels import nystrom as kn
 from repro_torch.kernels import ops, ref
+from repro_torch.models import transformer as T
 
 DTYPES = ("f32", "bf16", "int8")
 FUSED = ("quantized_cross_affinity", "nystrom_colsum", "nystrom_gram",
@@ -158,3 +160,111 @@ def test_dense_spectral_cluster_on_the_card_launches_b7(cuda_device):
     pairs = {(int(a), int(b)) for a, b in zip(card.cpu().numpy(),
                                               cpu.numpy())}
     assert len(pairs) == len(set(cpu.tolist()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, S, T_len, H, K, dh, causal, window", [
+    (2, 33, 33, 4, 4, 32, True, None),       # ragged, G = 1
+    (1, 50, 90, 7, 1, 64, True, None),       # T > S (a cache), G = 7
+    (2, 70, 70, 8, 2, 128, False, None),     # non-causal
+    (1, 97, 130, 4, 2, 64, True, 8),         # window 8
+    (1, 2048, 2112, 28, 4, 128, True, None),  # qwen2-7b's prefill, 33 tiles
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain_version(cuda_device, B, S, T_len, H,
+                                               K, dh, causal, window,
+                                               dtype):
+    rng = np.random.default_rng(4)
+
+    def t(*shape):
+        return torch.tensor(rng.normal(size=shape), dtype=dtype,
+                            device=cuda_device)
+
+    q, k, v = t(B, S, H, dh), t(B, T_len, K, dh), t(B, T_len, K, dh)
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.LAUNCH_COUNTS["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == (B, S, H, dh)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    if dtype == torch.float32:
+        # summation order only
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+    else:
+        # both sides round an f32 result to bf16, so they may differ by
+        # one unit in the last place (at most 2^-7 of the value); the
+        # floor covers entries near zero
+        w = want.float()
+        diff = (got.float() - w).abs()
+        limit = 2.0 ** -7 * w.abs() + 1e-3 * torch.sqrt(torch.mean(w * w))
+        assert bool((diff <= limit).all()), float((diff / limit).max())
+
+
+@pytest.mark.cuda
+def test_flash_attention_reads_strided_inputs(cuda_device):
+    rng = np.random.default_rng(5)
+    qkv = torch.tensor(rng.normal(size=(1, 40, 3, 4, 32)),
+                       dtype=torch.float32, device=cuda_device)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]   # not contiguous
+    got = ops.flash_attention(q, k, v)
+    want = ref.flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="dh"):
+        ops.flash_attention(*(torch.zeros((1, 4, 2, 48), device=cuda_device)
+                              for _ in range(3)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, c, Q, H, G, P, N", [
+    (2, 3, 8, 4, 2, 16, 16),         # the reduced shapes, G = 2
+    (1, 2, 19, 2, 1, 16, 16),        # Q not a multiple of the tile
+    (1, 2, 256, 4, 1, 64, 128),      # mamba2's chunk, four row tiles
+])
+@pytest.mark.parametrize("bc_dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_matches_plain_version(cuda_device, B, c, Q, H, G, P, N,
+                                         bc_dtype):
+    rng = np.random.default_rng(6)
+
+    def t(*shape, dtype=torch.float32):
+        return torch.tensor(rng.normal(size=shape), dtype=dtype,
+                            device=cuda_device)
+
+    xdt = t(B, c, Q, H, P)
+    cs = torch.cumsum(-t(B, c, Q, H).abs() * 0.1, dim=2)
+    Bm, Cm = t(B, c, Q, G, N, dtype=bc_dtype), t(B, c, Q, G, N,
+                                                  dtype=bc_dtype)
+    ops.reset_launch_counts()
+    y, st = ops.ssd_chunk(xdt, cs, Bm, Cm)
+    torch.cuda.synchronize()
+    assert ops.LAUNCH_COUNTS["ssd_chunk"] == 1
+    y_r, st_r = ref.ssd_chunk_ref(xdt, cs, Bm, Cm)
+    for got, want in ((y, y_r), (st, st_r)):
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-7b", "mamba2-2.7b"])
+def test_reduced_lm_prefill_on_the_card_matches_the_cpu(cuda_device, arch):
+    """The reduced f32 LM with the kernels on: card logits = CPU logits."""
+    cfg = get_config(arch).reduced()
+    params = T.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    toks = torch.tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (1, 21)))
+    out = {}
+    with ops.use_pallas_scoped(True):
+        for dev in ("cpu", cuda_device):
+            caches = T.init_lm_cache(cfg, 1, 32, device=dev)
+            ops.reset_launch_counts()
+            logits, _ = T.lm_prefill(T.params_to(params, dev), cfg,
+                                     {"tokens": toks.to(dev)}, caches)
+            out[str(dev)] = logits.cpu()
+            launches = dict(ops.LAUNCH_COUNTS)
+    name = "flash_attention" if arch == "qwen2-7b" else "ssd_chunk"
+    assert launches[name] == cfg.num_layers
+    want = out["cpu"]
+    err = float((out["cuda"] - want).abs().max() / want.abs().max())
+    assert err <= 1e-4
