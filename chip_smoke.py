@@ -8,7 +8,8 @@ Phases (any failure raises and the script exits non-zero):
 1. Card and build: prints the card's name and power limit, checks that
    float32 matmuls and convolutions are not routed through TF32, and
    builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` with nvcc
-   (sm_90a, one nvcc per source, in parallel).
+   (sm_90a, one nvcc per source, in parallel); prints the registers and
+   spills of B9's and B5's device functions one by one.
 2. Kernels against their plain PyTorch versions, on the card, with the
    error printed beside its limit: the four fused Nyström kernels x
    f32/bf16/int8 at the cohort server's path shape (N=100 000, d=8,
@@ -16,17 +17,21 @@ Phases (any failure raises and the script exits non-zero):
    solver's shapes ((4096, 4096) @ (4096, 64) and @ (4096, 8)); the
    affinity kernels at the fed loop's (100 x 100), the dense path's
    (2048 x 2048) and the unfused Nyström path's (100 000 x 512) shapes;
-   each also at a ragged shape; flash attention (B9) at the qwen2-7b
-   prefill's shape (q (1, 2048, 28, 128) against a 2112-row cache) in
-   bf16 and in f32, and the SSD chunk (B10) at the mamba2-2.7b prefill's
-   (8 chunks of 256, 80 heads, P=64, N=128), each also at ragged shapes.
-   The bf16 outputs of B9 are held elementwise (see LIMIT_BF16_ELEM),
-   the f32 ones to 1e-5 of the largest entry.  Then each kernel's median
-   time (CUDA
-   events, 20 runs) at its path shape beside its plain version's, the
-   least time the card could take for the same work, and one PyTorch
-   call computing the same function where there is one; beside it the
-   kernel's own device time (torch.profiler, without launch overhead).
+   each also at a ragged shape, the panel matmul also bit-identical on a
+   repeat call and for every block_rows; flash attention (B9) at the
+   qwen2-7b prefill's shape (q (1, 2048, 28, 128) against a 2112-row
+   cache) and at gemma-2b's (q (1, 2048, 8, 256) against one KV head),
+   in bf16 and in f32, and the SSD chunk (B10) at the mamba2-2.7b
+   prefill's (8 chunks of 256, 80 heads, P=64, N=128), each also at
+   ragged shapes.  The bf16 outputs of B9 are held elementwise (see
+   LIMIT_BF16_ELEM), the f32 ones to 1e-5 of the largest entry.  Then
+   each kernel's median time (CUDA events, 20 runs) at its path shape
+   beside its plain version's, the least time the card could take for
+   the same work, and one PyTorch call computing the same function where
+   there is one; beside it the kernel's own device time (torch.profiler,
+   without launch overhead).  B5 and B9 are timed in turns with their
+   library call, and their share of the bound and factor to the library
+   printed.
 3. The cohort server: ``CohortServer(policy="dqn")`` over the fused
    Nyström engine at N=100 000 on the card, 5 rounds of select ->
    observe -> drift update, with the fused kernels' launch counts read
@@ -53,11 +58,13 @@ Phases (any failure raises and the script exits non-zero):
    n=2048.
 6. The LM server: ``Server`` with the kernels on, at full width and
    depth in bf16 for qwen2-7b and mamba2-2.7b, 4 slots and 6 requests of
-   256-2048 prompt tokens; checks exactly 28 B9 launches (qwen2) and 64
-   B10 launches (mamba2) a prefill, and profiles one prefill and one
-   decode step.  Then the reduced f32 configs on the card and on the
-   CPU: the same prefill logits, the same greedy tokens, and the card's
-   batch-served tokens equal to its batch-1 oracle.
+   256-2048 prompt tokens, and for gemma-2b (head_dim 256) 2 requests of
+   1024 and 2048 tokens; checks exactly 28 B9 launches (qwen2), 64 B10
+   launches (mamba2) and 18 B9 launches (gemma) a prefill, and profiles
+   one prefill and one decode step of each.  Then the reduced f32
+   configs on the card and on the CPU: the same prefill logits, the same
+   greedy tokens, and the card's batch-served tokens equal to its
+   batch-1 oracle.
 
 It prints the kernel table as one JSON line, then the card's name and
 power limit, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -124,6 +131,9 @@ KERNELS = {
 }
 FUSED = ("quantized_cross_affinity", "nystrom_colsum", "nystrom_gram",
          "nystrom_extension")
+# the device functions of the kernels redesigned last (B9's two bodies,
+# B5), whose registers and spills phase 1 prints one by one
+REDESIGNED = ("flash_bf16_kernel", "flash_f32_kernel", "panel_kernel")
 LIMIT_MAX_REL = 1e-4     # max-abs error over the largest entry
 LIMIT_FRO_REL = 1e-5     # gram: relative Frobenius error
 # squared distances in the norm form cancel: max-abs error over
@@ -148,6 +158,8 @@ SMALL_FL = dict(dataset="mnist", num_clients=12, clients_per_round=4,
 
 # the LM server (phase 6): full width and depth, bf16
 LM_ARCHS = ("qwen2-7b", "mamba2-2.7b")
+# gemma-2b (head_dim 256) served too: 2 requests of these prompt lengths
+GEMMA_ARCH, GEMMA_PROMPTS, GEMMA_NEW_TOKENS = "gemma-2b", (1024, 2048), 8
 LM_BATCH, LM_REQUESTS, LM_NEW_TOKENS, LM_BUCKET = 4, 6, 32, 8
 LM_PROMPT = (256, 2048)          # prompt lengths, drawn from the seed
 LM_MAX_SEQ = 2112                # the longest prompt + 32 new tokens, /64
@@ -155,6 +167,8 @@ LM_SEED = 0
 # B9 and B10 at the prefill's shapes: qwen2 (28 heads over 4, dh 128)
 # and mamba2 (80 heads, P 64, N 128, chunks of 256), S = 2048
 FLASH_PATH = dict(B=1, S=2048, T=LM_MAX_SEQ, H=28, K=4, dh=128)
+# B9 at gemma-2b's prefill: 8 heads over one KV head (MQA), dh 256
+FLASH_GEMMA = dict(B=1, S=2048, T=LM_MAX_SEQ, H=8, K=1, dh=256)
 SSD_PATH = dict(B=1, c=8, Q=256, H=80, P=64, G=1, N=128)
 LIMIT_F32_REL = 1e-5     # f32 output: summation order only
 # bf16 output, elementwise: |got - want| <= 2^-7 |want| + 1e-3 rms(want).
@@ -219,6 +233,26 @@ def device_ms(fn, reps=REPS) -> float:
     return total / 1e3 / reps
 
 
+def vs_library(kern, library):
+    """A kernel and the library call that computes its function, timed in
+    turns on the same inputs: CUDA events (kernel, library, library,
+    kernel; each the median of REPS calls), then each one's device time
+    from torch.profiler.  Returns (ms, library ms, device ms, library
+    device ms), the event times the mean of each one's two turns."""
+    k1, l1, l2, k2 = (time_ms(kern), time_ms(library), time_ms(library),
+                      time_ms(kern))
+    return (k1 + k2) / 2, (l1 + l2) / 2, device_ms(kern), device_ms(library)
+
+
+def print_vs_library(name, label, times, bound_ms, bound_by):
+    ms, lib_ms, dev, lib_dev = times
+    print(f"phase 2: {name:25s} {label:9s} device {dev:.4f} ms, library "
+          f"{lib_dev:.4f} ms (events {ms:.4f} and {lib_ms:.4f} ms, in "
+          f"turns); bound {bound_ms:.5f} ms by {bound_by}: "
+          f"{bound_ms / dev:.4f} of the bound, {dev / lib_dev:.3f}x the "
+          f"library's device time")
+
+
 # -- phase 1 ----------------------------------------------------------------
 
 def phase1():
@@ -242,6 +276,30 @@ def phase1():
     if regs:
         print(f"phase 1: ptxas: {len(regs)} kernels, at most {max(regs)} "
               f"registers a thread, {spills} bytes of spill stores + loads")
+    for kernel, nregs, stores, loads in ptxas_kernels(log, REDESIGNED):
+        print(f"phase 1: ptxas: {kernel:38s} {nregs:3d} registers, spill "
+              f"stores {stores} B, loads {loads} B")
+
+
+def ptxas_kernels(log, names):
+    """[(kernel<template args>, registers, spill store bytes, spill load
+    bytes)] of the kernels in nvcc's ``-Xptxas -v`` log whose name is one
+    of ``names``."""
+    rows = []
+    for block in log.split("Compiling entry function '")[1:]:
+        mangled = block.split("'", 1)[0]
+        m = re.search(r"(" + "|".join(names) + r")I((?:L[a-z]+\d+E)+)E",
+                      mangled)
+        used = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        if m is None or used is None:
+            continue
+        args = ",".join(re.findall(r"L[a-z]+(\d+)E", m.group(2)))
+        rows.append((f"{m.group(1)}<{args}>", int(used.group(1)),
+                     int(spill.group(1)) if spill else 0,
+                     int(spill.group(2)) if spill else 0))
+    return rows
 
 
 # -- phase 2 ----------------------------------------------------------------
@@ -455,8 +513,10 @@ def _slice2_calls(x_path, gamma_path):
                 lambda: ref.rbf_affinity_ref(a, g), rel_err, None)
 
     def panel(w, q):
-        return (lambda: ops.panel_matmul(w, q),
-                lambda: ref.panel_matmul_ref(w, q), rel_err,
+        def kern():
+            return ops.panel_matmul(w, q)
+        kern.operands = (w, q)     # for the determinism checks
+        return (kern, lambda: ref.panel_matmul_ref(w, q), rel_err,
                 lambda: torch.matmul(w, q))
 
     return {
@@ -508,11 +568,17 @@ def phase2_slice2(x_path, gamma_path):
                                      f"{limit:.0e}")
             rec["max_abs_err"] = max(rec["max_abs_err"],
                                      float((got - want).abs().max()))
+            if name == "panel_matmul":
+                _panel_determinism(label, kern, got)
             if label == "ragged":
                 continue
             ms, plain_ms = time_ms(kern), time_ms(plain)
             bound_ms, bound_by = _bound_slice2(name, shape)
-            library_ms = None if library is None else time_ms(library)
+            library_ms = None
+            if library is not None:
+                times = vs_library(kern, library)
+                ms, library_ms = times[:2]
+                print_vs_library(name, label, times, bound_ms, bound_by)
             print(f"phase 2: {name:25s} {label:6s} {ms:.4f} ms (device "
                   f"{device_ms(kern):.4f} ms; plain "
                   f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms by "
@@ -522,6 +588,24 @@ def phase2_slice2(x_path, gamma_path):
                 rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                            bound_by=bound_by, library_ms=library_ms)
     return records
+
+
+def _panel_determinism(label, kern, got):
+    """B5's contract: a repeat call is bit-identical, and the subspace
+    solver's product is the same for every block_rows."""
+    import torch
+    from repro_torch.cohort.eigensolver import _blocked_matmul
+
+    w, q = kern.operands
+    if not torch.equal(kern(), got):
+        raise AssertionError(f"panel_matmul {label}: a repeat call differs")
+    rows = [br for br in (16, 256, 2048) if br < w.shape[0]]
+    for br in rows:
+        if not torch.equal(_blocked_matmul(w, q, br, use_pallas=True), got):
+            raise AssertionError(f"panel_matmul {label}: block_rows={br} "
+                                 f"gives another product")
+    print(f"phase 2: {'panel_matmul':25s} {label:6s} repeat call and "
+          f"block_rows {rows}: bit-identical")
 
 
 # -- phase 3 ----------------------------------------------------------------
@@ -1069,7 +1153,10 @@ def _lm_kernel_cases():
     sp = SSD_PATH
     flash_cases = [("path", *flash(**fp, dtype="bf16", library=True)),
                    # the same 33 KV tiles a row, held to the f32 limit
-                   ("path f32", *flash(**fp, dtype="f32"))]
+                   ("path f32", *flash(**fp, dtype="f32")),
+                   ("gemma", *flash(**FLASH_GEMMA, dtype="bf16",
+                                    library=True)),
+                   ("gemma f32", *flash(**FLASH_GEMMA, dtype="f32"))]
     for dtype in ("f32", "bf16"):
         flash_cases += [
             ("ragged", *flash(2, 33, 33, 4, 4, 32, dtype)),          # G = 1
@@ -1139,7 +1226,8 @@ def phase2_lm():
                                      f"{lim_text}")
             if err / lim > worst[0]:
                 worst = (err / lim, label, f"{err:.3e} against {lim_text}")
-            if label != "path":
+            # timed: the path shape (the JSON row) and gemma-2b's prefill
+            if label not in ("path", "gemma", "gemma f32"):
                 continue
             ms, plain_ms = time_ms(kern), time_ms(plain)
             bound_ms, bound_by, f32_bound = bound
@@ -1149,11 +1237,16 @@ def phase2_lm():
                 torch.cuda.synchronize()
                 lib_err = float((lib_out.float() - want[0].float()).abs()
                                 .max() / want[0].float().abs().max())
-                library_ms = time_ms(library)
-                print(f"phase 2: {name:25s} library call (SDPA) agrees to "
-                      f"{lib_err:.3e}")
-            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, library_ms=library_ms)
+                print(f"phase 2: {name:25s} {label:9s} library call (SDPA) "
+                      f"agrees to {lib_err:.3e} of the largest entry, "
+                      f"{_case_error(lib_out, want[0], limit)[0]:.3f} of "
+                      f"the kernel's limit")
+                times = vs_library(kern, library)
+                ms, library_ms = times[:2]
+                print_vs_library(name, label, times, bound_ms, bound_by)
+            if label == "path":
+                rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=library_ms)
             f32_note = ("" if f32_bound is None else
                         f", f32 CUDA-core bound {f32_bound:.4f} ms")
             print(f"phase 2: {name:25s} {label:9s} {ms:.4f} ms (device "
@@ -1166,27 +1259,31 @@ def phase2_lm():
 
 # -- phase 6 ----------------------------------------------------------------
 
-def _lm_requests(cfg, arch, rng):
-    """LM_REQUESTS prompts of 256–2048 tokens (multiples of the bucket for
-    the SSM arch: the reference pads them into the recurrence)."""
+def _lm_requests(cfg, arch, rng, lens=None, new_tokens=LM_NEW_TOKENS):
+    """Prompts of the given lengths, or LM_REQUESTS of 256–2048 tokens
+    (multiples of the bucket for the SSM arch: the reference pads them
+    into the recurrence)."""
     import numpy as np
     from repro_torch.launch.serve import Request
 
     lo, hi = LM_PROMPT
     reqs = []
-    for i in range(LM_REQUESTS):
-        if arch.startswith("mamba"):
+    for i in range(LM_REQUESTS if lens is None else len(lens)):
+        if lens is not None:
+            plen = lens[i]
+        elif arch.startswith("mamba"):
             plen = LM_BUCKET * int(rng.integers(lo // LM_BUCKET,
                                                 hi // LM_BUCKET + 1))
         else:
             plen = int(rng.integers(lo, hi + 1))
         reqs.append(Request(i, rng.integers(0, cfg.vocab_size, plen).astype(
-            np.int32), LM_NEW_TOKENS))
+            np.int32), new_tokens))
     return reqs
 
 
-def _serve_full(arch):
-    """One full-width arch on the card; returns its kernel launches."""
+def _serve_full(arch, lens=None, new_tokens=LM_NEW_TOKENS):
+    """One full-width arch on the card, serving ``lens`` prompts (the
+    seed's 6 when None); returns its kernel launches."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1208,7 +1305,8 @@ def _serve_full(arch):
     print(f"phase 6: {arch}: {cfg.param_count() / 1e9:.3f}e9 parameters in "
           f"{cfg.param_dtype}, {cfg.num_layers} layers, drawn on the card in "
           f"{time.perf_counter() - t0:.2f} s")
-    reqs = _lm_requests(cfg, arch, np.random.default_rng(LM_SEED))
+    reqs = _lm_requests(cfg, arch, np.random.default_rng(LM_SEED), lens,
+                        new_tokens)
     print(f"phase 6: {arch}: prompt lengths {[len(r.prompt) for r in reqs]}")
     with plain_on_card_forbidden(), ops.use_pallas_scoped(True):
         ops.reset_launch_counts()
@@ -1230,8 +1328,8 @@ def _serve_full(arch):
             "ssd_chunk": ssm_layers * prefills}
     if launches != want:
         raise AssertionError(f"{arch}: launches {launches}, expected {want}")
-    if len(done) != LM_REQUESTS or stats["truncated"] or any(
-            len(r.generated) != LM_NEW_TOKENS
+    if len(done) != len(reqs) or stats["truncated"] or any(
+            len(r.generated) != new_tokens
             or not all(0 <= x < cfg.vocab_size for x in r.generated)
             for r in done):
         raise AssertionError(f"{arch}: malformed answers")
@@ -1320,10 +1418,12 @@ def _reduced_card_vs_cpu(arch):
 def phase6():
     """The LM server on the card; returns {kernel: launches}."""
     launches = {"flash_attention": 0, "ssd_chunk": 0}
-    for arch in LM_ARCHS:
-        for name, n in _serve_full(arch).items():
+    runs = [(arch, None, LM_NEW_TOKENS) for arch in LM_ARCHS]
+    runs.append((GEMMA_ARCH, GEMMA_PROMPTS, GEMMA_NEW_TOKENS))
+    for arch, lens, new_tokens in runs:
+        for name, n in _serve_full(arch, lens, new_tokens).items():
             launches[name] += n
-    for arch in LM_ARCHS:
+    for arch in (*LM_ARCHS, GEMMA_ARCH):
         _reduced_card_vs_cpu(arch)
     return launches
 

@@ -29,10 +29,12 @@
 //   extension  like colsum twice plus 2*N*m*k FLOP: operation-bound.
 //   cross      W = A(z, z), 512 x 512: 1 MB written, launch-bound.
 //   panel      the subspace solver's W Q at m = 4096: (4096, 4096) @
-//              (4096, 64) is 2.1 GFLOP, operation-bound (~32 us); with 8
-//              columns it reads the 67 MB W once, byte-bound (~20 us).
+//              (4096, 64) is 2.1 GFLOP, operation-bound (~32 us; W alone
+//              is 67 MB, ~20 us); with 8 columns it reads W once,
+//              byte-bound (~20 us).
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "affinity_tile.cuh"
 
@@ -406,6 +408,222 @@ extension_kernel(const float* __restrict__ x, const float* __restrict__ z,
     if (kk < k) out[static_cast<size_t>(i) * k + kk] = v[kk] / norm;
 }
 
+// ---------------------------------------------------------------------------
+// kernel 6: the subspace solver's panel product out = W Q (rt_panel_matmul)
+// ---------------------------------------------------------------------------
+//
+// Bound at the engine's shapes (m = p = 4096, H100): r = 64 is 2.1 GFLOP
+// of exact f32 on the CUDA cores, 0.032 ms (W alone is 67 MB, 0.020 ms);
+// r = 8 reads W once, 0.020 ms by bytes.
+//
+// A block of 256 threads owns a short row panel of W (BM rows) and BN
+// output columns: every column when r <= BN, column tiles of BN above.
+// At m = 4096 that is 128 blocks of 32 rows at r <= 64 and 256 blocks of
+// 16 rows at r <= 8 (BN = 8, so no column padding there), where the
+// generic 64 x 64 matmul tile gave 64 blocks of mostly padding.  W's rows
+// and the matching k-slice of Q (KD x BN) stream through a 3-stage
+// cp.async ring (16-byte copies when p and r are multiples of 4 and the
+// pointers 16-byte aligned, 4-byte copies otherwise; the same arithmetic
+// either way).  The block's threads form kGroups groups; each group holds
+// the whole BM x BN tile in registers, TM x TN a thread, and takes a
+// fixed kSlice-wide part of every KD-deep chunk: at r <= 64 eight groups
+// of one warp, 8 x 8 a thread, 8 of every 64 k (64 FMAs for every 4
+// shared-memory reads); at r <= 8 sixteen groups of 16 threads, 4 x 2 a
+// thread, 8 of every 128 k.  Summation order, the same for every launch
+// and every caller's block_rows: a thread sums its group's k in
+// ascending order over the chunks, then the group partials are added in
+// group order 0, 1, ... through shared memory.  No atomics.  W's rows sit
+// KD + 8 floats apart in shared memory and a thread's TM rows are BM / TM
+// apart, so a warp's float4 reads of W hit distinct banks.
+
+constexpr int kPanelThreads = 256;
+constexpr int kPanelStages = 3;
+
+template <int BM, int BN, int TM, int TN, int KD>
+struct PanelCfg {
+  static constexpr int kRowGroups = BM / TM;
+  static constexpr int kGroup = kRowGroups * (BN / TN);  // threads a group
+  static constexpr int kGroups = kPanelThreads / kGroup;
+  static constexpr int kSlice = KD / kGroups;   // k a group takes a chunk
+  static constexpr int kLdw = KD + 8;
+  static constexpr int kWStage = BM * kLdw;
+  static constexpr int kQStage = KD * BN;
+  static constexpr size_t kSmem =
+      kPanelStages * (kWStage + kQStage) * sizeof(float);
+  static_assert(kPanelThreads % kGroup == 0, "groups tile the block");
+  static_assert(kSlice % 4 == 0 && kSlice >= 4, "float4 steps of k");
+  static_assert(kGroups * BM * BN <= kPanelStages * (kWStage + kQStage),
+                "the partials fit the ring");
+};
+
+template <bool VEC>
+__device__ __forceinline__ void panel_copy(float* dst, const float* src,
+                                           bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (VEC)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(in ? 16 : 0));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                 "l"(src), "r"(in ? 4 : 0));
+}
+
+// chunk k0 .. k0 + KD - 1 of W's panel and of Q's column tile into one
+// stage; entries past m, p or r are zero-filled
+template <int BM, int BN, int KD, int LDW, bool VEC>
+__device__ __forceinline__ void panel_load(float* sw, float* sq,
+                                           const float* w, const float* q,
+                                           int row0, int col0, int k0, int m,
+                                           int p, int r) {
+  constexpr int V = VEC ? 4 : 1;
+  for (int e = threadIdx.x; e < BM * KD / V; e += kPanelThreads) {
+    const int row = e / (KD / V), kk = (e % (KD / V)) * V;
+    const bool in = row0 + row < m && k0 + kk < p;
+    panel_copy<VEC>(sw + row * LDW + kk,
+                    in ? w + static_cast<size_t>(row0 + row) * p + k0 + kk
+                       : w, in);
+  }
+  for (int e = threadIdx.x; e < KD * BN / V; e += kPanelThreads) {
+    const int kk = e / (BN / V), c = (e % (BN / V)) * V;
+    const bool in = k0 + kk < p && col0 + c < r;
+    panel_copy<VEC>(sq + kk * BN + c,
+                    in ? q + static_cast<size_t>(k0 + kk) * r + col0 + c
+                       : q, in);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// A thread's TN output columns: cg * 2 + j for TN = 2; for TN = 8 two
+// float4 groups, cg * 4 + j and BN / 2 + cg * 4 + j, so that the lanes'
+// float4 reads of a Q row are contiguous.
+template <int BN, int TN>
+__device__ __forceinline__ int panel_col(int cg, int j) {
+  static_assert(TN == 2 || TN == 8, "TN is 2 or 8");
+  if constexpr (TN == 8) return (j / 4) * (BN / 2) + cg * 4 + j % 4;
+  return cg * TN + j;
+}
+
+template <int BN, int TN>
+__device__ __forceinline__ void panel_q_row(const float* p, float (&v)[TN]) {
+  if constexpr (TN == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    v[0] = x.x; v[1] = x.y;
+  } else {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 x = *reinterpret_cast<const float4*>(p + h * (BN / 2));
+      v[4 * h] = x.x; v[4 * h + 1] = x.y; v[4 * h + 2] = x.z;
+      v[4 * h + 3] = x.w;
+    }
+  }
+}
+
+template <int BM, int BN, int TM, int TN, int KD, bool VEC>
+__global__ void __launch_bounds__(kPanelThreads)
+panel_kernel(const float* __restrict__ w, const float* __restrict__ q,
+             float* __restrict__ out, int m, int p, int r) {
+  using Cf = PanelCfg<BM, BN, TM, TN, KD>;
+  constexpr int LDW = Cf::kLdw;
+  extern __shared__ float4 panel_smem4[];
+  float* smem = reinterpret_cast<float*>(panel_smem4);
+  float* sw = smem;
+  float* sq = smem + kPanelStages * Cf::kWStage;
+  const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
+  const int grp = threadIdx.x / Cf::kGroup, gt = threadIdx.x % Cf::kGroup;
+  const int rg = gt / (BN / TN);          // rows rg + i * kRowGroups
+  const int cg = gt % (BN / TN);          // columns panel_col(cg, j)
+  const int kbeg = grp * Cf::kSlice;
+  const int nk = (p + KD - 1) / KD;
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+#pragma unroll
+  for (int st = 0; st < kPanelStages - 1; ++st) {
+    if (st < nk)
+      panel_load<BM, BN, KD, LDW, VEC>(sw + st * Cf::kWStage,
+                                       sq + st * Cf::kQStage, w, q, row0,
+                                       col0, st * KD, m, p, r);
+    else
+      asm volatile("cp.async.commit_group;\n" ::);
+  }
+  for (int kc = 0; kc < nk; ++kc) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kPanelStages - 2));
+    __syncthreads();   // chunk kc has landed; chunk kc - 1 is consumed
+    const int pre = kc + kPanelStages - 1;
+    const int ps = pre % kPanelStages;
+    if (pre < nk)
+      panel_load<BM, BN, KD, LDW, VEC>(sw + ps * Cf::kWStage,
+                                       sq + ps * Cf::kQStage, w, q, row0,
+                                       col0, pre * KD, m, p, r);
+    else
+      asm volatile("cp.async.commit_group;\n" ::);
+    const int cs = kc % kPanelStages;
+    const float* tw = sw + cs * Cf::kWStage + rg * LDW + kbeg;
+    const float* tq = sq + cs * Cf::kQStage + kbeg * BN +
+                      panel_col<BN, TN>(cg, 0);
+#pragma unroll
+    for (int k4 = 0; k4 < Cf::kSlice; k4 += 4) {
+      float wv[TM][4];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float4 x = *reinterpret_cast<const float4*>(
+            tw + i * Cf::kRowGroups * LDW + k4);
+        wv[i][0] = x.x; wv[i][1] = x.y; wv[i][2] = x.z; wv[i][3] = x.w;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float qv[TN];
+        panel_q_row<BN, TN>(tq + (k4 + kk) * BN, qv);
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j)
+            acc[i][j] = fmaf(wv[i][kk], qv[j], acc[i][j]);
+      }
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+
+  // the groups' partials, added in group order
+  float* part = smem;
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j)
+      part[(grp * BM + rg + i * Cf::kRowGroups) * BN +
+           panel_col<BN, TN>(cg, j)] = acc[i][j];
+  __syncthreads();
+  for (int e = threadIdx.x; e < BM * BN; e += kPanelThreads) {
+    const int row = e / BN, c = e % BN;
+    if (row0 + row >= m || col0 + c >= r) continue;
+    float sum = part[e];
+    for (int gi = 1; gi < Cf::kGroups; ++gi) sum += part[gi * BM * BN + e];
+    out[static_cast<size_t>(row0 + row) * r + col0 + c] = sum;
+  }
+}
+
+template <int BM, int BN, int TM, int TN, int KD>
+int launch_panel(bool vec, const float* w, const float* q, float* out, int m,
+                 int p, int r, cudaStream_t s) {
+  using Cf = PanelCfg<BM, BN, TM, TN, KD>;
+  const unsigned col_tiles = blocks_for(r, BN);
+  if (col_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(blocks_for(m, BM), col_tiles);
+  auto kernel = vec ? panel_kernel<BM, BN, TM, TN, KD, true>
+                    : panel_kernel<BM, BN, TM, TN, KD, false>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(Cf::kSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, kPanelThreads, Cf::kSmem, s>>>(w, q, out, m, p, r);
+  return static_cast<int>(cudaGetLastError());
+}
+
 size_t row_smem_bytes(int d) { return (d + 3) * kChunk * sizeof(float); }
 
 }  // namespace rt
@@ -483,18 +701,21 @@ int rt_nystrom_gram(const float* x, const float* z, float gamma,
   return static_cast<int>(cudaGetLastError());
 }
 
-// out (m, r) = w (m, p) @ q (p, r) in exact f32, one launch of the tiled
-// matmul_kernel over every 64-row panel.  The TPU kernel walks row panels
-// of block_rows in order to bound VMEM residency; a CUDA block already
-// owns one 64-row panel, and each output entry sums k in ascending order
-// whatever the panel height, so block_rows does not reach the kernel and
-// the product is bit-identical for every block_rows.
+// out (m, r) = w (m, p) @ q (p, r) in exact f32, one launch of panel_kernel
+// (kernel 6).  The TPU kernel walks row panels of block_rows in order to
+// bound VMEM residency; here each block owns a short panel, and each
+// output entry sums k in one fixed order whatever the panels (see kernel
+// 6), so block_rows does not reach the kernel and the product is
+// bit-identical for every block_rows.
 int rt_panel_matmul(const float* w, const float* q, float* out, int m, int p,
                     int r, void* stream) {
+  if (m < 1 || p < 1 || r < 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(blocks_for(r, kMmTile), blocks_for(m, kMmTile));
-  matmul_kernel<<<grid, kTileThreads, 0, s>>>(w, q, out, m, r, p);
-  return static_cast<int>(cudaGetLastError());
+  const bool vec = p % 4 == 0 && r % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  if (r <= 8) return launch_panel<16, 8, 4, 2, 128>(vec, w, q, out, m, p, r, s);
+  return launch_panel<32, 64, 8, 8, 64>(vec, w, q, out, m, p, r, s);
 }
 
 int rt_nystrom_extension(const float* x, const float* z, float gamma,

@@ -5,8 +5,12 @@ The PyTorch counterpart of the JAX package's
 tile sizes.  CPU tensors run the plain version
 (:func:`repro_torch.kernels.ref.flash_attention_ref`); CUDA tensors launch
 the kernel, or raise.  The kernel reads q, k and v in the JAX layout
-through their strides (only the head dimension must be unit-stride), so
-the TPU wrapper's pads and transposes have no counterpart.
+through their strides (the head dimension must be unit-stride), so the
+TPU wrapper's pads and transposes have no counterpart.  bf16 inputs go
+to the tensor-core body, which copies rows in 16-byte pieces: their
+batch, sequence and head strides must be multiples of 8 elements and
+their data 16-byte aligned.  f32 inputs go to the CUDA-core body, which
+takes any strides.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels._common import check_tensors, launched, stream
 
 #: head widths the kernel is instantiated for
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -58,6 +62,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None):
         if t.stride(3) != 1:
             raise ValueError(f"{name}: {label} must have unit stride along "
                              f"its head dimension")
+        if t.dtype == torch.bfloat16 and (
+                any(t.stride(i) % 8 for i in range(3) if t.shape[i] > 1)
+                or t.data_ptr() % 16):
+            raise ValueError(
+                f"{name}: bf16 {label} needs batch, sequence and head "
+                f"strides that are multiples of 8 elements and 16-byte "
+                f"aligned data, got strides {t.stride()[:3]}")
     scale = 1.0 / np.sqrt(dh)
     strides = (ctypes.c_longlong * 9)(*(t.stride(i) for t in (q, k, v)
                                         for i in range(3)))

@@ -40,8 +40,8 @@ _MAX_K = 64              # widest projection the extension kernel holds
 _COLSUM_ROWS = 256       # kColsumRows in nystrom.cu
 _GRAM_ROWS = 32          # kGramRows
 _GRAM_TILE = 64          # kGramTile
-_MM_TILE = 64            # kMmTile: rows of one matmul_kernel block
-_MAX_GRID_Y = 65535      # CUDA's limit on gridDim.y
+_PANEL_COLS = 64         # the widest column tile of panel_kernel
+_MAX_GRID_Y = 65535      # CUDA's limit on gridDim.y (its column tiles)
 # the Gram kernel splits the rows into slabs until about this many blocks
 # are in flight (8 per SM of a 132-SM H100); a function of the shapes
 # only, so the summation order never depends on the card
@@ -201,8 +201,10 @@ def panel_matmul(w, q):
     """(m, p) @ (p, r) in exact f32: the subspace solver's W·Q product.
 
     The TPU kernel walks row panels of ``block_rows``; this kernel covers
-    every row in one launch, and each output entry sums over p in one
-    fixed order, so the JAX ``block_rows`` has no counterpart here.
+    every row in one launch (a block owns 16 or 32 rows and every column
+    up to 64), and each output entry sums over p in one fixed order, so
+    the JAX ``block_rows`` has no counterpart here and a repeat call is
+    bit-identical.
     """
     name = "panel_matmul"
     dev = check_tensors(name, w=w, q=q)
@@ -216,9 +218,9 @@ def panel_matmul(w, q):
     if min(m, p, r) < 1:
         raise ValueError(f"{name}: the CUDA kernel needs m, p, r >= 1, got "
                          f"({m}, {p}, {r})")
-    if math.ceil(m / _MM_TILE) > _MAX_GRID_Y:
-        raise ValueError(f"{name}: the CUDA kernel takes m <= "
-                         f"{_MAX_GRID_Y * _MM_TILE} rows, got {m}")
+    if math.ceil(r / _PANEL_COLS) > _MAX_GRID_Y:
+        raise ValueError(f"{name}: the CUDA kernel takes r <= "
+                         f"{_MAX_GRID_Y * _PANEL_COLS} columns, got {r}")
     lib = _build.library()
     out = torch.empty((m, r), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.cohort import CohortConfig, CohortEngine
+from repro_torch.cohort import CohortConfig, CohortEngine, eigensolver
 from repro_torch.configs import get_config
 from repro_torch.core import spectral
 from repro_torch.kernels import nystrom as kn
@@ -125,7 +125,8 @@ def test_affinity_kernels_match_plain_versions(cuda_device, n, m, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m, p, r", [(40, 40, 5), (130, 70, 9),
-                                     (4096, 4096, 8)])
+                                     (4096, 4096, 8), (4096, 4096, 64),
+                                     (300, 64, 100)])
 def test_panel_matmul_matches_plain_version(cuda_device, m, p, r):
     rng = np.random.default_rng(2)
     w = torch.tensor(rng.normal(size=(m, p)), dtype=torch.float32,
@@ -138,6 +139,12 @@ def test_panel_matmul_matches_plain_version(cuda_device, m, p, r):
     torch.cuda.synchronize()
     assert ops.LAUNCH_COUNTS["panel_matmul"] == 2
     assert torch.equal(got, again)          # one fixed summation order
+    # the subspace solver's product does not depend on its block_rows
+    for block_rows in (16, 256, 2048):
+        if block_rows < m:
+            assert torch.equal(
+                eigensolver._blocked_matmul(w, q, block_rows,
+                                            use_pallas=True), got)
     want = ref.panel_matmul_ref(w, q)
     err = float((got - want).abs().max() / want.abs().max())
     assert err <= 1e-5
@@ -169,6 +176,11 @@ def test_dense_spectral_cluster_on_the_card_launches_b7(cuda_device):
     (2, 70, 70, 8, 2, 128, False, None),     # non-causal
     (1, 97, 130, 4, 2, 64, True, 8),         # window 8
     (1, 2048, 2112, 28, 4, 128, True, None),  # qwen2-7b's prefill, 33 tiles
+    (2, 65, 130, 8, 1, 128, True, None),     # MQA, G = 8
+    (1, 45, 77, 8, 1, 256, True, None),      # gemma's heads, ragged
+    (2, 70, 70, 8, 1, 256, False, None),     # dh 256, non-causal
+    (1, 97, 130, 8, 1, 256, True, 8),        # dh 256, window 8
+    (1, 2048, 2112, 8, 1, 256, True, None),  # gemma-2b's prefill
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_matches_plain_version(cuda_device, B, S, T_len, H,
@@ -202,19 +214,44 @@ def test_flash_attention_matches_plain_version(cuda_device, B, S, T_len, H,
 
 
 @pytest.mark.cuda
-def test_flash_attention_reads_strided_inputs(cuda_device):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_reads_strided_inputs(cuda_device, dtype):
     rng = np.random.default_rng(5)
-    qkv = torch.tensor(rng.normal(size=(1, 40, 3, 4, 32)),
-                       dtype=torch.float32, device=cuda_device)
+    qkv = torch.tensor(rng.normal(size=(1, 40, 3, 4, 32)), dtype=dtype,
+                       device=cuda_device)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]   # not contiguous
     got = ops.flash_attention(q, k, v)
     want = ref.flash_attention_ref(q, k, v)
     torch.cuda.synchronize()
-    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
-                               rtol=1e-5, atol=1e-5)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+    else:
+        w = want.float()
+        limit = 2.0 ** -7 * w.abs() + 1e-3 * torch.sqrt(torch.mean(w * w))
+        assert bool(((got.float() - w).abs() <= limit).all())
     with pytest.raises(ValueError, match="dh"):
         ops.flash_attention(*(torch.zeros((1, 4, 2, 48), device=cuda_device)
                               for _ in range(3)))
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_refuses_misaligned_rows(cuda_device):
+    """The tensor-core body copies rows in 16-byte pieces."""
+    ok = torch.zeros((1, 40, 4, 32), dtype=torch.bfloat16,
+                     device=cuda_device)
+    wide = torch.zeros((1, 40, 4, 36), dtype=torch.bfloat16,
+                       device=cuda_device)
+    with pytest.raises(ValueError, match="strides"):
+        ops.flash_attention(wide[..., :32], ok, ok)     # head stride 36
+    flat = torch.zeros(1 + 40 * 4 * 32, dtype=torch.bfloat16,
+                       device=cuda_device)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.flash_attention(ok, flat[1:].view(1, 40, 4, 32), ok)
+    # the f32 body takes any strides
+    wide32 = wide.float()
+    got = ops.flash_attention(wide32[..., :32], ok.float(), ok.float())
+    assert got.shape == (1, 40, 4, 32)
 
 
 @pytest.mark.cuda

@@ -19,6 +19,7 @@ import torch
 
 from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
+from repro.kernels.flash_attention_pallas import flash_attention_pallas
 from repro_torch.kernels import ops, ref
 
 F32_REL = 1e-5
@@ -71,6 +72,20 @@ def test_flash_attention_window():
     got = ops.flash_attention(*map(torch.from_numpy, (q, k, v)), window=8)
     _close(got, jax_ops.flash_attention(q, k, v, window=8, block_q=16,
                                         block_k=16), F32_REL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_head_dim_256_mqa(causal):
+    """gemma-2b's attention: head_dim 256, 8 query heads over one KV head,
+    against the Pallas kernel itself in interpret mode."""
+    q, k, v = _qkv(1, 24, 24, 8, 1, 256, seed=4)
+    got = ops.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                              causal=causal)
+    want = flash_attention_pallas(q, k, v, causal=causal, block_q=8,
+                                  block_k=8, interpret=True)
+    _close(got, want, F32_REL)
+    _close(got, jax_ref.flash_attention_ref(q, k, v, causal=causal),
+           F32_REL)
 
 
 def test_flash_attention_bf16():

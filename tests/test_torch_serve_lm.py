@@ -20,6 +20,7 @@ from repro_torch.configs import get_config
 from repro_torch.convert import lm_params_from_jax
 from repro_torch.kernels import ops
 from repro_torch.launch.serve import DecodeScheduler, Request, Server
+from repro_torch.models import transformer as PT
 
 # (prompt_len, max_new_tokens) per request: tests/test_serve_lm.py's
 LENGTH_PATTERNS = [
@@ -68,6 +69,28 @@ def test_scheduler_matches_jax(qwen, lens, use_pallas):
         got, want = _serve_both(*qwen, lens)
     assert got == want
     assert all(len(want[i]) == g for i, (_, g) in enumerate(lens))
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_gemma_prefill_and_greedy_tokens_match_jax(use_pallas):
+    """Reduced gemma-2b (GeGLU, MQA, tied embeddings): the prefill logits
+    and the served greedy tokens of the JAX server, on converted
+    weights."""
+    jcfg, pcfg, jp, pp = _weights("gemma-2b")
+    toks = np.random.default_rng(8).integers(
+        0, jcfg.vocab_size, (2, 11)).astype(np.int32)
+    want, _ = JT.lm_prefill(jp, jcfg, {"tokens": jax.numpy.asarray(toks)},
+                            JT.init_lm_cache(jcfg, 2, 16))
+    with ops.use_pallas_scoped(use_pallas):
+        got, _ = PT.lm_prefill(pp, pcfg,
+                               {"tokens": torch.from_numpy(toks).long()},
+                               PT.init_lm_cache(pcfg, 2, 16, device="cpu"))
+        want = np.asarray(want)
+        err = float(np.abs(got.numpy() - want).max())
+        assert err <= 1e-4 * float(np.abs(want).max()), err
+        got_tokens, want_tokens = _serve_both(jcfg, pcfg, jp, pp,
+                                              LENGTH_PATTERNS[1])
+    assert got_tokens == want_tokens
 
 
 @pytest.mark.parametrize("bucket", [1, 8])
