@@ -88,6 +88,7 @@ SRC = REPO / "src"
 
 N, D, M, K = 100_000, 8, 512, 8          # the path shape
 RAGGED = dict(n=261, m=65, d=7, k=5)     # odd sizes, ~10 % masked rows
+RAGGED_GRAM = dict(n=3001, m=640)        # m not a multiple of B3's tile
 DTYPES = ("f32", "bf16", "int8")
 REPS = 20
 SEED = 0          # the table and the kernel inputs
@@ -131,9 +132,16 @@ KERNELS = {
 }
 FUSED = ("quantized_cross_affinity", "nystrom_colsum", "nystrom_gram",
          "nystrom_extension")
-# the device functions of the kernels redesigned last (B9's two bodies,
-# B5), whose registers and spills phase 1 prints one by one
-REDESIGNED = ("flash_bf16_kernel", "flash_f32_kernel", "panel_kernel")
+# rows of the kernel table beyond one a kernel: {row: kernel}.  B3 at the
+# m=4096 engine's shape (phase 5), timed in phase 2
+GRAM_4096 = "nystrom_gram_m4096"
+EXTRA_ROWS = {GRAM_4096: "nystrom_gram"}
+# the device functions of the redesigned kernels (B9's two bodies, B5;
+# B3's tile, reduction and rotation kernels, B10), whose registers and spills
+# phase 1 prints one by one
+REDESIGNED = ("flash_bf16_kernel", "flash_f32_kernel", "panel_kernel",
+              "gram_tile_kernel", "gram_reduce_kernel", "rot_tile_kernel",
+              "ssd_chunk_kernel")
 LIMIT_MAX_REL = 1e-4     # max-abs error over the largest entry
 LIMIT_FRO_REL = 1e-5     # gram: relative Frobenius error
 # squared distances in the norm form cancel: max-abs error over
@@ -286,16 +294,20 @@ def ptxas_kernels(log, names):
     bytes)] of the kernels in nvcc's ``-Xptxas -v`` log whose name is one
     of ``names``."""
     rows = []
+    arg = r"f|\d+__nv_bfloat16|L[a-z]+\d+E"   # float, bf16, an integer
     for block in log.split("Compiling entry function '")[1:]:
         mangled = block.split("'", 1)[0]
-        m = re.search(r"(" + "|".join(names) + r")I((?:L[a-z]+\d+E)+)E",
+        m = re.search(r"\d(" + "|".join(names) + rf")(?:I((?:{arg})+)E)?",
                       mangled)
         used = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", block)
         if m is None or used is None:
             continue
-        args = ",".join(re.findall(r"L[a-z]+(\d+)E", m.group(2)))
+        args = ",".join(
+            "bf16" if "bfloat16" in a else "f32" if a == "f" else
+            re.sub(r"L[a-z]+(\d+)E", r"\1", a)
+            for a in re.findall(arg, m.group(2) or ""))
         rows.append((f"{m.group(1)}<{args}>", int(used.group(1)),
                      int(spill.group(1)) if spill else 0,
                      int(spill.group(2)) if spill else 0))
@@ -372,7 +384,10 @@ def _bound(name, n, m, d, k):
 
     An affinity entry costs 2d + 5 operations (the d-term dot as FMAs,
     the norm sum, the clamp, the gamma scale and one exp); the point
-    norms and int8 scales are O((n + m) d) and left out.
+    norms and int8 scales are O((n + m) d) and left out.  SᵀS is
+    symmetric, so the Gram counts its upper triangle with the diagonal,
+    n·m·(m + 1) operations, not 2·n·m²; the rotation W⁻¹ᐟ²·G·W⁻¹ᐟ² is
+    two general (m, m) products, 4m³.
     """
     entry = 2 * d + 5
     if name == "quantized_cross_affinity":      # (m, m) block W = A(z, z)
@@ -381,8 +396,8 @@ def _bound(name, n, m, d, k):
     elif name == "nystrom_colsum":
         ops = n * m * (entry + 1)
         nbytes = 4 * (n * d + m * d + m)
-    elif name == "nystrom_gram":                # C once, C.u, S^T S, rotation
-        ops = n * m * (entry + 3) + 2 * n * m * m + 4 * m ** 3
+    elif name == "nystrom_gram":   # C once, C.u, the half of S^T S, rotation
+        ops = n * m * (entry + 3) + n * m * (m + 1) + 4 * m ** 3
         nbytes = 4 * (n * d + m * d + m + 2 * m * m)
     else:                                       # C once, C.u, S.proj, norm
         ops = n * m * (entry + 3 + 2 * k) + 3 * n * k
@@ -398,18 +413,22 @@ def phase2(x_path, gamma_path):
     Returns {name: record} for the JSON kernel table.
     """
     import numpy as np
+    import torch
     rng = np.random.default_rng(SEED + 1)
     shapes = {
         "path": _inputs(rng, N, M, D, K, x=x_path, gamma=gamma_path),
         "ragged": _inputs(rng, RAGGED["n"], RAGGED["m"], RAGGED["d"],
                           RAGGED["k"]),
+        # B3's 128-wide tiles with a partial last one
+        "m640": _inputs(rng, RAGGED_GRAM["n"], RAGGED_GRAM["m"], D, K),
     }
     records = {name: {"name": name, "route": "cuda", "source": KERNELS[name][1],
                       "replaces": KERNELS[name][0]} for name in FUSED}
     for shape, t in shapes.items():
         for dtype in DTYPES:
             for name, (kern, plain) in _calls(t, dtype, t["mask"]).items():
-                err, limit, max_abs = _error(name, kern(), plain())
+                got = kern()
+                err, limit, max_abs = _error(name, got, plain())
                 ok = err <= limit
                 print(f"phase 2: {name:25s} {shape:6s} {dtype:4s} "
                       f"err {err:.3e} (limit {limit:.0e}) "
@@ -418,6 +437,9 @@ def phase2(x_path, gamma_path):
                     raise AssertionError(
                         f"{name} {shape} {dtype}: error {err:.3e} > "
                         f"{limit:.0e}")
+                if name == "nystrom_gram" and not torch.equal(kern(), got):
+                    raise AssertionError(f"{name} {shape} {dtype}: a "
+                                         f"repeat call differs")
                 if shape == "path" and dtype == "f32":
                     records[name]["max_abs_err"] = max_abs
     # time the main path's call: f32, no mask
@@ -535,6 +557,44 @@ def _slice2_calls(x_path, gamma_path):
             ("dense", (N_DENSE, N_DENSE, D), *square(dense)),
             ("ragged", (37, 37, 7), *square(rx))],
     }
+
+
+def phase2_gram_4096(x_path, gamma_path):
+    """B3 at the m=4096 engine's shape (N=10⁵, d=8, m=4096, f32): held
+    to its plain version, bit-identical on a repeat call, timed, and its
+    device time split by kernel (torch.profiler).  Returns its record."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + 6)
+    t = _inputs(rng, N, M_SUBSPACE, D, K, x=x_path, gamma=gamma_path)
+    kern, plain = _calls(t, "f32", None)["nystrom_gram"]
+    got = kern()
+    err, limit, max_abs = _error("nystrom_gram", got, plain())
+    print(f"phase 2: {GRAM_4096:25s} m={M_SUBSPACE} f32 err {err:.3e} "
+          f"(limit {limit:.0e}) {'ok' if err <= limit else 'FAIL'}")
+    if err > limit:
+        raise AssertionError(f"{GRAM_4096}: error {err:.3e} > {limit:.0e}")
+    if not torch.equal(kern(), got):
+        raise AssertionError(f"{GRAM_4096}: a repeat call differs")
+    # and at m=2048, masked
+    t2 = _inputs(rng, N, 2048, D, K, x=x_path, gamma=gamma_path)
+    k2048 = _calls(t2, "f32", t2["mask"])["nystrom_gram"][0]
+    if not torch.equal(k2048(), k2048()):
+        raise AssertionError("nystrom_gram m=2048: a repeat call differs")
+    rec = {"name": GRAM_4096, "route": "cuda",
+           "source": KERNELS["nystrom_gram"][1],
+           "replaces": KERNELS["nystrom_gram"][0], "max_abs_err": max_abs,
+           "ms": time_ms(kern, reps=5), "plain_ms": time_ms(plain, reps=5),
+           "library_ms": None}
+    rec["bound_ms"], rec["bound_by"] = _bound("nystrom_gram", N, M_SUBSPACE,
+                                              D, K)
+    print(f"phase 2: {GRAM_4096:25s} {rec['ms']:.4f} ms (device "
+          f"{device_ms(kern, reps=5):.4f} ms; plain {rec['plain_ms']:.4f} "
+          f"ms, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}); "
+          f"repeat calls at m=4096 and m=2048 bit-identical")
+    profile_device(2, f"{GRAM_4096} (one call)", kern)
+    return {GRAM_4096: rec}
 
 
 def phase2_slice2(x_path, gamma_path):
@@ -965,7 +1025,7 @@ def phase4():
 
 def phase5(x, labels):
     """The other routes of Algorithm I; returns the launches of B5, B6
-    and B8 on them."""
+    and B8 on them, and of B3 in the m=4096 engine."""
     import numpy as np
     import torch
     from repro_torch.cohort import CohortConfig, CohortEngine
@@ -980,6 +1040,7 @@ def phase5(x, labels):
             num_clusters=K, method="nystrom", num_landmarks=M_SUBSPACE,
             use_pallas=True), seed=ENGINE_SEED)
         counts = []
+        grams = []
         results = []
         for table in (x, x + 0.01 * rng.normal(size=x.shape).astype(
                 np.float32)):
@@ -987,6 +1048,7 @@ def phase5(x, labels):
             results.append(eng.select(table))
             torch.cuda.synchronize()
             counts.append(ops.LAUNCH_COUNTS["panel_matmul"])
+            grams.append(ops.LAUNCH_COUNTS["nystrom_gram"])
         cold, warm = results
         p_cold, p_warm = purity(cold.assign, labels), purity(warm.assign,
                                                              labels)
@@ -994,15 +1056,25 @@ def phase5(x, labels):
               f"{cold.seconds:.4f} s, {counts[0]} panel_matmul launches, "
               f"purity {p_cold:.5f}; {warm.source} select "
               f"{warm.seconds:.4f} s, {counts[1]} launches, purity "
-              f"{p_warm:.5f}")
+              f"{p_warm:.5f}; nystrom_gram launches {grams}")
         if (cold.source, warm.source) != ("cold", "warm"):
             raise AssertionError(f"sources {cold.source}, {warm.source}")
         if counts != [82, 18]:
             raise AssertionError(f"panel_matmul launches {counts}, "
                                  f"expected [82, 18]")
+        if grams != [1, 1]:
+            raise AssertionError(f"nystrom_gram launches {grams}, expected "
+                                 f"[1, 1]")
         if p_cold < 0.95:
             raise AssertionError(f"m={M_SUBSPACE} purity {p_cold:.4f}")
         launches["panel_matmul"] = sum(counts)
+        launches[GRAM_4096] = sum(grams)
+        # where a warm select's time goes at m=4096
+        table = x + 0.02 * rng.normal(size=x.shape).astype(np.float32)
+        res, _, _ = profile_device(5, f"m={M_SUBSPACE} select",
+                                   lambda: eng.select(table))
+        print(f"phase 5: profiled select was {res.source}, "
+              f"{res.seconds:.4f} s")
 
         xt = torch.tensor(x, device="cuda")
         ops.reset_launch_counts()
@@ -1088,13 +1160,15 @@ def _flash_bound(B, S, T, H, K, dh, causal, window, dtype):
 
 def _ssd_bound(B, c, Q, H, P, G, N, bc_dtype):
     """(bound_ms, bound_by) of one B10 call: the lower triangle the mask
-    keeps.  C.B^T (2N a kept entry) runs at the peak of B and C's type;
-    the decay (2), M.x (2P), the state (2PN a row, plus the B scale) at
-    f32.  Bytes: xdt, cs, B, C read once, y and the states written once.
+    keeps.  C.B^T (2N a kept entry) runs at the peak of B and C's type,
+    once per (batch, chunk, group): every head of a group shares it, so
+    it is not counted per head; the decay (2), M.x (2P), the state (2PN a
+    row, plus the B scale) at f32, per head.  Bytes: xdt, cs, B, C read
+    once, y and the states written once.
     """
     tri = Q * (Q + 1) // 2
     cells = B * c * H
-    ops_bc = cells * tri * 2 * N
+    ops_bc = B * c * G * tri * 2 * N
     ops_f32 = cells * (tri * (2 + 2 * P) + Q * (2 * P * N + N + 1))
     peak_bc = PEAK_BF16_FLOPS if bc_dtype == "bf16" else PEAK_F32_FLOPS
     t_ops = (ops_bc / peak_bc + ops_f32 / PEAK_F32_FLOPS) * 1e3
@@ -1170,6 +1244,11 @@ def _lm_kernel_cases():
         ssd_cases += [
             ("Q=8 G=2", *ssd(2, 3, 8, 4, 16, 2, 16, bc)),
             ("Q=19", *ssd(1, 2, 19, 2, 16, 1, 16, bc)),
+            # B10's head sets: 80 heads of one group, a partial last set,
+            # two groups
+            ("H=80", *ssd(1, 2, 256, 80, 64, 1, 128, bc)),
+            ("H=6", *ssd(1, 1, 256, 6, 64, 1, 128, bc)),
+            ("H=8 G=2", *ssd(1, 2, 256, 8, 64, 2, 128, bc)),
         ]
     return {"flash_attention": flash_cases, "ssd_chunk": ssd_cases}
 
@@ -1226,6 +1305,10 @@ def phase2_lm():
                                      f"{lim_text}")
             if err / lim > worst[0]:
                 worst = (err / lim, label, f"{err:.3e} against {lim_text}")
+            if name == "ssd_chunk" and not all(
+                    torch.equal(a, b) for a, b in zip(kern(), got)):
+                raise AssertionError(f"{name} {label}: a repeat call "
+                                     f"differs")
             # timed: the path shape (the JSON row) and gemma-2b's prefill
             if label not in ("path", "gemma", "gemma f32"):
                 continue
@@ -1253,7 +1336,9 @@ def phase2_lm():
                   f"{device_ms(kern):.4f} ms; plain {plain_ms:.4f} ms, bound "
                   f"{bound_ms:.5f} ms by {bound_by}{f32_note}, library "
                   f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'})")
-        print(f"phase 2: {name:25s} worst error {worst[2]} ({worst[1]})")
+        print(f"phase 2: {name:25s} worst error {worst[2]} ({worst[1]})"
+              + ("; every case bit-identical on a repeat call"
+                 if name == "ssd_chunk" else ""))
     return records
 
 
@@ -1451,6 +1536,7 @@ def main() -> int:
     xt = torch.tensor(x, device="cuda")
     gamma = float(auto_gamma(pairwise_sq_dists(xt[:4096], xt[:M])))
     records = phase2(x, gamma)
+    records.update(phase2_gram_4096(x, gamma))
     records.update(phase2_slice2(x, gamma))
     records.update(phase2_lm())
     launches = phase3(x, labels)
@@ -1463,7 +1549,7 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [{key: records[name][key] for key in keys}
-                                  for name in KERNELS]}))
+                                  for name in (*KERNELS, *EXTRA_ROWS)]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

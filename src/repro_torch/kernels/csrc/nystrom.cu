@@ -24,8 +24,10 @@
 // f32) on an H100 (67 TFLOP/s f32 on the CUDA cores, 3.35 TB/s):
 //   colsum     N*m = 5.1e7 affinity entries (~1.2 GFLOP) on 3.6 MB read:
 //              operation-bound, ~20 us.
-//   gram       2*N*m^2 = 5.2e10 FLOP of S^T S in exact f32 (no TF32):
-//              operation-bound, ~0.8 ms.
+//   gram       the upper triangle of S^T S, N*m*(m + 1) = 2.6e10 FLOP in
+//              exact f32 (no TF32), plus C once and the rotation:
+//              operation-bound, ~0.42 ms; at the m = 4096 engine's shape
+//              1.7e12 FLOP, ~29 ms (kernel 3).
 //   extension  like colsum twice plus 2*N*m*k FLOP: operation-bound.
 //   cross      W = A(z, z), 512 x 512: 1 MB written, launch-bound.
 //   panel      the subspace solver's W Q at m = 4096: (4096, 4096) @
@@ -69,7 +71,7 @@ bool dispatch(int dtype, int d, F&& f) {
 }
 
 // ---------------------------------------------------------------------------
-// shared pieces: in-order reduction of per-block partials, tiled f32 matmul
+// shared piece: in-order reduction of per-block partials
 // ---------------------------------------------------------------------------
 
 // out[j] = sum_p partial[p, j], p ascending.
@@ -85,53 +87,18 @@ __global__ void sum_rows_kernel(const float* __restrict__ partial,
   out[j] = acc;
 }
 
-constexpr int kMmTile = 64;     // output tile edge
-constexpr int kMmDepth = 16;    // k-slice held in shared memory
-constexpr int kTileThreads = 256;   // 16 x 16 threads, 4 x 4 outputs each
-
-// C (M, N) = A (M, K) @ B (K, N), row-major f32.  Each thread sums its 4 x 4
-// outputs over k in ascending order.
-__global__ void __launch_bounds__(kTileThreads)
-matmul_kernel(const float* __restrict__ a, const float* __restrict__ b,
-              float* __restrict__ c, int M, int N, int K) {
-  __shared__ __align__(16) float as[kMmDepth][kMmTile];
-  __shared__ __align__(16) float bs[kMmDepth][kMmTile];
-  const int r0 = blockIdx.y * kMmTile, c0 = blockIdx.x * kMmTile;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += kMmDepth) {
-    for (int e = threadIdx.x; e < kMmTile * kMmDepth; e += kTileThreads) {
-      const int ar = e / kMmDepth, ak = e % kMmDepth;
-      as[ak][ar] = (r0 + ar < M && k0 + ak < K)
-                       ? a[static_cast<size_t>(r0 + ar) * K + k0 + ak] : 0.f;
-      const int bk = e / kMmTile, bc = e % kMmTile;
-      bs[bk][bc] = (k0 + bk < K && c0 + bc < N)
-                       ? b[static_cast<size_t>(k0 + bk) * N + c0 + bc] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kMmDepth; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&as[kk][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&bs[kk][tx * 4]);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty * 4 + i;
-    if (r >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int cc = c0 + tx * 4 + j;
-      if (cc < N) c[static_cast<size_t>(r) * N + cc] = acc[i][j];
-    }
-  }
+// One float (VEC false) or 16 bytes (VEC true) global -> shared with
+// cp.async; `in` false zero-fills the destination.
+template <bool VEC>
+__device__ __forceinline__ void panel_copy(float* dst, const float* src,
+                                           bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (VEC)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(in ? 16 : 0));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                 "l"(src), "r"(in ? 4 : 0));
 }
 
 // ---------------------------------------------------------------------------
@@ -257,92 +224,345 @@ degree_kernel(const float* __restrict__ x, const float* __restrict__ z,
 }
 
 // ---------------------------------------------------------------------------
-// kernel 3: the S^T S Gram.  Block (P, Q, slab) owns output tile (P, Q) of
-// one slab of rows.  For each chunk of kGramRows rows it rebuilds the S
-// columns of tiles P and Q in shared memory and accumulates their outer
-// products in registers (4 x 4 per thread, rows in ascending order).  The
-// slabs' partial Grams are added in slab order by sum_rows_kernel, then the
-// W^-1/2 G W^-1/2 rotation runs as two matmul_kernel launches.
+// kernel 3: the S^T S Gram (rt_nystrom_gram), after degree_kernel's r.
 // ---------------------------------------------------------------------------
+//
+// Bound: S^T S is symmetric, so the least work is its upper triangle,
+// N*m*(m + 1) FLOP of exact f32 FMAs (2.6e10 at m = 512, 1.7e12 at
+// m = 4096: 0.39 and 25 ms at 67 TFLOP/s), beside C once (~1.2 GFLOP at
+// m = 512) and the W^-1/2 G W^-1/2 rotation (4 m^3).  Operation-bound.
+//
+// Every output tile rebuilds the S columns it needs, and 4 x 4 register
+// tiles are bound by shared-memory reads (one float for every 4 FMAs), so
+// the tiles are large and only the upper triangle is computed:
+//   - A block of 256 threads owns one 128 x 128 tile pair (P, Q) with
+//     P <= Q of the upper triangle (gram_pair) and one slab of rows: 8 x 8
+//     outputs a thread (16 shared-memory floats for 64 FMAs), in two
+//     float4 groups half the tile apart so a warp's reads are contiguous
+//     or broadcast.  A column of S is rebuilt m/128 + 1 times; a diagonal
+//     pair builds its one tile once.
+//   - Each thread keeps one landmark of the pair in registers and builds
+//     its S column for every row chunk (kGramRows rows), so a chunk's
+//     entries are built once, into shared memory.  The rows' raw x and r
+//     stream through a 2-stage cp.async ring (4-byte copies: a chunk is
+//     kGramRows * d floats); 32 threads round them to the tile precision.
+//   - The (pair, slab) partials go to a compact (slabs, pairs, 128, 128)
+//     scratch; gram_reduce_kernel adds the slabs in index order and
+//     writes each entry of the (m, m) Gram and its mirror, so G is
+//     exactly symmetric.  gram_slabs (kernels/nystrom.py) picks the
+//     slabs from (n, m) alone: enough (pair, slab) blocks for 4 waves of
+//     2 blocks an SM, the scratch capped at 2^25 floats (128 MiB; at
+//     m = 4096 two slabs, 69 MB).
+//   - The rotation is two launches of rot_tile_kernel, the same 8 x 8
+//     design: t = W^-1/2 G, out = t W^-1/2.  W^-1/2 is not taken to be
+//     symmetric (the function accepts any (m, m) matrix), so both are
+//     general products; each output sums k in ascending order in one
+//     accumulator (see rot_tile_kernel).
+// Every sum has a fixed order: rows ascending within a slab, slabs in
+// index order, k ascending in the rotation.  No atomics.  On the card
+// (PERF.md, the kernel table): 1.45 ms at m = 512, 70 ms at m = 4096, of which the
+// tile kernel 62 and the rotation 7.3.
 
-constexpr int kGramTile = 64;
-constexpr int kGramRows = 32;
+constexpr int kGramTile = 128;     // output tile edge
+constexpr int kGramRows = 32;      // rows a chunk
+constexpr int kGramThreads = 256;  // 16 x 16 threads, 8 x 8 outputs each
+constexpr int kGramLd = kGramTile + 4;
+
+// Tile pair `idx` of the upper triangle of a T x T tile grid, row by row:
+// (0, 0), (0, 1), ..., (0, T - 1), (1, 1), ...  (gram_pair in
+// kernels/nystrom.py mirrors it).
+__device__ __forceinline__ void gram_pair(int T, int idx, int& P, int& Q) {
+  P = 0;
+  while (idx >= T - P) {
+    idx -= T - P;
+    ++P;
+  }
+  Q = P + idx;
+}
+
+// Entry e of the 8 rows (or columns) owner o (0..15) holds in a tile.
+__device__ __forceinline__ int gram_idx(int o, int e) {
+  return (e / 4) * (kGramTile / 2) + o * 4 + e % 4;
+}
+__device__ __forceinline__ void gram_load8(const float* p, int o,
+                                           float (&v)[8]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float4 x =
+        *reinterpret_cast<const float4*>(p + h * (kGramTile / 2) + o * 4);
+    v[4 * h] = x.x; v[4 * h + 1] = x.y; v[4 * h + 2] = x.z;
+    v[4 * h + 3] = x.w;
+  }
+}
+
+// floats of shared memory: the two S tiles, the raw ring (a chunk's x
+// span, then its r), the prepared rows (points, norms, scales, r)
+template <int MAXD>
+struct GramSmem {
+  static constexpr int kTiles = 2 * kGramRows * kGramLd;
+  static constexpr int kRaw = kGramRows * (MAXD + 1);
+  static constexpr int kPrep = kGramRows * (MAXD + 3);
+  static constexpr size_t kBytes = (kTiles + 2 * kRaw + kPrep) * sizeof(float);
+};
+
+template <int MAXD>
+__device__ __forceinline__ void gram_load_chunk(float* stage, const float* x,
+                                                const float* r, int i0,
+                                                int rows, int d) {
+  for (int e = threadIdx.x; e < rows * d; e += kGramThreads)
+    panel_copy<false>(stage + e, x + static_cast<size_t>(i0) * d + e, true);
+  for (int e = threadIdx.x; e < rows; e += kGramThreads)
+    panel_copy<false>(stage + kGramRows * MAXD + e, r + i0 + e, true);
+  asm volatile("cp.async.commit_group;\n" ::);
+}
 
 template <int DT, int MAXD>
-__global__ void __launch_bounds__(kTileThreads)
+__global__ void __launch_bounds__(kGramThreads, 2)
 gram_tile_kernel(const float* __restrict__ x, const float* __restrict__ z,
                  float gamma, const float* __restrict__ r,
                  float* __restrict__ partial, int n, int m, int d,
                  int slab_rows) {
-  __shared__ __align__(16) float sp[kGramRows][kGramTile];
-  __shared__ __align__(16) float sq[kGramRows][kGramTile];
-  extern __shared__ float smem[];
-  float* pv = smem;                     // landmark tile P: d * kGramTile
-  float* pn = pv + d * kGramTile;
-  float* ps = pn + kGramTile;
-  float* qv = ps + kGramTile;           // landmark tile Q
-  float* qn = qv + d * kGramTile;
-  float* qs = qn + kGramTile;
-  float* xv = qs + kGramTile;           // row chunk: d * kGramRows
-  float* xn = xv + d * kGramRows;
+  using Sm = GramSmem<MAXD>;
+  extern __shared__ float4 gram_smem4[];
+  float* sp = reinterpret_cast<float*>(gram_smem4);   // S columns of tile P
+  float* sq = sp + kGramRows * kGramLd;               // ... of tile Q
+  float* raw = sp + Sm::kTiles;
+  float* xv = raw + 2 * Sm::kRaw;                     // [t][MAXD]
+  float* xn = xv + kGramRows * MAXD;
   float* xs = xn + kGramRows;
   float* xr = xs + kGramRows;
 
-  const int p0 = blockIdx.x * kGramTile, q0 = blockIdx.y * kGramTile;
-  const int pc = min(kGramTile, m - p0), qc = min(kGramTile, m - q0);
-  load_points<DT, MAXD>(z, p0, pc, kGramTile, d, pv, pn, ps);
-  load_points<DT, MAXD>(z, q0, qc, kGramTile, d, qv, qn, qs);
-  const int i_begin = blockIdx.z * slab_rows;
+  int P, Q;
+  gram_pair((m + kGramTile - 1) / kGramTile, blockIdx.x, P, Q);
+  const bool diag = P == Q;
+  const int tid = threadIdx.x;
+  // the landmark column this thread builds, kept in registers; a
+  // diagonal pair has one tile, built by two halves of the rows
+  const int col = tid % kGramTile;
+  const bool in_p = diag || tid < kGramTile;
+  const int j = (in_p ? P : Q) * kGramTile + col;
+  float lv[MAXD];
+  float ln = 0.f, ls = 1.f;
+#pragma unroll
+  for (int k = 0; k < MAXD; ++k) lv[k] = 0.f;
+  if (j < m) prepare_point<DT, MAXD>(z + static_cast<size_t>(j) * d, d, lv, ln, ls);
+  float* build = in_p ? sp : sq;
+  const int t_begin = diag ? (tid / kGramTile) * (kGramRows / 2) : 0;
+  const int t_end = diag ? t_begin + kGramRows / 2 : kGramRows;
+  const float* sb = diag ? sp : sq;
+
+  const int warp = tid / 32, lane = tid % 32;
+  const int ty = (warp / 2) * 4 + lane / 8;   // output rows gram_idx(ty, .)
+  const int tx = (warp % 2) * 8 + lane % 8;   // output columns
+  float acc[8][8];
+#pragma unroll
+  for (int a = 0; a < 8; ++a)
+#pragma unroll
+    for (int b = 0; b < 8; ++b) acc[a][b] = 0.f;
+
+  const int i_begin = blockIdx.y * slab_rows;
   const int i_end = min(n, i_begin + slab_rows);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4] = {};
-  for (int i0 = i_begin; i0 < i_end; i0 += kGramRows) {
+  const int nchunks = (i_end - i_begin + kGramRows - 1) / kGramRows;
+  if (nchunks > 0)
+    gram_load_chunk<MAXD>(raw, x, r, i_begin, min(kGramRows, i_end - i_begin),
+                          d);
+  for (int c = 0; c < nchunks; ++c) {
+    const int i0 = i_begin + c * kGramRows;
     const int rows = min(kGramRows, i_end - i0);
-    __syncthreads();   // the previous chunk's tiles are consumed
-    load_points<DT, MAXD>(x, i0, rows, kGramRows, d, xv, xn, xs);
-    for (int t = threadIdx.x; t < kGramRows; t += blockDim.x)
-      xr[t] = t < rows ? r[i0 + t] : 0.f;
-    __syncthreads();
-    for (int e = threadIdx.x; e < kGramRows * 2 * kGramTile;
-         e += kTileThreads) {
-      const int t = e / (2 * kGramTile);
-      const int c = e % (2 * kGramTile);
-      const bool in_q = c >= kGramTile;
-      const int cc = in_q ? c - kGramTile : c;
-      float s = 0.f;
-      if (t < rows && cc < (in_q ? qc : pc) && xr[t] != 0.f) {
-        const float* lv = in_q ? qv : pv;
-        const float* ln = in_q ? qn : pn;
-        const float* ls = in_q ? qs : ps;
-        s = affinity<DT, MAXD>(xv + t, kGramRows, xn[t], xs[t], lv + cc,
-                               kGramTile, ln[cc], ls[cc], d, gamma) * xr[t];
-      }
-      (in_q ? sq : sp)[t][cc] = s;
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncthreads();   // chunk c has landed; chunk c - 1 is consumed
+    if (c + 1 < nchunks)
+      gram_load_chunk<MAXD>(raw + ((c + 1) % 2) * Sm::kRaw, x, r,
+                            i0 + kGramRows,
+                            min(kGramRows, i_end - i0 - kGramRows), d);
+    if (tid < kGramRows) {
+      const float* rs = raw + (c % 2) * Sm::kRaw;
+      float pv[MAXD];
+      float pn = 0.f, ps = 1.f;
+#pragma unroll
+      for (int k = 0; k < MAXD; ++k) pv[k] = 0.f;
+      if (tid < rows) prepare_point<DT, MAXD>(rs + tid * d, d, pv, pn, ps);
+#pragma unroll
+      for (int k = 0; k < MAXD; ++k) xv[tid * MAXD + k] = pv[k];
+      xn[tid] = pn;
+      xs[tid] = ps;
+      xr[tid] = tid < rows ? rs[kGramRows * MAXD + tid] : 0.f;
     }
-    __syncthreads();
+    __syncthreads();   // the chunk's rows are prepared
+    for (int t = t_begin; t < t_end; ++t)
+      build[t * kGramLd + col] =
+          affinity<DT, MAXD>(xv + t * MAXD, 1, xn[t], xs[t], lv, 1, ln, ls,
+                             d, gamma) * xr[t];
+    __syncthreads();   // the chunk's S columns are built
 #pragma unroll 4
     for (int t = 0; t < kGramRows; ++t) {
-      const float4 av = *reinterpret_cast<const float4*>(&sp[t][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&sq[t][tx * 4]);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+      float av[8], bv[8];
+      gram_load8(sp + t * kGramLd, ty, av);
+      gram_load8(sb + t * kGramLd, tx, bv);
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+      for (int a = 0; a < 8; ++a)
 #pragma unroll
-        for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(ar[a], br[b], acc[a][b]);
+        for (int b = 0; b < 8; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
     }
   }
-  float* out = partial + static_cast<size_t>(blockIdx.z) * m * m;
+  float* out = partial + (static_cast<size_t>(blockIdx.y) * gridDim.x +
+                          blockIdx.x) * kGramTile * kGramTile;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int p = p0 + ty * 4 + a;
-    if (p >= m) continue;
+  for (int a = 0; a < 8; ++a) {
+    float* row = out + gram_idx(ty, a) * kGramTile;
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int q = q0 + tx * 4 + b;
-      if (q < m) out[static_cast<size_t>(p) * m + q] = acc[a][b];
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float4*>(row + h * (kGramTile / 2) + tx * 4) =
+          make_float4(acc[a][4 * h], acc[a][4 * h + 1], acc[a][4 * h + 2],
+                      acc[a][4 * h + 3]);
+  }
+}
+
+// g (m, m) from the (slabs, pairs, 128, 128) partials: block (pair, 32 x 32
+// sub-tile) adds the slabs in index order, writes the upper-triangle
+// entries, and through shared memory their mirrors, both coalesced.
+constexpr int kReduceEdge = 32;
+
+__global__ void __launch_bounds__(kReduceEdge * 8)
+gram_reduce_kernel(const float* __restrict__ partial, float* __restrict__ g,
+                   int m, int slabs) {
+  __shared__ float tile[kReduceEdge][kReduceEdge + 1];
+  int P, Q;
+  gram_pair((m + kGramTile - 1) / kGramTile, blockIdx.x, P, Q);
+  constexpr int kSub = kGramTile / kReduceEdge;
+  const int a0 = (blockIdx.y / kSub) * kReduceEdge;
+  const int b0 = (blockIdx.y % kSub) * kReduceEdge;
+  const size_t pair_stride = static_cast<size_t>(gridDim.x) * kGramTile *
+                             kGramTile;
+  const float* base = partial + static_cast<size_t>(blockIdx.x) * kGramTile *
+                                    kGramTile;
+  for (int k = threadIdx.y; k < kReduceEdge; k += 8) {
+    const int a = a0 + k, b = b0 + threadIdx.x;
+    const float* src = base + a * kGramTile + b;
+    float v = 0.f;
+    for (int s = 0; s < slabs; ++s) v += src[s * pair_stride];
+    tile[k][threadIdx.x] = v;
+    const int p = P * kGramTile + a, q = Q * kGramTile + b;
+    if (p < m && q < m && (P != Q || a <= b))
+      g[static_cast<size_t>(p) * m + q] = v;
+  }
+  __syncthreads();
+  for (int k = threadIdx.y; k < kReduceEdge; k += 8) {
+    const int a = a0 + threadIdx.x, b = b0 + k;
+    const int p = P * kGramTile + a, q = Q * kGramTile + b;
+    if (p < m && q < m && (P != Q || a < b))
+      g[static_cast<size_t>(q) * m + p] = tile[threadIdx.x][k];
+  }
+}
+
+// The rotation t = W^-1/2 G, out = t W^-1/2 (rt_nystrom_gram's last two
+// launches): C (m, m) = A (m, m) B (m, m), both row-major and general
+// (the function accepts any W^-1/2).  A block of 64 threads owns a 64 x 64
+// tile, 8 x 8 outputs a thread: rows ty + 8 a, so a warp's float4 reads of
+// A's rows (kRotK + 8 floats apart) hit distinct banks, and columns in two
+// float4 groups half the tile apart.  A's rows and B's k-slice stream
+// through a 2-stage cp.async ring.  Each output sums k in ascending order
+// in one accumulator, the rounding this rotation has always had: the
+// cohort server's cold solve draws its k-means++ seeds from the rotated
+// Gram's last bits (W^-1/2 is ill-conditioned), and a k-split sum flips
+// that draw at the smoke run's table (PERF.md, section 6).
+constexpr int kRotTile = 64;
+constexpr int kRotK = 32;           // k a ring stage holds
+constexpr int kRotThreads = 64;     // 8 x 8 threads, 8 x 8 outputs each
+constexpr int kRotLda = kRotK + 8;
+
+template <bool VEC>
+__device__ __forceinline__ void rot_load(float* sa, float* sb,
+                                         const float* a, const float* b,
+                                         int i0, int j0, int k0, int m) {
+  constexpr int V = VEC ? 4 : 1;
+  for (int e = threadIdx.x; e < kRotTile * kRotK / V; e += kRotThreads) {
+    const int row = e / (kRotK / V), kk = (e % (kRotK / V)) * V;
+    const bool in = i0 + row < m && k0 + kk < m;
+    panel_copy<VEC>(sa + row * kRotLda + kk,
+                    in ? a + static_cast<size_t>(i0 + row) * m + k0 + kk : a,
+                    in);
+  }
+  for (int e = threadIdx.x; e < kRotK * kRotTile / V; e += kRotThreads) {
+    const int kk = e / (kRotTile / V), col = (e % (kRotTile / V)) * V;
+    const bool in = k0 + kk < m && j0 + col < m;
+    panel_copy<VEC>(sb + kk * kRotTile + col,
+                    in ? b + static_cast<size_t>(k0 + kk) * m + j0 + col : b,
+                    in);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(kRotThreads)
+rot_tile_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                float* __restrict__ c, int m) {
+  __shared__ __align__(16) float sa[2][kRotTile * kRotLda];
+  __shared__ __align__(16) float sb[2][kRotK * kRotTile];
+  const int i0 = blockIdx.y * kRotTile, j0 = blockIdx.x * kRotTile;
+  const int ty = threadIdx.x / 8, tx = threadIdx.x % 8;
+  float acc[8][8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) acc[r][q] = 0.f;
+  const int nk = (m + kRotK - 1) / kRotK;
+  rot_load<VEC>(sa[0], sb[0], a, b, i0, j0, 0, m);
+  for (int kc = 0; kc < nk; ++kc) {
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncthreads();   // slice kc has landed; slice kc - 1 is consumed
+    if (kc + 1 < nk)
+      rot_load<VEC>(sa[(kc + 1) % 2], sb[(kc + 1) % 2], a, b, i0, j0,
+                    (kc + 1) * kRotK, m);
+    const float* ta = sa[kc % 2];
+    const float* tb = sb[kc % 2];
+#pragma unroll 2
+    for (int k4 = 0; k4 < kRotK; k4 += 4) {
+      float av[8][4];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(ta + (ty + 8 * r) * kRotLda + k4);
+        av[r][0] = v.x; av[r][1] = v.y; av[r][2] = v.z; av[r][3] = v.w;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float bv[8];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              tb + (k4 + kk) * kRotTile + h * (kRotTile / 2) + tx * 4);
+          bv[4 * h] = v.x; bv[4 * h + 1] = v.y; bv[4 * h + 2] = v.z;
+          bv[4 * h + 3] = v.w;
+        }
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int q = 0; q < 8; ++q)
+            acc[r][q] = fmaf(av[r][kk], bv[q], acc[r][q]);
+      }
     }
   }
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int i = i0 + ty + 8 * r;
+    if (i >= m) continue;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int j = j0 + (q / 4) * (kRotTile / 2) + tx * 4 + q % 4;
+      if (j < m) c[static_cast<size_t>(i) * m + j] = acc[r][q];
+    }
+  }
+}
+
+int launch_rot(const float* a, const float* b, float* c, int m,
+               cudaStream_t s) {
+  const dim3 grid(blocks_for(m, kRotTile), blocks_for(m, kRotTile));
+  const bool vec = m % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(b) % 16 == 0;
+  if (vec) rot_tile_kernel<true><<<grid, kRotThreads, 0, s>>>(a, b, c, m);
+  else rot_tile_kernel<false><<<grid, kRotThreads, 0, s>>>(a, b, c, m);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -455,18 +675,6 @@ struct PanelCfg {
   static_assert(kGroups * BM * BN <= kPanelStages * (kWStage + kQStage),
                 "the partials fit the ring");
 };
-
-template <bool VEC>
-__device__ __forceinline__ void panel_copy(float* dst, const float* src,
-                                           bool in) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if (VEC)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                 "l"(src), "r"(in ? 16 : 0));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-                 "l"(src), "r"(in ? 4 : 0));
-}
 
 // chunk k0 .. k0 + KD - 1 of W's panel and of Q's column tile into one
 // stage; entries past m, p or r are zero-filled
@@ -666,41 +874,6 @@ int rt_nystrom_colsum(const float* x, const float* z, float gamma,
   return static_cast<int>(cudaGetLastError());
 }
 
-// r: (n,), partial: (slabs, m, m), g and t: (m, m) scratch.
-int rt_nystrom_gram(const float* x, const float* z, float gamma,
-                    const float* u, const float* w_isqrt, const float* mask,
-                    float* r, float* partial, float* g, float* t, float* out,
-                    int n, int m, int d, int slabs, int slab_rows, int dtype,
-                    void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned tiles = blocks_for(m, kGramTile);
-  const size_t gram_smem =
-      ((d + 2) * 2 * kGramTile + (d + 3) * kGramRows) * sizeof(float);
-  cudaError_t err = cudaSuccess;
-  const bool ok = dispatch(dtype, d, [&](auto c) {
-    using C = decltype(c);
-    degree_kernel<C::kDt, C::kMaxD>
-        <<<blocks_for(n, kRowThreads), kRowThreads, row_smem_bytes(d), s>>>(
-            x, z, gamma, u, mask, r, n, m, d);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return;
-    gram_tile_kernel<C::kDt, C::kMaxD>
-        <<<dim3(tiles, tiles, slabs), kTileThreads, gram_smem, s>>>(
-            x, z, gamma, r, partial, n, m, d, slab_rows);
-    err = cudaGetLastError();
-  });
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long mm = static_cast<long long>(m) * m;
-  sum_rows_kernel<<<blocks_for(mm, 256), 256, 0, s>>>(partial, g, slabs, mm);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  const dim3 mgrid(blocks_for(m, kMmTile), blocks_for(m, kMmTile));
-  matmul_kernel<<<mgrid, kTileThreads, 0, s>>>(w_isqrt, g, t, m, m, m);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  matmul_kernel<<<mgrid, kTileThreads, 0, s>>>(t, w_isqrt, out, m, m, m);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // out (m, r) = w (m, p) @ q (p, r) in exact f32, one launch of panel_kernel
 // (kernel 6).  The TPU kernel walks row panels of block_rows in order to
 // bound VMEM residency; here each block owns a short panel, and each
@@ -716,6 +889,47 @@ int rt_panel_matmul(const float* w, const float* q, float* out, int m, int p,
                    reinterpret_cast<uintptr_t>(q) % 16 == 0;
   if (r <= 8) return launch_panel<16, 8, 4, 2, 128>(vec, w, q, out, m, p, r, s);
   return launch_panel<32, 64, 8, 8, 64>(vec, w, q, out, m, p, r, s);
+}
+
+// r: (n,), partial: (slabs, pairs, 128, 128) with pairs = T (T + 1) / 2 and
+// T = ceil(m / 128), g and t: (m, m) scratch.
+int rt_nystrom_gram(const float* x, const float* z, float gamma,
+                    const float* u, const float* w_isqrt, const float* mask,
+                    float* r, float* partial, float* g, float* t, float* out,
+                    int n, int m, int d, int slabs, int slab_rows, int dtype,
+                    void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long tiles = blocks_for(m, kGramTile);
+  const long long pairs = tiles * (tiles + 1) / 2;
+  if (n < 1 || m < 1 || slabs < 1 || slabs > 65535 || slab_rows < 1 ||
+      pairs > 0x7fffffffLL ||
+      static_cast<long long>(slabs - 1) * slab_rows >= n)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSuccess;
+  const bool ok = dispatch(dtype, d, [&](auto c) {
+    using C = decltype(c);
+    degree_kernel<C::kDt, C::kMaxD>
+        <<<blocks_for(n, kRowThreads), kRowThreads, row_smem_bytes(d), s>>>(
+            x, z, gamma, u, mask, r, n, m, d);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return;
+    gram_tile_kernel<C::kDt, C::kMaxD>
+        <<<dim3(static_cast<unsigned>(pairs), slabs), kGramThreads,
+           GramSmem<C::kMaxD>::kBytes, s>>>(x, z, gamma, r, partial, n, m, d,
+                                            slab_rows);
+    err = cudaGetLastError();
+  });
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gram_reduce_kernel<<<dim3(static_cast<unsigned>(pairs),
+                            (kGramTile / kReduceEdge) * (kGramTile / kReduceEdge)),
+                       dim3(kReduceEdge, 8), 0, s>>>(partial, g, m, slabs);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  // the rotation: t = W^-1/2 G, out = t W^-1/2
+  if ((err = static_cast<cudaError_t>(launch_rot(w_isqrt, g, t, m, s))) !=
+      cudaSuccess)
+    return static_cast<int>(err);
+  return launch_rot(t, w_isqrt, out, m, s);
 }
 
 int rt_nystrom_extension(const float* x, const float* z, float gamma,

@@ -32,20 +32,25 @@ from repro_torch.kernels._common import (LAUNCH_COUNTS, check_block,
 
 __all__ = ["LAUNCH_COUNTS", "reset_launch_counts", "quantized_cross_affinity",
            "nystrom_colsum", "nystrom_gram", "nystrom_extension",
-           "panel_matmul", "gram_slabs"]
+           "panel_matmul", "gram_slabs", "gram_pair", "gram_tile_pairs"]
 
 AFFINITY_DTYPES = ("f32", "bf16", "int8")
 _DTYPE_CODE = {"f32": 0, "bf16": 1, "int8": 2}
 _MAX_K = 64              # widest projection the extension kernel holds
 _COLSUM_ROWS = 256       # kColsumRows in nystrom.cu
 _GRAM_ROWS = 32          # kGramRows
-_GRAM_TILE = 64          # kGramTile
+_GRAM_TILE = 128         # kGramTile
 _PANEL_COLS = 64         # the widest column tile of panel_kernel
-_MAX_GRID_Y = 65535      # CUDA's limit on gridDim.y (its column tiles)
-# the Gram kernel splits the rows into slabs until about this many blocks
-# are in flight (8 per SM of a 132-SM H100); a function of the shapes
-# only, so the summation order never depends on the card
+_MAX_GRID_X = 2 ** 31 - 1   # CUDA's limit on gridDim.x (the tile pairs)
+_MAX_GRID_Y = 65535      # ... on gridDim.y (column tiles; the Gram's slabs)
+# the Gram kernel splits the rows into slabs until about this many
+# (pair, slab) blocks exist (4 waves of 2 blocks on each SM of a 132-SM
+# H100); a function of the shapes only, so the summation order never
+# depends on the card
 _GRAM_TARGET_BLOCKS = 1056
+# cap on the floats of the slabs' partial tiles (128 MiB); it binds only
+# when it leaves more than one slab: at m = 4096 two slabs, 69 MB
+_GRAM_SCRATCH_CAP = 2 ** 25
 
 
 def _check(name, affinity_dtype, block_m, **tensors) -> torch.device:
@@ -112,11 +117,36 @@ def nystrom_colsum(x, z, gamma, mask=None, *, affinity_dtype: str = "f32",
     return out
 
 
-def gram_slabs(n: int, m: int):
-    """(slabs, rows per slab) of the Gram kernel's split over the rows."""
+def gram_pair(tiles: int, idx: int):
+    """(P, Q), P <= Q: the Gram kernel's tile pair ``idx`` of the upper
+    triangle of a ``tiles`` x ``tiles`` grid of 128 x 128 tiles, row by
+    row (``gram_pair`` in nystrom.cu)."""
+    p = 0
+    while idx >= tiles - p:
+        idx -= tiles - p
+        p += 1
+    return p, p + idx
+
+
+def _gram_pairs(m: int) -> int:
     tiles = math.ceil(m / _GRAM_TILE)
+    return tiles * (tiles + 1) // 2
+
+
+def gram_tile_pairs(m: int):
+    """Every tile pair the Gram kernel computes, in block order: the
+    upper triangle of SᵀS, each (P, Q) with P <= Q once."""
+    tiles = math.ceil(m / _GRAM_TILE)
+    return [gram_pair(tiles, i) for i in range(_gram_pairs(m))]
+
+
+def gram_slabs(n: int, m: int):
+    """(slabs, rows per slab) of the Gram kernel's split over the rows: a
+    function of (n, m) alone."""
+    pairs = _gram_pairs(m)
     slabs = max(1, min(math.ceil(n / _GRAM_ROWS),
-                       math.ceil(_GRAM_TARGET_BLOCKS / tiles ** 2)))
+                       math.ceil(_GRAM_TARGET_BLOCKS / pairs),
+                       _GRAM_SCRATCH_CAP // (pairs * _GRAM_TILE ** 2)))
     slab_rows = math.ceil(math.ceil(n / slabs) / _GRAM_ROWS) * _GRAM_ROWS
     return math.ceil(n / slab_rows), slab_rows
 
@@ -125,8 +155,11 @@ def nystrom_gram(x, z, gamma, u, w_isqrt, mask=None, *,
                  affinity_dtype: str = "f32", block_m: int = 1024):
     """Fused ``W⁻¹ᐟ² (SᵀS) W⁻¹ᐟ²`` where S is the degree-normalized C.
 
-    ``u`` (m,) is ``W⁻¹ᐟ²(W⁻¹ᐟ² col)``; ``w_isqrt`` (m, m).  Returns the
-    rotated (m, m) Gram; the caller symmetrizes and eigensolves.
+    ``u`` (m,) is ``W⁻¹ᐟ²(W⁻¹ᐟ² col)``; ``w_isqrt`` (m, m), any matrix.
+    Returns the rotated (m, m) Gram; the caller symmetrizes and
+    eigensolves.  The CUDA kernel computes the upper triangle of SᵀS in
+    the tile pairs of :func:`gram_tile_pairs` over the row slabs of
+    :func:`gram_slabs`, and mirrors it.
     """
     name = "nystrom_gram"
     dev = _check(name, affinity_dtype, block_m, x=x, z=z, u=u,
@@ -142,11 +175,15 @@ def nystrom_gram(x, z, gamma, u, w_isqrt, mask=None, *,
         return ref.nystrom_gram_ref(x, z, g, u, w_isqrt, mask,
                                     affinity_dtype=affinity_dtype)
     check_kernel_shape(name, n, m, d)
+    pairs = _gram_pairs(m)
+    if pairs > _MAX_GRID_X:
+        raise ValueError(f"{name}: m={m} needs {pairs} tile pairs, more "
+                         f"than CUDA's {_MAX_GRID_X} blocks")
     lib = _build.library()
     slabs, slab_rows = gram_slabs(n, m)
     f32 = dict(dtype=torch.float32, device=dev)
     r = torch.empty((n,), **f32)
-    partial = torch.empty((slabs, m, m), **f32)
+    partial = torch.empty((slabs, pairs, _GRAM_TILE, _GRAM_TILE), **f32)
     gram = torch.empty((m, m), **f32)
     rotated_half = torch.empty((m, m), **f32)
     out = torch.empty((m, m), **f32)

@@ -4,10 +4,13 @@ The PyTorch counterpart of the JAX package's ``kernels/ssd_pallas.py``.
 CPU tensors run the plain version (:func:`repro_torch.kernels.ref.
 ssd_chunk_ref`); CUDA tensors launch the kernel, or raise.  One launch
 computes every (batch, chunk, head) cell: the diagonal-block outputs and
-the per-chunk states.
+the per-chunk states.  :func:`ssd_plan` and :func:`ssd_blocks` mirror how
+the kernel splits that work into blocks.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -18,6 +21,54 @@ from repro_torch.kernels._common import check_tensors, launched, stream
 #: reduced configs' and mamba2's
 SHAPES = ((16, 16), (64, 128))
 _DTYPES = (torch.float32, torch.bfloat16)
+_HEAD_SET = 4          # kHeads in ssd.cu: heads of one group a block owns
+_ROW_TILE = 64         # kRowTile: rows of y a row-tile block owns
+_STATE_COLS = 64       # kStateCols: state columns a state block owns
+_MAX_GRID_X = 2 ** 31 - 1
+
+
+def ssd_plan(B: int, c: int, Q: int, H: int, G: int, N: int) -> dict:
+    """How the kernel splits one call into blocks: a pure function of the
+    shapes.
+
+    A block owns a head set (up to ``_HEAD_SET`` heads of one group; the
+    last set of a group is partial when the set size does not divide
+    H / G), one (batch, chunk) and one role: a slice of
+    ``state_cols`` state columns or a ``_ROW_TILE``-row tile of y.
+    """
+    R = H // G
+    state_cols = min(N, _STATE_COLS)
+    plan = dict(head_set=_HEAD_SET, sets_per_group=math.ceil(R / _HEAD_SET),
+                state_cols=state_cols, state_blocks=N // state_cols,
+                row_tiles=math.ceil(Q / _ROW_TILE))
+    plan["sets"] = G * plan["sets_per_group"]
+    plan["roles"] = plan["state_blocks"] + plan["row_tiles"]
+    plan["blocks"] = plan["roles"] * B * c * plan["sets"]
+    return plan
+
+
+def ssd_blocks(B: int, c: int, Q: int, H: int, G: int, N: int):
+    """Every block of the 1-D grid in launch order, as the kernel decodes
+    ``blockIdx.x``: (role, slice, batch, chunk, heads).  ``role`` is
+    "state" (``slice`` = first state column) or "rows" (``slice`` = first
+    row); the state slices come first, then the row tiles from the last,
+    the heaviest blocks first."""
+    plan = ssd_plan(B, c, Q, H, G, N)
+    R, per_group, sets = H // G, plan["sets_per_group"], plan["sets"]
+    cells = B * c * sets
+    for idx in range(plan["blocks"]):
+        role, cell = divmod(idx, cells)
+        bc, s = divmod(cell, sets)
+        g, k = divmod(s, per_group)
+        h0 = g * R + k * _HEAD_SET
+        heads = tuple(range(h0, min(h0 + _HEAD_SET, (g + 1) * R)))
+        if role < plan["state_blocks"]:
+            kind, first = "state", role * plan["state_cols"]
+        else:
+            kind = "rows"
+            first = (plan["row_tiles"] - 1 - (role - plan["state_blocks"])) \
+                * _ROW_TILE
+        yield kind, first, bc // c, bc % c, heads
 
 
 def ssd_chunk(xdt, cs, Bm, Cm):
@@ -48,6 +99,13 @@ def ssd_chunk(xdt, cs, Bm, Cm):
                          f"got ({P}, {N})")
     if min(B, c, Q) < 1 or max(B, c) > 65535:
         raise ValueError(f"{name}: B={B}, c={c}, Q={Q} out of range")
+    if ssd_plan(B, c, Q, H, G, N)["blocks"] > _MAX_GRID_X:
+        raise ValueError(f"{name}: {B}x{c} chunks of {H} heads need more "
+                         f"than {_MAX_GRID_X} blocks")
+    if any(t.data_ptr() % 16 for t in (xdt, Bm, Cm)):
+        raise ValueError(f"{name}: the CUDA kernel copies xdt, Bm and Cm "
+                         f"in 16-byte pieces; their data must be 16-byte "
+                         f"aligned")
     y = torch.empty((B, c, Q, H, P), dtype=torch.float32, device=dev)
     st = torch.empty((B, c, H, P, N), dtype=torch.float32, device=dev)
     lib = _build.library()

@@ -259,6 +259,9 @@ def test_flash_attention_bf16_refuses_misaligned_rows(cuda_device):
     (2, 3, 8, 4, 2, 16, 16),         # the reduced shapes, G = 2
     (1, 2, 19, 2, 1, 16, 16),        # Q not a multiple of the tile
     (1, 2, 256, 4, 1, 64, 128),      # mamba2's chunk, four row tiles
+    (1, 2, 256, 80, 1, 64, 128),     # mamba2's 80 heads in one group
+    (1, 1, 256, 6, 1, 64, 128),      # the last head set is partial
+    (1, 2, 256, 8, 2, 64, 128),      # two groups
 ])
 @pytest.mark.parametrize("bc_dtype", [torch.float32, torch.bfloat16])
 def test_ssd_chunk_matches_plain_version(cuda_device, B, c, Q, H, G, P, N,
@@ -281,6 +284,38 @@ def test_ssd_chunk_matches_plain_version(cuda_device, B, c, Q, H, G, P, N,
     for got, want in ((y, y_r), (st, st_r)):
         scale = float(want.abs().max())
         assert float((got - want).abs().max()) <= 1e-5 * scale
+    y2, st2 = ops.ssd_chunk(xdt, cs, Bm, Cm)
+    assert torch.equal(y2, y) and torch.equal(st2, st)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_nystrom_gram_matches_plain_version_past_a_tile(cuda_device, dtype):
+    """m = 640 is not a multiple of the 128-wide tiles; ~10 % of the rows
+    are masked.  Held to 1e-5 relative Frobenius, exactly symmetric
+    before the rotation (an identity W^-1/2 leaves SᵀS itself)."""
+    x, z, g, mask, u, wis, _ = _inputs(cuda_device, n=3001, m=640, d=8,
+                                       seed=3)
+    wis = wis / 640 ** 0.5
+    kw = dict(affinity_dtype=dtype)
+    kn.reset_launch_counts()
+    got = kn.nystrom_gram(x, z, g, u, wis, mask, **kw)
+    eye = torch.eye(640, device=cuda_device)
+    gram = kn.nystrom_gram(x, z, g, u, eye, mask, **kw)
+    torch.cuda.synchronize()
+    assert kn.LAUNCH_COUNTS["nystrom_gram"] == 2
+    want = ref.nystrom_gram_ref(x, z, g, u, wis, mask, **kw)
+    err = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+    assert err <= 1e-5
+    assert torch.equal(gram, gram.T)
+
+
+@pytest.mark.cuda
+def test_nystrom_gram_repeat_call_is_bit_identical(cuda_device):
+    x, z, g, mask, u, wis, _ = _inputs(cuda_device, n=20000, m=2048, d=8,
+                                       seed=4)
+    first = kn.nystrom_gram(x, z, g, u, wis, mask)
+    assert torch.equal(kn.nystrom_gram(x, z, g, u, wis, mask), first)
 
 
 @pytest.mark.cuda
