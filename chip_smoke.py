@@ -20,11 +20,17 @@ Phases (any failure raises and the script exits non-zero):
    each also at a ragged shape, the panel matmul also bit-identical on a
    repeat call and for every block_rows; flash attention (B9) at the
    qwen2-7b prefill's shape (q (1, 2048, 28, 128) against a 2112-row
-   cache) and at gemma-2b's (q (1, 2048, 8, 256) against one KV head),
-   in bf16 and in f32, and the SSD chunk (B10) at the mamba2-2.7b
-   prefill's (8 chunks of 256, 80 heads, P=64, N=128), each also at
-   ragged shapes.  The bf16 outputs of B9 are held elementwise (see
-   LIMIT_BF16_ELEM), the f32 ones to 1e-5 of the largest entry.  Then
+   cache), at gemma-2b's (q (1, 2048, 8, 256) against one KV head) and
+   at deepseek-v3's MLA prefill (128 heads, q/k 192, v 128), in bf16 and
+   in f32, and the SSD chunk (B10) at the mamba2-2.7b prefill's (8
+   chunks of 256, 80 heads, P=64, N=128) and jamba-v0.1's (128 heads,
+   P=64, N=16), each also at ragged shapes (B9's MLA widths with an
+   explicit scale).  The bf16 outputs of B9 are held elementwise (see
+   LIMIT_BF16_ELEM), the f32 ones to 1e-5 of the largest entry.  The
+   colsum, Gram and extension also at the m=4096 engine's shape, each
+   timed, bit-identical on a repeat call; the SHA-256 of the colsum's and
+   the extension's output at every case (``scripts/compare_outputs.py``
+   compares the outputs themselves with another tree's).  Then
    each kernel's median time (CUDA events, 20 runs) at its path shape
    beside its plain version's, the least time the card could take for
    the same work, and one PyTorch call computing the same function where
@@ -51,7 +57,8 @@ Phases (any failure raises and the script exits non-zero):
    (see ``decisive_pool_noise``) to the same cohort, accuracy within 0.01
    and loss within 1e-3 relative.
 5. The other routes of Algorithm I: the engine at m=4096 landmarks
-   (subspace solver, panel-matmul launches 82 cold / 18 warm, purity),
+   (subspace solver, panel-matmul launches 82 cold / 18 warm, one
+   colsum, Gram and extension launch a select, purity),
    ``spectral_cluster(method="nystrom", use_pallas=True)`` at N=100 000
    (purity), ``spectral_cluster(method="dense", use_pallas=True)`` at
    n=2048 (the CPU's partition) and ``kernels.ops.rbf_affinity`` at
@@ -75,6 +82,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import pathlib
 import re
@@ -132,16 +140,22 @@ KERNELS = {
 }
 FUSED = ("quantized_cross_affinity", "nystrom_colsum", "nystrom_gram",
          "nystrom_extension")
-# rows of the kernel table beyond one a kernel: {row: kernel}.  B3 at the
-# m=4096 engine's shape (phase 5), timed in phase 2
-GRAM_4096 = "nystrom_gram_m4096"
-EXTRA_ROWS = {GRAM_4096: "nystrom_gram"}
+# rows of the kernel table beyond one a kernel: {row: kernel}.  B2, B3
+# and B4 at the m=4096 engine's shape (phase 5), timed in phase 2
+EXTRA_ROWS = {f"{name}_m4096": name for name in
+              ("nystrom_colsum", "nystrom_gram", "nystrom_extension")}
+# B2's and B4's outputs are hashed (SHA-256) at every phase-2 case: B2
+# must stay bit-identical across a redesign
+# (scripts/compare_outputs.py measures B4's changes)
+HASHED = ("nystrom_colsum", "nystrom_extension")
 # the device functions of the redesigned kernels (B9's two bodies, B5;
-# B3's tile, reduction and rotation kernels, B10), whose registers and spills
-# phase 1 prints one by one
+# B3's tile, reduction and rotation kernels, B10; B2's panel kernel, B4's
+# packing and row kernels), whose registers and spills phase 1 prints one
+# by one
 REDESIGNED = ("flash_bf16_kernel", "flash_f32_kernel", "panel_kernel",
               "gram_tile_kernel", "gram_reduce_kernel", "rot_tile_kernel",
-              "ssd_chunk_kernel")
+              "ssd_chunk_kernel", "colsum_partial_kernel",
+              "pack_landmarks_kernel", "extension_kernel")
 LIMIT_MAX_REL = 1e-4     # max-abs error over the largest entry
 LIMIT_FRO_REL = 1e-5     # gram: relative Frobenius error
 # squared distances in the norm form cancel: max-abs error over
@@ -178,6 +192,13 @@ FLASH_PATH = dict(B=1, S=2048, T=LM_MAX_SEQ, H=28, K=4, dh=128)
 # B9 at gemma-2b's prefill: 8 heads over one KV head (MQA), dh 256
 FLASH_GEMMA = dict(B=1, S=2048, T=LM_MAX_SEQ, H=8, K=1, dh=256)
 SSD_PATH = dict(B=1, c=8, Q=256, H=80, P=64, G=1, N=128)
+# Shapes no served path reaches yet (MLA and jamba's Mamba layers wait for
+# the MoE and MLA modules), held and timed in phase 2 with 0 launches on
+# the paths: B9 at deepseek-v3's MLA prefill, its 128 heads expanded, q/k
+# 192 wide (128 + 64 RoPE), v 128, scale 1/sqrt(192); B10 at jamba-v0.1's
+# Mamba layer (128 heads of P = 64 in one group, N = 16, chunks of 256)
+FLASH_MLA = dict(B=1, S=2048, T=2048, H=128, K=128, dh=192, dv=128)
+SSD_JAMBA = dict(B=1, c=8, Q=256, H=128, P=64, G=1, N=16)
 LIMIT_F32_REL = 1e-5     # f32 output: summation order only
 # bf16 output, elementwise: |got - want| <= 2^-7 |want| + 1e-3 rms(want).
 # Both sides round an f32 result to bf16, so they may differ by one unit
@@ -407,21 +428,39 @@ def _bound(name, n, m, d, k):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def phase2(x_path, gamma_path):
-    """Every kernel x dtype vs its plain version; times at the path shape.
-
-    Returns {name: record} for the JSON kernel table.
-    """
+def phase2_inputs(x_path, gamma_path):
+    """Phase 2's inputs of the four fused kernels: {shape: tensors}."""
     import numpy as np
-    import torch
     rng = np.random.default_rng(SEED + 1)
-    shapes = {
+    return {
         "path": _inputs(rng, N, M, D, K, x=x_path, gamma=gamma_path),
         "ragged": _inputs(rng, RAGGED["n"], RAGGED["m"], RAGGED["d"],
                           RAGGED["k"]),
         # B3's 128-wide tiles with a partial last one
         "m640": _inputs(rng, RAGGED_GRAM["n"], RAGGED_GRAM["m"], D, K),
     }
+
+
+def m4096_inputs(x_path, gamma_path):
+    """(rng, inputs) of the m=4096 engine's shape, for phase 2."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 6)
+    return rng, _inputs(rng, N, M_SUBSPACE, D, K, x=x_path, gamma=gamma_path)
+
+
+def print_hash(name, case, t):
+    """Prints the SHA-256 of a kernel output."""
+    digest = hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+    print(f"phase 2: sha256 {name} {case}: {digest}")
+
+
+def phase2(x_path, gamma_path):
+    """Every kernel x dtype vs its plain version; times at the path shape.
+
+    Returns {name: record} for the JSON kernel table.
+    """
+    import torch
+    shapes = phase2_inputs(x_path, gamma_path)
     records = {name: {"name": name, "route": "cuda", "source": KERNELS[name][1],
                       "replaces": KERNELS[name][0]} for name in FUSED}
     for shape, t in shapes.items():
@@ -437,9 +476,12 @@ def phase2(x_path, gamma_path):
                     raise AssertionError(
                         f"{name} {shape} {dtype}: error {err:.3e} > "
                         f"{limit:.0e}")
-                if name == "nystrom_gram" and not torch.equal(kern(), got):
+                if name in ("nystrom_gram", *HASHED) and \
+                        not torch.equal(kern(), got):
                     raise AssertionError(f"{name} {shape} {dtype}: a "
                                          f"repeat call differs")
+                if name in HASHED:
+                    print_hash(name, f"{shape} {dtype}", got)
                 if shape == "path" and dtype == "f32":
                     records[name]["max_abs_err"] = max_abs
     # time the main path's call: f32, no mask
@@ -559,42 +601,47 @@ def _slice2_calls(x_path, gamma_path):
     }
 
 
-def phase2_gram_4096(x_path, gamma_path):
-    """B3 at the m=4096 engine's shape (N=10⁵, d=8, m=4096, f32): held
-    to its plain version, bit-identical on a repeat call, timed, and its
-    device time split by kernel (torch.profiler).  Returns its record."""
-    import numpy as np
+def phase2_m4096(x_path, gamma_path):
+    """B2, B3 and B4 at the m=4096 engine's shape (N=10⁵, d=8, m=4096,
+    k=8, f32, no mask): each held to its plain version, bit-identical on
+    a repeat call, timed, and its device time split by kernel
+    (torch.profiler).  B3 also bit-identical at m=2048 (masked).  Returns
+    their records."""
     import torch
 
-    rng = np.random.default_rng(SEED + 6)
-    t = _inputs(rng, N, M_SUBSPACE, D, K, x=x_path, gamma=gamma_path)
-    kern, plain = _calls(t, "f32", None)["nystrom_gram"]
-    got = kern()
-    err, limit, max_abs = _error("nystrom_gram", got, plain())
-    print(f"phase 2: {GRAM_4096:25s} m={M_SUBSPACE} f32 err {err:.3e} "
-          f"(limit {limit:.0e}) {'ok' if err <= limit else 'FAIL'}")
-    if err > limit:
-        raise AssertionError(f"{GRAM_4096}: error {err:.3e} > {limit:.0e}")
-    if not torch.equal(kern(), got):
-        raise AssertionError(f"{GRAM_4096}: a repeat call differs")
-    # and at m=2048, masked
+    rng, t = m4096_inputs(x_path, gamma_path)
+    calls = _calls(t, "f32", None)
+    records = {}
+    for row, name in EXTRA_ROWS.items():
+        kern, plain = calls[name]
+        got = kern()
+        err, limit, max_abs = _error(name, got, plain())
+        print(f"phase 2: {row:25s} m={M_SUBSPACE} f32 err {err:.3e} "
+              f"(limit {limit:.0e}) {'ok' if err <= limit else 'FAIL'}")
+        if err > limit:
+            raise AssertionError(f"{row}: error {err:.3e} > {limit:.0e}")
+        if not torch.equal(kern(), got):
+            raise AssertionError(f"{row}: a repeat call differs")
+        if name in HASHED:
+            print_hash(name, f"m{M_SUBSPACE} f32", got)
+        rec = records[row] = {
+            "name": row, "route": "cuda", "source": KERNELS[name][1],
+            "replaces": KERNELS[name][0], "max_abs_err": max_abs,
+            "ms": time_ms(kern, reps=5), "plain_ms": time_ms(plain, reps=5),
+            "library_ms": None}
+        rec["bound_ms"], rec["bound_by"] = _bound(name, N, M_SUBSPACE, D, K)
+        print(f"phase 2: {row:25s} {rec['ms']:.4f} ms (device "
+              f"{device_ms(kern, reps=5):.4f} ms; plain {rec['plain_ms']:.4f} "
+              f"ms, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}); "
+              f"a repeat call bit-identical")
+        profile_device(2, f"{row} (one call)", kern)
+    # and B3 at m=2048, masked
     t2 = _inputs(rng, N, 2048, D, K, x=x_path, gamma=gamma_path)
     k2048 = _calls(t2, "f32", t2["mask"])["nystrom_gram"][0]
     if not torch.equal(k2048(), k2048()):
         raise AssertionError("nystrom_gram m=2048: a repeat call differs")
-    rec = {"name": GRAM_4096, "route": "cuda",
-           "source": KERNELS["nystrom_gram"][1],
-           "replaces": KERNELS["nystrom_gram"][0], "max_abs_err": max_abs,
-           "ms": time_ms(kern, reps=5), "plain_ms": time_ms(plain, reps=5),
-           "library_ms": None}
-    rec["bound_ms"], rec["bound_by"] = _bound("nystrom_gram", N, M_SUBSPACE,
-                                              D, K)
-    print(f"phase 2: {GRAM_4096:25s} {rec['ms']:.4f} ms (device "
-          f"{device_ms(kern, reps=5):.4f} ms; plain {rec['plain_ms']:.4f} "
-          f"ms, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}); "
-          f"repeat calls at m=4096 and m=2048 bit-identical")
-    profile_device(2, f"{GRAM_4096} (one call)", kern)
-    return {GRAM_4096: rec}
+    print("phase 2: nystrom_gram m=2048 masked: a repeat call bit-identical")
+    return records
 
 
 def phase2_slice2(x_path, gamma_path):
@@ -1025,7 +1072,7 @@ def phase4():
 
 def phase5(x, labels):
     """The other routes of Algorithm I; returns the launches of B5, B6
-    and B8 on them, and of B3 in the m=4096 engine."""
+    and B8 on them, and of B2, B3 and B4 in the m=4096 engine."""
     import numpy as np
     import torch
     from repro_torch.cohort import CohortConfig, CohortEngine
@@ -1040,7 +1087,7 @@ def phase5(x, labels):
             num_clusters=K, method="nystrom", num_landmarks=M_SUBSPACE,
             use_pallas=True), seed=ENGINE_SEED)
         counts = []
-        grams = []
+        fused = {name: [] for name in EXTRA_ROWS.values()}
         results = []
         for table in (x, x + 0.01 * rng.normal(size=x.shape).astype(
                 np.float32)):
@@ -1048,7 +1095,8 @@ def phase5(x, labels):
             results.append(eng.select(table))
             torch.cuda.synchronize()
             counts.append(ops.LAUNCH_COUNTS["panel_matmul"])
-            grams.append(ops.LAUNCH_COUNTS["nystrom_gram"])
+            for name, n in fused.items():
+                n.append(ops.LAUNCH_COUNTS[name])
         cold, warm = results
         p_cold, p_warm = purity(cold.assign, labels), purity(warm.assign,
                                                              labels)
@@ -1056,19 +1104,20 @@ def phase5(x, labels):
               f"{cold.seconds:.4f} s, {counts[0]} panel_matmul launches, "
               f"purity {p_cold:.5f}; {warm.source} select "
               f"{warm.seconds:.4f} s, {counts[1]} launches, purity "
-              f"{p_warm:.5f}; nystrom_gram launches {grams}")
+              f"{p_warm:.5f}; B2, B3, B4 launches {json.dumps(fused)}")
         if (cold.source, warm.source) != ("cold", "warm"):
             raise AssertionError(f"sources {cold.source}, {warm.source}")
         if counts != [82, 18]:
             raise AssertionError(f"panel_matmul launches {counts}, "
                                  f"expected [82, 18]")
-        if grams != [1, 1]:
-            raise AssertionError(f"nystrom_gram launches {grams}, expected "
-                                 f"[1, 1]")
+        if any(n != [1, 1] for n in fused.values()):
+            raise AssertionError(f"B2, B3, B4 launches {fused}, expected "
+                                 f"[1, 1] each")
         if p_cold < 0.95:
             raise AssertionError(f"m={M_SUBSPACE} purity {p_cold:.4f}")
         launches["panel_matmul"] = sum(counts)
-        launches[GRAM_4096] = sum(grams)
+        for row, name in EXTRA_ROWS.items():
+            launches[row] = sum(fused[name])
         # where a warm select's time goes at m=4096
         table = x + 0.02 * rng.normal(size=x.shape).astype(np.float32)
         res, _, _ = profile_device(5, f"m={M_SUBSPACE} select",
@@ -1131,16 +1180,17 @@ def phase5(x, labels):
 
 # -- phase 2, the LM kernels -----------------------------------------------
 
-def _flash_bound(B, S, T, H, K, dh, causal, window, dtype):
+def _flash_bound(B, S, T, H, K, dh, causal, window, dtype, dv=None):
     """(bound_ms, bound_by, f32 CUDA-core bound ms) of one B9 call.
 
     Operations over the score entries the masks leave (this call's data):
-    q.k and p.v are 4·dh, the softmax ~5 (scale, max, subtract, exp,
+    q.k is 2·dh, p.v 2·dv, the softmax ~5 (scale, max, subtract, exp,
     sum).  bf16 inputs take the tensor cores' peak, f32 ones the CUDA
     cores'; the f32 figure is also returned, the bound of this kernel's
     f32 arithmetic.  Bytes: q, k, v read once, out written once.
     """
     import numpy as np
+    dv = dh if dv is None else dv
     s = np.arange(S)[:, None]
     t = np.arange(T)[None, :]
     live = np.ones((S, T), bool)
@@ -1148,9 +1198,9 @@ def _flash_bound(B, S, T, H, K, dh, causal, window, dtype):
         live &= t <= s
     if window is not None:
         live &= t > s - window
-    ops = B * H * int(live.sum()) * (4 * dh + 5)
+    ops = B * H * int(live.sum()) * (2 * dh + 2 * dv + 5)
     size = 2 if dtype == "bf16" else 4
-    nbytes = size * (2 * B * S * H * dh + 2 * B * T * K * dh)
+    nbytes = size * (B * S * H * (dh + dv) + B * T * K * (dh + dv))
     peak = PEAK_BF16_FLOPS if dtype == "bf16" else PEAK_F32_FLOPS
     t_ops = ops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
@@ -1194,22 +1244,25 @@ def _lm_kernel_cases():
                             dtype=dt[dtype], device="cuda")
 
     def flash(B, S, T, H, K, dh, dtype, causal=True, window=None,
-              library=False):
+              library=False, dv=None, scale=None):
+        dv = dh if dv is None else dv
         q, k, v = t((B, S, H, dh), dtype), t((B, T, K, dh), dtype), \
-            t((B, T, K, dh), dtype)
-        kw = dict(causal=causal, window=window)
+            t((B, T, K, dv), dtype)
+        kw = dict(causal=causal, window=window, scale=scale)
         lib = None
         if library:
             def lib():
                 # the yardstick: one PyTorch call, the same function
                 return torch.nn.functional.scaled_dot_product_attention(
                     q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                    is_causal=causal, enable_gqa=True).transpose(1, 2)
+                    is_causal=causal, scale=scale,
+                    enable_gqa=True).transpose(1, 2)
         limit = "bf16" if dtype == "bf16" else LIMIT_F32_REL
-        return ((B, S, T, H, K, dh, dtype, causal, window),
+        return ((B, S, T, H, K, (dh, dv), dtype, causal, window, scale),
                 lambda: ops.flash_attention(q, k, v, **kw),
                 lambda: ref.flash_attention_ref(q, k, v, **kw), limit,
-                _flash_bound(B, S, T, H, K, dh, causal, window, dtype), lib)
+                _flash_bound(B, S, T, H, K, dh, causal, window, dtype, dv),
+                lib)
 
     def ssd(B, c, Q, H, P, G, N, bc_dtype):
         xdt = t((B, c, Q, H, P))
@@ -1230,7 +1283,10 @@ def _lm_kernel_cases():
                    ("path f32", *flash(**fp, dtype="f32")),
                    ("gemma", *flash(**FLASH_GEMMA, dtype="bf16",
                                     library=True)),
-                   ("gemma f32", *flash(**FLASH_GEMMA, dtype="f32"))]
+                   ("gemma f32", *flash(**FLASH_GEMMA, dtype="f32")),
+                   ("mla", *flash(**FLASH_MLA, dtype="bf16", library=True)),
+                   ("mla f32", *flash(**FLASH_MLA, dtype="f32",
+                                      library=True))]
     for dtype in ("f32", "bf16"):
         flash_cases += [
             ("ragged", *flash(2, 33, 33, 4, 4, 32, dtype)),          # G = 1
@@ -1238,8 +1294,14 @@ def _lm_kernel_cases():
             ("noncausal", *flash(2, 70, 70, 8, 2, 128, dtype,
                                  causal=False)),
             ("window 8", *flash(1, 97, 130, 4, 2, 64, dtype, window=8)),
+            # MLA's widths with a scale other than 1/sqrt(dh), ragged
+            ("mla rag", *flash(1, 77, 100, 8, 8, 192, dtype, dv=128,
+                               scale=0.11)),
+            ("mla red", *flash(2, 33, 50, 4, 4, 48, dtype, dv=32,
+                               window=16, scale=0.3)),
         ]
-    ssd_cases = [("path", *ssd(**sp, bc_dtype="bf16"))]
+    ssd_cases = [("path", *ssd(**sp, bc_dtype="bf16")),
+                 ("jamba", *ssd(**SSD_JAMBA, bc_dtype="bf16"))]
     for bc in ("f32", "bf16"):
         ssd_cases += [
             ("Q=8 G=2", *ssd(2, 3, 8, 4, 16, 2, 16, bc)),
@@ -1249,8 +1311,13 @@ def _lm_kernel_cases():
             ("H=80", *ssd(1, 2, 256, 80, 64, 1, 128, bc)),
             ("H=6", *ssd(1, 1, 256, 6, 64, 1, 128, bc)),
             ("H=8 G=2", *ssd(1, 2, 256, 8, 64, 2, 128, bc)),
+            ("jamba Q=19", *ssd(1, 2, 19, 6, 64, 1, 16, bc)),
         ]
     return {"flash_attention": flash_cases, "ssd_chunk": ssd_cases}
+
+
+# phase 2's LM cases at shapes no served path reaches yet
+UNSERVED = ("mla", "mla f32", "jamba")
 
 
 def _case_error(got, want, limit):
@@ -1309,8 +1376,9 @@ def phase2_lm():
                     torch.equal(a, b) for a, b in zip(kern(), got)):
                 raise AssertionError(f"{name} {label}: a repeat call "
                                      f"differs")
-            # timed: the path shape (the JSON row) and gemma-2b's prefill
-            if label not in ("path", "gemma", "gemma f32"):
+            # timed: the path shape (the JSON row), gemma-2b's prefill,
+            # and the MLA and jamba shapes (0 launches on the paths)
+            if label not in ("path", "gemma", "gemma f32", *UNSERVED):
                 continue
             ms, plain_ms = time_ms(kern), time_ms(plain)
             bound_ms, bound_by, f32_bound = bound
@@ -1335,7 +1403,9 @@ def phase2_lm():
             print(f"phase 2: {name:25s} {label:9s} {ms:.4f} ms (device "
                   f"{device_ms(kern):.4f} ms; plain {plain_ms:.4f} ms, bound "
                   f"{bound_ms:.5f} ms by {bound_by}{f32_note}, library "
-                  f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'})")
+                  f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'})"
+                  + ("; 0 launches on the paths" if label in UNSERVED
+                     else ""))
         print(f"phase 2: {name:25s} worst error {worst[2]} ({worst[1]})"
               + ("; every case bit-identical on a repeat call"
                  if name == "ssd_chunk" else ""))
@@ -1513,6 +1583,20 @@ def phase6():
     return launches
 
 
+def path_data():
+    """(x, labels, gamma): the cohort server's N=10⁵ blobs on the host and
+    the RBF width the server picks for them (on the card)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.kmeans import pairwise_sq_dists
+    from repro_torch.core.spectral import auto_gamma
+
+    x, labels = blobs(np.random.default_rng(SEED))
+    xt = torch.tensor(x, device="cuda")
+    return x, labels, float(auto_gamma(pairwise_sq_dists(xt[:4096],
+                                                         xt[:M])))
+
+
 def main() -> int:
     try:
         import torch
@@ -1527,16 +1611,11 @@ def main() -> int:
               f"checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    import numpy as np
-    from repro_torch.core.kmeans import pairwise_sq_dists
-    from repro_torch.core.spectral import auto_gamma
 
     phase1()
-    x, labels = blobs(np.random.default_rng(SEED))
-    xt = torch.tensor(x, device="cuda")
-    gamma = float(auto_gamma(pairwise_sq_dists(xt[:4096], xt[:M])))
+    x, labels, gamma = path_data()
     records = phase2(x, gamma)
-    records.update(phase2_gram_4096(x, gamma))
+    records.update(phase2_m4096(x, gamma))
     records.update(phase2_slice2(x, gamma))
     records.update(phase2_lm())
     launches = phase3(x, labels)

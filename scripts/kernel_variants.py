@@ -3,17 +3,20 @@
 
     python3 scripts/kernel_variants.py ssd [VARIANT ...]
     python3 scripts/kernel_variants.py gram [VARIANT ...]
+    python3 scripts/kernel_variants.py colsum [--m M] [VARIANT ...]
+    python3 scripts/kernel_variants.py extension [--m M] [VARIANT ...]
 
 Each variant is the kernel's source (``src/repro_torch/kernels/csrc``)
 with a few text substitutions (``VARIANTS`` below; "base" is the source
 as it is).  Every variant is written to ``build/variants/`` and built
 with the flags of ``repro_torch.kernels._build`` (one nvcc each, all in
 parallel), loaded with ctypes, held to the plain PyTorch version at the
-kernel's path shape, then timed in turns (base, v1, ...,
+kernel's path shape (B2 and B4: N = 10⁵, d = 8, k = 8 and m = 512, or
+``--m``), then timed in turns (base, v1, ...,
 vn, vn, ..., v1, base): the mean device time of 20 calls from
 torch.profiler and the median of 20 calls between CUDA events.  Prints
-each variant's registers and spills, error and times, and the card's
-name and power limit.  Exits non-zero without a CUDA device.
+each variant's nvcc wall time, registers and spills, error and times,
+and the card's name and power limit.  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -27,6 +30,15 @@ import sys
 REPO = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO / "src"))
 sys.path.insert(0, str(REPO))
+
+# B2 without its compile-time d = 8 instance, B4 without its k <= 8 class
+RUNTIME_D = [("  const bool ok = dispatch_exact(dtype, d, [&](auto c) {\n"
+              "    using C = decltype(c);\n    using Cf = ColsumCfg",
+              "  const bool ok = dispatch(dtype, d, [&](auto c) {\n"
+              "    using C = decltype(c);\n    using Cf = ColsumCfg")]
+NO_K8 = [("    if (k <= 8)\n      launch(extension_kernel<C::kDt, C::kMaxD, "
+          "C::kD, 8>, 8);\n    else if (k <= 16)",
+          "    if (k <= 16)")]
 
 # kernel -> (source, C entry, {variant: [(old text, new text), ...]})
 VARIANTS = {
@@ -56,12 +68,79 @@ VARIANTS = {
         "nocap": [("__launch_bounds__(kGramThreads, 2)",
                    "__launch_bounds__(kGramThreads)")],
     }),
+    "colsum": ("nystrom.cu", "rt_nystrom_colsum", {
+        "base": [],
+        # landmarks a thread at d <= 8: 2 (twice the threads) or 8
+        "cols2": [("kCols = MAXD <= 8 ? 4 : 2", "kCols = MAXD <= 8 ? 2 : 2")],
+        "cols8": [("kCols = MAXD <= 8 ? 4 : 2", "kCols = MAXD <= 8 ? 8 : 2")],
+        # the row loop unrolled by 1 or 4 (base: 2)
+        "unroll1": [("#pragma unroll 2\n  for (int t = 0; t < rows; ++t)",
+                     "#pragma unroll 1\n  for (int t = 0; t < rows; ++t)")],
+        "unroll4": [("#pragma unroll 2\n  for (int t = 0; t < rows; ++t)",
+                     "#pragma unroll 4\n  for (int t = 0; t < rows; ++t)")],
+        # the same 512-column tile as 8 landmarks a thread x 64 threads,
+        # or 2 x 256 (unrolled by 2 or 4)
+        "cols8x64": [("kCols = MAXD <= 8 ? 4 : 2", "kCols = MAXD <= 8 ? 8 : 2"),
+                     ("constexpr int kColsumThreads = 128;",
+                      "constexpr int kColsumThreads = 64;")],
+        "cols2x256": [("kCols = MAXD <= 8 ? 4 : 2",
+                       "kCols = MAXD <= 8 ? 2 : 2"),
+                      ("constexpr int kColsumThreads = 128;",
+                       "constexpr int kColsumThreads = 256;")],
+        "cols2x256u4": [("kCols = MAXD <= 8 ? 4 : 2",
+                         "kCols = MAXD <= 8 ? 2 : 2"),
+                        ("constexpr int kColsumThreads = 128;",
+                         "constexpr int kColsumThreads = 256;"),
+                        ("#pragma unroll 2\n  for (int t = 0; t < rows; ++t)",
+                         "#pragma unroll 4\n  for (int t = 0; t < rows; ++t)")],
+        # d a runtime value at d = 8 too (no compile-time d = 8 instance)
+        "rund": RUNTIME_D,
+        # sum_rows_kernel with 32 columns a block and 256-row tiles, or 8
+        # columns and 1024-row tiles
+        "sum32": [("constexpr int kSumCols = 16;",
+                   "constexpr int kSumCols = 32;"),
+                  ("constexpr int kSumChunk = 512;",
+                   "constexpr int kSumChunk = 256;")],
+        "sum8": [("constexpr int kSumCols = 16;",
+                  "constexpr int kSumCols = 8;"),
+                 ("constexpr int kSumChunk = 512;",
+                  "constexpr int kSumChunk = 1024;")],
+    }),
+    "extension": ("nystrom.cu", "rt_nystrom_extension", {
+        "base": [],
+        # rows a thread: 4 (half the blocks); landmarks a ring stage: 32
+        "rows4": [("constexpr int kExtRows = 2;",
+                   "constexpr int kExtRows = 4;")],
+        "chunk32": [("constexpr int kExtChunk = 64;",
+                     "constexpr int kExtChunk = 32;")],
+        # the landmark loop unrolled by 2 (base: 4)
+        "unroll2": [("#pragma unroll 4\n    for (int t = half",
+                     "#pragma unroll 2\n    for (int t = half")],
+        # no k <= 8 class: k = 8 runs in the k <= 16 class
+        "nok8": NO_K8,
+        # neither fork: B2 with d a runtime value and no k <= 8 class (the
+        # build time of nystrom.cu without them)
+        "noforks": RUNTIME_D + NO_K8,
+        # 3 blocks an SM (<= 85 registers) in the k <= 16, d <= 8 class
+        "lb3": [("template <int DT, int MAXD, int D, int MAXK>\n__global__ "
+                 "void __launch_bounds__(kExtThreads)\nextension_kernel(",
+                 "template <int DT, int MAXD, int D, int MAXK>\n__global__ "
+                 "void __launch_bounds__(kExtThreads, MAXK <= 16 && MAXD <= 8 "
+                 "? 3 : 1)\nextension_kernel(")],
+        # probe (wrong results): no proj FMAs, only C and C u
+        "noproj": [("        if (q < kq) {\n          const float4 pv",
+                    "        if (q < 0) {\n          const float4 pv")],
+    }),
 }
 REPS = 20
 
 
 def build(kernel, names):
-    """{variant: (library path, ptxas log)}, built in parallel."""
+    """{variant: (library path, ptxas log)}, built in parallel; prints
+    each nvcc's wall time."""
+    import re
+    import time
+
     from repro_torch.kernels import _build
 
     source, _, variants = VARIANTS[kernel]
@@ -80,14 +159,26 @@ def build(kernel, names):
         lib = out_dir / f"{kernel}_{name}.so"
         cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}",
                "-o", str(lib), str(src)]
-        procs[name] = (src, lib, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        log = out_dir / f"{kernel}_{name}.log"
+        with open(log, "w") as f:
+            procs[name] = (log, lib, subprocess.Popen(
+                cmd, stdout=f, stderr=subprocess.STDOUT))
+    t0 = time.perf_counter()
+    seconds = {}
+    while len(seconds) < len(procs):
+        for name, (_, _, proc) in procs.items():
+            if name not in seconds and proc.poll() is not None:
+                seconds[name] = time.perf_counter() - t0
+        time.sleep(0.05)
     built = {}
-    for name, (src, lib, proc) in procs.items():
-        stdout, stderr = proc.communicate()
+    for name, (log, lib, proc) in procs.items():
+        text = log.read_text()
         if proc.returncode != 0:
-            raise SystemExit(f"variant {name}: nvcc failed\n{stderr}")
-        built[name] = (lib, stdout + stderr)
+            raise SystemExit(f"variant {name}: nvcc failed\n{text}")
+        print(f"{name:8s} nvcc {source}: {seconds[name]:.2f} s (all "
+              f"{len(procs)} in parallel), "
+              f"{len(re.findall(r'Used \d+ registers', text))} kernels")
+        built[name] = (lib, text)
     return built
 
 
@@ -171,6 +262,93 @@ def gram_case():
                                        t["wis"]),)
 
 
+def _fused_inputs(m):
+    """B2's and B4's inputs at the cohort server's shape (chip_smoke's
+    phase 2): N = 10⁵ blobs, d = 8, k = 8, f32, no mask."""
+    import numpy as np
+    import chip_smoke as cs
+
+    rng = np.random.default_rng(cs.SEED + 1)
+    x, _ = cs.blobs(np.random.default_rng(cs.SEED))
+    return cs._inputs(rng, cs.N, m, cs.D, cs.K, x=x, gamma=0.05)
+
+
+def colsum_case(m):
+    """B2 at N=10⁵, d=8, m (512 on the cohort server's path), f32."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import nystrom as kn
+    from repro_torch.kernels import ref
+    from repro_torch.kernels._common import stream
+
+    t = _fused_inputs(m)
+    n, d = cs.N, cs.D
+    panels = kn.colsum_grid(n, m, d)[0]
+    partial = torch.empty((panels, m), dtype=torch.float32, device="cuda")
+    out = torch.empty((m,), dtype=torch.float32, device="cuda")
+
+    def call(fn):
+        err = fn(t["x"].data_ptr(), t["z"].data_ptr(), 0.05, None,
+                 partial.data_ptr(), out.data_ptr(), n, m, d, 0,
+                 stream(out.device))
+        if err:
+            raise RuntimeError(f"CUDA error {err}")
+        return (out,)
+
+    return call, (ref.nystrom_colsum_ref(t["x"], t["z"], 0.05),)
+
+
+def extension_case(m):
+    """B4 at N=10⁵, d=8, m (512 on the cohort server's path), k=8, f32."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import nystrom as kn
+    from repro_torch.kernels import ref
+    from repro_torch.kernels._common import stream
+
+    t = _fused_inputs(m)
+    n, d, k = cs.N, cs.D, cs.K
+    packed = torch.empty((m, kn.extension_row_width(d, k)),
+                         dtype=torch.float32, device="cuda")
+    out = torch.empty((n, k), dtype=torch.float32, device="cuda")
+
+    def call(fn):
+        err = fn(t["x"].data_ptr(), t["z"].data_ptr(), 0.05,
+                 t["u"].data_ptr(), t["proj"].data_ptr(), None,
+                 packed.data_ptr(), out.data_ptr(), n, m, d, k, 0,
+                 stream(out.device))
+        if err:
+            raise RuntimeError(f"CUDA error {err}")
+        return (out,)
+
+    return call, (ref.nystrom_extension_ref(t["x"], t["z"], 0.05, t["u"],
+                                            t["proj"]),)
+
+
+def kernel_times(fn, reps=REPS):
+    """(mean device ms of one call, {kernel: mean device ms of one call})
+    from torch.profiler, over ``reps`` calls after a warm-up."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_kernel = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            short = re.sub(r"^(void )?(rt::)?", "", e.key).split("(")[0]
+            by_kernel[short] = by_kernel.get(short, 0.0) + \
+                e.self_device_time_total / 1e3 / reps
+    return sum(by_kernel.values()), by_kernel
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -178,13 +356,23 @@ def main() -> int:
         return 2
     import chip_smoke as cs
 
-    kernel = sys.argv[1]
-    names = sys.argv[2:] or list(VARIANTS[kernel][2])
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("kernel", choices=sorted(VARIANTS))
+    parser.add_argument("variants", nargs="*")
+    parser.add_argument("--m", type=int, default=cs.M,
+                        help="landmarks of the colsum and extension cases")
+    args = parser.parse_intermixed_args()
+    kernel = args.kernel
+    names = args.variants or list(VARIANTS[kernel][2])
     if names[0] != "base":
         names.insert(0, "base")
     print("card", cs.card_line())
     built = build(kernel, names)
-    call, want = (ssd_case if kernel == "ssd" else gram_case)()
+    cases = {"ssd": ssd_case, "gram": gram_case,
+             "colsum": lambda: colsum_case(args.m),
+             "extension": lambda: extension_case(args.m)}
+    call, want = cases[kernel]()
     fns = {}
     for name, (lib, log) in built.items():
         for row in cs.ptxas_kernels(log, cs.REDESIGNED):
@@ -198,14 +386,20 @@ def main() -> int:
     order = names + names[::-1]
     dev = {name: [] for name in names}
     ev = {name: [] for name in names}
+    split = {name: {} for name in names}
     for name in order:
         fn = fns[name]
-        dev[name].append(cs.device_ms(lambda: call(fn), reps=REPS))
+        total, by_kernel = kernel_times(lambda: call(fn))
+        dev[name].append(total)
+        for k, v in by_kernel.items():
+            split[name].setdefault(k, []).append(v)
         ev[name].append(cs.time_ms(lambda: call(fn), reps=REPS))
     for name in names:
         print(f"{name:8s} device {statistics.mean(dev[name]):.4f} ms "
               f"(turns {', '.join(f'{v:.4f}' for v in dev[name])}); "
-              f"events {statistics.mean(ev[name]):.4f} ms")
+              f"events {statistics.mean(ev[name]):.4f} ms; by kernel: "
+              + ", ".join(f"{k} {statistics.mean(v):.4f}"
+                          for k, v in split[name].items()))
     print(cs.card_line())
     return 0
 

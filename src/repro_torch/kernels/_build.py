@@ -40,7 +40,7 @@ _SIGNATURES = {
         "rt_nystrom_colsum": [_P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _P],
         "rt_nystrom_gram": [_P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _P],
-        "rt_nystrom_extension": [_P, _P, _F, _P, _P, _P, _P,
+        "rt_nystrom_extension": [_P, _P, _F, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _P],
         "rt_panel_matmul": [_P, _P, _P, _I, _I, _I, _P],
     },
@@ -51,7 +51,7 @@ _SIGNATURES = {
     },
     "flash_attention.cu": {
         "rt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                               _F, _I, _I, _STRIDES, _P],
+                               _I, _F, _I, _I, _STRIDES, _P],
     },
     "ssd.cu": {
         "rt_ssd_chunk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

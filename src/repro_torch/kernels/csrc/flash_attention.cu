@@ -5,6 +5,12 @@
 // * scale, masked) @ v[b, t, h/G], with the masks applied per element:
 // t < T, causal t <= s, window t > s - window.  Same constants as the TPU
 // kernel: masked scores are -1e30, and the row sum is clamped at 1e-30.
+// The scale is the caller's (1 / sqrt(dh) by default, in the wrapper).  q
+// and k are dh wide and v dv wide, so out is (B, S, H, dv): the square
+// widths 32, 64, 128 and 256, and deepseek-v3's MLA prefill, q/k 192 (128
+// without RoPE + 64 with) against v 128, and its reduced config's 48
+// against 32.  Both bodies are templates on (DH, DV): Q K^T runs over DH;
+// P V, the O accumulator and the stores over DV.
 //
 // Bound on an H100 (chip_smoke.py::_flash_bound computes it per call): at
 // the LM server's prefill, causal S = 2048 against a 2112-row cache,
@@ -32,9 +38,9 @@
 //     tile j + 1 is in flight while tile j computes.
 //   - S = Q K^T with mma.sync m16n8k16 (bf16 in, f32 accumulate).  Q
 //     fragments come from ldmatrix; at dh <= 128 each warp loads them
-//     once and keeps them in registers for the whole KV loop; at dh = 256
-//     it reloads them from shared memory every tile, for want of
-//     registers (the kernel sits at 255 there, with a small spill).
+//     once and keeps them in registers for the whole KV loop; at dh = 192
+//     and 256 it reloads them from shared memory every tile, for want of
+//     registers (the kernel sits at 255 at 256, with a small spill).
 //     Row-major K is K^T column-major: the B operand by plain ldmatrix.
 //   - The online softmax runs on the accumulator fragments in f32: a
 //     row's max over the 4 lanes that share it (__shfl_xor_sync), p =
@@ -48,7 +54,8 @@
 //     bf16(p - p_hi), two mmas a step: P is then good to 2^-16 of p.
 //     Products of bf16 values are exact in f32; every sum is f32.
 //   - The output goes through the warp's own rows of the Q tile in shared
-//     memory and out to device memory in 16-byte stores.
+//     memory (dv <= dh, so a row of out fits a row of Q) and out to device
+//     memory in 16-byte stores.
 // wgmma with TMA and warp specialisation (FlashAttention-3's design) is
 // the next redesign: mma.sync cannot reach the card's tensor-core peak.
 //
@@ -56,10 +63,10 @@
 // CUDA cores (TF32 would break the 1e-5 limit).  One block of 256 threads
 // per (64 q rows, b * H + h); thread (ty, tx) of a 16 x 16 grid owns q
 // rows 4 ty .. 4 ty + 3, score columns 4 tx .. 4 tx + 3 of each KV tile
-// and output columns tx * dh / 16 ..; a row's max and sum are reduced over
-// the 16 lanes of a half warp.  q, k, v are staged in shared memory
-// transposed (up to 222,208 bytes at dh = 256).  Fully masked KV tiles
-// are skipped.
+// and output columns tx * dv / 16 ..; a row's max and sum are reduced over
+// the 16 lanes of a half warp.  q and k are staged in shared memory
+// transposed, v as it is (up to 222,208 bytes at dh = dv = 256).  Fully
+// masked KV tiles are skipped.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,15 +86,20 @@ constexpr int WARPS = 4;           // 16 q rows a warp
 constexpr int TC_THREADS = 32 * WARPS;
 constexpr int PAD = 8;             // bf16 elements of padding a smem row
 
-template <int DH>
+template <int DH, int DV>
 struct TcCfg {
   static constexpr int BK = DH == 256 ? 32 : 64;   // KV rows a tile
   static constexpr bool Q_IN_REGS = DH <= 128;
-  static constexpr int LD = DH + PAD;              // smem row stride
+  static constexpr int LD = DH + PAD;              // smem row of Q and K
+  static constexpr int LDV = DV + PAD;             // smem row of V
   static constexpr int Q_ELEMS = BQ * LD;
-  static constexpr int KV_ELEMS = BK * LD;         // one K or V tile
+  static constexpr int K_ELEMS = BK * LD;          // one K tile
+  static constexpr int V_ELEMS = BK * LDV;         // one V tile
   static constexpr size_t SMEM =
-      (size_t)(Q_ELEMS + 4 * KV_ELEMS) * sizeof(__nv_bfloat16);
+      (size_t)(Q_ELEMS + 2 * K_ELEMS + 2 * V_ELEMS) * sizeof(__nv_bfloat16);
+  static_assert(DH % 16 == 0 && DV % 16 == 0 && DV <= DH,
+                "k-steps of 16; out staged in Q's rows");
+  static_assert(SMEM <= 232448, "within the 227 KB a block can use");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -147,14 +159,14 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
                                        y - __high2float(h)));
 }
 
-// Copy `rows` rows of DH bf16 (row r at src + r * stride) into smem rows
+// Copy `rows` rows of W bf16 (row r at src + r * stride) into smem rows
 // of LD elements; rows at or past `valid` are zero-filled.
-template <int DH, int LD>
+template <int W, int LD>
 __device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
                                           const __nv_bfloat16* src,
                                           long long stride, int rows,
                                           int valid) {
-  constexpr int CHUNKS = DH / 8;
+  constexpr int CHUNKS = W / 8;
   for (int c = threadIdx.x; c < rows * CHUNKS; c += TC_THREADS) {
     const int r = c / CHUNKS, col = (c % CHUNKS) * 8;
     const bool in = r < valid;
@@ -163,7 +175,7 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
   }
 }
 
-template <int DH>
+template <int DH, int DV>
 __global__ void __launch_bounds__(TC_THREADS)
 flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
@@ -173,17 +185,17 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   long long q_sb, long long q_ss, long long q_sh,
                   long long k_sb, long long k_ss, long long k_sh,
                   long long v_sb, long long v_ss, long long v_sh) {
-  using C = TcCfg<DH>;
-  constexpr int BK = C::BK, LD = C::LD;
+  using C = TcCfg<DH, DV>;
+  constexpr int BK = C::BK, LD = C::LD, LDV = C::LDV;
   constexpr int KSTEPS = DH / 16;   // k-steps of Q K^T
   constexpr int SN = BK / 8;        // n-tiles of S (8 keys each)
   constexpr int PK = BK / 16;       // k-steps of P V
-  constexpr int ON = DH / 8;        // n-tiles of O (8 columns each)
+  constexpr int ON = DV / 8;        // n-tiles of O (8 columns each)
 
   extern __shared__ float4 smem4[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem4);
   __nv_bfloat16* sK = sQ + C::Q_ELEMS;          // 2 stages
-  __nv_bfloat16* sV = sK + 2 * C::KV_ELEMS;     // 2 stages
+  __nv_bfloat16* sV = sK + 2 * C::K_ELEMS;      // 2 stages
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
@@ -223,7 +235,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     {
       const int k0 = kt_begin * BK;
       load_rows<DH, LD>(sK, kb + k0 * k_ss, k_ss, BK, T_len - k0);
-      load_rows<DH, LD>(sV, vb + k0 * v_ss, v_ss, BK, T_len - k0);
+      load_rows<DV, LDV>(sV, vb + k0 * v_ss, v_ss, BK, T_len - k0);
     }
     cp_async_commit();
 
@@ -236,18 +248,18 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       const int stage = (kt - kt_begin) & 1;
       if (kt + 1 < kt_end) {
         const int k1 = (kt + 1) * BK;
-        load_rows<DH, LD>(sK + (stage ^ 1) * C::KV_ELEMS, kb + k1 * k_ss,
+        load_rows<DH, LD>(sK + (stage ^ 1) * C::K_ELEMS, kb + k1 * k_ss,
                           k_ss, BK, T_len - k1);
-        load_rows<DH, LD>(sV + (stage ^ 1) * C::KV_ELEMS, vb + k1 * v_ss,
-                          v_ss, BK, T_len - k1);
+        load_rows<DV, LDV>(sV + (stage ^ 1) * C::V_ELEMS, vb + k1 * v_ss,
+                           v_ss, BK, T_len - k1);
         cp_async_commit();
         cp_async_wait<1>();
       } else {
         cp_async_wait<0>();
       }
       __syncthreads();
-      const __nv_bfloat16* tK = sK + stage * C::KV_ELEMS;
-      const __nv_bfloat16* tV = sV + stage * C::KV_ELEMS;
+      const __nv_bfloat16* tK = sK + stage * C::K_ELEMS;
+      const __nv_bfloat16* tV = sV + stage * C::V_ELEMS;
       if constexpr (C::Q_IN_REGS) {
         if (kt == kt_begin) {
 #pragma unroll
@@ -349,7 +361,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       // V (B operand, transposed): lane address key (lane & 15), col
       // 8 (lane / 16); r0, r1 -> n-tile d, r2, r3 -> d + 1
       const __nv_bfloat16* v_frag =
-          tV + (lane & 15) * LD + (lane >> 4) * 8;
+          tV + (lane & 15) * LDV + (lane >> 4) * 8;
 #pragma unroll
       for (int ks = 0; ks < PK; ++ks) {
         uint32_t ph[4], pl[4];
@@ -360,7 +372,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int n = 0; n < ON; n += 2) {
           uint32_t bv[4];
-          ldmatrix_x4_trans(bv, v_frag + ks * 16 * LD + n * 8);
+          ldmatrix_x4_trans(bv, v_frag + ks * 16 * LDV + n * 8);
           mma_bf16(acc[n], ph, bv[0], bv[1]);
           mma_bf16(acc[n], pl, bv[0], bv[1]);
           mma_bf16(acc[n + 1], ph, bv[2], bv[3]);
@@ -390,30 +402,30 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
         __floats2bfloat162_rn(acc[n][2] * inv[1], acc[n][3] * inv[1]);
   }
   __syncwarp();
-  constexpr int CHUNKS = DH / 8;
+  constexpr int CHUNKS = DV / 8;
   for (int c = lane; c < 16 * CHUNKS; c += 32) {
     const int r = c / CHUNKS, col = (c % CHUNKS) * 8;
     const int s_pos = row0 + r;
     if (s_pos >= S) continue;
-    __nv_bfloat16* dst = o + (((long long)b * S + s_pos) * H + h) * DH + col;
+    __nv_bfloat16* dst = o + (((long long)b * S + s_pos) * H + h) * DV + col;
     *reinterpret_cast<float4*>(dst) =
         *reinterpret_cast<const float4*>(sO + r * LD + col);
   }
 }
 
-template <int DH>
+template <int DH, int DV>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
                 int S, int T_len, int H, int G, float scale, int causal,
                 int window, const long long* st, cudaStream_t stream) {
-  const size_t smem = TcCfg<DH>::SMEM;
+  const size_t smem = TcCfg<DH, DV>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bf16_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bf16_kernel<DH, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int nq = (S + BQ - 1) / BQ;
   if (nq > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid(B * H, nq);
-  flash_bf16_kernel<DH><<<grid, TC_THREADS, smem, stream>>>(
+  flash_bf16_kernel<DH, DV><<<grid, TC_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
@@ -432,13 +444,13 @@ constexpr int F_THREADS = 256;
 constexpr int LDQ = F_BQ + 4;   // row stride of the transposed q and p tiles
 constexpr int LDK = F_BK + 4;   // row stride of the transposed k tile
 
-template <int DH>
+template <int DH, int DV>
 constexpr size_t f32_smem_floats() {
-  return (size_t)DH * LDQ + (size_t)DH * LDK + (size_t)F_BK * DH +
+  return (size_t)DH * LDQ + (size_t)DH * LDK + (size_t)F_BK * DV +
          (size_t)F_BK * LDQ;
 }
 
-template <int DH>
+template <int DH, int DV>
 __global__ void __launch_bounds__(F_THREADS)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int S,
@@ -446,13 +458,14 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  int window, long long q_sb, long long q_ss, long long q_sh,
                  long long k_sb, long long k_ss, long long k_sh,
                  long long v_sb, long long v_ss, long long v_sh) {
-  constexpr int NC = DH / 16;   // output columns per thread
+  constexpr int NC = DV / 16;   // output columns per thread
+  static_assert(DV % 16 == 0, "16 threads share a row of out");
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* qT = smem;                  // [DH][LDQ]: qT[d][r]
   float* kT = qT + DH * LDQ;         // [DH][LDK]: kT[d][c]
-  float* vs = kT + DH * LDK;         // [F_BK][DH]
-  float* pT = vs + F_BK * DH;        // [F_BK][LDQ]: pT[c][r]
+  float* vs = kT + DH * LDK;         // [F_BK][DV]
+  float* pT = vs + F_BK * DV;        // [F_BK][LDQ]: pT[c][r]
 
   const int tid = threadIdx.x;
   const int tx = tid % 16;
@@ -493,9 +506,12 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int idx = tid; idx < F_BK * DH; idx += F_THREADS) {
       const int c = idx / DH, d = idx % DH;
       const int t = k_start + c;
-      const bool in = t < T_len;
-      kT[d * LDK + c] = in ? kb[t * k_ss + d] : 0.f;
-      vs[c * DH + d] = in ? vb[t * v_ss + d] : 0.f;
+      kT[d * LDK + c] = t < T_len ? kb[t * k_ss + d] : 0.f;
+    }
+    for (int idx = tid; idx < F_BK * DV; idx += F_THREADS) {
+      const int c = idx / DV, d = idx % DV;
+      const int t = k_start + c;
+      vs[c * DV + d] = t < T_len ? vb[t * v_ss + d] : 0.f;
     }
     __syncthreads();
 
@@ -557,7 +573,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
       float vv[NC];
 #pragma unroll
-      for (int j = 0; j < NC; ++j) vv[j] = vs[c * DH + tx * NC + j];
+      for (int j = 0; j < NC; ++j) vv[j] = vs[c * DV + tx * NC + j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -570,24 +586,26 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int s = q_start + 4 * ty + i;
     if (s >= S) continue;           // q rows past S are not stored
     const float denom = fmaxf(l[i], 1e-30f);
-    float* orow = o + (((long long)b * S + s) * H + h) * DH + tx * NC;
+    float* orow = o + (((long long)b * S + s) * H + h) * DV + tx * NC;
 #pragma unroll
     for (int j = 0; j < NC; ++j) orow[j] = acc[i][j] / denom;
   }
 }
 
-template <int DH>
+template <int DH, int DV>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
                int S, int T_len, int H, int G, float scale, int causal,
                int window, const long long* st, cudaStream_t stream) {
-  const size_t smem = f32_smem_floats<DH>() * sizeof(float);
+  const size_t smem = f32_smem_floats<DH, DV>() * sizeof(float);
+  static_assert(f32_smem_floats<DH, DV>() * sizeof(float) <= 232448,
+                "within the 227 KB a block can use");
   cudaError_t err = cudaFuncSetAttribute(
-      flash_f32_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_f32_kernel<DH, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   if (B * H > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((S + F_BQ - 1) / F_BQ, B * H);
-  flash_f32_kernel<DH><<<grid, F_THREADS, smem, stream>>>(
+  flash_f32_kernel<DH, DV><<<grid, F_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), S, T_len, H, G,
       scale, causal, window, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
@@ -595,49 +613,47 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   return (int)cudaGetLastError();
 }
 
-template <int DH>
+template <int DH, int DV>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o,
            int B, int S, int T_len, int H, int G, float scale, int causal,
            int window, const long long* st, cudaStream_t stream) {
   if (dtype == 0)
-    return launch_f32<DH>(q, k, v, o, B, S, T_len, H, G, scale, causal,
-                          window, st, stream);
+    return launch_f32<DH, DV>(q, k, v, o, B, S, T_len, H, G, scale, causal,
+                              window, st, stream);
   if (dtype == 1)
-    return launch_bf16<DH>(q, k, v, o, B, S, T_len, H, G, scale, causal,
-                           window, st, stream);
+    return launch_bf16<DH, DV>(q, k, v, o, B, S, T_len, H, G, scale, causal,
+                               window, st, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q (B, S, H, dh), k and v (B, T, K, dh), each with unit stride along dh
-// and element strides (batch, seq, head) given in `strides` as q's, k's,
-// then v's; out (B, S, H, dh) contiguous.  dtype 0 = f32, 1 = bf16, for all
-// four; bf16 strides are multiples of 8 and the pointers 16-byte aligned.
+// q and k (B, S or T, H or K, dh), v (B, T, K, dv), each with unit
+// stride along its width and element strides (batch, seq, head) given in
+// `strides` as q's, k's, then v's; out (B, S, H, dv) contiguous.  (dh, dv)
+// is one of the pairs below; dtype 0 = f32, 1 = bf16, for all of them;
+// bf16 strides are multiples of 8 and the pointers 16-byte aligned.
 // window <= 0 means no window.
 extern "C" int rt_flash_attention(const void* q, const void* k,
                                   const void* v, void* out, int dtype, int B,
                                   int S, int T_len, int H, int K, int dh,
-                                  float scale, int causal, int window,
-                                  const long long* strides, void* stream) {
+                                  int dv, float scale, int causal,
+                                  int window, const long long* strides,
+                                  void* stream) {
   if (B < 1 || S < 1 || T_len < 1 || K < 1 || H % K != 0)
     return (int)cudaErrorInvalidValue;
   const int G = H / K;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dh) {
-    case 32:
-      return launch<32>(dtype, q, k, v, out, B, S, T_len, H, G, scale,
-                        causal, window, strides, s);
-    case 64:
-      return launch<64>(dtype, q, k, v, out, B, S, T_len, H, G, scale,
-                        causal, window, strides, s);
-    case 128:
-      return launch<128>(dtype, q, k, v, out, B, S, T_len, H, G, scale,
-                         causal, window, strides, s);
-    case 256:
-      return launch<256>(dtype, q, k, v, out, B, S, T_len, H, G, scale,
-                         causal, window, strides, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+#define RT_FLASH_PAIR(DH, DV)                                              \
+  if (dh == DH && dv == DV)                                                \
+    return launch<DH, DV>(dtype, q, k, v, out, B, S, T_len, H, G, scale,  \
+                          causal, window, strides, s);
+  RT_FLASH_PAIR(32, 32)
+  RT_FLASH_PAIR(64, 64)
+  RT_FLASH_PAIR(128, 128)
+  RT_FLASH_PAIR(256, 256)
+  RT_FLASH_PAIR(192, 128)   // deepseek-v3's MLA prefill
+  RT_FLASH_PAIR(48, 32)     // its reduced config
+#undef RT_FLASH_PAIR
+  return (int)cudaErrorInvalidValue;
 }

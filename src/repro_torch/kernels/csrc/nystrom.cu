@@ -22,13 +22,14 @@
 //
 // Bounds at the select path's shape (N = 100 000, d = 8, m = 512, k = 8,
 // f32) on an H100 (67 TFLOP/s f32 on the CUDA cores, 3.35 TB/s):
-//   colsum     N*m = 5.1e7 affinity entries (~1.2 GFLOP) on 3.6 MB read:
-//              operation-bound, ~20 us.
+//   colsum     N*m = 5.1e7 affinity entries (~1.1 GFLOP) on 3.6 MB read:
+//              operation-bound, ~17 us (kernel 2).
 //   gram       the upper triangle of S^T S, N*m*(m + 1) = 2.6e10 FLOP in
 //              exact f32 (no TF32), plus C once and the rotation:
 //              operation-bound, ~0.42 ms; at the m = 4096 engine's shape
 //              1.7e12 FLOP, ~29 ms (kernel 3).
-//   extension  like colsum twice plus 2*N*m*k FLOP: operation-bound.
+//   extension  C once, C u and C proj (N*m*(2k + 2) FLOP more):
+//              operation-bound, ~31 us (kernel 4).
 //   cross      W = A(z, z), 512 x 512: 1 MB written, launch-bound.
 //   panel      the subspace solver's W Q at m = 4096: (4096, 4096) @
 //              (4096, 64) is 2.1 GFLOP, operation-bound (~32 us; W alone
@@ -44,21 +45,27 @@ namespace rt {
 
 // ---------------------------------------------------------------------------
 // dispatch on (affinity dtype, d): d <= 8 and d <= 32 get their own
-// register-array bound
+// register-array bound; dispatch_exact (kernels 2 and 4) gives d = 8 (the
+// cohort path's embedding width) its own instantiation with d known at
+// compile time (kD = 8), so the dot's k < d guards fold away: 7-8 % off
+// kernel 2 and 12 % off kernel 4 (PERF.md, section 6).  The arithmetic
+// is the same either way: k < d selects the same terms in the same
+// order.
 // ---------------------------------------------------------------------------
 
-template <int DT, int MAXD>
+template <int DT, int MAXD, int D = 0>
 struct Cfg {
   static constexpr int kDt = DT;
   static constexpr int kMaxD = MAXD;
+  static constexpr int kD = D;     // 0: d is a runtime value
 };
 
-template <int MAXD, typename F>
+template <int MAXD, int D = 0, typename F>
 bool with_dtype(int dtype, F&& f) {
   switch (dtype) {
-    case kF32: f(Cfg<kF32, MAXD>{}); return true;
-    case kBF16: f(Cfg<kBF16, MAXD>{}); return true;
-    case kINT8: f(Cfg<kINT8, MAXD>{}); return true;
+    case kF32: f(Cfg<kF32, MAXD, D>{}); return true;
+    case kBF16: f(Cfg<kBF16, MAXD, D>{}); return true;
+    case kINT8: f(Cfg<kINT8, MAXD, D>{}); return true;
     default: return false;
   }
 }
@@ -70,21 +77,51 @@ bool dispatch(int dtype, int d, F&& f) {
   return false;
 }
 
+template <typename F>
+bool dispatch_exact(int dtype, int d, F&& f) {
+  if (d == 8) return with_dtype<8, 8>(dtype, f);
+  return dispatch(dtype, d, f);
+}
+
 // ---------------------------------------------------------------------------
 // shared piece: in-order reduction of per-block partials
 // ---------------------------------------------------------------------------
 
-// out[j] = sum_p partial[p, j], p ascending.
-__global__ void sum_rows_kernel(const float* __restrict__ partial,
-                                float* __restrict__ out, int rows,
-                                long long cols) {
-  const long long j = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (j >= cols) return;
+// out[j] = sum_p partial[p, j], p ascending.  A thread has one column and
+// many rows, a chain of dependent adds; one load at a time would make it
+// wait a memory round trip a row.  So a block owns 16 columns: its 256
+// threads copy a tile of kSumChunk rows x 16 columns to shared memory
+// (every load in flight at once; one tile at N = 10^5), then one thread a
+// column adds the tile's rows in order: the same sum as one row at a time.
+constexpr int kSumCols = 16;
+constexpr int kSumChunk = 512;
+constexpr int kSumThreads = 256;
+
+__global__ void __launch_bounds__(kSumThreads)
+sum_rows_kernel(const float* __restrict__ partial, float* __restrict__ out,
+                int rows, long long cols) {
+  __shared__ float tile[kSumChunk][kSumCols];
+  const long long j0 = static_cast<long long>(blockIdx.x) * kSumCols;
+  const int tid = threadIdx.x;
+  const int c = tid % kSumCols;
+  const bool col_in = j0 + c < cols;
+  const float* src = partial + j0 + c;
   float acc = 0.f;
+  for (int p0 = 0; p0 < rows; p0 += kSumChunk) {
+    const int cnt = min(kSumChunk, rows - p0);
+#pragma unroll
+    for (int q = 0; q < kSumChunk * kSumCols / kSumThreads; ++q) {
+      const int p = q * (kSumThreads / kSumCols) + tid / kSumCols;
+      tile[p][c] = p < cnt && col_in ? src[(p0 + p) * cols] : 0.f;
+    }
+    __syncthreads();
+    if (tid < kSumCols) {
 #pragma unroll 8
-  for (int p = 0; p < rows; ++p) acc += partial[p * cols + j];
-  out[j] = acc;
+      for (int p = 0; p < cnt; ++p) acc += tile[p][tid];
+    }
+    __syncthreads();
+  }
+  if (tid < kSumCols && col_in) out[j0 + tid] = acc;
 }
 
 // One float (VEC false) or 16 bytes (VEC true) global -> shared with
@@ -124,48 +161,149 @@ cross_affinity_kernel(const float* __restrict__ x, const float* __restrict__ y,
 }
 
 // ---------------------------------------------------------------------------
-// kernel 2: column sum.  Block (panel, column tile): the panel's rows sit in
-// shared memory, each thread owns one landmark column and sums the panel's
-// rows in order into partial[panel, j]; sum_rows_kernel then adds the
-// panels in index order.
+// kernel 2: column sum (rt_nystrom_colsum)
 // ---------------------------------------------------------------------------
+//
+// Bound at the select path's shape (N = 10^5, d = 8, m = 512): N*m =
+// 5.1e7 affinity entries of 2d + 6 operations, 0.017 ms at 67 TFLOP/s;
+// by operations.  An entry is ~22 instructions that the order below
+// fixes (8 FMAs of the dot, 2 x.z, the norm sum and difference, the
+// clamp, the gamma scale, expf's 8, the masked add), so the issue rate,
+// not the FMA rate, is the limit (PERF.md, section 6, has the times).
+//
+// The summation order is the contract, not a choice: the cohort server's
+// cold solve amplifies col's last bits through W^-1/2 (PERF.md, section 6), so
+// col stays bit-identical to every earlier version of this kernel:
+//   - the rows are cut into panels of kColsumRows = 256;
+//   - partial[panel, j] sums the panel's rows ascending into one
+//     accumulator, acc += affinity(x_t, z_j) * mask_t, the same expression
+//     with the same operands (so the same FMA contraction);
+//   - sum_rows_kernel adds the panels in index order.
+// Within that order:
+//   - A block of 128 threads owns one panel and a tile of kCols * 128
+//     landmark columns.  Each thread keeps kCols landmarks in registers
+//     (columns tid, tid + 128, ...: the partial stores stay coalesced), so
+//     every panel row read serves kCols entries and the kCols sums are
+//     independent chains.
+//   - The panel's raw rows and mask arrive by cp.async (16-byte pieces
+//     where x is 16-byte aligned) while the threads prepare their
+//     landmarks; then each row is rounded to the tile precision once and
+//     packed as (coordinates, |x|^2, mask, int8 scale, 0): MAXD / 4 + 1
+//     float4 reads, the same address across the warp (a broadcast).
+//   - At m = 512 (d <= 8: kCols = 4, a 512-column tile) that is 391 blocks,
+//     all resident at once on 132 SMs; at m = 4096, 3128.
 
-constexpr int kColsumCols = 128;   // threads = landmark columns per block
-constexpr int kColsumRows = 256;   // rows per panel
+constexpr int kColsumRows = 256;     // rows a panel: the reduction tree
+constexpr int kColsumThreads = 128;
 
-template <int DT, int MAXD>
-__global__ void __launch_bounds__(kColsumCols)
+template <int MAXD>
+struct ColsumCfg {
+  static constexpr int kCols = MAXD <= 8 ? 4 : 2;   // landmarks a thread
+  static constexpr int kTile = kColsumThreads * kCols;
+  static constexpr int kRow = MAXD + 4;              // floats a packed row
+  static constexpr int kRawFloats = kColsumRows * MAXD + kColsumRows;
+  static constexpr size_t kSmem =
+      (size_t)(kRawFloats + kColsumRows * kRow) * sizeof(float);
+};
+
+// `count` floats global -> shared by cp.async, 16-byte pieces when VEC
+// (both ends 16-byte aligned), then the tail by 4-byte pieces.
+__device__ __forceinline__ void stage_floats(float* dst, const float* src,
+                                             int count, bool vec) {
+  int head = 0;
+  if (vec) {
+    head = count & ~3;
+    for (int e = 4 * threadIdx.x; e < head; e += 4 * blockDim.x)
+      panel_copy<true>(dst + e, src + e, true);
+  }
+  for (int e = head + threadIdx.x; e < count; e += blockDim.x)
+    panel_copy<false>(dst + e, src + e, true);
+}
+
+template <int DT, int MAXD, int D>
+__global__ void __launch_bounds__(kColsumThreads)
 colsum_partial_kernel(const float* __restrict__ x,
                       const float* __restrict__ z, float gamma,
                       const float* __restrict__ mask,
-                      float* __restrict__ partial, int n, int m, int d) {
-  extern __shared__ float smem[];
-  float* xv = smem;                        // d * kColsumRows
-  float* xn = xv + d * kColsumRows;
-  float* xs = xn + kColsumRows;
-  float* xm = xs + kColsumRows;
+                      float* __restrict__ partial, int n, int m, int d_in) {
+  using Cf = ColsumCfg<MAXD>;
+  const int d = D ? D : d_in;
+  extern __shared__ float4 colsum_smem4[];
+  float* raw = reinterpret_cast<float*>(colsum_smem4);   // rows * d, mask
+  float* raw_mask = raw + kColsumRows * MAXD;
+  float4* packed = colsum_smem4 + Cf::kRawFloats / 4;     // [t][kRow / 4]
+  const int tid = threadIdx.x;
   const int row0 = blockIdx.x * kColsumRows;
   const int rows = min(kColsumRows, n - row0);
-  load_points<DT, MAXD>(x, row0, rows, kColsumRows, d, xv, xn, xs);
-  for (int t = threadIdx.x; t < kColsumRows; t += blockDim.x)
-    xm[t] = t < rows ? (mask ? mask[row0 + t] : 1.f) : 0.f;
+  const float* xp = x + static_cast<size_t>(row0) * d;
+  stage_floats(raw, xp, rows * d,
+               reinterpret_cast<uintptr_t>(xp) % 16 == 0);
+  if (mask) stage_floats(raw_mask, mask + row0, rows, false);
+  asm volatile("cp.async.commit_group;\n" ::);
+
+  // this thread's landmarks, prepared while the panel is in flight
+  float zv[Cf::kCols][MAXD], zn[Cf::kCols], zs[Cf::kCols];
+  int j[Cf::kCols];
+#pragma unroll
+  for (int c = 0; c < Cf::kCols; ++c) {
+    j[c] = blockIdx.y * Cf::kTile + c * kColsumThreads + tid;
+    zn[c] = 0.f;
+    zs[c] = 1.f;
+#pragma unroll
+    for (int k = 0; k < MAXD; ++k) zv[c][k] = 0.f;
+    if (j[c] < m)
+      prepare_point<DT, MAXD>(z + static_cast<size_t>(j[c]) * d, d, zv[c],
+                              zn[c], zs[c]);
+  }
+
+  asm volatile("cp.async.wait_group 0;\n" ::);
   __syncthreads();
-  const int j = blockIdx.y * kColsumCols + threadIdx.x;
-  if (j >= m) return;
-  float zv[MAXD];
-  float zn, zs;
-  prepare_point<DT, MAXD>(z + static_cast<size_t>(j) * d, d, zv, zn, zs);
-  float acc = 0.f;
-  for (int t = 0; t < rows; ++t)
-    acc += affinity<DT, MAXD>(xv + t, kColsumRows, xn[t], xs[t], zv, 1, zn,
-                              zs, d, gamma) * xm[t];
-  partial[static_cast<size_t>(blockIdx.x) * m + j] = acc;
+  for (int t = tid; t < kColsumRows; t += kColsumThreads) {
+    float pv[MAXD];
+    float pn = 0.f, ps = 1.f;
+#pragma unroll
+    for (int k = 0; k < MAXD; ++k) pv[k] = 0.f;
+    if (t < rows) prepare_point<DT, MAXD>(raw + t * d, d, pv, pn, ps);
+    float4* row = packed + t * (Cf::kRow / 4);
+#pragma unroll
+    for (int q = 0; q < MAXD / 4; ++q)
+      row[q] = make_float4(pv[4 * q], pv[4 * q + 1], pv[4 * q + 2],
+                           pv[4 * q + 3]);
+    const float mk = t < rows ? (mask ? raw_mask[t] : 1.f) : 0.f;
+    row[MAXD / 4] = make_float4(pn, mk, ps, 0.f);
+  }
+  __syncthreads();
+
+  float acc[Cf::kCols];
+#pragma unroll
+  for (int c = 0; c < Cf::kCols; ++c) acc[c] = 0.f;
+#pragma unroll 2
+  for (int t = 0; t < rows; ++t) {
+    const float4* row = packed + t * (Cf::kRow / 4);
+    float xv[MAXD];
+#pragma unroll
+    for (int q = 0; q < MAXD / 4; ++q) {
+      const float4 v = row[q];
+      xv[4 * q] = v.x; xv[4 * q + 1] = v.y; xv[4 * q + 2] = v.z;
+      xv[4 * q + 3] = v.w;
+    }
+    const float4 tail = row[MAXD / 4];     // |x|^2, mask, int8 scale
+#pragma unroll
+    for (int c = 0; c < Cf::kCols; ++c)
+      acc[c] += affinity<DT, MAXD>(xv, 1, tail.x, tail.z, zv[c], 1, zn[c],
+                                   zs[c], d, gamma) * tail.y;
+  }
+#pragma unroll
+  for (int c = 0; c < Cf::kCols; ++c)
+    if (j[c] < m) partial[static_cast<size_t>(blockIdx.x) * m + j[c]] = acc[c];
 }
 
 // ---------------------------------------------------------------------------
-// row kernels: one thread per client row, landmarks streamed through shared
-// memory in chunks.  row_degree is pass 1 of both the Gram pre-pass and the
-// extension: d^_i = sum_j C_ij u_j, j ascending.
+// the Gram's degree pre-pass: one thread per client row, landmarks
+// streamed through shared memory in chunks.  row_degree gives d^_i =
+// sum_j C_ij u_j, j ascending.  (Kernel 4 sums its d^ in another order:
+// each half of a block takes its landmarks ascending into one
+// accumulator, then the first half's sum plus the second's.)
 // ---------------------------------------------------------------------------
 
 constexpr int kRowThreads = 128;
@@ -566,66 +704,219 @@ int launch_rot(const float* a, const float* b, float* c, int m,
 }
 
 // ---------------------------------------------------------------------------
-// kernel 4: extension, one thread per row.  Pass 1 is row_degree; pass 2
-// streams the landmarks again with their proj rows and accumulates
-// v = sum_j S_ij proj_j; the row is then normalized with the 1e-12 floor.
-// Masked rows have r = 0 and come out 0.
+// kernel 4: extension (rt_nystrom_extension)
 // ---------------------------------------------------------------------------
+//
+// out_i = v_i / max(|v_i|, 1e-12), v_i = r_i * sum_j C_ij proj_j, with
+// d^_i = sum_j C_ij u_j and r_i = mask_i * rsqrt(max(mask_i * d^_i,
+// 1e-12)): the function of the TPU kernel, which builds each C tile once
+// in VMEM and takes S = diag(r) C.  Masked rows (r = 0) come out 0.
+//
+// Bound at the select path's shape (N = 10^5, d = 8, m = 512, k = 8):
+// C once (2d + 5 a entry), C u and C proj (2 + 2k): 0.031 ms at 67
+// TFLOP/s, by operations.  An entry is ~31 instructions (the affinity's
+// 21, 9 FMAs, the landmark's loads over two rows), so the issue rate is
+// the limit.  On the card (PERF.md, the kernel table): 0.085 ms at
+// m = 512, 0.62 ms at m = 4096.
+//
+// Design:
+//   - Each C entry is computed once: d^ and w = sum_j C_ij proj_j
+//     accumulate in the same pass, and r scales w at the end (S =
+//     diag(r) C, so S proj = r (C proj)).
+//   - pack_landmarks_kernel rounds every landmark to the tile precision
+//     once and packs it with its u and proj row: (coordinates, |z|^2,
+//     int8 scale, u, 0, proj padded to a multiple of 4), a row of
+//     MAXD + 4 + kp floats.
+//   - A block owns 256 rows and has two halves of 128 threads.  A thread
+//     owns two rows (tid and tid + 128 of its half), so every landmark
+//     read serves two rows; the two halves take the two halves of every
+//     ring stage's landmarks, which doubles the warps an SM holds (an
+//     entry is a chain of ~20 dependent instructions, and 12 warps an SM
+//     could not hide it).  The packed landmarks stream through a 2-stage
+//     cp.async ring of kExtChunk rows (16-byte pieces); a thread reads a
+//     landmark as float4 broadcasts.  At the end the second half hands
+//     its d^ and w to the first through shared memory, which adds them
+//     (first half + second half) and writes the rows.
+//   - 391 blocks of 8 warps at N = 10^5, all resident at once on 132 SMs,
+//     at m = 512 and at m = 4096 alike.
+//   - w lives in registers, MAXK wide: three classes, k <= 8, 16 and 64.
+//     At k = 8 the k <= 16 class takes 96 registers (2 blocks an SM, two
+//     waves of blocks) where the k <= 8 class takes 64 (all resident):
+//     17 % slower (PERF.md, section 6).
+// Every sum has a fixed order (each half's landmarks ascending into one
+// accumulator, then the halves' sums in order), with no atomics: a repeat
+// call is bit-identical.
 
-template <int DT, int MAXD, int MAXK>
-__global__ void __launch_bounds__(kRowThreads)
-extension_kernel(const float* __restrict__ x, const float* __restrict__ z,
-                 float gamma, const float* __restrict__ u,
-                 const float* __restrict__ proj,
+constexpr int kExtHalf = 128;      // threads of a half
+constexpr int kExtThreads = 2 * kExtHalf;
+constexpr int kExtRows = 2;        // rows a thread
+constexpr int kExtBlockRows = kExtHalf * kExtRows;
+constexpr int kExtChunk = 64;      // landmarks a ring stage, 32 a half
+
+// floats of one packed landmark row
+__host__ __device__ inline int ext_row_width(int maxd, int k) {
+  return maxd + 4 + (k + 3) / 4 * 4;
+}
+
+// bytes of shared memory: the ring, or the second half's sums
+inline size_t ext_smem_bytes(int maxd, int maxk, int k) {
+  const size_t ring = 2 * kExtChunk * ext_row_width(maxd, k);
+  const size_t sums = kExtBlockRows * (1 + maxk);
+  return (ring > sums ? ring : sums) * sizeof(float);
+}
+
+template <int DT, int MAXD, int D>
+__global__ void __launch_bounds__(128)
+pack_landmarks_kernel(const float* __restrict__ z,
+                      const float* __restrict__ u,
+                      const float* __restrict__ proj,
+                      float* __restrict__ packed, int m, int d_in, int k) {
+  const int d = D ? D : d_in;
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= m) return;
+  const int lw = ext_row_width(MAXD, k);
+  float zv[MAXD];
+  float zn, zs;
+#pragma unroll
+  for (int q = 0; q < MAXD; ++q) zv[q] = 0.f;
+  prepare_point<DT, MAXD>(z + static_cast<size_t>(j) * d, d, zv, zn, zs);
+  float4* row = reinterpret_cast<float4*>(packed + static_cast<size_t>(j) * lw);
+#pragma unroll
+  for (int q = 0; q < MAXD / 4; ++q)
+    row[q] = make_float4(zv[4 * q], zv[4 * q + 1], zv[4 * q + 2],
+                         zv[4 * q + 3]);
+  row[MAXD / 4] = make_float4(zn, zs, u[j], 0.f);
+  float* pj = packed + static_cast<size_t>(j) * lw + MAXD + 4;
+  for (int q = 0; q < lw - MAXD - 4; ++q)
+    pj[q] = q < k ? proj[static_cast<size_t>(j) * k + q] : 0.f;
+}
+
+template <int DT, int MAXD, int D, int MAXK>
+__global__ void __launch_bounds__(kExtThreads)
+extension_kernel(const float* __restrict__ x,
+                 const float* __restrict__ packed, float gamma,
                  const float* __restrict__ mask, float* __restrict__ out,
-                 int n, int m, int d, int k) {
-  extern __shared__ float smem[];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < n;
-  float xv[MAXD];
-  float xn = 0.f, xs = 1.f;
-#pragma unroll
-  for (int kk = 0; kk < MAXD; ++kk) xv[kk] = 0.f;
-  if (live)
-    prepare_point<DT, MAXD>(x + static_cast<size_t>(i) * d, d, xv, xn, xs);
-  const float dh = row_degree<DT, MAXD>(xv, xn, xs, live, z, u, m, d, gamma,
-                                        smem);
-  const float mk = live ? (mask ? mask[i] : 1.f) : 0.f;
-  const float r = mk * rsqrtf(fmaxf(mk * dh, kEps));
+                 int n, int m, int d_in, int k) {
+  const int d = D ? D : d_in;
+  constexpr int KQ = MAXK / 4;      // float4 groups of proj, at most
+  extern __shared__ float4 ext_smem4[];
+  float* ring = reinterpret_cast<float*>(ext_smem4);
+  const int lw = ext_row_width(MAXD, k);
+  const int kq = (k + 3) / 4;       // float4 groups of proj, this call
+  const int stage_floats_n = kExtChunk * lw;
+  const int tid = threadIdx.x;
+  const int half = tid / kExtHalf, lt = tid % kExtHalf;
+  const int row0 = blockIdx.x * kExtBlockRows;
 
-  float* zv = smem;                  // d * kChunk
-  float* zn = zv + d * kChunk;
-  float* zs = zn + kChunk;
-  float* pj = zs + 2 * kChunk;       // kChunk * k, after row_degree's u slot
-  float v[MAXK];
+  // the chunk of landmarks c0 .. c0 + cnt - 1 into ring stage `st`
+  auto load_chunk = [&](int st, int c0) {
+    const int cnt = min(kExtChunk, m - c0);
+    const float* src = packed + static_cast<size_t>(c0) * lw;
+    float* dst = ring + st * stage_floats_n;
+    for (int e = 4 * tid; e < cnt * lw; e += 4 * kExtThreads)
+      panel_copy<true>(dst + e, src + e, true);
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  load_chunk(0, 0);
+
+  float xv[kExtRows][MAXD], xn[kExtRows], xs[kExtRows];
 #pragma unroll
-  for (int kk = 0; kk < MAXK; ++kk) v[kk] = 0.f;
-  for (int c0 = 0; c0 < m; c0 += kChunk) {
-    const int cnt = min(kChunk, m - c0);
-    __syncthreads();
-    load_points<DT, MAXD>(z, c0, cnt, kChunk, d, zv, zn, zs);
-    for (int e = threadIdx.x; e < cnt * k; e += blockDim.x)
-      pj[e] = proj[static_cast<size_t>(c0) * k + e];
-    __syncthreads();
-    if (live && r != 0.f) {
-      for (int t = 0; t < cnt; ++t) {
-        const float s = affinity<DT, MAXD>(xv, 1, xn, xs, zv + t, kChunk,
-                                           zn[t], zs[t], d, gamma) * r;
+  for (int r = 0; r < kExtRows; ++r) {
+    const int i = row0 + r * kExtHalf + lt;
+    xn[r] = 0.f;
+    xs[r] = 1.f;
 #pragma unroll
-        for (int kk = 0; kk < MAXK; ++kk)
-          if (kk < k) v[kk] = fmaf(s, pj[t * k + kk], v[kk]);
+    for (int q = 0; q < MAXD; ++q) xv[r][q] = 0.f;
+    if (i < n)
+      prepare_point<DT, MAXD>(x + static_cast<size_t>(i) * d, d, xv[r],
+                              xn[r], xs[r]);
+  }
+  float dh[kExtRows], w[kExtRows][MAXK];
+#pragma unroll
+  for (int r = 0; r < kExtRows; ++r) {
+    dh[r] = 0.f;
+#pragma unroll
+    for (int q = 0; q < MAXK; ++q) w[r][q] = 0.f;
+  }
+
+  const int nchunks = (m + kExtChunk - 1) / kExtChunk;
+  for (int c = 0; c < nchunks; ++c) {
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncthreads();   // chunk c has landed; chunk c - 1 is consumed
+    if (c + 1 < nchunks) load_chunk((c + 1) % 2, (c + 1) * kExtChunk);
+    const float* stage = ring + (c % 2) * stage_floats_n;
+    const int cnt = min(kExtChunk, m - c * kExtChunk);
+    // this half's landmarks of the chunk
+    const int t_end = min(cnt, (half + 1) * (kExtChunk / 2));
+#pragma unroll 4
+    for (int t = half * (kExtChunk / 2); t < t_end; ++t) {
+      const float4* lm = reinterpret_cast<const float4*>(stage + t * lw);
+      float zv[MAXD];
+#pragma unroll
+      for (int q = 0; q < MAXD / 4; ++q) {
+        const float4 v = lm[q];
+        zv[4 * q] = v.x; zv[4 * q + 1] = v.y; zv[4 * q + 2] = v.z;
+        zv[4 * q + 3] = v.w;
+      }
+      const float4 tail = lm[MAXD / 4];   // |z|^2, scale, u
+      float a[kExtRows];
+#pragma unroll
+      for (int r = 0; r < kExtRows; ++r) {
+        a[r] = affinity<DT, MAXD>(xv[r], 1, xn[r], xs[r], zv, 1, tail.x,
+                                  tail.y, d, gamma);
+        dh[r] = fmaf(a[r], tail.z, dh[r]);
+      }
+#pragma unroll
+      for (int q = 0; q < KQ; ++q) {
+        if (q < kq) {
+          const float4 pv = lm[MAXD / 4 + 1 + q];
+#pragma unroll
+          for (int r = 0; r < kExtRows; ++r) {
+            w[r][4 * q] = fmaf(a[r], pv.x, w[r][4 * q]);
+            w[r][4 * q + 1] = fmaf(a[r], pv.y, w[r][4 * q + 1]);
+            w[r][4 * q + 2] = fmaf(a[r], pv.z, w[r][4 * q + 2]);
+            w[r][4 * q + 3] = fmaf(a[r], pv.w, w[r][4 * q + 3]);
+          }
+        }
       }
     }
   }
-  if (!live) return;
-  float sq = 0.f;
+
+  // the second half's sums to the first, through shared memory
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();     // every half is done with the ring
+  float* sums = ring;  // [row slot][1 + MAXK]
+  if (half == 1) {
 #pragma unroll
-  for (int kk = 0; kk < MAXK; ++kk)
-    if (kk < k) sq = fmaf(v[kk], v[kk], sq);
-  const float norm = fmaxf(sqrtf(sq), kEps);
+    for (int r = 0; r < kExtRows; ++r) {
+      float* slot = sums + (r * kExtHalf + lt) * (1 + MAXK);
+      slot[0] = dh[r];
 #pragma unroll
-  for (int kk = 0; kk < MAXK; ++kk)
-    if (kk < k) out[static_cast<size_t>(i) * k + kk] = v[kk] / norm;
+      for (int q = 0; q < MAXK; ++q)
+        if (q < k) slot[1 + q] = w[r][q];
+    }
+  }
+  __syncthreads();
+  if (half == 1) return;
+#pragma unroll
+  for (int r = 0; r < kExtRows; ++r) {
+    const int i = row0 + r * kExtHalf + lt;
+    if (i >= n) continue;
+    const float* slot = sums + (r * kExtHalf + lt) * (1 + MAXK);
+    const float mk = mask ? mask[i] : 1.f;
+    const float rr = mk * rsqrtf(fmaxf(mk * (dh[r] + slot[0]), kEps));
+    float v[MAXK];
+    float sq = 0.f;
+#pragma unroll
+    for (int q = 0; q < MAXK; ++q) {
+      v[q] = q < k ? (w[r][q] + slot[1 + q]) * rr : 0.f;
+      sq = fmaf(v[q], v[q], sq);
+    }
+    const float norm = fmaxf(sqrtf(sq), kEps);
+#pragma unroll
+    for (int q = 0; q < MAXK; ++q)
+      if (q < k) out[static_cast<size_t>(i) * k + q] = v[q] / norm;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -860,17 +1151,23 @@ int rt_nystrom_colsum(const float* x, const float* z, float gamma,
                       int m, int d, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned panels = blocks_for(n, kColsumRows);
-  const dim3 grid(panels, blocks_for(m, kColsumCols));
-  const size_t smem = (d + 3) * kColsumRows * sizeof(float);
-  const bool ok = dispatch(dtype, d, [&](auto c) {
+  cudaError_t err = cudaSuccess;
+  const bool ok = dispatch_exact(dtype, d, [&](auto c) {
     using C = decltype(c);
-    colsum_partial_kernel<C::kDt, C::kMaxD>
-        <<<grid, kColsumCols, smem, s>>>(x, z, gamma, mask, partial, n, m, d);
+    using Cf = ColsumCfg<C::kMaxD>;
+    const auto kernel = colsum_partial_kernel<C::kDt, C::kMaxD, C::kD>;
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(Cf::kSmem));
+    if (err != cudaSuccess) return;
+    kernel<<<dim3(panels, blocks_for(m, Cf::kTile)), kColsumThreads,
+             Cf::kSmem, s>>>(x, z, gamma, mask, partial, n, m, d);
+    err = cudaGetLastError();
   });
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  sum_rows_kernel<<<blocks_for(m, 256), 256, 0, s>>>(partial, out, panels, m);
+  sum_rows_kernel<<<blocks_for(m, kSumCols), kSumThreads, 0, s>>>(
+      partial, out, panels, m);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -932,31 +1229,41 @@ int rt_nystrom_gram(const float* x, const float* z, float gamma,
   return launch_rot(t, w_isqrt, out, m, s);
 }
 
+// packed: (m, ext_row_width(MAXD, k)) scratch, MAXD = 8 for d <= 8 and
+// 32 above: the landmarks rounded and packed with u and proj.
 int rt_nystrom_extension(const float* x, const float* z, float gamma,
                          const float* u, const float* proj, const float* mask,
-                         float* out, int n, int m, int d, int k, int dtype,
-                         void* stream) {
+                         float* packed, float* out, int n, int m, int d,
+                         int k, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = (d + 3 + k) * kChunk * sizeof(float);
-  const unsigned grid = blocks_for(n, kRowThreads);
-  bool ok;
-  if (k >= 1 && k <= 16) {
-    ok = dispatch(dtype, d, [&](auto c) {
-      using C = decltype(c);
-      extension_kernel<C::kDt, C::kMaxD, 16><<<grid, kRowThreads, smem, s>>>(
-          x, z, gamma, u, proj, mask, out, n, m, d, k);
-    });
-  } else if (k > 16 && k <= 64) {
-    ok = dispatch(dtype, d, [&](auto c) {
-      using C = decltype(c);
-      extension_kernel<C::kDt, C::kMaxD, 64><<<grid, kRowThreads, smem, s>>>(
-          x, z, gamma, u, proj, mask, out, n, m, d, k);
-    });
-  } else {
-    ok = false;
-  }
+  if (n < 1 || m < 1 || k < 1 || k > 64)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSuccess;
+  const bool ok = dispatch_exact(dtype, d, [&](auto c) {
+    using C = decltype(c);
+    pack_landmarks_kernel<C::kDt, C::kMaxD, C::kD>
+        <<<blocks_for(m, 128), 128, 0, s>>>(z, u, proj, packed, m, d, k);
+    if ((err = cudaGetLastError()) != cudaSuccess) return;
+    const unsigned grid = blocks_for(n, kExtBlockRows);
+    auto launch = [&](auto kernel, int maxk) {
+      const size_t smem = ext_smem_bytes(C::kMaxD, maxk, k);
+      err = cudaFuncSetAttribute(kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err != cudaSuccess) return;
+      kernel<<<grid, kExtThreads, smem, s>>>(x, packed, gamma, mask, out, n,
+                                             m, d, k);
+      err = cudaGetLastError();
+    };
+    if (k <= 8)
+      launch(extension_kernel<C::kDt, C::kMaxD, C::kD, 8>, 8);
+    else if (k <= 16)
+      launch(extension_kernel<C::kDt, C::kMaxD, C::kD, 16>, 16);
+    else
+      launch(extension_kernel<C::kDt, C::kMaxD, C::kD, 64>, 64);
+  });
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

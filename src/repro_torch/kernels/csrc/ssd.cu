@@ -55,8 +55,10 @@
 // spill).
 // Every sum runs in one fixed order (j ascending; the mma's own order
 // within a step), with no atomics: a repeat call is bit-identical.  P and
-// N are template parameters (the reduced 16/16 and mamba2's 64/128); Q
-// is any length.  xdt, B and C must be 16-byte aligned.
+// N are template parameters (the reduced 16/16, mamba2's 64/128 and
+// jamba's 64/16); Q is any length.  Where N < kStateCols one state block
+// owns all N columns (2 a thread at N = 16).  xdt, B and C must be
+// 16-byte aligned.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -507,6 +509,9 @@ int dispatch_shape(int P, int N, const float* xdt, const float* cs,
   if (P == 64 && N == 128)
     return launch<TB, 64, 128>(xdt, cs, bm, cm, y, st, B, nc, Q, H, G,
                                stream);
+  if (P == 64 && N == 16)     // jamba-v0.1's Mamba layers
+    return launch<TB, 64, 16>(xdt, cs, bm, cm, y, st, B, nc, Q, H, G,
+                              stream);
   return (int)cudaErrorInvalidValue;
 }
 

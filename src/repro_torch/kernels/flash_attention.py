@@ -23,18 +23,23 @@ import torch
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels._common import check_tensors, launched, stream
 
-#: head widths the kernel is instantiated for
-HEAD_DIMS = (32, 64, 128, 256)
+#: (dh, dv) = (q and k width, v width) pairs the kernel is instantiated
+#: for: the square widths, and deepseek-v3's MLA prefill (q/k 128 + 64
+#: RoPE against v 128) and its reduced config's (32 + 16 against 32)
+HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (256, 256), (192, 128),
+             (48, 32))
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window=None):
+def flash_attention(q, k, v, *, causal: bool = True, window=None,
+                    scale=None):
     """GQA attention with an online softmax.
 
-    q (B, S, H, dh); k, v (B, T, K, dv) with H = K·G (q head h attends
-    KV head h // G), scores scaled by 1/sqrt(dh).  Masks: causal
-    ``t <= s``, window ``t > s - window``, with q and k positions 0..S-1
-    and 0..T-1.  Returns (B, S, H, dv) in v's dtype.
+    q (B, S, H, dh); k (B, T, K, dh), v (B, T, K, dv) with H = K·G (q
+    head h attends KV head h // G), scores scaled by ``scale`` (None:
+    1/sqrt(dh)).  Masks: causal ``t <= s``, window ``t > s - window``,
+    with q and k positions 0..S-1 and 0..T-1.  Returns (B, S, H, dv) in
+    v's dtype.
     """
     name = "flash_attention"
     dev = check_tensors(name, dtypes=_DTYPES, contiguous=False, q=q, k=k,
@@ -51,13 +56,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None):
     if window is not None and int(window) < 1:
         raise ValueError(f"{name}: window={window} must be >= 1")
     if dev.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       scale=scale)
     if not q.dtype == k.dtype == v.dtype:
         raise TypeError(f"{name}: q, k and v must share a dtype, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if dh not in HEAD_DIMS or v.shape[3] != dh:
-        raise ValueError(f"{name}: the CUDA kernel takes dh = dv in "
-                         f"{HEAD_DIMS}, got dh={dh}, dv={v.shape[3]}")
+    dv = v.shape[3]
+    if (dh, dv) not in HEAD_DIMS:
+        raise ValueError(f"{name}: the CUDA kernel takes (dh, dv) in "
+                         f"{HEAD_DIMS}, got dh={dh}, dv={dv}")
     for label, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"{name}: {label} must have unit stride along "
@@ -69,16 +76,17 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None):
                 f"{name}: bf16 {label} needs batch, sequence and head "
                 f"strides that are multiples of 8 elements and 16-byte "
                 f"aligned data, got strides {t.stride()[:3]}")
-    scale = 1.0 / np.sqrt(dh)
+    scale = 1.0 / np.sqrt(dh) if scale is None else float(scale)
     strides = (ctypes.c_longlong * 9)(*(t.stride(i) for t in (q, k, v)
                                         for i in range(3)))
-    out = torch.empty((B, S, H, dh), dtype=v.dtype, device=dev)
+    out = torch.empty((B, S, H, dv), dtype=v.dtype, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.rt_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES.index(q.dtype), B, S, T, H, K, dh, scale, int(causal),
-            0 if window is None else int(window), strides, stream(dev))
+            _DTYPES.index(q.dtype), B, S, T, H, K, dh, dv, scale,
+            int(causal), 0 if window is None else int(window), strides,
+            stream(dev))
     _build.check(err, name)
     launched(name)
     return out

@@ -32,12 +32,14 @@ from repro_torch.kernels._common import (LAUNCH_COUNTS, check_block,
 
 __all__ = ["LAUNCH_COUNTS", "reset_launch_counts", "quantized_cross_affinity",
            "nystrom_colsum", "nystrom_gram", "nystrom_extension",
-           "panel_matmul", "gram_slabs", "gram_pair", "gram_tile_pairs"]
+           "panel_matmul", "gram_slabs", "gram_pair", "gram_tile_pairs",
+           "colsum_grid", "extension_row_width"]
 
 AFFINITY_DTYPES = ("f32", "bf16", "int8")
 _DTYPE_CODE = {"f32": 0, "bf16": 1, "int8": 2}
 _MAX_K = 64              # widest projection the extension kernel holds
-_COLSUM_ROWS = 256       # kColsumRows in nystrom.cu
+_COLSUM_ROWS = 256       # kColsumRows in nystrom.cu: the reduction tree
+_COLSUM_THREADS = 128    # kColsumThreads
 _GRAM_ROWS = 32          # kGramRows
 _GRAM_TILE = 128         # kGramTile
 _PANEL_COLS = 64         # the widest column tile of panel_kernel
@@ -91,6 +93,21 @@ def quantized_cross_affinity(x, y, gamma, *, affinity_dtype: str = "f32",
     return out
 
 
+def colsum_grid(n: int, m: int, d: int):
+    """(panels, column tiles, landmarks a thread) of B2's launch: a block
+    owns one 256-row panel and ``landmarks a thread`` x 128 columns."""
+    cols = 4 if d <= 8 else 2
+    return (math.ceil(n / _COLSUM_ROWS),
+            math.ceil(m / (cols * _COLSUM_THREADS)), cols)
+
+
+def extension_row_width(d: int, k: int) -> int:
+    """Floats of one packed landmark row of B4 (``ext_row_width``):
+    coordinates (8, or 32 for d > 8), |z|², int8 scale, u, 0, then proj
+    padded to 4."""
+    return (8 if d <= 8 else 32) + 4 + math.ceil(k / 4) * 4
+
+
 def nystrom_colsum(x, z, gamma, mask=None, *, affinity_dtype: str = "f32",
                    block_m: int = 1024):
     """``col = Σᵢ exp(-γ d²(xᵢ, z))·maskᵢ`` without materializing C, (m,)."""
@@ -104,7 +121,7 @@ def nystrom_colsum(x, z, gamma, mask=None, *, affinity_dtype: str = "f32",
                                       affinity_dtype=affinity_dtype)
     check_kernel_shape(name, n, m, d)
     lib = _build.library()
-    panels = math.ceil(n / _COLSUM_ROWS)
+    panels = colsum_grid(n, m, d)[0]
     partial = torch.empty((panels, m), dtype=torch.float32, device=dev)
     out = torch.empty((m,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -202,7 +219,8 @@ def nystrom_extension(x, z, gamma, u, proj, mask=None, *,
                       affinity_dtype: str = "f32", block_m: int = 1024):
     """Fused row-normalized extension ``row_normalize(S · proj)``, (n, k).
 
-    Masked rows come out zero.
+    Masked rows come out zero.  The CUDA kernel packs the landmarks with
+    u and proj into an (m, :func:`extension_row_width`) scratch.
     """
     name = "nystrom_extension"
     dev = _check(name, affinity_dtype, block_m, x=x, z=z, u=u, proj=proj,
@@ -223,11 +241,13 @@ def nystrom_extension(x, z, gamma, u, proj, mask=None, *,
         raise ValueError(f"{name}: the CUDA kernel takes 1 <= k <= "
                          f"{_MAX_K}, got k={k}")
     lib = _build.library()
+    packed = torch.empty((m, extension_row_width(d, k)), dtype=torch.float32,
+                         device=dev)
     out = torch.empty((n, k), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.rt_nystrom_extension(
             x.data_ptr(), z.data_ptr(), g, u.data_ptr(), proj.data_ptr(),
-            ptr(mask), out.data_ptr(), n, m, d, k,
+            ptr(mask), packed.data_ptr(), out.data_ptr(), n, m, d, k,
             _DTYPE_CODE[affinity_dtype], stream(dev))
     _build.check(err, name)
     launched(name)

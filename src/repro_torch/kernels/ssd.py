@@ -18,8 +18,8 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels._common import check_tensors, launched, stream
 
 #: (P, N) = (head_dim, d_state) the kernel is instantiated for: the
-#: reduced configs' and mamba2's
-SHAPES = ((16, 16), (64, 128))
+#: reduced configs', mamba2's and jamba-v0.1's
+SHAPES = ((16, 16), (64, 128), (64, 16))
 _DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_SET = 4          # kHeads in ssd.cu: heads of one group a block owns
 _ROW_TILE = 64         # kRowTile: rows of y a row-tile block owns

@@ -70,6 +70,45 @@ def test_kernels_match_plain_versions(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m", [512, 640, 4096])
+@pytest.mark.parametrize("k", [8, 20])
+def test_nystrom_extension_matches_plain_version(cuda_device, m, k):
+    """B4 at the engine's landmark counts (640: not a multiple of its
+    32-landmark chunks' pairs of blocks), k within and past 16: within
+    1e-4 of the largest entry, masked rows exactly zero, a repeat call
+    bit-identical."""
+    x, z, g, mask, u, _, proj = _inputs(cuda_device, n=20000, m=m, d=8,
+                                        k=k, seed=5)
+    kn.reset_launch_counts()
+    got = kn.nystrom_extension(x, z, g, u, proj, mask)
+    again = kn.nystrom_extension(x, z, g, u, proj, mask)
+    torch.cuda.synchronize()
+    assert kn.LAUNCH_COUNTS["nystrom_extension"] == 2
+    assert got.shape == (20000, k) and torch.equal(got, again)
+    assert torch.all(got[mask == 0] == 0)
+    want = ref.nystrom_extension_ref(x, z, g, u, proj, mask)
+    assert float((got - want).abs().max()) <= 1e-4 * float(
+        want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n, m, d", [(261, 65, 7), (100_000, 512, 8),
+                                     (3001, 640, 20)])
+def test_nystrom_colsum_repeat_call_is_bit_identical(cuda_device, dtype, n,
+                                                     m, d):
+    """B2 sums in one fixed order (256-row panels, rows ascending, panels
+    in index order), at every tile precision."""
+    x, z, g, mask, *_ = _inputs(cuda_device, n=n, m=m, d=d, seed=6)
+    kw = dict(affinity_dtype=dtype)
+    first = kn.nystrom_colsum(x, z, g, mask, **kw)
+    assert torch.equal(kn.nystrom_colsum(x, z, g, mask, **kw), first)
+    want = ref.nystrom_colsum_ref(x, z, g, mask, **kw)
+    assert float((first - want).abs().max()) <= 1e-4 * float(
+        want.abs().max())
+
+
+@pytest.mark.cuda
 def test_kernels_refuse_non_contiguous_input(cuda_device):
     x, z, *_ = _inputs(cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
@@ -214,6 +253,42 @@ def test_flash_attention_matches_plain_version(cuda_device, B, S, T_len, H,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B, S, T_len, H, K, dh, dv, causal, window, scale", [
+    (1, 77, 100, 8, 8, 192, 128, True, None, 0.11),   # MLA widths, ragged
+    (1, 512, 512, 16, 16, 192, 128, True, None, None),
+    (2, 70, 70, 4, 2, 192, 128, False, None, 0.05),
+    (2, 33, 50, 4, 4, 48, 32, True, 16, 0.3),         # the reduced MLA
+    (2, 70, 70, 4, 2, 48, 32, False, None, 0.3),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_mla_widths(cuda_device, B, S, T_len, H, K, dh, dv,
+                                    causal, window, scale, dtype):
+    """v narrower than q and k, and an explicit scale: out is (B, S, H,
+    dv)."""
+    rng = np.random.default_rng(8)
+
+    def t(*shape):
+        return torch.tensor(rng.normal(size=shape), dtype=dtype,
+                            device=cuda_device)
+
+    q, k, v = t(B, S, H, dh), t(B, T_len, K, dh), t(B, T_len, K, dv)
+    kw = dict(causal=causal, window=window, scale=scale)
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCH_COUNTS["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == (B, S, H, dv)
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+    else:
+        w = want.float()
+        limit = 2.0 ** -7 * w.abs() + 1e-3 * torch.sqrt(torch.mean(w * w))
+        assert bool(((got.float() - w).abs() <= limit).all())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_reads_strided_inputs(cuda_device, dtype):
     rng = np.random.default_rng(5)
@@ -230,7 +305,9 @@ def test_flash_attention_reads_strided_inputs(cuda_device, dtype):
         w = want.float()
         limit = 2.0 ** -7 * w.abs() + 1e-3 * torch.sqrt(torch.mean(w * w))
         assert bool(((got.float() - w).abs() <= limit).all())
-    with pytest.raises(ValueError, match="dh"):
+    # (48, 48) is not one of the kernel's (dh, dv) pairs; the message
+    # names them
+    with pytest.raises(ValueError, match=r"\(dh, dv\) in .*\(192, 128\)"):
         ops.flash_attention(*(torch.zeros((1, 4, 2, 48), device=cuda_device)
                               for _ in range(3)))
 
@@ -262,6 +339,7 @@ def test_flash_attention_bf16_refuses_misaligned_rows(cuda_device):
     (1, 2, 256, 80, 1, 64, 128),     # mamba2's 80 heads in one group
     (1, 1, 256, 6, 1, 64, 128),      # the last head set is partial
     (1, 2, 256, 8, 2, 64, 128),      # two groups
+    (1, 2, 256, 128, 1, 64, 16),     # jamba-v0.1's Mamba layer
 ])
 @pytest.mark.parametrize("bc_dtype", [torch.float32, torch.bfloat16])
 def test_ssd_chunk_matches_plain_version(cuda_device, B, c, Q, H, G, P, N,

@@ -20,7 +20,10 @@ import torch
 from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
 from repro.kernels.flash_attention_pallas import flash_attention_pallas
+from repro.kernels.ssd_pallas import ssd_chunk_pallas
+from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssd as kssd
 
 F32_REL = 1e-5
 BF16_REL = 2e-2
@@ -34,11 +37,12 @@ def _close(got, want, rel):
     assert err <= rel * float(np.abs(want).max()), err
 
 
-def _qkv(B, S, T, H, K, dh, seed=0):
+def _qkv(B, S, T, H, K, dh, seed=0, dv=None):
     rng = np.random.default_rng(seed)
     return (rng.normal(size=(B, S, H, dh)).astype(np.float32),
             rng.normal(size=(B, T, K, dh)).astype(np.float32),
-            rng.normal(size=(B, T, K, dh)).astype(np.float32))
+            rng.normal(size=(B, T, K, dh if dv is None else dv)).astype(
+                np.float32))
 
 
 @pytest.mark.parametrize("S,H,K,dh", [(33, 4, 4, 16), (64, 8, 2, 32),
@@ -88,6 +92,42 @@ def test_flash_attention_head_dim_256_mqa(causal):
            F32_REL)
 
 
+@pytest.mark.parametrize("dh, dv", [(16, 16), (48, 32)])
+@pytest.mark.parametrize("window", [None, 8])
+def test_flash_attention_explicit_scale_and_v_width(dh, dv, window):
+    """``scale=`` other than 1/sqrt(dh), and v narrower than q and k (the
+    reduced deepseek-v3 MLA's 48 against 32), against the Pallas kernel
+    in interpret mode: (B, S, H, dv) out."""
+    q, k, v = _qkv(2, 37, 37, 4, 2, dh, seed=5, dv=dv)
+    scale = 0.3
+    got = ops.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                              window=window, scale=scale)
+    assert got.shape == (2, 37, 4, dv)
+    want = flash_attention_pallas(q, k, v, window=window, scale=scale,
+                                  block_q=16, block_k=16, interpret=True)
+    _close(got, want, F32_REL)
+    _close(got, jax_ref.flash_attention_ref(q, k, v, window=window,
+                                            scale=scale), F32_REL)
+    # the scale reaches the scores: the default 1/sqrt(dh) gives another
+    # output
+    default = ops.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                                  window=window)
+    assert float((default - got).abs().max()) > 1e-3
+
+
+def test_flash_attention_pairs_include_mla():
+    """The CUDA kernel's (dh, dv) pairs: the square widths, deepseek-v3's
+    MLA prefill (192 against 128) and its reduced config's (48, 32)."""
+    assert set(kfa.HEAD_DIMS) == {(32, 32), (64, 64), (128, 128),
+                                  (256, 256), (192, 128), (48, 32)}
+    from repro_torch.configs import get_config
+    for cfg in (get_config("deepseek-v3-671b"),
+                get_config("deepseek-v3-671b").reduced()):
+        mla = cfg.mla
+        pair = (mla.qk_nope_head_dim + mla.qk_rope_head_dim, mla.v_head_dim)
+        assert pair in kfa.HEAD_DIMS
+
+
 def test_flash_attention_bf16():
     q, k, v = _qkv(1, 32, 32, 2, 2, 16, seed=3)
     got = ops.flash_attention(*(torch.from_numpy(a).to(torch.bfloat16)
@@ -131,6 +171,21 @@ def test_ssd_chunk_matches_jax(Q, H, P, G, N):
     for got, oracle, kern in ((y, y_r, y_k), (st, st_r, st_k)):
         _close(got, oracle, F32_REL)
         _close(got, kern, F32_REL)
+
+
+@pytest.mark.parametrize("Q", [8, 19])
+def test_ssd_chunk_jamba_shape_matches_pallas(Q):
+    """(P, N) = (64, 16), jamba-v0.1's Mamba layers, against the Pallas
+    kernel in interpret mode."""
+    args = _ssd_inputs(1, 2, Q, 4, 64, 1, 16, seed=3)
+    assert (64, 16) in kssd.SHAPES
+    from repro_torch.configs import get_config
+    ssm = get_config("jamba-v0.1-52b").ssm
+    assert (ssm.head_dim, ssm.d_state) == (64, 16)
+    y, st = ops.ssd_chunk(*map(torch.from_numpy, args))
+    y_k, st_k = ssd_chunk_pallas(*args, interpret=True)
+    _close(y, y_k, F32_REL)
+    _close(st, st_k, F32_REL)
 
 
 def test_ssd_chunk_bf16_projections():

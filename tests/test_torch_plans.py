@@ -1,10 +1,12 @@
-"""How the B3 (Nyström Gram) and B10 (SSD chunk) CUDA kernels split their
-work into blocks: pure functions of the shapes, that cover the work
-exactly once and stay within CUDA's grid limits.
+"""How the B2 (Nyström colsum), B3 (Nyström Gram) and B10 (SSD chunk) CUDA
+kernels split their work into blocks: pure functions of the shapes, that
+cover the work exactly once and stay within CUDA's grid limits; and the
+width of B4's (Nyström extension) packed landmark rows, which its wrapper
+allocates.
 
 The kernels decode ``blockIdx`` the same way (``gram_pair`` in
-``csrc/nystrom.cu``, ``ssd_chunk_kernel`` in ``csrc/ssd.cu``); these
-tests need no card.
+``csrc/nystrom.cu``, ``ssd_chunk_kernel`` in ``csrc/ssd.cu``); these tests
+need no card.
 """
 
 import itertools
@@ -60,9 +62,30 @@ def test_gram_slabs_fill_the_card_at_the_path_shapes():
     assert slabs * 528 * 128 * 128 * 4 <= 128 * 2 ** 20
 
 
+def test_colsum_grid_at_the_path_shape():
+    """B2: a block owns one 256-row panel (the reduction tree B2 must keep)
+    and 4 landmarks a thread x 128 columns at d <= 8; at N = 10⁵ and
+    m = 512 or 4096 at least 2 blocks on each of an H100's 132 SMs."""
+    assert kn.colsum_grid(100_000, 512, 8) == (391, 1, 4)
+    assert kn.colsum_grid(3001, 640, 20) == (12, 3, 2)
+    for m in (512, 4096):
+        panels, tiles, _ = kn.colsum_grid(100_000, m, 8)
+        assert panels * tiles >= 2 * H100_SMS and tiles <= MAX_GRID_Y
+
+
+def test_extension_packed_rows_are_16_byte_aligned():
+    """A packed landmark row of B4: coordinates, |z|², scale, u, 0, then
+    proj padded to 4, read by float4 broadcasts and 16-byte cp.async
+    pieces."""
+    assert [kn.extension_row_width(d, k) for d, k in
+            [(8, 8), (7, 5), (8, 20), (9, 1), (32, 64)]] == [20, 20, 32, 40,
+                                                              100]
+
+
 SSD_SHAPES = [
     # (B, c, Q, H, G, N)
     (1, 8, 256, 80, 1, 128),     # mamba2-2.7b's prefill
+    (1, 8, 256, 128, 1, 16),     # jamba-v0.1's Mamba layer
     (1, 2, 256, 80, 1, 128),
     (1, 1, 256, 6, 1, 128),      # a partial last head set
     (1, 2, 256, 8, 2, 128),      # two groups
@@ -107,6 +130,14 @@ def test_ssd_blocks_come_heaviest_first(B, c, Q, H, G, N):
     loads = [work(kind, first) for kind, first, *_ in
              ssd.ssd_blocks(B, c, Q, H, G, N)]
     assert loads == sorted(loads, reverse=True)
+
+
+def test_ssd_plan_at_jambas_state_width():
+    """N = 16 < kStateCols: one state block owns all 16 columns."""
+    plan = ssd.ssd_plan(1, 8, 256, 128, 1, 16)
+    assert plan["state_cols"] == 16 and plan["state_blocks"] == 1
+    assert plan["sets"] == 32 and plan["roles"] == 5
+    assert (64, 16) in ssd.SHAPES
 
 
 def test_ssd_plan_fills_the_card_at_the_mamba2_prefill():
