@@ -9,7 +9,7 @@ Phases (any failure raises and the script exits non-zero):
    float32 matmuls and convolutions are not routed through TF32, and
    builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` with nvcc
    (sm_90a, one nvcc per source, in parallel); prints the registers and
-   spills of B9's and B5's device functions one by one.
+   spills of the redesigned kernels' device functions one by one.
 2. Kernels against their plain PyTorch versions, on the card, with the
    error printed beside its limit: the four fused Nyström kernels x
    f32/bf16/int8 at the cohort server's path shape (N=100 000, d=8,
@@ -27,10 +27,13 @@ Phases (any failure raises and the script exits non-zero):
    P=64, N=16), each also at ragged shapes (B9's MLA widths with an
    explicit scale).  The bf16 outputs of B9 are held elementwise (see
    LIMIT_BF16_ELEM), the f32 ones to 1e-5 of the largest entry.  The
-   colsum, Gram and extension also at the m=4096 engine's shape, each
-   timed, bit-identical on a repeat call; the SHA-256 of the colsum's and
-   the extension's output at every case (``scripts/compare_outputs.py``
-   compares the outputs themselves with another tree's).  Then
+   cross-affinity (B1), colsum, Gram and extension also at the m=4096
+   engine's shape, each timed, bit-identical on a repeat call, B1 also
+   timed at int8; the SHA-256 of B1's, the colsum's and the extension's
+   output at every case, and of the RBF cross-affinity's (B6) at the
+   unfused path's C, a ragged shape and the m=4096 W block, where B6 must
+   equal B1 at f32 bit for bit (``scripts/compare_outputs.py`` compares
+   the outputs themselves with another tree's).  Then
    each kernel's median time (CUDA events, 20 runs) at its path shape
    beside its plain version's, the least time the card could take for
    the same work, and one PyTorch call computing the same function where
@@ -58,7 +61,7 @@ Phases (any failure raises and the script exits non-zero):
    and loss within 1e-3 relative.
 5. The other routes of Algorithm I: the engine at m=4096 landmarks
    (subspace solver, panel-matmul launches 82 cold / 18 warm, one
-   colsum, Gram and extension launch a select, purity),
+   cross-affinity, colsum, Gram and extension launch a select, purity),
    ``spectral_cluster(method="nystrom", use_pallas=True)`` at N=100 000
    (purity), ``spectral_cluster(method="dense", use_pallas=True)`` at
    n=2048 (the CPU's partition) and ``kernels.ops.rbf_affinity`` at
@@ -140,22 +143,22 @@ KERNELS = {
 }
 FUSED = ("quantized_cross_affinity", "nystrom_colsum", "nystrom_gram",
          "nystrom_extension")
-# rows of the kernel table beyond one a kernel: {row: kernel}.  B2, B3
-# and B4 at the m=4096 engine's shape (phase 5), timed in phase 2
-EXTRA_ROWS = {f"{name}_m4096": name for name in
-              ("nystrom_colsum", "nystrom_gram", "nystrom_extension")}
-# B2's and B4's outputs are hashed (SHA-256) at every phase-2 case: B2
-# must stay bit-identical across a redesign
-# (scripts/compare_outputs.py measures B4's changes)
-HASHED = ("nystrom_colsum", "nystrom_extension")
+# rows of the kernel table beyond one a kernel: {row: kernel}.  B1, B2,
+# B3 and B4 at the m=4096 engine's shape (phase 5), timed in phase 2
+EXTRA_ROWS = {f"{name}_m4096": name for name in FUSED}
+# B1's, B2's and B4's outputs are hashed (SHA-256) at every phase-2 case,
+# B6's at each of its cases: B1, B2 and B6 must stay bit-identical across
+# a redesign (scripts/compare_outputs.py compares the outputs themselves)
+HASHED = ("quantized_cross_affinity", "nystrom_colsum", "nystrom_extension")
 # the device functions of the redesigned kernels (B9's two bodies, B5;
 # B3's tile, reduction and rotation kernels, B10; B2's panel kernel, B4's
-# packing and row kernels), whose registers and spills phase 1 prints one
-# by one
+# packing and row kernels; B1's and B6's one tile kernel), whose registers
+# and spills phase 1 prints one by one
 REDESIGNED = ("flash_bf16_kernel", "flash_f32_kernel", "panel_kernel",
               "gram_tile_kernel", "gram_reduce_kernel", "rot_tile_kernel",
               "ssd_chunk_kernel", "colsum_partial_kernel",
-              "pack_landmarks_kernel", "extension_kernel")
+              "pack_landmarks_kernel", "extension_kernel",
+              "cross_tile_kernel")
 LIMIT_MAX_REL = 1e-4     # max-abs error over the largest entry
 LIMIT_FRO_REL = 1e-5     # gram: relative Frobenius error
 # squared distances in the norm form cancel: max-abs error over
@@ -527,18 +530,43 @@ def _bound_slice2(name, shape):
     return _bound_of(n * m * per_entry, nbytes)
 
 
+def slice2_inputs(x_path):
+    """The inputs of B5–B8 in phase 2, on the card: {name: tensor}."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + 3)
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device="cuda")
+
+    x_big = t(x_path)
+    z = t(x_path[rng.choice(len(x_path), M, replace=False)])
+    dense = t(x_path[:N_DENSE])
+    loop = t(rng.normal(size=(N_LOOP, D)) * 0.01)     # embedding-sized
+    rx, ry = t(rng.normal(size=(37, 7))), t(rng.normal(size=(21, 7)))
+    zs = t(x_path[rng.choice(len(x_path), M_SUBSPACE, replace=False)])
+    q64 = t(rng.normal(size=(M_SUBSPACE, 64)))
+    q8 = t(rng.normal(size=(M_SUBSPACE, K)))
+    rw, rq = t(rng.normal(size=(130, 70))), t(rng.normal(size=(70, 9)))
+    return dict(x_big=x_big, z=z, dense=dense, loop=loop, rx=rx, ry=ry,
+                zs=zs, q64=q64, q8=q8, rw=rw, rq=rq)
+
+
+def cross_cases(inputs):
+    """B6's phase-2 cases, {label: (shape, x, y)}: the unfused Nyström
+    path's C, a ragged shape and the m=4096 engine's W block."""
+    i = inputs
+    return {"path": ((N, M, D), i["x_big"], i["z"]),
+            "ragged": ((37, 21, 7), i["rx"], i["ry"]),
+            "W": ((M_SUBSPACE, M_SUBSPACE, D), i["zs"], i["zs"])}
+
+
 def _slice2_calls(x_path, gamma_path):
     """{kernel: [(label, shape, kernel call, plain call, error, library
     call)]}: every path shape first, then a ragged one."""
-    import numpy as np
     import torch
     from repro_torch.kernels import ops, ref
-
-    rng = np.random.default_rng(SEED + 3)
-    dev = "cuda"
-
-    def t(a):
-        return torch.tensor(np.asarray(a, np.float32), device=dev)
 
     def dist_err(got, want, x, y):
         scale = float((x * x).sum(1).max() + (y * y).sum(1).max())
@@ -548,16 +576,11 @@ def _slice2_calls(x_path, gamma_path):
         return float((got - want).abs().max() / want.abs().max()), \
             LIMIT_MAX_REL
 
-    x_big = t(x_path)
-    z = t(x_path[rng.choice(len(x_path), M, replace=False)])
-    dense = t(x_path[:N_DENSE])
-    loop = t(rng.normal(size=(N_LOOP, D)) * 0.01)     # embedding-sized
-    rx, ry = t(rng.normal(size=(37, 7))), t(rng.normal(size=(21, 7)))
-    zs = t(x_path[rng.choice(len(x_path), M_SUBSPACE, replace=False)])
+    inputs = slice2_inputs(x_path)
+    dense, loop, rx, ry = (inputs[k] for k in ("dense", "loop", "rx", "ry"))
+    zs, q64, q8, rw, rq = (inputs[k] for k in ("zs", "q64", "q8", "rw",
+                                               "rq"))
     w_op = ref.rbf_cross_affinity_ref(zs, zs, gamma_path)   # W at m=4096
-    q64 = t(rng.normal(size=(M_SUBSPACE, 64)))
-    q8 = t(rng.normal(size=(M_SUBSPACE, K)))
-    rw, rq = t(rng.normal(size=(130, 70))), t(rng.normal(size=(70, 9)))
     g = gamma_path
 
     # (kernel call, plain call, error, library call): torch.matmul (TF32
@@ -569,8 +592,11 @@ def _slice2_calls(x_path, gamma_path):
                 lambda got, want: dist_err(got, want, a, b), None)
 
     def cross(a, b):
-        return (lambda: ops.rbf_cross_affinity(a, b, g),
-                lambda: ref.rbf_cross_affinity_ref(a, b, g), rel_err, None)
+        def kern():
+            return ops.rbf_cross_affinity(a, b, g)
+        kern.operands = (a, b, g)     # for the bit checks
+        return (kern, lambda: ref.rbf_cross_affinity_ref(a, b, g), rel_err,
+                None)
 
     def square(a):
         return (lambda: ops.rbf_affinity(a, g),
@@ -589,8 +615,8 @@ def _slice2_calls(x_path, gamma_path):
             ("M", (M_SUBSPACE, M_SUBSPACE, K), *panel(w_op, q8)),
             ("ragged", (130, 70, 9), *panel(rw, rq))],
         "rbf_cross_affinity": [
-            ("path", (N, M, D), *cross(x_big, z)),
-            ("ragged", (37, 21, 7), *cross(rx, ry))],
+            (label, shape, *cross(a, b))
+            for label, (shape, a, b) in cross_cases(inputs).items()],
         "pairwise_sq_dists": [
             ("loop", (N_LOOP, N_LOOP, D), *dist(loop, loop)),
             ("dense", (N_DENSE, N_DENSE, D), *dist(dense, dense)),
@@ -602,10 +628,11 @@ def _slice2_calls(x_path, gamma_path):
 
 
 def phase2_m4096(x_path, gamma_path):
-    """B2, B3 and B4 at the m=4096 engine's shape (N=10⁵, d=8, m=4096,
-    k=8, f32, no mask): each held to its plain version, bit-identical on
-    a repeat call, timed, and its device time split by kernel
-    (torch.profiler).  B3 also bit-identical at m=2048 (masked).  Returns
+    """B1–B4 at the m=4096 engine's shape (N=10⁵, d=8, m=4096, k=8, f32,
+    no mask; B1 builds the (m, m) block W): each held to its plain
+    version, bit-identical on a repeat call, timed, and its device time
+    split by kernel (torch.profiler).  B1 also at int8, timed on a
+    printed line; B3 also bit-identical at m=2048 (masked).  Returns
     their records."""
     import torch
 
@@ -635,6 +662,15 @@ def phase2_m4096(x_path, gamma_path):
               f"ms, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}); "
               f"a repeat call bit-identical")
         profile_device(2, f"{row} (one call)", kern)
+    # B1 at int8: the engine's int8 selects build W this way
+    kern, plain = _calls(t, "int8", None)["quantized_cross_affinity"]
+    err, limit, _ = _error("quantized_cross_affinity", kern(), plain())
+    if err > limit:
+        raise AssertionError(f"quantized_cross_affinity m={M_SUBSPACE} int8: "
+                             f"error {err:.3e} > {limit:.0e}")
+    print(f"phase 2: {'quantized_cross_affinity':25s} m={M_SUBSPACE} int8 "
+          f"err {err:.3e}: {time_ms(kern, reps=5):.4f} ms (device "
+          f"{device_ms(kern, reps=5):.4f} ms)")
     # and B3 at m=2048, masked
     t2 = _inputs(rng, N, 2048, D, K, x=x_path, gamma=gamma_path)
     k2048 = _calls(t2, "f32", t2["mask"])["nystrom_gram"][0]
@@ -677,6 +713,8 @@ def phase2_slice2(x_path, gamma_path):
                                      float((got - want).abs().max()))
             if name == "panel_matmul":
                 _panel_determinism(label, kern, got)
+            if name == "rbf_cross_affinity":
+                _cross_bits(label, kern, got)
             if label == "ragged":
                 continue
             ms, plain_ms = time_ms(kern), time_ms(plain)
@@ -695,6 +733,24 @@ def phase2_slice2(x_path, gamma_path):
                 rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                            bound_by=bound_by, library_ms=library_ms)
     return records
+
+
+def _cross_bits(label, kern, got):
+    """B6's contract: a repeat call is bit-identical, and so is B1 at f32
+    on the same operands (the JAX docstring's "reproduces exactly");
+    prints B6's SHA-256."""
+    import torch
+    from repro_torch.kernels import nystrom as kn
+
+    if not torch.equal(kern(), got):
+        raise AssertionError(f"rbf_cross_affinity {label}: a repeat call "
+                             f"differs")
+    print_hash("rbf_cross_affinity", f"{label} f32", got)
+    if not torch.equal(kn.quantized_cross_affinity(*kern.operands), got):
+        raise AssertionError(f"rbf_cross_affinity {label}: "
+                             f"quantized_cross_affinity at f32 differs")
+    print(f"phase 2: {'rbf_cross_affinity':25s} {label:6s} repeat call and "
+          f"quantized_cross_affinity f32: bit-identical")
 
 
 def _panel_determinism(label, kern, got):
@@ -1072,7 +1128,7 @@ def phase4():
 
 def phase5(x, labels):
     """The other routes of Algorithm I; returns the launches of B5, B6
-    and B8 on them, and of B2, B3 and B4 in the m=4096 engine."""
+    and B8 on them, and of B1–B4 in the m=4096 engine."""
     import numpy as np
     import torch
     from repro_torch.cohort import CohortConfig, CohortEngine
@@ -1104,14 +1160,14 @@ def phase5(x, labels):
               f"{cold.seconds:.4f} s, {counts[0]} panel_matmul launches, "
               f"purity {p_cold:.5f}; {warm.source} select "
               f"{warm.seconds:.4f} s, {counts[1]} launches, purity "
-              f"{p_warm:.5f}; B2, B3, B4 launches {json.dumps(fused)}")
+              f"{p_warm:.5f}; B1-B4 launches {json.dumps(fused)}")
         if (cold.source, warm.source) != ("cold", "warm"):
             raise AssertionError(f"sources {cold.source}, {warm.source}")
         if counts != [82, 18]:
             raise AssertionError(f"panel_matmul launches {counts}, "
                                  f"expected [82, 18]")
         if any(n != [1, 1] for n in fused.values()):
-            raise AssertionError(f"B2, B3, B4 launches {fused}, expected "
+            raise AssertionError(f"B1-B4 launches {fused}, expected "
                                  f"[1, 1] each")
         if p_cold < 0.95:
             raise AssertionError(f"m={M_SUBSPACE} purity {p_cold:.4f}")

@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Save B2's and B4's outputs at chip_smoke.py's hashed phase-2 cases, or
-compare them with saved ones, on one card.
+"""Save B1's, B2's, B4's and B6's outputs at chip_smoke.py's hashed
+phase-2 cases, or compare them with saved ones, on one card.
 
     python3 scripts/compare_outputs.py [--tree DIR] PATH
 
-The cases are those whose SHA-256 ``chip_smoke.py`` prints in phase 2:
-``path``, ``ragged`` and ``m640`` at f32, bf16 and int8, and the m=4096
-engine's shape at f32, on the same inputs.  The kernels are those of
+The cases are those whose SHA-256 ``chip_smoke.py`` prints in phase 2,
+on the same inputs: for B1 (cross-affinity), B2 (colsum) and B4
+(extension) ``path``, ``ragged`` and ``m640`` at f32, bf16 and int8,
+and the m=4096 engine's shape at f32; for B6 (RBF cross-affinity) the
+unfused Nyström path's C (10⁵ x 512), a ragged 37 x 21 and the m=4096
+engine's W block.  The kernels are those of
 ``DIR/src/repro_torch`` (default: this checkout), built there on first
 use; a parent commit unpacked with ``git archive`` under ``build/`` is
 the usual DIR.  When PATH (.npz) does not exist the outputs are saved
@@ -42,6 +45,12 @@ def outputs():
             out = calls[name][0]()
             cs.print_hash(name, f"{shape} {dtype}", out)
             got[f"{name} {shape} {dtype}"] = out.detach().cpu().numpy()
+    from repro_torch.kernels import ops
+    name = "rbf_cross_affinity"
+    for label, (_, a, b) in cs.cross_cases(cs.slice2_inputs(x)).items():
+        out = ops.rbf_cross_affinity(a, b, gamma)
+        cs.print_hash(name, f"{label} f32", out)
+        got[f"{name} {label} f32"] = out.detach().cpu().numpy()
     return got
 
 

@@ -5,14 +5,18 @@
     python3 scripts/kernel_variants.py gram [VARIANT ...]
     python3 scripts/kernel_variants.py colsum [--m M] [VARIANT ...]
     python3 scripts/kernel_variants.py extension [--m M] [VARIANT ...]
+    python3 scripts/kernel_variants.py b6 [--m M] [VARIANT ...]
+    python3 scripts/kernel_variants.py b1 [--m M] [--dtype DT] [VARIANT ...]
 
-Each variant is the kernel's source (``src/repro_torch/kernels/csrc``)
-with a few text substitutions (``VARIANTS`` below; "base" is the source
-as it is).  Every variant is written to ``build/variants/`` and built
+Each variant is the kernel's source (``src/repro_torch/kernels/csrc``,
+with ``affinity_tile.cuh`` inlined) with a few text substitutions
+(``VARIANTS`` below; "base" is the source as it is).  Every variant is
+written to ``build/variants/`` and built
 with the flags of ``repro_torch.kernels._build`` (one nvcc each, all in
 parallel), loaded with ctypes, held to the plain PyTorch version at the
 kernel's path shape (B2 and B4: N = 10⁵, d = 8, k = 8 and m = 512, or
-``--m``), then timed in turns (base, v1, ...,
+``--m``; B6: N = 10⁵ x m, d = 8; B1: the (m, m) landmark block at
+``--dtype``), then timed in turns (base, v1, ...,
 vn, vn, ..., v1, base): the mean device time of 20 calls from
 torch.profiler and the median of 20 calls between CUDA events.  Prints
 each variant's nvcc wall time, registers and spills, error and times,
@@ -39,6 +43,66 @@ RUNTIME_D = [("  const bool ok = dispatch_exact(dtype, d, [&](auto c) {\n"
 NO_K8 = [("    if (k <= 8)\n      launch(extension_kernel<C::kDt, C::kMaxD, "
           "C::kD, 8>, 8);\n    else if (k <= 16)",
           "    if (k <= 16)")]
+
+# B1's and B6's kernel before PR 17's cross_tile_kernel, as text the
+# "parent" variants put back: B1 one thread an entry, B6 affinity_kernel's
+# RBF epilogue (EPI = 1); both keep the new C signature and ignore `rows`
+_B1_PARENT_KERNEL = """
+template <int DT, int MAXD>
+__global__ void __launch_bounds__(kCrossThreads)
+cross_affinity_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                      float gamma, float* __restrict__ out, int n, int m,
+                      int d) {
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (e >= static_cast<long long>(n) * m) return;
+  const int i = static_cast<int>(e / m), j = static_cast<int>(e % m);
+  float xv[MAXD], yv[MAXD];
+  float xn, xs, yn, ys;
+  prepare_point<DT, MAXD>(x + static_cast<size_t>(i) * d, d, xv, xn, xs);
+  prepare_point<DT, MAXD>(y + static_cast<size_t>(j) * d, d, yv, yn, ys);
+  out[e] = affinity<DT, MAXD>(xv, 1, xn, xs, yv, 1, yn, ys, d, gamma);
+}
+
+}  // namespace rt
+
+using namespace rt;"""
+_B1_PARENT_LAUNCH = """  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool ok = dispatch(dtype, d, [&](auto c) {
+    using C = decltype(c);
+    cross_affinity_kernel<C::kDt, C::kMaxD>
+        <<<blocks_for(static_cast<long long>(n) * m, kCrossThreads),
+           kCrossThreads, 0, s>>>(x, y, gamma, out, n, m, d);
+  });
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+  switch (dtype) {"""
+# plain stores in place of the streaming ones
+_PLAIN_STORES = [
+    ("constexpr int kCrossThreads = 256;",
+     "template <typename T>\n__device__ __forceinline__ void plain_store(T* p, "
+     "T v) { *p = v; }\nconstexpr int kCrossThreads = 256;"),
+    ("__stcs(reinterpret_cast<float4*>", "plain_store(reinterpret_cast<float4*>"),
+    ("__stcs(reinterpret_cast<float2*>", "plain_store(reinterpret_cast<float2*>"),
+    ("if (j0 + c < m) __stcs(o + c", "if (j0 + c < m) plain_store(o + c")]
+_CROSS_COLS = "kCols = MAXD <= 8 ? 4 : 2;   // columns a thread"
+# cross_tile_kernel's variants, for B1 and B6 alike
+_CROSS = {
+    "base": [],
+    # plain (write-back) stores
+    "plain": _PLAIN_STORES,
+    # no register cap (base: 4 blocks an SM at d <= 8, <= 64 registers)
+    "nocap": [("kMinBlocks = MAXD <= 8 ? 4 : 1", "kMinBlocks = 1")],
+    # 2 columns a thread at d <= 8 (8-byte stores)
+    "cols2": [(_CROSS_COLS, "kCols = 2;")],
+    # the row loop unrolled by 1 or 4 (base: 2)
+    "unroll1": [("#pragma unroll 2\n  for (int t = lane;",
+                 "#pragma unroll 1\n  for (int t = lane;")],
+    "unroll4": [("#pragma unroll 2\n  for (int t = lane;",
+                 "#pragma unroll 4\n  for (int t = lane;")],
+}
+# the wrapper's rows a tile capped lower: variant -> the cap
+CROSS_ROWS = {"rows32": 32, "rows16": 16}
 
 # kernel -> (source, C entry, {variant: [(old text, new text), ...]})
 VARIANTS = {
@@ -131,6 +195,21 @@ VARIANTS = {
         "noproj": [("        if (q < kq) {\n          const float4 pv",
                     "        if (q < 0) {\n          const float4 pv")],
     }),
+    "b6": ("affinity.cu", "rt_rbf_cross_affinity", {
+        **_CROSS, **{name: [] for name in CROSS_ROWS},
+        "parent": [("  return launch_cross_tile<kF32>(x, y, gamma, out, n, m, "
+                    "d, rows, stream);",
+                    "  return launch_affinity<1>(x, y, gamma, out, n, m, d, "
+                    "stream);")],
+    }),
+    "b1": ("nystrom.cu", "rt_quantized_cross_affinity", {
+        **_CROSS, **{name: [] for name in CROSS_ROWS},
+        "parent": [("}  // namespace rt\n\nusing namespace rt;",
+                    _B1_PARENT_KERNEL),
+                   ("  switch (dtype) {\n    case kF32:\n      return "
+                    "launch_cross_tile", _B1_PARENT_LAUNCH
+                    + "\n    case kF32:\n      return launch_cross_tile")],
+    }),
 }
 REPS = 20
 
@@ -146,7 +225,9 @@ def build(kernel, names):
     source, _, variants = VARIANTS[kernel]
     out_dir = REPO / "build" / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
-    text = (_build.CSRC / source).read_text()
+    header = '#include "affinity_tile.cuh"'
+    text = (_build.CSRC / source).read_text().replace(
+        header, (_build.CSRC / "affinity_tile.cuh").read_text())
     procs = {}
     for name in names:
         patched = text
@@ -215,7 +296,7 @@ def ssd_case():
     y = torch.empty((B, c, Q, H, P), dtype=torch.float32, device="cuda")
     st = torch.empty((B, c, H, P, N), dtype=torch.float32, device="cuda")
 
-    def call(fn):
+    def call(fn, variant=None):
         err = fn(xdt.data_ptr(), cs_.data_ptr(), Bm.data_ptr(),
                  Cm.data_ptr(), y.data_ptr(), st.data_ptr(), 1, B, c, Q, H,
                  G, P, N, stream(y.device))
@@ -248,7 +329,7 @@ def gram_case():
     partial = torch.empty((slabs, tiles * (tiles + 1) // 2, 128, 128), **f32)
     g, tt, out = (torch.empty((m, m), **f32) for _ in range(3))
 
-    def call(fn):
+    def call(fn, variant=None):
         err = fn(t["x"].data_ptr(), t["z"].data_ptr(), 0.05,
                  t["u"].data_ptr(), t["wis"].data_ptr(), None, r.data_ptr(),
                  partial.data_ptr(), g.data_ptr(), tt.data_ptr(),
@@ -287,7 +368,7 @@ def colsum_case(m):
     partial = torch.empty((panels, m), dtype=torch.float32, device="cuda")
     out = torch.empty((m,), dtype=torch.float32, device="cuda")
 
-    def call(fn):
+    def call(fn, variant=None):
         err = fn(t["x"].data_ptr(), t["z"].data_ptr(), 0.05, None,
                  partial.data_ptr(), out.data_ptr(), n, m, d, 0,
                  stream(out.device))
@@ -312,7 +393,7 @@ def extension_case(m):
                          dtype=torch.float32, device="cuda")
     out = torch.empty((n, k), dtype=torch.float32, device="cuda")
 
-    def call(fn):
+    def call(fn, variant=None):
         err = fn(t["x"].data_ptr(), t["z"].data_ptr(), 0.05,
                  t["u"].data_ptr(), t["proj"].data_ptr(), None,
                  packed.data_ptr(), out.data_ptr(), n, m, d, k, 0,
@@ -323,6 +404,42 @@ def extension_case(m):
 
     return call, (ref.nystrom_extension_ref(t["x"], t["z"], 0.05, t["u"],
                                             t["proj"]),)
+
+
+def cross_rows(variant, n, m, d):
+    """Rows a tile of B1's and B6's launch: the wrapper's
+    ``cross_tile_plan``, capped at ``CROSS_ROWS[variant]``."""
+    from repro_torch.kernels import affinity
+
+    rows = affinity.cross_tile_plan(n, m, d).rows
+    return min(rows, CROSS_ROWS.get(variant, rows))
+
+
+def cross_case(kernel, m, dtype):
+    """B6 at N=10⁵ x m (the unfused Nyström path's C at m = 512), f32; or
+    B1's (m, m) landmark block W at ``dtype``; d = 8."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import ref
+    from repro_torch.kernels._common import stream
+
+    t = _fused_inputs(m)
+    x, y = (t["x"], t["z"]) if kernel == "b6" else (t["z"], t["z"])
+    n, d = x.shape[0], cs.D
+    if kernel == "b6" and dtype != "f32":
+        raise SystemExit("b6 takes f32 only")
+    code = () if kernel == "b6" else ({"f32": 0, "bf16": 1, "int8": 2}[dtype],)
+    out = torch.empty((n, m), dtype=torch.float32, device="cuda")
+
+    def call(fn, variant=None):
+        err = fn(x.data_ptr(), y.data_ptr(), 0.05, out.data_ptr(), n, m, d,
+                 *code, cross_rows(variant, n, m, d), stream(out.device))
+        if err:
+            raise RuntimeError(f"CUDA error {err}")
+        return (out,)
+
+    return call, (ref.quantized_cross_affinity_ref(x, y, 0.05,
+                                                   affinity_dtype=dtype),)
 
 
 def kernel_times(fn, reps=REPS):
@@ -361,7 +478,11 @@ def main() -> int:
     parser.add_argument("kernel", choices=sorted(VARIANTS))
     parser.add_argument("variants", nargs="*")
     parser.add_argument("--m", type=int, default=cs.M,
-                        help="landmarks of the colsum and extension cases")
+                        help="landmarks of the colsum, extension, b6 and "
+                             "b1 cases")
+    parser.add_argument("--dtype", default="f32",
+                        choices=("f32", "bf16", "int8"),
+                        help="tile precision of the b1 case")
     args = parser.parse_intermixed_args()
     kernel = args.kernel
     names = args.variants or list(VARIANTS[kernel][2])
@@ -371,29 +492,40 @@ def main() -> int:
     built = build(kernel, names)
     cases = {"ssd": ssd_case, "gram": gram_case,
              "colsum": lambda: colsum_case(args.m),
-             "extension": lambda: extension_case(args.m)}
+             "extension": lambda: extension_case(args.m),
+             "b6": lambda: cross_case("b6", args.m, args.dtype),
+             "b1": lambda: cross_case("b1", args.m, args.dtype)}
     call, want = cases[kernel]()
     fns = {}
     for name, (lib, log) in built.items():
         for row in cs.ptxas_kernels(log, cs.REDESIGNED):
             print(f"{name:8s} ptxas {row}")
         fns[name] = load(kernel, lib)
-        got = call(fns[name])
+        got = call(fns[name], name)
         torch.cuda.synchronize()
         err = max(float((g - w).abs().max() / w.abs().max())
                   for g, w in zip(got, want))
-        print(f"{name:8s} error {err:.3e} of the largest entry")
+        if name == "base":
+            base = [g.clone() for g in got]
+        same = all(torch.equal(g, b) for g, b in zip(got, base))
+        print(f"{name:8s} error {err:.3e} of the largest entry; "
+              f"{'bit-identical to' if same else 'differs from'} base")
     order = names + names[::-1]
     dev = {name: [] for name in names}
     ev = {name: [] for name in names}
     split = {name: {} for name in names}
     for name in order:
         fn = fns[name]
-        total, by_kernel = kernel_times(lambda: call(fn))
+        total, by_kernel = kernel_times(lambda: call(fn, name))
         dev[name].append(total)
         for k, v in by_kernel.items():
             split[name].setdefault(k, []).append(v)
-        ev[name].append(cs.time_ms(lambda: call(fn), reps=REPS))
+        ev[name].append(cs.time_ms(lambda: call(fn, name), reps=REPS))
+    if kernel in ("b1", "b6"):
+        # the same bytes as a write-only stream: PyTorch's fill kernel
+        fill, _ = kernel_times(lambda: got[0].fill_(0.5))
+        print(f"fill_ of the output ({got[0].numel() * 4 / 1e6:.1f} MB): "
+              f"device {fill:.4f} ms")
     for name in names:
         print(f"{name:8s} device {statistics.mean(dev[name]):.4f} ms "
               f"(turns {', '.join(f'{v:.4f}' for v in dev[name])}); "

@@ -36,7 +36,8 @@ _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 # c_void_p, a stride array as a pointer to c_longlong
 _SIGNATURES = {
     "nystrom.cu": {
-        "rt_quantized_cross_affinity": [_P, _P, _F, _P, _I, _I, _I, _I, _P],
+        "rt_quantized_cross_affinity": [_P, _P, _F, _P, _I, _I, _I, _I, _I,
+                                        _P],
         "rt_nystrom_colsum": [_P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _P],
         "rt_nystrom_gram": [_P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _P],
@@ -46,7 +47,7 @@ _SIGNATURES = {
     },
     "affinity.cu": {
         "rt_pairwise_sq_dists": [_P, _P, _P, _I, _I, _I, _P],
-        "rt_rbf_cross_affinity": [_P, _P, _F, _P, _I, _I, _I, _P],
+        "rt_rbf_cross_affinity": [_P, _P, _F, _P, _I, _I, _I, _I, _P],
         "rt_rbf_affinity": [_P, _F, _P, _I, _I, _P],
     },
     "flash_attention.cu": {

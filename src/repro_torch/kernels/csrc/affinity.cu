@@ -11,8 +11,11 @@
 // handful of FMAs, so on the card these kernels are bound by the bytes
 // they write, not by arithmetic: at the dense path's n = m = 2048, d = 8
 // the 16.8 MB output takes ~5 us at 3.35 TB/s, and the unfused Nystrom
-// block (N = 100 000, m = 512) writes 205 MB, ~62 us.  The design keeps the
-// write side coalesced and reads each y row once per block:
+// block (N = 100 000, m = 512) writes 205 MB, ~62 us.
+//
+// rt_rbf_cross_affinity launches cross_tile_kernel (affinity_tile.cuh),
+// the kernel of B1 too: points prepared once a block, 16-byte streaming
+// stores.  The square kernels keep the simpler design:
 //
 //   block (row group, column tile): kAffCols threads, one output column
 //   each, walk kAffRows consecutive rows.  A thread holds its y row in
@@ -21,7 +24,7 @@
 //   kAffCols threads of a row store to consecutive addresses.
 //
 // Epilogues: squared distance in the difference form sum_k (x_k - y_k)^2
-// (exact zero on the diagonal, no cancellation); the two RBF kernels use
+// (exact zero on the diagonal, no cancellation); the RBF kernels use
 // the norm form of affinity_tile.cuh's f32 path, the same entry the fused
 // Nystrom kernels compute, with the diagonal zeroed for the square one.
 // Every C entry launches on the caller's stream, allocates nothing and
@@ -34,7 +37,7 @@
 
 namespace rt {
 
-enum Epilogue : int { kSqDist = 0, kRbf = 1, kRbfZeroDiag = 2 };
+enum Epilogue : int { kSqDist = 0, kRbfZeroDiag = 2 };
 
 constexpr int kAffCols = 128;   // threads = output columns per block
 constexpr int kAffRows = 8;     // output rows per block
@@ -102,10 +105,12 @@ int rt_pairwise_sq_dists(const float* x, const float* y, float* out, int n,
   return launch_affinity<kSqDist>(x, y, 0.f, out, n, m, d, stream);
 }
 
-// out (n, m) = exp(-gamma * d^2(x_i, y_j))
+// out (n, m) = exp(-gamma * d^2(x_i, y_j)): cross_tile_kernel at f32 with
+// the wrapper's rows a tile
 int rt_rbf_cross_affinity(const float* x, const float* y, float gamma,
-                          float* out, int n, int m, int d, void* stream) {
-  return launch_affinity<kRbf>(x, y, gamma, out, n, m, d, stream);
+                          float* out, int n, int m, int d, int rows,
+                          void* stream) {
+  return launch_cross_tile<kF32>(x, y, gamma, out, n, m, d, rows, stream);
 }
 
 // out (n, n) = exp(-gamma * d^2(x_i, x_j)), zero diagonal

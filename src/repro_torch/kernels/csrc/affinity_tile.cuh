@@ -1,5 +1,6 @@
 // Shared affinity-tile math of the fused Nystrom kernels (nystrom.cu) and
-// the affinity kernels (affinity.cu).
+// the affinity kernels (affinity.cu), and the one materialized
+// cross-affinity kernel both instantiate (cross_tile_kernel, at the end).
 //
 // Replaces `_affinity_tile` and `_quantize_rows` of
 // src/repro/kernels/nystrom_pallas.py (l.58-103): one RBF cross-affinity
@@ -32,6 +33,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace rt {
 
@@ -138,6 +140,212 @@ __device__ __forceinline__ void load_points(const float* __restrict__ src,
     norm[t] = pn;
     scale[t] = ps;
   }
+}
+
+
+// One float (VEC false) or 16 bytes (VEC true) global -> shared with
+// cp.async; `in` false zero-fills the destination.
+template <bool VEC>
+__device__ __forceinline__ void panel_copy(float* dst, const float* src,
+                                           bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (VEC)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(in ? 16 : 0));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                 "l"(src), "r"(in ? 4 : 0));
+}
+
+// `count` floats global -> shared by cp.async, 16-byte pieces when VEC
+// (both ends 16-byte aligned), then the tail by 4-byte pieces.
+__device__ __forceinline__ void stage_floats(float* dst, const float* src,
+                                             int count, bool vec) {
+  int head = 0;
+  if (vec) {
+    head = count & ~3;
+    for (int e = 4 * threadIdx.x; e < head; e += 4 * blockDim.x)
+      panel_copy<true>(dst + e, src + e, true);
+  }
+  for (int e = head + threadIdx.x; e < count; e += blockDim.x)
+    panel_copy<false>(dst + e, src + e, true);
+}
+
+// ---------------------------------------------------------------------------
+// The materialized cross-affinity (B1 and B6)
+// ---------------------------------------------------------------------------
+//
+// Replaces quantized_cross_affinity_pallas (src/repro/kernels/
+// nystrom_pallas.py l.340) and rbf_cross_affinity_pallas
+// (src/repro/kernels/affinity_pallas.py l.128): out (n, m) =
+// affinity(x_i, y_j) on operands rounded to the tile precision; at f32
+// the two are one function ("reproduces rbf_cross_affinity_pallas
+// exactly"), so rt_quantized_cross_affinity (nystrom.cu) and
+// rt_rbf_cross_affinity (affinity.cu) launch this one template.
+//
+// Bound by the bytes it writes: at the unfused Nystrom path's 10^5 x 512
+// x 8 it writes 205 MB and reads 0.8 MB, ~62 us at 3.35 TB/s, while an
+// entry is ~20 issue slots (~35 us on 132 SMs).  So:
+//   - every point is prepared once a block, not once an entry: the
+//     block's landmarks are rounded one a thread into shared memory
+//     (transposed), and each thread keeps its kCols consecutive columns
+//     in registers for the block's life; a tile of x rows arrives by
+//     cp.async, is rounded once a row and packed as (coordinates, |x|^2,
+//     int8 scale, 0) float4s that a warp reads as a broadcast;
+//   - a thread writes its kCols columns of a row as one 16-byte (8-byte
+//     at kCols = 2) streaming store (st.global.cs: the output is larger
+//     than L2 and never read back); where m % 4 != 0 or `out` is not
+//     16-byte aligned, as kCols scalar streaming stores;
+//   - a block owns one (row tile, column tile): gridDim.y column tiles of
+//     kCrossColThreads * kCols columns, gridDim.x row tiles of `rows`
+//     rows (kernels/affinity.py::cross_tile_plan picks them).  With 4
+//     blocks an SM resident and the rest queued, one block's staging
+//     overlaps the others' stores.  Persistent blocks that walk the row
+//     tiles were 4-6 % slower in turns (PERF.md, section 6).
+// Bits: prepare_point and affinity are the functions every earlier
+// version called, on the same float operands (a staged row is the same
+// floats), so every entry keeps its bits.  No sums, no atomics.
+
+constexpr int kCrossThreads = 256;
+constexpr int kCrossColThreads = 64;    // threads across a column tile
+constexpr int kCrossLanes = kCrossThreads / kCrossColThreads;   // row lanes
+constexpr int kCrossMaxRows = 64;       // rows a tile, at most
+
+template <int MAXD>
+struct CrossCfg {
+  static constexpr int kCols = MAXD <= 8 ? 4 : 2;   // columns a thread
+  static_assert(kCols == 4 || kCols == 2, "4- or 2-wide vectors");
+  static constexpr int kTile = kCrossColThreads * kCols;
+  static constexpr int kMinBlocks = MAXD <= 8 ? 4 : 1;   // an SM, at <= 64 regs
+  static constexpr int kRow = MAXD + 4;              // floats a packed row
+};
+
+template <int DT, int MAXD, bool VEC>
+__global__ void __launch_bounds__(kCrossThreads, CrossCfg<MAXD>::kMinBlocks)
+cross_tile_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                  float gamma, float* __restrict__ out, int n, int m, int d,
+                  int rows) {
+  using Cf = CrossCfg<MAXD>;
+  constexpr int C = Cf::kCols;
+  __shared__ float4 packed[kCrossMaxRows * Cf::kRow / 4];
+  __shared__ __align__(16) float raw[kCrossMaxRows * MAXD];
+  // the column tile's landmarks, transposed: v, then |y|^2, then scale
+  __shared__ __align__(16) float lm[Cf::kTile * (MAXD + 2)];
+  const int tid = threadIdx.x;
+  const int lane = tid / kCrossColThreads;
+  const int col = (tid % kCrossColThreads) * C;     // within the tile
+  const int first = blockIdx.y * Cf::kTile;
+  const int j0 = first + col;
+  const int row0 = blockIdx.x * rows;
+  const int cnt = min(rows, n - row0);
+  // the row tile by cp.async (16-byte pieces: rows % 4 == 0), while the
+  // landmarks are prepared one a thread into shared memory (neighbouring
+  // threads read neighbouring rows)
+  stage_floats(raw, x + static_cast<size_t>(row0) * d, cnt * d,
+               reinterpret_cast<uintptr_t>(x) % 16 == 0);
+  asm volatile("cp.async.commit_group;\n" ::);
+  load_points<DT, MAXD>(y, first, min(Cf::kTile, m - first), Cf::kTile, d,
+                        lm, lm + MAXD * Cf::kTile, lm + (MAXD + 1) * Cf::kTile);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+  for (int t = tid; t < cnt; t += kCrossThreads) {
+    float pv[MAXD];
+    float pn, ps;
+#pragma unroll
+    for (int k = 0; k < MAXD; ++k) pv[k] = 0.f;
+    prepare_point<DT, MAXD>(raw + t * d, d, pv, pn, ps);
+    float4* row = packed + t * (Cf::kRow / 4);
+#pragma unroll
+    for (int q = 0; q < MAXD / 4; ++q)
+      row[q] = make_float4(pv[4 * q], pv[4 * q + 1], pv[4 * q + 2],
+                           pv[4 * q + 3]);
+    row[MAXD / 4] = make_float4(pn, ps, 0.f, 0.f);
+  }
+  __syncthreads();
+  if (j0 >= m) return;
+
+  // this thread's C consecutive landmark columns, as C-wide vectors
+  float yv[C][MAXD], yn[C], ys[C];
+#pragma unroll
+  for (int k = 0; k < MAXD; ++k) {
+    const float* src = lm + k * Cf::kTile + col;
+#pragma unroll
+    for (int c = 0; c < C; ++c) yv[c][k] = 0.f;
+    if (k >= d) continue;
+    if constexpr (C == 4) {
+      const float4 q = *reinterpret_cast<const float4*>(src);
+      yv[0][k] = q.x; yv[1][k] = q.y; yv[2][k] = q.z; yv[3][k] = q.w;
+    } else {
+      const float2 q = *reinterpret_cast<const float2*>(src);
+      yv[0][k] = q.x; yv[C - 1][k] = q.y;
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    yn[c] = lm[MAXD * Cf::kTile + col + c];
+    ys[c] = lm[(MAXD + 1) * Cf::kTile + col + c];
+  }
+
+#pragma unroll 2
+  for (int t = lane; t < cnt; t += kCrossLanes) {
+    const float4* row = packed + t * (Cf::kRow / 4);
+    float xv[MAXD];
+#pragma unroll
+    for (int q = 0; q < MAXD / 4; ++q) {
+      const float4 v = row[q];
+      xv[4 * q] = v.x; xv[4 * q + 1] = v.y; xv[4 * q + 2] = v.z;
+      xv[4 * q + 3] = v.w;
+    }
+    const float4 tail = row[MAXD / 4];     // |x|^2, int8 scale
+    float v[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      v[c] = affinity<DT, MAXD>(xv, 1, tail.x, tail.y, yv[c], 1, yn[c],
+                                ys[c], d, gamma);
+    float* o = out + static_cast<size_t>(row0 + t) * m + j0;
+    if constexpr (VEC && C == 4) {
+      __stcs(reinterpret_cast<float4*>(o),
+             make_float4(v[0], v[1], v[2], v[3]));
+    } else if constexpr (VEC && C == 2) {
+      __stcs(reinterpret_cast<float2*>(o), make_float2(v[0], v[1]));
+    } else {
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        if (j0 + c < m) __stcs(o + c, v[c]);
+    }
+  }
+}
+
+// One launch of cross_tile_kernel: rows a tile (a multiple of 4, at most
+// kCrossMaxRows) from the wrapper's plan; the grid, and columns a thread,
+// follow from n, m and d.
+template <int DT, int MAXD>
+int launch_cross_tile_d(const float* x, const float* y, float gamma,
+                        float* out, int n, int m, int d, int rows,
+                        cudaStream_t s) {
+  const unsigned col_tiles = blocks_for(m, CrossCfg<MAXD>::kTile);
+  if (col_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(blocks_for(n, rows), col_tiles);
+  if (m % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0)
+    cross_tile_kernel<DT, MAXD, true><<<grid, kCrossThreads, 0, s>>>(
+        x, y, gamma, out, n, m, d, rows);
+  else
+    cross_tile_kernel<DT, MAXD, false><<<grid, kCrossThreads, 0, s>>>(
+        x, y, gamma, out, n, m, d, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DT>
+int launch_cross_tile(const float* x, const float* y, float gamma, float* out,
+                      int n, int m, int d, int rows, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n < 1 || m < 1 || rows < 4 || rows > kCrossMaxRows || rows % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (d >= 1 && d <= 8)
+    return launch_cross_tile_d<DT, 8>(x, y, gamma, out, n, m, d, rows, s);
+  if (d > 8 && d <= 32)
+    return launch_cross_tile_d<DT, 32>(x, y, gamma, out, n, m, d, rows, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace rt

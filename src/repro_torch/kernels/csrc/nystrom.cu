@@ -30,7 +30,9 @@
 //              1.7e12 FLOP, ~29 ms (kernel 3).
 //   extension  C once, C u and C proj (N*m*(2k + 2) FLOP more):
 //              operation-bound, ~31 us (kernel 4).
-//   cross      W = A(z, z), 512 x 512: 1 MB written, launch-bound.
+//   cross      W = A(z, z), 512 x 512: 1 MB written, launch-bound; at
+//              m = 4096, 67 MB written, byte-bound (~20 us):
+//              cross_tile_kernel of affinity_tile.cuh, shared with B6.
 //   panel      the subspace solver's W Q at m = 4096: (4096, 4096) @
 //              (4096, 64) is 2.1 GFLOP, operation-bound (~32 us; W alone
 //              is 67 MB, ~20 us); with 8 columns it reads W once,
@@ -124,42 +126,6 @@ sum_rows_kernel(const float* __restrict__ partial, float* __restrict__ out,
   if (tid < kSumCols && col_in) out[j0 + tid] = acc;
 }
 
-// One float (VEC false) or 16 bytes (VEC true) global -> shared with
-// cp.async; `in` false zero-fills the destination.
-template <bool VEC>
-__device__ __forceinline__ void panel_copy(float* dst, const float* src,
-                                           bool in) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if (VEC)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                 "l"(src), "r"(in ? 16 : 0));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-                 "l"(src), "r"(in ? 4 : 0));
-}
-
-// ---------------------------------------------------------------------------
-// kernel 1: materialized cross-affinity, one thread per output entry
-// ---------------------------------------------------------------------------
-
-constexpr int kCrossThreads = 256;
-
-template <int DT, int MAXD>
-__global__ void __launch_bounds__(kCrossThreads)
-cross_affinity_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                      float gamma, float* __restrict__ out, int n, int m,
-                      int d) {
-  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (e >= static_cast<long long>(n) * m) return;
-  const int i = static_cast<int>(e / m), j = static_cast<int>(e % m);
-  float xv[MAXD], yv[MAXD];
-  float xn, xs, yn, ys;
-  prepare_point<DT, MAXD>(x + static_cast<size_t>(i) * d, d, xv, xn, xs);
-  prepare_point<DT, MAXD>(y + static_cast<size_t>(j) * d, d, yv, yn, ys);
-  out[e] = affinity<DT, MAXD>(xv, 1, xn, xs, yv, 1, yn, ys, d, gamma);
-}
-
 // ---------------------------------------------------------------------------
 // kernel 2: column sum (rt_nystrom_colsum)
 // ---------------------------------------------------------------------------
@@ -205,20 +171,6 @@ struct ColsumCfg {
   static constexpr size_t kSmem =
       (size_t)(kRawFloats + kColsumRows * kRow) * sizeof(float);
 };
-
-// `count` floats global -> shared by cp.async, 16-byte pieces when VEC
-// (both ends 16-byte aligned), then the tail by 4-byte pieces.
-__device__ __forceinline__ void stage_floats(float* dst, const float* src,
-                                             int count, bool vec) {
-  int head = 0;
-  if (vec) {
-    head = count & ~3;
-    for (int e = 4 * threadIdx.x; e < head; e += 4 * blockDim.x)
-      panel_copy<true>(dst + e, src + e, true);
-  }
-  for (int e = head + threadIdx.x; e < count; e += blockDim.x)
-    panel_copy<false>(dst + e, src + e, true);
-}
 
 template <int DT, int MAXD, int D>
 __global__ void __launch_bounds__(kColsumThreads)
@@ -1131,18 +1083,23 @@ using namespace rt;
 
 extern "C" {
 
+// out (n, m) = A(x, y) at the tile precision `dtype`: one launch of
+// cross_tile_kernel (affinity_tile.cuh) with the wrapper's rows a tile.
 int rt_quantized_cross_affinity(const float* x, const float* y, float gamma,
                                 float* out, int n, int m, int d, int dtype,
-                                void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool ok = dispatch(dtype, d, [&](auto c) {
-    using C = decltype(c);
-    cross_affinity_kernel<C::kDt, C::kMaxD>
-        <<<blocks_for(static_cast<long long>(n) * m, kCrossThreads),
-           kCrossThreads, 0, s>>>(x, y, gamma, out, n, m, d);
-  });
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+                                int rows, void* stream) {
+  switch (dtype) {
+    case kF32:
+      return launch_cross_tile<kF32>(x, y, gamma, out, n, m, d, rows, stream);
+    case kBF16:
+      return launch_cross_tile<kBF16>(x, y, gamma, out, n, m, d, rows,
+                                      stream);
+    case kINT8:
+      return launch_cross_tile<kINT8>(x, y, gamma, out, n, m, d, rows,
+                                      stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // partial: (ceil(n / 256), m) scratch.

@@ -25,6 +25,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.affinity import cross_tile_plan
 from repro_torch.kernels._common import (LAUNCH_COUNTS, check_block,
                                          check_kernel_shape, check_points,
                                          check_tensors, launched, ptr,
@@ -73,7 +74,12 @@ def _check_vector(name, label, v, length):
 
 def quantized_cross_affinity(x, y, gamma, *, affinity_dtype: str = "f32",
                              block_m: int = 128):
-    """(n, m) cross-affinity exp(-γ d²) at the chosen tile precision."""
+    """(n, m) cross-affinity exp(-γ d²) at the chosen tile precision.
+
+    On the card, the kernel of :func:`~repro_torch.kernels.affinity.
+    rbf_cross_affinity` too (split by ``cross_tile_plan``): at ``"f32"``
+    the two outputs are equal bit for bit.
+    """
     name = "quantized_cross_affinity"
     dev = _check(name, affinity_dtype, block_m, x=x, y=y)
     n, m, d = check_points(name, x, y)
@@ -87,7 +93,8 @@ def quantized_cross_affinity(x, y, gamma, *, affinity_dtype: str = "f32",
     with torch.cuda.device(dev):
         err = lib.rt_quantized_cross_affinity(
             x.data_ptr(), y.data_ptr(), g, out.data_ptr(), n, m, d,
-            _DTYPE_CODE[affinity_dtype], stream(dev))
+            _DTYPE_CODE[affinity_dtype], cross_tile_plan(n, m, d).rows,
+            stream(dev))
     _build.check(err, name)
     launched(name)
     return out

@@ -18,7 +18,9 @@ import torch
 
 from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
+from repro.kernels.affinity_pallas import rbf_cross_affinity_pallas
 from repro_torch.kernels import affinity, ops, ref
+from repro_torch.kernels import nystrom as kn
 
 # (n, m, d): ragged, square, wider than the d <= 8 register bound
 SHAPES = [(37, 21, 7), (16, 16, 8), (9, 40, 20)]
@@ -56,6 +58,22 @@ def test_rbf_cross_affinity_matches_jax(n, m, d):
         jax_ref.rbf_cross_affinity_ref(x, y, g)), rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(got.numpy(), np.asarray(
         jax_ops.rbf_cross_affinity(x, y, g)), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("n, m, d", SHAPES)
+def test_f32_quantized_cross_affinity_equals_rbf_cross_affinity(n, m, d):
+    """B1 at f32 and B6 are one function (on the card, one kernel): equal
+    bit for bit, and both within 1e-5 of the Pallas kernel (interpret
+    mode)."""
+    x, y = points(n, m, d, seed=4)
+    g = 0.21
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+    quantized = kn.quantized_cross_affinity(tx, ty, g, affinity_dtype="f32")
+    rbf = ops.rbf_cross_affinity(tx, ty, g)
+    assert torch.equal(quantized, rbf)
+    want = np.asarray(rbf_cross_affinity_pallas(x, y, g, interpret=True))
+    for got in (quantized, rbf):
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("n, d", [(37, 7), (16, 8), (9, 20)])

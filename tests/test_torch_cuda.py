@@ -17,6 +17,7 @@ import torch
 from repro_torch.cohort import CohortConfig, CohortEngine, eigensolver
 from repro_torch.configs import get_config
 from repro_torch.core import spectral
+from repro_torch.kernels import affinity
 from repro_torch.kernels import nystrom as kn
 from repro_torch.kernels import ops, ref
 from repro_torch.models import transformer as T
@@ -106,6 +107,40 @@ def test_nystrom_colsum_repeat_call_is_bit_identical(cuda_device, dtype, n,
     want = ref.nystrom_colsum_ref(x, z, g, mask, **kw)
     assert float((first - want).abs().max()) <= 1e-4 * float(
         want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, m, d", [(37, 21, 7), (513, 640, 8),
+                                     (1000, 4096, 8), (257, 100, 20)])
+def test_cross_affinity_kernel_serves_b1_and_b6(cuda_device, n, m, d):
+    """B1 and B6 launch one kernel (cross_tile_kernel): at f32 their
+    outputs are equal bit for bit (the JAX docstring's "reproduces
+    exactly"); each is within 1e-5 of its plain version (entries lie in
+    [0, 1]) at every tile precision, and bit-identical on a repeat call.
+    d = 20 runs the MAXD = 32 instance (2 columns a thread); at m = 21
+    the rows of ``out`` are not 16-byte aligned, so the kernel takes its
+    scalar stores."""
+    x, y, g, *_ = _inputs(cuda_device, n=n, m=m, d=d, seed=7)
+    plan = affinity.cross_tile_plan(n, m, d)
+    assert plan.vec is (m % 4 == 0) and plan.cols == (4 if d <= 8 else 2)
+    ops.reset_launch_counts()
+    rbf = ops.rbf_cross_affinity(x, y, g)
+    assert torch.equal(ops.rbf_cross_affinity(x, y, g), rbf)
+    want = ref.rbf_cross_affinity_ref(x, y, g)
+    assert float((rbf - want).abs().max()) <= 1e-5
+    for dtype in DTYPES:
+        got = kn.quantized_cross_affinity(x, y, g, affinity_dtype=dtype)
+        assert torch.equal(kn.quantized_cross_affinity(
+            x, y, g, affinity_dtype=dtype), got)
+        if dtype == "f32":
+            assert torch.equal(got, rbf)
+        want = ref.quantized_cross_affinity_ref(x, y, g,
+                                                affinity_dtype=dtype)
+        assert got.shape == (n, m)
+        assert float((got - want).abs().max()) <= 1e-5
+    torch.cuda.synchronize()
+    assert ops.LAUNCH_COUNTS["rbf_cross_affinity"] == 2
+    assert ops.LAUNCH_COUNTS["quantized_cross_affinity"] == 6
 
 
 @pytest.mark.cuda
