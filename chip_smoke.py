@@ -32,8 +32,14 @@ Phases (any failure raises and the script exits non-zero):
    timed at int8; the SHA-256 of B1's, the colsum's and the extension's
    output at every case, and of the RBF cross-affinity's (B6) at the
    unfused path's C, a ragged shape and the m=4096 W block, where B6 must
-   equal B1 at f32 bit for bit (``scripts/compare_outputs.py`` compares
-   the outputs themselves with another tree's).  Then
+   equal B1 at f32 bit for bit; of the pairwise distances (B7) at the fed
+   loop's, the dense path's and a ragged shape, exactly 0 on the diagonal
+   and exactly symmetric where x is y; of the square RBF affinity (B8) at
+   the dense path's and a ragged shape, where B8(x) must equal B6(x, x)
+   with its diagonal set to 0 bit for bit; B7 and B8 at the dense shape
+   profiled, which names the kernel they launch
+   (``scripts/compare_outputs.py`` compares the outputs themselves with
+   another tree's).  Then
    each kernel's median time (CUDA events, 20 runs) at its path shape
    beside its plain version's, the least time the card could take for
    the same work, and one PyTorch call computing the same function where
@@ -64,8 +70,8 @@ Phases (any failure raises and the script exits non-zero):
    cross-affinity, colsum, Gram and extension launch a select, purity),
    ``spectral_cluster(method="nystrom", use_pallas=True)`` at N=100 000
    (purity), ``spectral_cluster(method="dense", use_pallas=True)`` at
-   n=2048 (the CPU's partition) and ``kernels.ops.rbf_affinity`` at
-   n=2048.
+   n=2048 (one pairwise-distance launch, the CPU's partition) and
+   ``kernels.ops.rbf_affinity`` at n=2048 (no path calls it).
 6. The LM server: ``Server`` with the kernels on, at full width and
    depth in bf16 for qwen2-7b and mamba2-2.7b, 4 slots and 6 requests of
    256-2048 prompt tokens, and for gemma-2b (head_dim 256) 2 requests of
@@ -146,9 +152,13 @@ FUSED = ("quantized_cross_affinity", "nystrom_colsum", "nystrom_gram",
 # rows of the kernel table beyond one a kernel: {row: kernel}.  B1, B2,
 # B3 and B4 at the m=4096 engine's shape (phase 5), timed in phase 2
 EXTRA_ROWS = {f"{name}_m4096": name for name in FUSED}
+# and B7 at the dense path's n = 2048 (timed in phase 2, launched once by
+# phase 5's dense spectral_cluster)
+B7_DENSE = "pairwise_sq_dists_dense"
 # B1's, B2's and B4's outputs are hashed (SHA-256) at every phase-2 case,
-# B6's at each of its cases: B1, B2 and B6 must stay bit-identical across
-# a redesign (scripts/compare_outputs.py compares the outputs themselves)
+# B6's, B7's and B8's at each of their cases: they must stay bit-identical
+# across a redesign (scripts/compare_outputs.py compares the outputs
+# themselves)
 HASHED = ("quantized_cross_affinity", "nystrom_colsum", "nystrom_extension")
 # the device functions of the redesigned kernels (B9's two bodies, B5;
 # B3's tile, reduction and rotation kernels, B10; B2's panel kernel, B4's
@@ -562,6 +572,23 @@ def cross_cases(inputs):
             "W": ((M_SUBSPACE, M_SUBSPACE, D), i["zs"], i["zs"])}
 
 
+def dist_cases(inputs):
+    """B7's phase-2 cases, {label: (shape, x, y)}: the fed loop's 100
+    embeddings, the dense path's n = 2048 and a ragged shape."""
+    i = inputs
+    return {"loop": ((N_LOOP, N_LOOP, D), i["loop"], i["loop"]),
+            "dense": ((N_DENSE, N_DENSE, D), i["dense"], i["dense"]),
+            "ragged": ((37, 21, 7), i["rx"], i["ry"])}
+
+
+def square_cases(inputs):
+    """B8's phase-2 cases, {label: (shape, x)}: the dense path's n = 2048
+    and a ragged n."""
+    i = inputs
+    return {"dense": ((N_DENSE, N_DENSE, D), i["dense"]),
+            "ragged": ((37, 37, 7), i["rx"])}
+
+
 def _slice2_calls(x_path, gamma_path):
     """{kernel: [(label, shape, kernel call, plain call, error, library
     call)]}: every path shape first, then a ragged one."""
@@ -577,7 +604,6 @@ def _slice2_calls(x_path, gamma_path):
             LIMIT_MAX_REL
 
     inputs = slice2_inputs(x_path)
-    dense, loop, rx, ry = (inputs[k] for k in ("dense", "loop", "rx", "ry"))
     zs, q64, q8, rw, rq = (inputs[k] for k in ("zs", "q64", "q8", "rw",
                                                "rq"))
     w_op = ref.rbf_cross_affinity_ref(zs, zs, gamma_path)   # W at m=4096
@@ -585,22 +611,27 @@ def _slice2_calls(x_path, gamma_path):
 
     # (kernel call, plain call, error, library call): torch.matmul (TF32
     # off) is the one PyTorch call that computes the panel product; no
-    # single call computes the other three
+    # single call computes the other three.  ``kern.operands``: for the
+    # bit checks
     def dist(a, b):
-        return (lambda: ops.pairwise_sq_dists(a, b),
-                lambda: ref.pairwise_sq_dists_ref(a, b),
+        def kern():
+            return ops.pairwise_sq_dists(a, b)
+        kern.operands = (a, b)
+        return (kern, lambda: ref.pairwise_sq_dists_ref(a, b),
                 lambda got, want: dist_err(got, want, a, b), None)
 
     def cross(a, b):
         def kern():
             return ops.rbf_cross_affinity(a, b, g)
-        kern.operands = (a, b, g)     # for the bit checks
+        kern.operands = (a, b, g)
         return (kern, lambda: ref.rbf_cross_affinity_ref(a, b, g), rel_err,
                 None)
 
     def square(a):
-        return (lambda: ops.rbf_affinity(a, g),
-                lambda: ref.rbf_affinity_ref(a, g), rel_err, None)
+        def kern():
+            return ops.rbf_affinity(a, g)
+        kern.operands = (a, g)
+        return (kern, lambda: ref.rbf_affinity_ref(a, g), rel_err, None)
 
     def panel(w, q):
         def kern():
@@ -618,12 +649,11 @@ def _slice2_calls(x_path, gamma_path):
             (label, shape, *cross(a, b))
             for label, (shape, a, b) in cross_cases(inputs).items()],
         "pairwise_sq_dists": [
-            ("loop", (N_LOOP, N_LOOP, D), *dist(loop, loop)),
-            ("dense", (N_DENSE, N_DENSE, D), *dist(dense, dense)),
-            ("ragged", (37, 21, 7), *dist(rx, ry))],
+            (label, shape, *dist(a, b))
+            for label, (shape, a, b) in dist_cases(inputs).items()],
         "rbf_affinity": [
-            ("dense", (N_DENSE, N_DENSE, D), *square(dense)),
-            ("ragged", (37, 37, 7), *square(rx))],
+            (label, shape, *square(a))
+            for label, (shape, a) in square_cases(inputs).items()],
     }
 
 
@@ -686,7 +716,9 @@ def phase2_slice2(x_path, gamma_path):
     The JSON row of each kernel is timed at its first (path) shape: the
     subspace solver's W product for the panel matmul, the fed loop's
     100 x 100 for the pairwise distances; the other path shapes are
-    printed beside it.  Returns {name: record}.
+    printed beside it, and the pairwise distances at the dense path's
+    2048 x 2048 also make a row of their own (``B7_DENSE``).  Returns
+    {name: record}.
     """
     import torch
 
@@ -715,6 +747,10 @@ def phase2_slice2(x_path, gamma_path):
                 _panel_determinism(label, kern, got)
             if name == "rbf_cross_affinity":
                 _cross_bits(label, kern, got)
+            if name == "pairwise_sq_dists":
+                _dist_bits(label, kern, got)
+            if name == "rbf_affinity":
+                _square_bits(label, kern, got)
             if label == "ragged":
                 continue
             ms, plain_ms = time_ms(kern), time_ms(plain)
@@ -729,9 +765,18 @@ def phase2_slice2(x_path, gamma_path):
                   f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms by "
                   f"{bound_by}, library "
                   f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'})")
+            timed = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=library_ms)
             if i == 0:
-                rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                           bound_by=bound_by, library_ms=library_ms)
+                rec.update(timed)
+            if name in ("pairwise_sq_dists", "rbf_affinity") and \
+                    label == "dense":
+                # which kernel the wrapper launches, by name
+                profile_device(2, f"{name} {label} (one call)", kern)
+            if name == "pairwise_sq_dists" and label == "dense":
+                records[B7_DENSE] = {
+                    **rec, "name": B7_DENSE,
+                    "max_abs_err": float((got - want).abs().max()), **timed}
     return records
 
 
@@ -751,6 +796,45 @@ def _cross_bits(label, kern, got):
                              f"quantized_cross_affinity at f32 differs")
     print(f"phase 2: {'rbf_cross_affinity':25s} {label:6s} repeat call and "
           f"quantized_cross_affinity f32: bit-identical")
+
+
+def _dist_bits(label, kern, got):
+    """B7's contract: a repeat call is bit-identical; on a square case
+    (x is y) the diagonal is exactly 0 and the output exactly symmetric
+    (the difference form); prints B7's SHA-256."""
+    import torch
+
+    if not torch.equal(kern(), got):
+        raise AssertionError(f"pairwise_sq_dists {label}: a repeat call "
+                             f"differs")
+    print_hash("pairwise_sq_dists", f"{label} f32", got)
+    x, y = kern.operands
+    square = x is y
+    if square and not (torch.all(got.diagonal() == 0)
+                       and torch.equal(got, got.T)):
+        raise AssertionError(f"pairwise_sq_dists {label}: diagonal not 0 "
+                             f"or not symmetric")
+    print(f"phase 2: {'pairwise_sq_dists':25s} {label:6s} repeat call "
+          f"bit-identical" + ("; diagonal exactly 0, exactly symmetric"
+                              if square else ""))
+
+
+def _square_bits(label, kern, got):
+    """B8's contract: a repeat call is bit-identical, and B8(x) is B6(x, x)
+    with its diagonal set to 0, bit for bit; prints B8's SHA-256."""
+    import torch
+    from repro_torch.kernels import ops
+
+    if not torch.equal(kern(), got):
+        raise AssertionError(f"rbf_affinity {label}: a repeat call differs")
+    print_hash("rbf_affinity", f"{label} f32", got)
+    x, g = kern.operands
+    cross = ops.rbf_cross_affinity(x, x, g).fill_diagonal_(0.0)
+    if not torch.equal(got, cross):
+        raise AssertionError(f"rbf_affinity {label}: differs from "
+                             f"rbf_cross_affinity(x, x) off the diagonal")
+    print(f"phase 2: {'rbf_affinity':25s} {label:6s} repeat call and "
+          f"rbf_cross_affinity(x, x) with a zero diagonal: bit-identical")
 
 
 def _panel_determinism(label, kern, got):
@@ -1127,8 +1211,8 @@ def phase4():
 # -- phase 5 ----------------------------------------------------------------
 
 def phase5(x, labels):
-    """The other routes of Algorithm I; returns the launches of B5, B6
-    and B8 on them, and of B1–B4 in the m=4096 engine."""
+    """The other routes of Algorithm I; returns the launches of B5, B6,
+    B7 (dense) and B8 on them, and of B1–B4 in the m=4096 engine."""
     import numpy as np
     import torch
     from repro_torch.cohort import CohortConfig, CohortEngine
@@ -1208,7 +1292,8 @@ def phase5(x, labels):
             use_pallas=True)
         torch.cuda.synchronize()
         dense_s = time.perf_counter() - t0
-        if ops.LAUNCH_COUNTS["pairwise_sq_dists"] != 1:
+        launches[B7_DENSE] = ops.LAUNCH_COUNTS["pairwise_sq_dists"]
+        if launches[B7_DENSE] != 1:
             raise AssertionError("dense route did not launch B7 once")
 
         ops.reset_launch_counts()
@@ -1684,7 +1769,8 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [{key: records[name][key] for key in keys}
-                                  for name in (*KERNELS, *EXTRA_ROWS)]}))
+                                  for name in (*KERNELS, *EXTRA_ROWS,
+                                               B7_DENSE)]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Save B1's, B2's, B4's and B6's outputs at chip_smoke.py's hashed
-phase-2 cases, or compare them with saved ones, on one card.
+"""Save B1's, B2's, B4's, B6's, B7's and B8's outputs at chip_smoke.py's
+hashed phase-2 cases, or compare them with saved ones, on one card.
 
     python3 scripts/compare_outputs.py [--tree DIR] PATH
 
@@ -9,7 +9,10 @@ on the same inputs: for B1 (cross-affinity), B2 (colsum) and B4
 (extension) ``path``, ``ragged`` and ``m640`` at f32, bf16 and int8,
 and the m=4096 engine's shape at f32; for B6 (RBF cross-affinity) the
 unfused Nyström path's C (10⁵ x 512), a ragged 37 x 21 and the m=4096
-engine's W block.  The kernels are those of
+engine's W block; for B7 (pairwise squared distances) the fed loop's
+100 x 100, the dense path's 2048 x 2048 and a ragged 37 x 21; for B8
+(square RBF affinity) the dense path's 2048 points and a ragged 37.  The
+kernels are those of
 ``DIR/src/repro_torch`` (default: this checkout), built there on first
 use; a parent commit unpacked with ``git archive`` under ``build/`` is
 the usual DIR.  When PATH (.npz) does not exist the outputs are saved
@@ -39,18 +42,24 @@ def outputs():
     cases.append((f"m{cs.M_SUBSPACE}", "f32",
                   cs.m4096_inputs(x, gamma)[1], None))
     got = {}
+
+    def keep(name, case, out):
+        cs.print_hash(name, case, out)
+        got[f"{name} {case}"] = out.detach().cpu().numpy()
+
     for shape, dtype, t, mask in cases:
         calls = cs._calls(t, dtype, mask)
         for name in cs.HASHED:
-            out = calls[name][0]()
-            cs.print_hash(name, f"{shape} {dtype}", out)
-            got[f"{name} {shape} {dtype}"] = out.detach().cpu().numpy()
+            keep(name, f"{shape} {dtype}", calls[name][0]())
     from repro_torch.kernels import ops
-    name = "rbf_cross_affinity"
-    for label, (_, a, b) in cs.cross_cases(cs.slice2_inputs(x)).items():
-        out = ops.rbf_cross_affinity(a, b, gamma)
-        cs.print_hash(name, f"{label} f32", out)
-        got[f"{name} {label} f32"] = out.detach().cpu().numpy()
+    inputs = cs.slice2_inputs(x)
+    for label, (_, a, b) in cs.cross_cases(inputs).items():
+        keep("rbf_cross_affinity", f"{label} f32",
+             ops.rbf_cross_affinity(a, b, gamma))
+    for label, (_, a, b) in cs.dist_cases(inputs).items():
+        keep("pairwise_sq_dists", f"{label} f32", ops.pairwise_sq_dists(a, b))
+    for label, (_, a) in cs.square_cases(inputs).items():
+        keep("rbf_affinity", f"{label} f32", ops.rbf_affinity(a, gamma))
     return got
 
 

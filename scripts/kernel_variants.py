@@ -7,6 +7,8 @@
     python3 scripts/kernel_variants.py extension [--m M] [VARIANT ...]
     python3 scripts/kernel_variants.py b6 [--m M] [VARIANT ...]
     python3 scripts/kernel_variants.py b1 [--m M] [--dtype DT] [VARIANT ...]
+    python3 scripts/kernel_variants.py b7 [--case loop|dense] [VARIANT ...]
+    python3 scripts/kernel_variants.py b8 [--case loop|dense] [VARIANT ...]
 
 Each variant is the kernel's source (``src/repro_torch/kernels/csrc``,
 with ``affinity_tile.cuh`` inlined) with a few text substitutions
@@ -16,7 +18,9 @@ with the flags of ``repro_torch.kernels._build`` (one nvcc each, all in
 parallel), loaded with ctypes, held to the plain PyTorch version at the
 kernel's path shape (B2 and B4: N = 10⁵, d = 8, k = 8 and m = 512, or
 ``--m``; B6: N = 10⁵ x m, d = 8; B1: the (m, m) landmark block at
-``--dtype``), then timed in turns (base, v1, ...,
+``--dtype``; B7 and B8: chip_smoke.py's phase-2 points of the dense path,
+n = 2048, or with ``--case loop`` the fed loop's 100), then timed in
+turns (base, v1, ...,
 vn, vn, ..., v1, base): the mean device time of 20 calls from
 torch.profiler and the median of 20 calls between CUDA events.  Prints
 each variant's nvcc wall time, registers and spills, error and times,
@@ -77,6 +81,83 @@ _B1_PARENT_LAUNCH = """  const cudaStream_t s = static_cast<cudaStream_t>(stream
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
   switch (dtype) {"""
+# B6's, B7's and B8's kernel before cross_tile_kernel took them: PR 12's
+# affinity_kernel and launch_affinity, as text the "parent" variants put
+# into affinity.cu, in a namespace of their own (the Epilogue names are
+# the tile kernel's now); their C entries ignore `rows`
+_AFFINITY_PARENT_KERNEL = """
+namespace rt {
+namespace parent {
+
+enum Epilogue : int { kSqDist = 0, kRbf = 1, kRbfZeroDiag = 2 };
+
+constexpr int kAffCols = 128;   // threads = output columns per block
+constexpr int kAffRows = 8;     // output rows per block
+
+template <int EPI, int MAXD>
+__global__ void __launch_bounds__(kAffCols)
+affinity_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                float gamma, float* __restrict__ out, int n, int m, int d) {
+  const int j = blockIdx.y * kAffCols + threadIdx.x;
+  if (j >= m) return;
+  float yv[MAXD];
+  float yn, ys;
+  prepare_point<kF32, MAXD>(y + static_cast<size_t>(j) * d, d, yv, yn, ys);
+  const int i0 = blockIdx.x * kAffRows;
+  const int i1 = min(n, i0 + kAffRows);
+  for (int i = i0; i < i1; ++i) {
+    const float* xr = x + static_cast<size_t>(i) * d;
+    float v;
+    if (EPI == kSqDist) {
+      v = 0.f;
+#pragma unroll
+      for (int k = 0; k < MAXD; ++k) {
+        if (k < d) {
+          const float t = xr[k] - yv[k];
+          v = fmaf(t, t, v);
+        }
+      }
+    } else {
+      float xv[MAXD];
+      float xn, xs;
+      prepare_point<kF32, MAXD>(xr, d, xv, xn, xs);
+      v = affinity<kF32, MAXD>(xv, 1, xn, xs, yv, 1, yn, ys, d, gamma);
+      if (EPI == kRbfZeroDiag && i == j) v = 0.f;
+    }
+    out[static_cast<size_t>(i) * m + j] = v;
+  }
+}
+
+template <int EPI>
+int launch_affinity(const float* x, const float* y, float gamma, float* out,
+                    int n, int m, int d, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(blocks_for(n, kAffRows), blocks_for(m, kAffCols));
+  if (d >= 1 && d <= 8) {
+    affinity_kernel<EPI, 8><<<grid, kAffCols, 0, s>>>(x, y, gamma, out, n,
+                                                       m, d);
+  } else if (d > 8 && d <= 32) {
+    affinity_kernel<EPI, 32><<<grid, kAffCols, 0, s>>>(x, y, gamma, out, n,
+                                                        m, d);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace parent
+}  // namespace rt
+
+using namespace rt;"""
+
+
+def _affinity_parent(entry_return, parent_return):
+    """The "parent" variant of an affinity.cu entry: PR 12's kernel text,
+    and the entry's return statement replaced by its launch."""
+    return [("\nusing namespace rt;", _AFFINITY_PARENT_KERNEL),
+            (entry_return, parent_return)]
+
+
 # plain stores in place of the streaming ones
 _PLAIN_STORES = [
     ("constexpr int kCrossThreads = 256;",
@@ -86,6 +167,7 @@ _PLAIN_STORES = [
     ("__stcs(reinterpret_cast<float2*>", "plain_store(reinterpret_cast<float2*>"),
     ("if (j0 + c < m) __stcs(o + c", "if (j0 + c < m) plain_store(o + c")]
 _CROSS_COLS = "kCols = MAXD <= 8 ? 4 : 2;   // columns a thread"
+_ROW_LOOP = "#pragma unroll (EPI == kRbfZeroDiag ? 1 : 2)"
 # cross_tile_kernel's variants, for B1 and B6 alike
 _CROSS = {
     "base": [],
@@ -95,14 +177,28 @@ _CROSS = {
     "nocap": [("kMinBlocks = MAXD <= 8 ? 4 : 1", "kMinBlocks = 1")],
     # 2 columns a thread at d <= 8 (8-byte stores)
     "cols2": [(_CROSS_COLS, "kCols = 2;")],
-    # the row loop unrolled by 1 or 4 (base: 2)
-    "unroll1": [("#pragma unroll 2\n  for (int t = lane;",
-                 "#pragma unroll 1\n  for (int t = lane;")],
-    "unroll4": [("#pragma unroll 2\n  for (int t = lane;",
-                 "#pragma unroll 4\n  for (int t = lane;")],
+    # the row loop unrolled by 1 or 4 (base: 2, B8 1)
+    "unroll1": [(_ROW_LOOP, "#pragma unroll 1")],
+    "unroll4": [(_ROW_LOOP, "#pragma unroll 4")],
+}
+# B8's zero diagonal: base stores 0 to each diagonal entry after the row
+# loop (unrolled by 1 for B8); "loopdiag" compares every entry inside the
+# loop instead, unrolled by 2 (the first design); "nodiag" leaves the
+# diagonal as it is (a probe: the diagonal is wrong)
+_DIAG_BLOCK = "  if constexpr (EPI == kRbfZeroDiag) {\n    // B8's diagonal"
+_B8 = {
+    "loopdiag": [
+        (_DIAG_BLOCK, "  if constexpr (false) {\n    // B8's diagonal"),
+        (_ROW_LOOP, "#pragma unroll 2"),
+        ("                                  ys[c], d, gamma);\n",
+         "                                  ys[c], d, gamma);\n"
+         "        if (EPI == kRbfZeroDiag && row0 + t == j0 + c) "
+         "v[c] = 0.f;\n")],
+    "nodiag": [
+        (_DIAG_BLOCK, "  if constexpr (false) {\n    // B8's diagonal")],
 }
 # the wrapper's rows a tile capped lower: variant -> the cap
-CROSS_ROWS = {"rows32": 32, "rows16": 16}
+CROSS_ROWS = {"rows32": 32, "rows16": 16, "rows8": 8}
 
 # kernel -> (source, C entry, {variant: [(old text, new text), ...]})
 VARIANTS = {
@@ -197,10 +293,29 @@ VARIANTS = {
     }),
     "b6": ("affinity.cu", "rt_rbf_cross_affinity", {
         **_CROSS, **{name: [] for name in CROSS_ROWS},
-        "parent": [("  return launch_cross_tile<kF32>(x, y, gamma, out, n, m, "
-                    "d, rows, stream);",
-                    "  return launch_affinity<1>(x, y, gamma, out, n, m, d, "
-                    "stream);")],
+        "parent": _affinity_parent(
+            "  return launch_cross_tile<kF32>(x, y, gamma, out, n, m, d, "
+            "rows, stream);",
+            "  return parent::launch_affinity<parent::kRbf>(x, y, gamma, "
+            "out, n, m, d, stream);"),
+    }),
+    "b7": ("affinity.cu", "rt_pairwise_sq_dists", {
+        **_CROSS, **{name: [] for name in CROSS_ROWS},
+        "parent": _affinity_parent(
+            "  return launch_cross_tile<kF32, kSqDistDiff>(x, y, 0.f, out, "
+            "n, m, d, rows,\n                                              "
+            "stream);",
+            "  return parent::launch_affinity<parent::kSqDist>(x, y, 0.f, "
+            "out, n, m, d, stream);"),
+    }),
+    "b8": ("affinity.cu", "rt_rbf_affinity", {
+        **_CROSS, **{name: [] for name in CROSS_ROWS}, **_B8,
+        "parent": _affinity_parent(
+            "  return launch_cross_tile<kF32, kRbfZeroDiag>(x, x, gamma, out, "
+            "n, n, d,\n                                               rows, "
+            "stream);",
+            "  return parent::launch_affinity<parent::kRbfZeroDiag>(x, x, "
+            "gamma, out, n, n, d, stream);"),
     }),
     "b1": ("nystrom.cu", "rt_quantized_cross_affinity", {
         **_CROSS, **{name: [] for name in CROSS_ROWS},
@@ -442,6 +557,38 @@ def cross_case(kernel, m, dtype):
                                                    affinity_dtype=dtype),)
 
 
+def square_case(kernel, case):
+    """B7 (x against itself) or B8 at chip_smoke.py's phase-2 points of
+    the dense path (n = 2048) or of the fed loop (n = 100), d = 8, f32,
+    gamma 0.05."""
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import ref
+    from repro_torch.kernels._common import stream
+
+    x_path, _ = cs.blobs(np.random.default_rng(cs.SEED))
+    x = cs.slice2_inputs(x_path)[case]
+    n, d = x.shape
+    out = torch.empty((n, n), dtype=torch.float32, device="cuda")
+
+    def call(fn, variant=None):
+        rows = cross_rows(variant, n, n, d)
+        if kernel == "b7":
+            err = fn(x.data_ptr(), x.data_ptr(), out.data_ptr(), n, n, d,
+                     rows, stream(out.device))
+        else:
+            err = fn(x.data_ptr(), 0.05, out.data_ptr(), n, d, rows,
+                     stream(out.device))
+        if err:
+            raise RuntimeError(f"CUDA error {err}")
+        return (out,)
+
+    want = ref.pairwise_sq_dists_ref(x, x) if kernel == "b7" else \
+        ref.rbf_affinity_ref(x, 0.05)
+    return call, (want,)
+
+
 def kernel_times(fn, reps=REPS):
     """(mean device ms of one call, {kernel: mean device ms of one call})
     from torch.profiler, over ``reps`` calls after a warm-up."""
@@ -483,6 +630,8 @@ def main() -> int:
     parser.add_argument("--dtype", default="f32",
                         choices=("f32", "bf16", "int8"),
                         help="tile precision of the b1 case")
+    parser.add_argument("--case", default="dense", choices=("dense", "loop"),
+                        help="points of the b7 and b8 cases")
     args = parser.parse_intermixed_args()
     kernel = args.kernel
     names = args.variants or list(VARIANTS[kernel][2])
@@ -494,7 +643,9 @@ def main() -> int:
              "colsum": lambda: colsum_case(args.m),
              "extension": lambda: extension_case(args.m),
              "b6": lambda: cross_case("b6", args.m, args.dtype),
-             "b1": lambda: cross_case("b1", args.m, args.dtype)}
+             "b1": lambda: cross_case("b1", args.m, args.dtype),
+             "b7": lambda: square_case("b7", args.case),
+             "b8": lambda: square_case("b8", args.case)}
     call, want = cases[kernel]()
     fns = {}
     for name, (lib, log) in built.items():
@@ -521,7 +672,7 @@ def main() -> int:
         for k, v in by_kernel.items():
             split[name].setdefault(k, []).append(v)
         ev[name].append(cs.time_ms(lambda: call(fn, name), reps=REPS))
-    if kernel in ("b1", "b6"):
+    if kernel in ("b1", "b6", "b7", "b8"):
         # the same bytes as a write-only stream: PyTorch's fill kernel
         fill, _ = kernel_times(lambda: got[0].fill_(0.5))
         print(f"fill_ of the output ({got[0].numel() * 4 / 1e6:.1f} MB): "

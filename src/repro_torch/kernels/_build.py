@@ -46,9 +46,9 @@ _SIGNATURES = {
         "rt_panel_matmul": [_P, _P, _P, _I, _I, _I, _P],
     },
     "affinity.cu": {
-        "rt_pairwise_sq_dists": [_P, _P, _P, _I, _I, _I, _P],
+        "rt_pairwise_sq_dists": [_P, _P, _P, _I, _I, _I, _I, _P],
         "rt_rbf_cross_affinity": [_P, _P, _F, _P, _I, _I, _I, _I, _P],
-        "rt_rbf_affinity": [_P, _F, _P, _I, _I, _P],
+        "rt_rbf_affinity": [_P, _F, _P, _I, _I, _I, _P],
     },
     "flash_attention.cu": {
         "rt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

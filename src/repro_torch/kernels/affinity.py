@@ -7,9 +7,9 @@ CUDA tensors launch the kernel, or raise.  Each wrapper checks device,
 dtype, shape and contiguity, allocates its output with ``torch.empty``,
 launches on the current stream without synchronizing and counts the
 launch in :data:`repro_torch.kernels._common.LAUNCH_COUNTS`.  The TPU
-kernels' ``block_m``/``block_n`` VMEM tiles have no counterpart: the CUDA
-kernels fix their own tiles, and :func:`cross_tile_plan` splits the
-cross-affinity kernel's work (it serves B1 too).
+kernels' ``block_m``/``block_n`` VMEM tiles have no counterpart: all
+three wrappers launch one CUDA kernel, ``cross_tile_kernel`` (B1's too),
+with their own epilogue, and :func:`cross_tile_plan` splits its work.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ _SMS = 132                  # an H100's SMs
 
 
 class CrossPlan(NamedTuple):
-    """How ``cross_tile_kernel`` splits an (n, m) cross-affinity."""
+    """How ``cross_tile_kernel`` splits an (n, m) affinity."""
     row_tiles: int    # gridDim.x
     col_tiles: int    # gridDim.y: column tiles of 64 * cols columns
     rows: int         # rows a tile
@@ -40,7 +40,8 @@ class CrossPlan(NamedTuple):
 
 
 def cross_tile_plan(n: int, m: int, d: int) -> CrossPlan:
-    """The grid of B1's and B6's kernel, a function of the shapes only.
+    """The grid of B1's, B6's, B7's and B8's kernel, a function of the
+    shapes only (B8: m = n).
 
     A block of 256 threads owns one (row tile, column tile): 64 threads
     across the column tile, ``cols`` consecutive columns each (4 at
@@ -70,7 +71,9 @@ def pairwise_sq_dists(x, y):
     out = torch.empty((n, m), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.rt_pairwise_sq_dists(x.data_ptr(), y.data_ptr(),
-                                       out.data_ptr(), n, m, d, stream(dev))
+                                       out.data_ptr(), n, m, d,
+                                       cross_tile_plan(n, m, d).rows,
+                                       stream(dev))
     _build.check(err, name)
     launched(name)
     return out
@@ -89,7 +92,7 @@ def rbf_affinity(x, gamma):
     out = torch.empty((n, n), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.rt_rbf_affinity(x.data_ptr(), g, out.data_ptr(), n, d,
-                                  stream(dev))
+                                  cross_tile_plan(n, n, d).rows, stream(dev))
     _build.check(err, name)
     launched(name)
     return out

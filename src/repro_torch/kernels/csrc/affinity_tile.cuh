@@ -1,6 +1,6 @@
 // Shared affinity-tile math of the fused Nystrom kernels (nystrom.cu) and
-// the affinity kernels (affinity.cu), and the one materialized
-// cross-affinity kernel both instantiate (cross_tile_kernel, at the end).
+// the affinity kernels (affinity.cu), and the one materialized affinity
+// kernel both instantiate (cross_tile_kernel, at the end).
 //
 // Replaces `_affinity_tile` and `_quantize_rows` of
 // src/repro/kernels/nystrom_pallas.py (l.58-103): one RBF cross-affinity
@@ -172,16 +172,29 @@ __device__ __forceinline__ void stage_floats(float* dst, const float* src,
 }
 
 // ---------------------------------------------------------------------------
-// The materialized cross-affinity (B1 and B6)
+// The materialized affinities (B1, B6, B7 and B8)
 // ---------------------------------------------------------------------------
 //
 // Replaces quantized_cross_affinity_pallas (src/repro/kernels/
-// nystrom_pallas.py l.340) and rbf_cross_affinity_pallas
-// (src/repro/kernels/affinity_pallas.py l.128): out (n, m) =
-// affinity(x_i, y_j) on operands rounded to the tile precision; at f32
-// the two are one function ("reproduces rbf_cross_affinity_pallas
-// exactly"), so rt_quantized_cross_affinity (nystrom.cu) and
-// rt_rbf_cross_affinity (affinity.cu) launch this one template.
+// nystrom_pallas.py l.340) and rbf_cross_affinity_pallas,
+// pairwise_sq_dists_pallas and rbf_affinity_pallas
+// (src/repro/kernels/affinity_pallas.py l.128, 79, 103): out (n, m) = an
+// entry of (x_i, y_j) on operands rounded to the tile precision.  The
+// epilogue EPI says which entry:
+//   kRbf          affinity(x_i, y_j), B1 at every precision and B6 (at
+//                 f32 the two are one function: "reproduces
+//                 rbf_cross_affinity_pallas exactly");
+//   kRbfZeroDiag  the same, then 0 where i == j (B8, launched with
+//                 y = x);
+//   kSqDistDiff   the squared distance in the difference form
+//                 sum_k (x_k - y_k)^2, folded in k order with fmaf (B7):
+//                 exactly 0 on the diagonal and exactly symmetric, no
+//                 cancellation.  At f32 a prepared point is its
+//                 coordinates as they are, so the fold reads the packed
+//                 rows and landmarks; the norm and scale slots go unused.
+// kRbfZeroDiag and kSqDistDiff take f32 only.  rt_quantized_cross_affinity
+// (nystrom.cu) and the three entries of affinity.cu launch this one
+// template.
 //
 // Bound by the bytes it writes: at the unfused Nystrom path's 10^5 x 512
 // x 8 it writes 205 MB and reads 0.8 MB, ~62 us at 3.35 TB/s, while an
@@ -204,7 +217,10 @@ __device__ __forceinline__ void stage_floats(float* dst, const float* src,
 //     tiles were 4-6 % slower in turns (PERF.md, section 6).
 // Bits: prepare_point and affinity are the functions every earlier
 // version called, on the same float operands (a staged row is the same
-// floats), so every entry keeps its bits.  No sums, no atomics.
+// floats), and the difference fold is the same fmaf chain in k order, so
+// every entry keeps its bits.  No sums across threads, no atomics.
+
+enum CrossEpilogue : int { kRbf = 0, kRbfZeroDiag = 1, kSqDistDiff = 2 };
 
 constexpr int kCrossThreads = 256;
 constexpr int kCrossColThreads = 64;    // threads across a column tile
@@ -220,11 +236,12 @@ struct CrossCfg {
   static constexpr int kRow = MAXD + 4;              // floats a packed row
 };
 
-template <int DT, int MAXD, bool VEC>
+template <int DT, int MAXD, bool VEC, int EPI>
 __global__ void __launch_bounds__(kCrossThreads, CrossCfg<MAXD>::kMinBlocks)
 cross_tile_kernel(const float* __restrict__ x, const float* __restrict__ y,
                   float gamma, float* __restrict__ out, int n, int m, int d,
                   int rows) {
+  static_assert(EPI == kRbf || DT == kF32, "B7's and B8's entries are f32");
   using Cf = CrossCfg<MAXD>;
   constexpr int C = Cf::kCols;
   __shared__ float4 packed[kCrossMaxRows * Cf::kRow / 4];
@@ -286,7 +303,8 @@ cross_tile_kernel(const float* __restrict__ x, const float* __restrict__ y,
     ys[c] = lm[(MAXD + 1) * Cf::kTile + col + c];
   }
 
-#pragma unroll 2
+  // unrolled by 2; by 1 for B8, whose d <= 8 instances spill at 2
+#pragma unroll (EPI == kRbfZeroDiag ? 1 : 2)
   for (int t = lane; t < cnt; t += kCrossLanes) {
     const float4* row = packed + t * (Cf::kRow / 4);
     float xv[MAXD];
@@ -299,9 +317,21 @@ cross_tile_kernel(const float* __restrict__ x, const float* __restrict__ y,
     const float4 tail = row[MAXD / 4];     // |x|^2, int8 scale
     float v[C];
 #pragma unroll
-    for (int c = 0; c < C; ++c)
-      v[c] = affinity<DT, MAXD>(xv, 1, tail.x, tail.y, yv[c], 1, yn[c],
-                                ys[c], d, gamma);
+    for (int c = 0; c < C; ++c) {
+      if constexpr (EPI == kSqDistDiff) {
+        v[c] = 0.f;
+#pragma unroll
+        for (int k = 0; k < MAXD; ++k) {
+          if (k < d) {
+            const float diff = xv[k] - yv[c][k];
+            v[c] = fmaf(diff, diff, v[c]);
+          }
+        }
+      } else {
+        v[c] = affinity<DT, MAXD>(xv, 1, tail.x, tail.y, yv[c], 1, yn[c],
+                                  ys[c], d, gamma);
+      }
+    }
     float* o = out + static_cast<size_t>(row0 + t) * m + j0;
     if constexpr (VEC && C == 4) {
       __stcs(reinterpret_cast<float4*>(o),
@@ -314,12 +344,25 @@ cross_tile_kernel(const float* __restrict__ x, const float* __restrict__ y,
         if (j0 + c < m) __stcs(o + c, v[c]);
     }
   }
+  if constexpr (EPI == kRbfZeroDiag) {
+    // B8's diagonal, after the loop (a compare an entry inside it made
+    // B8 15 % slower on an H100): entry (j, j) of this thread's column j
+    // is this thread's if row j lies in the tile and in this lane; it is
+    // stored again, as 0, after the row's store (one thread, one address,
+    // in order)
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int t = j0 + c - row0;
+      if (j0 + c < m && t >= 0 && t < cnt && t % kCrossLanes == lane)
+        out[static_cast<size_t>(j0 + c) * m + j0 + c] = 0.f;
+    }
+  }
 }
 
-// One launch of cross_tile_kernel: rows a tile (a multiple of 4, at most
-// kCrossMaxRows) from the wrapper's plan; the grid, and columns a thread,
-// follow from n, m and d.
-template <int DT, int MAXD>
+// One launch of cross_tile_kernel with epilogue EPI: rows a tile (a
+// multiple of 4, at most kCrossMaxRows) from the wrapper's plan; the grid,
+// and columns a thread, follow from n, m and d.
+template <int DT, int EPI, int MAXD>
 int launch_cross_tile_d(const float* x, const float* y, float gamma,
                         float* out, int n, int m, int d, int rows,
                         cudaStream_t s) {
@@ -327,24 +370,26 @@ int launch_cross_tile_d(const float* x, const float* y, float gamma,
   if (col_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(blocks_for(n, rows), col_tiles);
   if (m % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0)
-    cross_tile_kernel<DT, MAXD, true><<<grid, kCrossThreads, 0, s>>>(
+    cross_tile_kernel<DT, MAXD, true, EPI><<<grid, kCrossThreads, 0, s>>>(
         x, y, gamma, out, n, m, d, rows);
   else
-    cross_tile_kernel<DT, MAXD, false><<<grid, kCrossThreads, 0, s>>>(
+    cross_tile_kernel<DT, MAXD, false, EPI><<<grid, kCrossThreads, 0, s>>>(
         x, y, gamma, out, n, m, d, rows);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DT>
+template <int DT, int EPI = kRbf>
 int launch_cross_tile(const float* x, const float* y, float gamma, float* out,
                       int n, int m, int d, int rows, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n < 1 || m < 1 || rows < 4 || rows > kCrossMaxRows || rows % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (d >= 1 && d <= 8)
-    return launch_cross_tile_d<DT, 8>(x, y, gamma, out, n, m, d, rows, s);
+    return launch_cross_tile_d<DT, EPI, 8>(x, y, gamma, out, n, m, d, rows,
+                                           s);
   if (d > 8 && d <= 32)
-    return launch_cross_tile_d<DT, 32>(x, y, gamma, out, n, m, d, rows, s);
+    return launch_cross_tile_d<DT, EPI, 32>(x, y, gamma, out, n, m, d, rows,
+                                            s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -197,6 +197,64 @@ def test_affinity_kernels_match_plain_versions(cuda_device, n, m, d):
     assert torch.all(square.diagonal() == 0)
 
 
+# square shapes of B7 and B8: the dense path's n = 2048 and the fed
+# loop's 100 at d = 8, n % 4 != 0 (scalar stores), n = 1, n = 5 (a partial
+# tile) and d = 20 (the MAXD = 32 instance)
+SQUARE = [(2048, 8), (100, 8), (37, 7), (1, 8), (5, 8), (130, 20)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, d", SQUARE)
+def test_rbf_affinity_is_rbf_cross_affinity_with_a_zero_diagonal(
+        cuda_device, n, d):
+    """B8 launches B6's kernel with a zero-diagonal epilogue: off the
+    diagonal the same entries bit for bit, on it exactly 0; a repeat call
+    bit-identical."""
+    x, *_ = _inputs(cuda_device, n=n, m=1, d=d, seed=8)
+    ops.reset_launch_counts()
+    got = ops.rbf_affinity(x, 0.37)
+    assert torch.equal(ops.rbf_affinity(x, 0.37), got)
+    want = ops.rbf_cross_affinity(x, x, 0.37).fill_diagonal_(0.0)
+    torch.cuda.synchronize()
+    assert ops.LAUNCH_COUNTS["rbf_affinity"] == 2
+    assert got.shape == (n, n) and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, d", SQUARE)
+def test_pairwise_sq_dists_of_a_point_set_is_exactly_symmetric(cuda_device,
+                                                               n, d):
+    """B7 in the difference form: |x_i - x_i|^2 is exactly 0 and
+    |x_i - x_j|^2 exactly |x_j - x_i|^2; a repeat call bit-identical."""
+    x, *_ = _inputs(cuda_device, n=n, m=1, d=d, seed=9)
+    got = ops.pairwise_sq_dists(x, x)
+    assert torch.equal(ops.pairwise_sq_dists(x, x), got)
+    assert torch.all(got.diagonal() == 0)
+    assert torch.equal(got, got.T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, m, d", [(1, 1, 8), (5, 5, 8), (5, 1, 7),
+                                     (37, 37, 7), (37, 21, 20), (1, 130, 20),
+                                     (130, 5, 8), (2049, 2047, 8)])
+def test_square_kernels_at_ragged_edges_match_plain_versions(cuda_device, n,
+                                                             m, d):
+    """B7 and B8 where tiles and stores are ragged: n or m % 4 != 0
+    (scalar stores), a single point, a partial tile, d = 20."""
+    x, y, *_ = _inputs(cuda_device, n=n, m=m, d=d, seed=10)
+    plan = affinity.cross_tile_plan(n, m, d)
+    assert plan.vec is (m % 4 == 0)
+    dist = ops.pairwise_sq_dists(x, y)
+    scale = float((x * x).sum(1).max() + (y * y).sum(1).max())
+    assert dist.shape == (n, m)
+    assert float((dist - ref.pairwise_sq_dists_ref(x, y)).abs().max()) <= \
+        1e-5 * scale
+    square = ops.rbf_affinity(x, 0.37)
+    assert square.shape == (n, n) and torch.all(square.diagonal() == 0)
+    assert float((square - ref.rbf_affinity_ref(x, 0.37)).abs().max()) <= \
+        1e-5
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m, p, r", [(40, 40, 5), (130, 70, 9),
                                      (4096, 4096, 8), (4096, 4096, 64),
