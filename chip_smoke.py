@@ -81,6 +81,28 @@ Phases (any failure raises and the script exits non-zero):
    configs on the card and on the CPU: the same prefill logits, the same
    greedy tokens, and the card's batch-served tokens equal to its
    batch-1 oracle.
+7. Streaming, the frontend and client realism.  (a) A streaming
+   ``CohortServer(policy="dqn", state_features="system")`` at the path
+   shape, 20 rounds of select -> ``observe_round(outcome=...)`` of a
+   ``ClientTrace`` round -> update of the survivors' drifted and the
+   joining clients' fresh rows; its solves run on the background
+   solver's thread, which makes phase 7's first kernel launch (the
+   libraries are unloaded first; the build is phase 1's).  Checks: one
+   inline select (the cold start), at least 15 served warm, no failed
+   background solve, served versions never going back, the solves'
+   grad mode and stream, the last warm result equal bit for bit to a
+   second engine's inline replay of the same snapshots, cold purity;
+   prints the launches by thread, the select latencies and one profiled
+   warm-served select.  (b) ``make_demo_frontend``: 4 tenants of N
+   clients (two on one table), with a shared streaming solver (3 waves
+   of 16 concurrent selects) and without one (one wave, so the kernels
+   launch on the select threads): one solve or adoption per tenant,
+   disjoint cohorts in every batch, the pair on one table sharing a
+   solve, each tenant's partition equal to a lone server's with the
+   seed of the solve it serves.  (c) The paper-scale ``FederatedRunner``
+   of phase 4 under a chaos trace and a 3 s deadline, 3 rounds with
+   decisive pooling noise: completed + dropped = the cohort, the
+   simulated seconds the outcome's, a finite model, B7 every round.
 
 It prints the kernel table as one JSON line, then the card's name and
 power limit, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -1724,6 +1746,460 @@ def phase6():
     return launches
 
 
+# -- phase 7 ----------------------------------------------------------------
+
+# 7a: the streaming cohort server, 20 rounds under a client trace: a
+# diurnal day, a slow tier that misses the 3 s deadline, dropout and churn
+STREAM_ROUNDS = 20
+STREAM_COHORT = 64
+STREAM_TRACE = dict(availability="diurnal", day_period_s=60.0,
+                    tiers=(1.0, 6.0), dropout_hazard=0.05, p_join=0.3,
+                    p_leave=0.01)
+STREAM_DEADLINE_S = 3.0
+# 7b: the frontend, 4 tenants of N clients (the first two on one table),
+# 16 concurrent select threads a wave
+TENANTS, SELECT_THREADS, WAVES = 4, 16, 3
+# 7c: the paper-scale loop under chaos: a third of the clients on a tier
+# that always misses the 3 s deadline, dropout and churn
+LOOP_TRACE = dict(availability="diurnal", day_period_s=240.0,
+                  avail_floor=0.4, avail_amplitude=0.6,
+                  tiers=(1.0, 1.0, 6.0), dropout_hazard=0.1, p_join=0.3,
+                  p_leave=0.05)
+LOOP_ROUND = dict(deadline_s=3.0, reward_blend=0.5)
+LOOP_ROUNDS = 3
+SOLVER_THREAD = "repro-solver"   # the BackgroundSolver's thread names
+JOIN_S = 120.0                   # every join, drain and close waits this
+
+
+def _fused_by_thread():
+    """{thread name: {kernel: launches}} of B1-B4 since the last reset."""
+    from repro_torch.kernels import ops
+    return {thread: {name: counts[name] for name in FUSED}
+            for thread, counts in list(ops.THREAD_LAUNCHES.items())
+            if any(counts[name] for name in FUSED)}
+
+
+def _solver_launches(by_thread):
+    return {name: sum(counts[name] for thread, counts in by_thread.items()
+                      if thread.startswith(SOLVER_THREAD))
+            for name in FUSED}
+
+
+def _quantiles(seconds):
+    import numpy as np
+    ms = np.asarray(seconds) * 1e3
+    return (f"median {np.median(ms):.3f} ms, p90 "
+            f"{np.percentile(ms, 90):.3f} ms, max {ms.max():.3f} ms "
+            f"over {len(ms)}")
+
+
+def _fresh_library():
+    """Unload the kernel libraries: the next launch loads them again, on
+    whichever thread makes it.  Returns the list that names that thread.
+    nvcc does not run again: phase 1 built these sources' hash."""
+    import threading
+    from repro_torch.kernels import _build
+
+    lib = _build._Library()
+    first = []
+    get = lib.get
+
+    def recording_get():
+        if not first:
+            first.append(threading.current_thread().name)
+        return get()
+
+    lib.get = recording_get
+    _build.LIBRARY = lib
+    return first
+
+
+def _engine_log(engine):
+    """Log every solve of ``engine`` in engine order: the table, the
+    staged solve, and the thread, grad mode and stream (the engine
+    device's current stream on that thread) it ran on."""
+    import threading
+    import torch
+
+    log, lock = [], threading.Lock()
+    prepare = engine._prepare
+
+    def logged(embeds, fp, *, key, warm_ok):
+        prep = prepare(embeds, fp, key=key, warm_ok=warm_ok)
+        with lock:
+            log.append(dict(
+                table=embeds, prep=prep,
+                thread=threading.current_thread().name,
+                grad=torch.is_grad_enabled(),
+                stream=torch.cuda.current_stream(engine.device).cuda_stream))
+        return prep
+
+    engine._prepare = logged
+    return log
+
+
+def phase7a(x, labels):
+    """The streaming cohort server under a client trace; returns its
+    B1-B4 launches."""
+    import numpy as np
+    import torch
+    from repro_torch.cohort import CohortConfig, CohortEngine
+    from repro_torch.fed.realism import (ClientTrace, RoundSpec, SimClock,
+                                         TraceSpec)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import CohortServer
+    from repro_torch.streaming import StreamingSpec
+
+    config = CohortConfig(num_clusters=K, method="nystrom", use_pallas=True,
+                          num_landmarks=M)
+    first_load = _fresh_library()
+    server = CohortServer(N, D, policy="dqn", state_features="system",
+                          seed=ENGINE_SEED, config=config,
+                          streaming=StreamingSpec(max_stale_versions=None))
+    solver = server._solver
+    solves = _engine_log(server.engine)
+    centers = np.random.default_rng(SEED).normal(
+        size=(K, D)).astype(np.float32) * 6       # blobs()' first draw
+    rng = np.random.default_rng(SEED + 7)
+    trace = ClientTrace(N, TraceSpec(**STREAM_TRACE), seed=SEED)
+    spec = RoundSpec(deadline_s=STREAM_DEADLINE_S)
+    clock = SimClock()
+    rows = []
+    with plain_on_card_forbidden():
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        server.update_embeddings(np.arange(N), x)
+        # the cold start: the first select comes while the solver
+        # thread's solve of the table is in flight
+        deadline = time.monotonic() + JOIN_S
+        while not any(name.startswith(SOLVER_THREAD)
+                      for name in list(ops.THREAD_LAUNCHES)):
+            if time.monotonic() > deadline or solver.stats["errors"]:
+                raise AssertionError("the solver thread launched nothing")
+            time.sleep(2e-4)
+        for r in range(STREAM_ROUNDS):
+            warm0 = server.stats()["served_warm"]
+            ids, res = server.select_cohort(STREAM_COHORT)
+            st = server.stats()
+            rows.append(dict(warm=st["served_warm"] > warm0,
+                             seconds=server.last_select_s,
+                             version=st["streaming"]["served_version"],
+                             table_version=st["table_version"],
+                             source=res.source))
+            out = trace.simulate_round(r, clock.now(), ids, spec)
+            clock.advance(out.elapsed_s)
+            useful = (float(np.mean(labels[out.completed] != 0))
+                      if len(out.completed) else 0.0)
+            server.observe_round(0.5 + 0.4 * useful, outcome=out)
+            # the round's survivors drift; clients that join bring a
+            # fresh row drawn from their own blob
+            joined, _ = trace.churn_step(r + 1)
+            moved = np.union1d(out.completed, joined)
+            new = server.embeds[moved] + 0.01 * rng.normal(
+                size=(len(moved), D)).astype(np.float32)
+            fresh = np.isin(moved, joined)
+            new[fresh] = centers[labels[moved[fresh]]] + rng.normal(
+                size=(int(fresh.sum()), D)).astype(np.float32)
+            server.update_embeddings(moved, new)
+        if not solver.drain(timeout=JOIN_S):
+            raise AssertionError("the background solver did not drain")
+        _, last = server.select_cohort(STREAM_COHORT)   # the last warm
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: ops.LAUNCH_COUNTS[name] for name in FUSED}
+        by_thread = _fused_by_thread()
+    server.observe_round(0.5)
+    stats = server.stats()
+    errors = solver.stats["errors"]
+    print(f"phase 7a: {STREAM_ROUNDS} rounds + the last warm select in "
+          f"{wall:.3f} s; stats {json.dumps(stats, default=float)}")
+    print(f"phase 7a: B1-B4 launches {json.dumps(launches)}; by thread "
+          f"{json.dumps(by_thread)}; the libraries first loaded on "
+          f"{first_load[:1]}")
+    warm_s = [row["seconds"] for row in rows if row["warm"]]
+    inline_s = [row["seconds"] for row in rows if not row["warm"]]
+    print(f"phase 7a: warm-served selects: {_quantiles(warm_s)}; inline "
+          f"(cold start) {[round(s * 1e3, 3) for s in inline_s]} ms")
+    worker = [s for s in solves if s["thread"].startswith(SOLVER_THREAD)]
+    print(f"phase 7a: {len(solves)} engine solves, {len(worker)} on the "
+          f"solver thread (sources "
+          f"{[s['prep'].result.source for s in solves]}): "
+          f"{_quantiles([s['prep'].result.seconds for s in worker])}; "
+          f"served versions {[row['version'] for row in rows]} of "
+          f"{[row['table_version'] for row in rows]}")
+    if errors != 0:
+        raise AssertionError(f"{errors} background solves failed; the "
+                             f"last:\n{solver.last_error}")
+    if stats["warm_ahead"] <= 0:
+        raise AssertionError("no background warm landed")
+    if stats["forced_inline"] != 1:
+        raise AssertionError(f"forced_inline {stats['forced_inline']}, "
+                             f"expected 1 (the cold start)")
+    if stats["served_warm"] < 15:
+        raise AssertionError(f"served_warm {stats['served_warm']} < 15")
+    versions = [row["version"] for row in rows]
+    if any(a > b for a, b in zip(versions, versions[1:])):
+        raise AssertionError(f"served versions went back: {versions}")
+    if not first_load or not first_load[0].startswith(SOLVER_THREAD):
+        raise AssertionError(f"the first launch was on {first_load[:1]}")
+    solver_launches = _solver_launches(by_thread)
+    if any(n <= 0 for n in solver_launches.values()):
+        raise AssertionError(f"solver-thread launches {solver_launches}")
+    # the engine's device is pinned when the server is built, so the
+    # worker's tensors land on it whatever that thread's current device
+    if server.device != torch.device("cuda", torch.cuda.current_device()):
+        raise AssertionError(f"the server's device is {server.device}")
+    default = torch.cuda.default_stream(server.device).cuda_stream
+    for s in worker:
+        if s["grad"] or s["stream"] != default:
+            raise AssertionError(f"a background solve ran with grad "
+                                 f"{s['grad']} on stream {s['stream']}")
+    # the last warm result against an inline replay: a second engine with
+    # the same seed solves the same snapshots from the last cold solve on
+    end = next(i for i, s in enumerate(solves) if s["prep"].result is last)
+    start = max(i for i in range(end + 1) if not solves[i]["prep"].warm)
+    again = CohortEngine(config, seed=ENGINE_SEED)
+    for s in solves[start:end + 1]:
+        res = again.select(s["table"])
+        if (res.source != s["prep"].result.source
+                or not np.array_equal(res.assign, s["prep"].result.assign)):
+            raise AssertionError("an inline replay of a background solve "
+                                 "gives other assignments")
+    print(f"phase 7a: the last warm result ({last.source}, solve "
+          f"{end + 1} of {len(solves)}) equals an inline replay of solves "
+          f"{start + 1}-{end + 1} bit for bit")
+    cold = solves[0]["prep"]
+    p = purity(cold.result.assign, labels)
+    print(f"phase 7a: cold purity {p:.5f} (limit 0.95), last warm purity "
+          f"{purity(last.assign, labels):.5f}")
+    if cold.warm or p < 0.95:
+        raise AssertionError(f"cold purity {p:.4f} < 0.95")
+    (_, res), _, _ = profile_device(
+        "7a", "warm-served select",
+        lambda: server.select_cohort(STREAM_COHORT))
+    server.observe_round(0.5)
+    print(f"phase 7a: the profiled select was served from version "
+          f"{server.stats()['streaming']['served_version']} ({res.source})")
+    server.close(timeout=JOIN_S)
+    if any(t.is_alive() for t in solver._threads):
+        raise AssertionError("the solver thread outlived close()")
+    return launches
+
+
+def _lone_partition(config, seed, table, cache):
+    """The partition a lone CohortServer with ``seed`` gives ``table``."""
+    import numpy as np
+    from repro_torch.launch.serve import CohortServer
+
+    key = (seed, id(table))
+    if key not in cache:
+        lone = CohortServer(N, D, seed=seed, config=config)
+        lone.update_embeddings(np.arange(N), table)
+        cache[key] = lone.select_cohort(STREAM_COHORT)[1].assign
+    return cache[key]
+
+
+def _frontend_waves(fe, waves, label):
+    """``waves`` waves of SELECT_THREADS concurrent selects over the
+    tenants; returns (the batches each tenant server ran, selects/s of
+    each wave)."""
+    import threading
+
+    batches, lock = [], threading.Lock()
+    for name in fe.tenant_names:
+        server = fe.tenant(name)
+
+        def recording(*args, _run=server.select_cohorts, _name=name, **kw):
+            out = _run(*args, **kw)
+            with lock:
+                batches.append((_name, [ids for ids, _ in out]))
+            return out
+
+        server.select_cohorts = recording
+    rates = []
+    for wave in range(waves):
+        barrier = threading.Barrier(SELECT_THREADS)
+        errors = []
+
+        def select(i):
+            try:
+                barrier.wait(timeout=JOIN_S)
+                fe.select_cohort(fe.tenant_names[i % len(fe.tenant_names)],
+                                 STREAM_COHORT)
+            except Exception as exc:
+                errors.append(exc)
+
+        threads = [threading.Thread(target=select, args=(i,),
+                                    name=f"select-{label}-{wave}-{i}")
+                   for i in range(SELECT_THREADS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=JOIN_S)
+        dt = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads) or errors:
+            raise AssertionError(f"wave {wave}: {errors or 'a select hung'}")
+        rates.append(SELECT_THREADS / dt)
+        for name in fe.tenant_names:
+            fe.observe_round(name, 0.6)
+    for name, cohorts in batches:
+        flat = [int(i) for ids in cohorts for i in ids]
+        if len(flat) != len(set(flat)):
+            raise AssertionError(f"{name}: a batch served a client twice")
+    return batches, rates
+
+
+def phase7b(x):
+    """The multi-tenant frontend, with a shared streaming solver and
+    without; returns its B1-B4 launches."""
+    import numpy as np
+    import torch
+    from repro_torch.cohort import CohortConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.frontend import make_demo_frontend
+    from repro_torch.streaming import StreamingSpec
+
+    config = CohortConfig(num_clusters=K, method="nystrom", use_pallas=True,
+                          num_landmarks=M)
+    tables = [x, x, blobs(np.random.default_rng(SEED + 11))[0],
+              blobs(np.random.default_rng(SEED + 12))[0]]
+    seeds = [ENGINE_SEED + i for i in range(TENANTS)]
+    launches = dict.fromkeys(FUSED, 0)
+    lone = {}
+    for streaming in (StreamingSpec(), None):
+        label = "streaming" if streaming else "inline"
+        fe = make_demo_frontend(TENANTS, N, D, config=config,
+                                seed=ENGINE_SEED, policy="dqn",
+                                streaming=streaming)
+        with plain_on_card_forbidden():
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            for name, table in zip(fe.tenant_names, tables):
+                fe.update_embeddings(name, np.arange(N), table)
+            if streaming and not fe._solver.drain(timeout=JOIN_S):
+                raise AssertionError("the shared solver did not drain")
+            warmed = time.perf_counter() - t0
+            batches, rates = _frontend_waves(
+                fe, WAVES if streaming else 1, label)
+            torch.cuda.synchronize()
+            for name in FUSED:
+                launches[name] += ops.LAUNCH_COUNTS[name]
+            by_thread = _fused_by_thread()
+        agg = fe.stats()["frontend"]
+        per = fe.stats()["tenants"]
+        solver = fe._solver
+        errors = 0 if solver is None else solver.stats["errors"]
+        print(f"phase 7b: {label}: {TENANTS} tenants of {N} clients, tables "
+              f"in {warmed:.3f} s; waves of {SELECT_THREADS} selects: "
+              f"{', '.join(f'{r:.1f}' for r in rates)} selects/s; batch "
+              f"factor {agg['batch_factor']:.3f} ({agg['requests']} "
+              f"requests in {agg['batches']} batches, {len(batches)} "
+              f"recorded); solves {agg['solves']}, dedupe hits "
+              f"{agg['dedupe_hit']}, served warm {agg['served_warm']}, "
+              f"forced inline {agg['forced_inline']}, solver errors "
+              f"{errors}")
+        print(f"phase 7b: {label}: B1-B4 launches by thread "
+              f"{json.dumps(by_thread)}")
+        if errors:
+            raise AssertionError(f"{errors} background solves failed; the "
+                                 f"last:\n{solver.last_error}")
+        for i, name in enumerate(fe.tenant_names):
+            st = per[name]
+            if st["engine"]["solves"] + st["dedupe_hit"] != 1:
+                raise AssertionError(f"{name}: {st['engine']['solves']} "
+                                     f"solves, {st['dedupe_hit']} adopted")
+            # an adopted solve is its leader's, seeded with the leader's
+            # seed (the dedupe key is the table and the config)
+            seed = seeds[0] if st["dedupe_hit"] else seeds[i]
+            got = fe.tenant(name).engine.state.result.assign
+            if not same_partition(
+                    got, _lone_partition(config, seed, tables[i], lone)):
+                raise AssertionError(f"{name}: partition differs from a "
+                                     f"lone server with seed {seed}")
+        if streaming:
+            if per[fe.tenant_names[1]]["dedupe_hit"] < 1:
+                raise AssertionError("the tenants with one table did not "
+                                     "share a solve")
+            if agg["forced_inline"] or not _solver_launches(by_thread)[
+                    "nystrom_gram"]:
+                raise AssertionError("the streaming frontend solved inline")
+        else:
+            callers = {name: sum(counts[name]
+                                 for t, counts in by_thread.items()
+                                 if t.startswith("select-"))
+                       for name in FUSED}
+            if any(n <= 0 for n in callers.values()):
+                raise AssertionError(f"caller-thread launches {callers}")
+        solver = fe._solver
+        fe.close(timeout=JOIN_S)
+        if solver is not None and any(t.is_alive()
+                                      for t in solver._threads):
+            raise AssertionError("the shared solver outlived close()")
+    print(f"phase 7b: every tenant's partition equals a lone server's "
+          f"({len(lone)} lone solves)")
+    return launches
+
+
+def phase7c():
+    """The paper-scale loop under client realism; returns its B7
+    launches."""
+    import numpy as np
+    import torch
+    from repro_torch.fed.realism import ClientTrace, RoundSpec, TraceSpec
+    from repro_torch.fed.rounds import FederatedRunner, RunnerConfig
+    from repro_torch.kernels import ops
+
+    cfg = RunnerConfig(**PAPER_FL)
+    runner = FederatedRunner(cfg)
+    runner._pool_noise = decisive_pool_noise(runner)
+    runner.attach_trace(ClientTrace(cfg.num_clients, TraceSpec(**LOOP_TRACE),
+                                    seed=cfg.seed), RoundSpec(**LOOP_ROUND))
+    with plain_on_card_forbidden():
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        runner.warmup()
+        torch.cuda.synchronize()
+        print(f"phase 7c: warm-up of {cfg.num_clients} clients "
+              f"{time.perf_counter() - t0:.3f} s")
+        for _ in range(LOOP_ROUNDS):
+            before = ops.LAUNCH_COUNTS["pairwise_sq_dists"]
+            t0 = time.perf_counter()
+            res = runner.run_round()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            b7 = ops.LAUNCH_COUNTS["pairwise_sq_dists"] - before
+            out = res.outcome
+            print(f"phase 7c: round {res.round_idx}: host {wall:.4f} s, "
+                  f"simulated {res.sim_seconds:.4f} s; acc "
+                  f"{res.accuracy:.4f} loss {res.loss:.4f} reward "
+                  f"{res.reward:+.3f}; {res.num_completed} completed "
+                  f"{out.completed.tolist()}, {res.num_dropped} dropped "
+                  f"{out.reasons}, {res.num_stragglers} stragglers; "
+                  f"{b7} B7 launches")
+            finite = all(bool(torch.isfinite(v).all())
+                         for v in runner.global_params.values())
+            if (res.num_completed + res.num_dropped != len(res.selected)
+                    or res.sim_seconds != out.elapsed_s or not finite
+                    or not np.isfinite(res.loss) or b7 < 1):
+                raise AssertionError(f"round {res.round_idx} failed its "
+                                     f"checks")
+        launches = ops.LAUNCH_COUNTS["pairwise_sq_dists"]
+    print(f"phase 7c: {launches} B7 launches; simulated seconds "
+          f"{runner.sim_clock.now():.4f}")
+    return launches
+
+
+def phase7(x, labels):
+    """Streaming, the frontend and client realism on the card; returns
+    {kernel: launches}."""
+    launches = phase7a(x, labels)
+    for name, n in phase7b(x).items():
+        launches[name] += n
+    launches["pairwise_sq_dists"] = phase7c()
+    return launches
+
+
 def path_data():
     """(x, labels, gamma): the cohort server's N=10⁵ blobs on the host and
     the RBF width the server picks for them (on the card)."""
@@ -1763,6 +2239,8 @@ def main() -> int:
     launches["pairwise_sq_dists"] = phase4()
     launches.update(phase5(x, labels))
     launches.update(phase6())
+    for name, n in phase7(x, labels).items():
+        launches[name] += n
     for name, rec in records.items():
         rec["launches"] = launches[name]
     keys = ("name", "route", "source", "replaces", "launches",

@@ -13,7 +13,7 @@ computed on the host.
   embedding dispersion and staleness.
 * ``"system"`` — ``7k + 1``: the rich features plus per-cluster
   availability and latency EMAs from client-realism round outcomes
-  (the server does not take outcomes yet, see ``launch/serve.py``).
+  (``CohortServer.observe_round(outcome=...)``).
 """
 
 from __future__ import annotations

@@ -23,8 +23,15 @@ CPU, up to the summation order of the convolutions.  That order can still
 flip a pooling decision whose two best scores tie to the last f32 bit,
 and any change in the embeddings' bytes changes the cohort engine's
 fingerprint-seeded k-means draws, so a ``dqre_sc`` cohort can differ
-between devices.  Client realism (``realism``, ``round_spec``,
-``attach_trace``) is not ported yet.
+between devices.
+
+Client realism (``realism``, ``round_spec``, :meth:`FederatedRunner.
+attach_trace`) runs the round through :mod:`repro_torch.fed.realism`, as
+in the JAX package: only the clients that complete the simulated round
+train and aggregate, the reward may blend in deadline attainment, and the
+round's timings read a :class:`~repro_torch.fed.realism.SimClock`.  The
+trace's draws are numpy, so the same seed drops the same clients in both
+packages.
 """
 
 from __future__ import annotations
@@ -44,16 +51,12 @@ from repro_torch.fed.client import evaluate, local_train_cohort
 from repro_torch.fed.datasets import make_dataset
 from repro_torch.fed.metrics import classification_metrics
 from repro_torch.fed.partition import partition_non_iid
+from repro_torch.fed.realism import (ClientTrace, RoundOutcome, RoundSpec,
+                                     SimClock, TraceSpec, blended_reward)
 from repro_torch.fed.server import fedavg_aggregate, weight_delta_embedding
 from repro_torch.models.cnn import CNN, gumbel_noise, pool_noise_shape
 
 _WARMUP_CHUNK = 32          # clients trained together during warm-up
-
-
-def _realism_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP A9b: "
-        f"client-realism outcomes)")
 
 
 @dataclasses.dataclass
@@ -64,16 +67,20 @@ class RoundResult:
     reward: float
     selected: np.ndarray
     seconds: float
-    # per-phase wall times through the runner's injectable clock:
+    # per-phase wall times through the runner's injectable clock
+    # (perf_counter by default, the SimClock once a trace is attached):
     # select / train / aggregate / evaluate / update
     timings: dict = dataclasses.field(default_factory=dict)
-    # client-realism accounting of the JAX package; without a trace every
-    # selected client completes and sim_seconds is the host-measured round
+    # client-realism accounting: how many of the cohort made aggregation,
+    # how many were dropped (unavailable / past the deadline / mid-round
+    # dropout), how many were stragglers, the round's simulated wall time
+    # and the full outcome.  Without a trace every selected client
+    # completes and sim_seconds is the host-measured round.
     num_completed: int = 0
     num_dropped: int = 0
     num_stragglers: int = 0
     sim_seconds: float = 0.0
-    outcome: Optional[object] = None
+    outcome: Optional[RoundOutcome] = None
 
 
 @dataclasses.dataclass
@@ -105,9 +112,12 @@ class RunnerConfig:
     eps_end: float = 0.05
     eps_decay_steps: int = 200
     policy_kwargs: Optional[dict] = None
-    # client realism of the JAX package: not ported (must stay None)
-    realism: Optional[object] = None
-    round_spec: Optional[object] = None
+    # client realism (fed/realism.py): a TraceSpec puts the runner on the
+    # fault-injection layer driven by an owned SimClock; round_spec adds
+    # the deadline and the deadline-blended reward.  None keeps the ideal
+    # simulation bit for bit.
+    realism: Optional[TraceSpec] = None
+    round_spec: Optional[RoundSpec] = None
 
 
 class FederatedRunner:
@@ -116,10 +126,6 @@ class FederatedRunner:
 
     def __init__(self, cfg: RunnerConfig, *,
                  clock: Optional[Callable[[], float]] = None, device=None):
-        if cfg.realism is not None:
-            raise _realism_not_ported("RunnerConfig.realism")
-        if cfg.round_spec is not None:
-            raise _realism_not_ported("RunnerConfig.round_spec")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.rng = np.random.default_rng(cfg.seed)
@@ -171,10 +177,36 @@ class FederatedRunner:
         self.round_idx = 0
         self.history: List[RoundResult] = []
         self._warmed_up = False
+        # the clock behind RoundResult.timings: perf_counter by default,
+        # the simulated clock once a trace is attached
+        self.sim_clock: Optional[SimClock] = None
+        self.trace: Optional[ClientTrace] = None
+        self.round_spec = cfg.round_spec or RoundSpec()
         self._clock: Callable[[], float] = clock or time.perf_counter
+        if cfg.realism is not None:
+            self.attach_trace(
+                ClientTrace(cfg.num_clients, cfg.realism, seed=cfg.seed),
+                cfg.round_spec)
 
-    def attach_trace(self, trace, spec=None) -> None:
-        raise _realism_not_ported("FederatedRunner.attach_trace")
+    def attach_trace(self, trace: ClientTrace,
+                     spec: Optional[RoundSpec] = None) -> None:
+        """Enable client realism: fault-inject rounds from ``trace``.
+
+        Must be called before any round runs.  Switches the timing clock
+        to an owned :class:`SimClock`, so every recorded time is
+        simulated.
+        """
+        if self.round_idx or self.history:
+            raise RuntimeError("attach_trace: rounds already ran")
+        if trace.num_clients != self.cfg.num_clients:
+            raise ValueError(
+                f"trace covers {trace.num_clients} clients but the "
+                f"runner simulates {self.cfg.num_clients}")
+        self.trace = trace
+        if spec is not None:
+            self.round_spec = spec
+        self.sim_clock = SimClock()
+        self._clock = self.sim_clock
 
     # ------------------------------------------------------------------
     def _client_batches(self, client_ids):
@@ -231,20 +263,41 @@ class FederatedRunner:
         state = self._round_state()
         selected = np.asarray(self.policy.select(state))
         t_select = clock()
-        stacked, _ = self._train_cohort(selected)
-        # the embeddings come back to the host: the train phase ends synced
-        self.client_embeds[selected] = weight_delta_embedding(
-            self.embedder, stacked, self.global_params)
+
+        outcome = None
+        survivors = selected
+        if self.trace is not None:
+            # fault-inject the round: only the clients that complete it
+            # train, update their embeddings and aggregate (FedAvg
+            # renormalizes the weights over them); an all-dropped round
+            # leaves the global model as it was
+            outcome = self.trace.simulate_round(
+                self.round_idx, self.sim_clock.now(), selected,
+                self.round_spec)
+            survivors = outcome.completed
+            self.sim_clock.advance(outcome.elapsed_s)
+        if len(survivors):
+            stacked, _ = self._train_cohort(survivors)
+            # the embeddings come back to the host: the train phase ends
+            # synced
+            self.client_embeds[survivors] = weight_delta_embedding(
+                self.embedder, stacked, self.global_params)
         t_train = clock()
-        self.global_params = fedavg_aggregate(stacked,
-                                              self.shard_sizes[selected])
+        if len(survivors):
+            self.global_params = fedavg_aggregate(
+                stacked, self.shard_sizes[survivors])
         t_aggregate = clock()
         acc, loss, _ = evaluate(self.model, self.global_params,
                                 self._x_test, self._y_test)
         # round boundary: accuracy drives the reward and the policy update
         acc, loss = float(acc), float(loss)
         t_evaluate = clock()
-        reward = favor_reward(acc, c.target_accuracy)
+        blend = self.round_spec.reward_blend
+        if outcome is not None and blend > 0.0:
+            reward = blended_reward(acc, c.target_accuracy,
+                                    outcome.attainment, blend=blend)
+        else:
+            reward = favor_reward(acc, c.target_accuracy)
         next_state = self._round_state()
         self.policy.update(state, next_state,
                            Feedback(acc, reward, selected))
@@ -257,8 +310,14 @@ class FederatedRunner:
                                    "aggregate": t_aggregate - t_train,
                                    "evaluate": t_evaluate - t_aggregate,
                                    "update": t_update - t_evaluate},
-                          num_completed=len(selected),
-                          sim_seconds=t_update - t0)
+                          num_completed=len(survivors),
+                          num_dropped=(0 if outcome is None
+                                       else len(outcome.dropped)),
+                          num_stragglers=(0 if outcome is None
+                                          else len(outcome.straggler_ids)),
+                          sim_seconds=(t_update - t0 if outcome is None
+                                       else outcome.elapsed_s),
+                          outcome=outcome)
         self.history.append(res)
         self.round_idx += 1
         return res
@@ -279,8 +338,14 @@ class FederatedRunner:
         return None
 
     def sim_seconds_to_accuracy(self, target: Optional[float] = None):
-        """Cumulative round seconds to the target accuracy (host-measured
-        without client realism); ``None`` if it was never reached."""
+        """Cumulative simulated wall-clock seconds to the target accuracy.
+
+        The realism benchmarks' headline metric: under stragglers or
+        dropout a policy can match rounds-to-target yet pay the full
+        deadline every round.  ``None`` if the target was never reached.
+        Without an attached trace the per-round ``sim_seconds`` are
+        host-measured seconds.
+        """
         target = target if target is not None else self.cfg.target_accuracy
         total = 0.0
         for res in self.history:

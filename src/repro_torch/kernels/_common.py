@@ -3,6 +3,9 @@
 :data:`LAUNCH_COUNTS` holds one entry per hand-written kernel.  A wrapper
 adds one to its entry where it launches its kernel on the card, and
 nowhere else: a CPU tensor runs the plain version and counts nothing.
+:data:`THREAD_LAUNCHES` splits the same launches by the name of the
+thread that made them: the streaming cohort server launches from its
+callers' threads and from its background solver's.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ LAUNCH_COUNTS = {"quantized_cross_affinity": 0, "nystrom_colsum": 0,
                  "panel_matmul": 0, "pairwise_sq_dists": 0,
                  "rbf_affinity": 0, "rbf_cross_affinity": 0,
                  "flash_attention": 0, "ssd_chunk": 0}
+#: {thread name: {kernel: launches}} since the last reset
+THREAD_LAUNCHES: dict = {}
 _COUNT_LOCK = threading.Lock()
 
 
@@ -26,11 +31,16 @@ def reset_launch_counts() -> None:
     with _COUNT_LOCK:
         for name in LAUNCH_COUNTS:
             LAUNCH_COUNTS[name] = 0
+        THREAD_LAUNCHES.clear()
 
 
 def launched(name: str) -> None:
+    thread = threading.current_thread().name
     with _COUNT_LOCK:
         LAUNCH_COUNTS[name] += 1
+        counts = THREAD_LAUNCHES.setdefault(thread,
+                                            dict.fromkeys(LAUNCH_COUNTS, 0))
+        counts[name] += 1
 
 
 def check_tensors(name, *, dtypes=(torch.float32,), contiguous=True,

@@ -23,9 +23,11 @@ from repro_torch.kernels import affinity as _affinity
 from repro_torch.kernels import flash_attention as _flash_attention
 from repro_torch.kernels import nystrom as _nystrom
 from repro_torch.kernels import ssd as _ssd
-from repro_torch.kernels._common import LAUNCH_COUNTS, reset_launch_counts
+from repro_torch.kernels._common import (LAUNCH_COUNTS, THREAD_LAUNCHES,
+                                         reset_launch_counts)
 
-__all__ = ["LAUNCH_COUNTS", "reset_launch_counts", "set_use_pallas",
+__all__ = ["LAUNCH_COUNTS", "THREAD_LAUNCHES", "reset_launch_counts",
+           "set_use_pallas",
            "use_pallas", "use_pallas_scoped", "pairwise_sq_dists",
            "rbf_affinity", "rbf_cross_affinity", "nystrom_colsum",
            "nystrom_gram", "nystrom_extension", "panel_matmul",

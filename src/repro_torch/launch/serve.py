@@ -29,15 +29,24 @@ paper's Algorithm II (``policy="dqn"``): a
 :class:`repro_torch.policy.ClusterPolicy` scores the clusters and draws
 the cohort ε-greedily, trained online from the accuracy reported back
 through ``observe_round``.  The engine and the Q-networks run on
-``device``.
-
-Not ported yet (they raise ``NotImplementedError``): background
-streaming re-clustering (``streaming=``), client-realism outcomes
-(``observe_round(outcome=...)``) and the ``"system"`` state features
-that feed on them.
+``device``.  ``streaming=StreamingSpec(...)`` moves re-clustering onto a
+:class:`repro_torch.streaming.BackgroundSolver` thread (serve version v
+while v+1 warms; on the card its solves launch the kernels from that
+thread), and ``observe_round(outcome=...)`` takes a client-realism
+``RoundOutcome`` (``repro_torch.fed.realism``), which feeds the
+``"system"`` state's per-cluster availability and latency EMAs and
+blends deadline attainment into the reward.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --cohort 100000 \
-      --cohort-size 64 --policy dqn --use-pallas --num-landmarks 512
+      --cohort-size 64 --policy dqn --use-pallas --num-landmarks 512 \
+      --streaming
+
+``--tenants T`` serves the ``--cohort`` demo through the multi-tenant
+``repro_torch.launch.frontend.CohortFrontend``, which coalesces
+concurrent selects of one tenant and table version behind one solve:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --cohort 2000 \
+      --tenants 4 --concurrency 16 --streaming --policy dqn --device cpu
 """
 
 from __future__ import annotations
@@ -57,8 +66,13 @@ from repro_torch.cohort import CohortConfig, CohortEngine
 from repro_torch.device import resolve_device
 from repro_torch.fed.metrics import (cluster_policy_state, favor_reward,
                                      serving_state_dim)
+from repro_torch.fed.realism import blended_reward
 from repro_torch.models import transformer as T
 from repro_torch.policy import ClusterPolicy
+# ServiceClosedError lives in streaming/admission.py, as in the JAX
+# package; importing it here keeps repro_torch.launch.serve's name
+from repro_torch.streaming import (AdmissionController, BackgroundSolver,
+                                   ServiceClosedError, StreamingSpec)
 
 #: smoothing factor for the decode tokens/sec EMA in DecodeScheduler.stats().
 _TOK_S_EMA = 0.2
@@ -363,28 +377,32 @@ class Server:
 
 #: smoothing factor for the server's per-phase latency EMAs.
 _LATENCY_EMA = 0.2
-#: smoothing factor for the per-cluster reward EMAs in the policy state.
+#: smoothing factor for the per-cluster reward EMAs in the policy state
+#: (and for the "system" state's availability and latency EMAs).
 _REWARD_EMA = 0.2
-
-
-class ServiceClosedError(RuntimeError):
-    """A select reached a server after :meth:`CohortServer.close`."""
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP: streaming and "
-        f"client-realism slice)")
 
 
 class CohortServer:
     """Cohort-selection service backed by a :class:`CohortEngine`.
 
-    Selections are serialized on ``_select_lock`` and engine entries on
-    ``_solve_lock`` (the engine's warm-start state is single-writer);
-    ``update_embeddings`` appends O(delta) rows under ``_write_lock`` and
-    :meth:`snapshot` materializes them lazily into a fresh immutable
-    table.  Dashboard counters live under the innermost ``_stats_lock``.
+    Selections are serialized on ``_select_lock`` and engine entries,
+    inline or background, on ``_solve_lock`` (the engine's warm-start
+    state is single-writer); ``update_embeddings`` appends O(delta) rows
+    under ``_write_lock`` and :meth:`snapshot` materializes them lazily
+    into a fresh immutable table.  Dashboard counters live under the
+    innermost ``_stats_lock``.  The lock names and ranks are those of the
+    JAX package's ``SERVING_LOCK_ORDER``.
+
+    Streaming (``streaming=StreamingSpec(...)``): every
+    ``update_embeddings`` marks the table dirty on a
+    :class:`repro_torch.streaming.BackgroundSolver`, whose worker
+    snapshots the freshest table, runs ``engine.prepare`` + ``publish``
+    under ``_solve_lock`` and parks ``(version, table, result)`` in the
+    ``_published`` mailbox.  The next select swaps it into ``_served`` and
+    draws from it with no solve inline, unless the served version has
+    fallen more than ``max_stale_versions`` behind the table, which forces
+    one inline solve.  A failed background solve is counted in the
+    solver's ``stats["errors"]`` and never reaches a caller.
 
     Args:
         num_clients:  N, rows of the embedding table.
@@ -394,8 +412,19 @@ class CohortServer:
         policy:       "stratified" | "dqn".
         target_accuracy: reward pivot for the DQN policy's shaping.
         dqn_overrides: DQNConfig field overrides for ``policy="dqn"``.
-        state_features: DQN serving-state layout, ``"rich"`` (``5k + 1``)
-            or ``"basic"`` (``3k + 1``).
+        state_features: DQN serving-state layout, ``"rich"`` (``5k + 1``),
+            ``"system"`` (``7k + 1``: plus per-cluster availability and
+            latency EMAs fed by ``observe_round(outcome=...)``) or
+            ``"basic"`` (``3k + 1``).
+        streaming:    :class:`repro_torch.streaming.StreamingSpec` enabling
+            background re-clustering (and admission knobs for
+            ``select_cohort``); None solves inline.
+        solver:       a :class:`repro_torch.streaming.BackgroundSolver`
+            shared across servers (the frontend's); None with
+            ``streaming`` set creates and owns a private one.
+        deduper:      a shared :class:`repro_torch.streaming.SolveDeduper`
+            so identical-fingerprint tenants ride one solve; None
+            disables dedupe for this server.
         device:       ``"cuda"`` (default) or ``"cpu"``.
     """
 
@@ -410,11 +439,6 @@ class CohortServer:
         if policy not in self.POLICIES:
             raise ValueError(f"unknown policy {policy!r}; "
                              f"expected one of {self.POLICIES}")
-        if streaming is not None or solver is not None or deduper is not None:
-            raise _not_ported("streaming re-clustering (streaming=, "
-                              "solver=, deduper=)")
-        if state_features == "system":
-            raise _not_ported("state_features='system'")
         self.config = config or CohortConfig()
         self.engine = CohortEngine(self.config, seed=seed, device=device)
         self.device = self.engine.device
@@ -437,6 +461,8 @@ class CohortServer:
         self._write_lock = threading.Lock()
         self._select_lock = threading.Lock()
         self._solve_lock = threading.Lock()
+        # mailbox the background solver fills and the select path drains
+        self._publish_lock = threading.Lock()
         self._stats_lock = threading.Lock()
         self._version = 0                 # guarded-by: _write_lock
         self._base = table                # guarded-by: _write_lock
@@ -444,12 +470,38 @@ class CohortServer:
         self._delta_rows: List[np.ndarray] = []   # guarded-by: _write_lock
         self._delta_pending = 0           # guarded-by: _write_lock
         self._materializations = 0        # guarded-by: _write_lock
+
+        # streaming double-buffer: _published is the background solver's
+        # finished (version, table, result); _served is the triple selects
+        # currently draw from
+        self._streaming = streaming
+        self._published = None            # guarded-by: _publish_lock
+        self._served = None               # guarded-by: _select_lock
         self._closed = False              # guarded-by: _select_lock
+        self._deduper = deduper
+        self._own_solver = streaming is not None and solver is None
+        if self._own_solver:
+            solver = BackgroundSolver(streaming.solver_workers)
+        self._solver = solver if streaming is not None else None
+        self.admission = None
+        if streaming is not None and (streaming.max_queue_depth is not None
+                                      or streaming.rate_per_s is not None):
+            self.admission = AdmissionController(
+                max_queue_depth=streaming.max_queue_depth,
+                rate_per_s=streaming.rate_per_s, burst=streaming.burst)
 
         self._participation = np.zeros(k, np.float64)   # guarded-by: _select_lock
         self._reward_ema = np.zeros(k, np.float32)      # guarded-by: _select_lock
         # selects since each cluster last contributed a served client
         self._staleness = np.zeros(k, np.float64)       # guarded-by: _select_lock
+        # client-realism EMAs behind the "system" state: per-cluster
+        # completion rate and mean simulated latency, fed by
+        # observe_round(outcome=...); availability starts optimistic (1)
+        self._avail_ema = np.ones(k, np.float64)        # guarded-by: _select_lock
+        self._latency_ema_s = np.zeros(k, np.float64)   # guarded-by: _select_lock
+        # cluster assignment of the latest served solve (any policy):
+        # maps an outcome's client ids back to clusters
+        self._last_assign = None                        # guarded-by: _select_lock
         self.prev_accuracy = 0.0                        # guarded-by: _select_lock
         # parked (state_vec, actions, assign, table) until observe_round
         self._pending = None                            # guarded-by: _select_lock
@@ -459,7 +511,9 @@ class CohortServer:
         self._counters = {  # guarded-by: _stats_lock
             "requests": 0, "batches": 0, "updates": 0,
             "rounds_observed": 0, "dropped_transitions": 0,
-            # the streaming counters of the JAX server, always 0 here
+            # streaming: background warms landed / selects answered from
+            # a warmed result / selects that had to solve inline / warms
+            # adopted from another tenant's identical-fingerprint solve
             "warm_ahead": 0, "served_warm": 0, "forced_inline": 0,
             "dedupe_hit": 0}
         self.last_select_s = 0.0                        # guarded-by: _select_lock
@@ -476,7 +530,15 @@ class CohortServer:
         return self._version
 
     def snapshot(self):
-        """A consistent ``(version, table)``; the table is immutable."""
+        """A consistent ``(version, table)``; the table is immutable.
+
+        Pending deltas are materialized into a fresh table only when
+        there are any; readers of an older snapshot are never affected.
+        """
+        return self._flush()
+
+    def _flush(self):
+        """Apply pending deltas to the base table (self-locking)."""
         with self._write_lock:
             if self._delta_pending:
                 table = self._base.copy()
@@ -495,6 +557,8 @@ class CohortServer:
 
         O(delta): the rows join a pending-delta buffer and the version
         bumps; the next :meth:`snapshot` applies them in arrival order.
+        With ``streaming`` the update also marks this server dirty on the
+        background solver, so a fresh solve starts warming at once.
         """
         ids = np.array(client_ids, dtype=np.int64)   # copy: deferred apply
         rows = np.array(new_embeds, dtype=np.float32)
@@ -512,14 +576,77 @@ class CohortServer:
             # longer a saving, only deferred work
             flush_now = self._delta_pending >= n
         if flush_now:
-            self.snapshot()
+            self._flush()
         with self._stats_lock:
             self._counters["updates"] += 1
+        if self._solver is not None:
+            self._solver.submit(id(self), self._background_warm)
 
-    def close(self) -> None:
-        """Stop serving: later selects raise :class:`ServiceClosedError`."""
+    # -- streaming (background warm + shutdown) ---------------------------
+    def _background_warm(self) -> None:
+        """Solve-ahead task run on a :class:`BackgroundSolver` worker.
+
+        Snapshots the freshest table, computes (or, with dedupe, adopts)
+        a :class:`repro_torch.cohort.PreparedSolve` for it, publishes it
+        into the engine under ``_solve_lock`` and parks the finished
+        ``(version, table, result)`` in the ``_published`` mailbox.
+        Never takes ``_select_lock``.  The kernels launch from this thread
+        on its current stream, which is the device's default stream
+        unless the caller set another, so they are ordered with the
+        select thread's work; no autograd graph is recorded.
+        """
+        version, table = self.snapshot()
+        with self._publish_lock:
+            pub = self._published
+        if pub is not None and pub[0] >= version:
+            return                      # already warmed this generation
+        ticket = prep = None
+        if self._deduper is not None:
+            # key on (table content, engine config): identical tables
+            # under different cluster counts or methods must not share a
+            # solve, or the adopted result's k would be wrong
+            ticket, prep = self._deduper.begin(
+                (CohortEngine.fingerprint(table), repr(self.config)))
+        if prep is not None:            # adopt another tenant's solve
+            with self._solve_lock:
+                res = self.engine.publish(prep, count=False)
+            with self._stats_lock:
+                self._counters["dedupe_hit"] += 1
+        else:
+            try:
+                with self._solve_lock, torch.no_grad():
+                    own = self.engine.prepare(table)
+                    res = (None if own is None
+                           else self.engine.publish(own))
+            except BaseException:
+                if ticket is not None:
+                    self._deduper.abort(ticket)
+                raise
+            if ticket is not None:
+                if own is not None:
+                    self._deduper.complete(ticket, own)
+                else:
+                    self._deduper.abort(ticket)
+            if res is None:
+                return                  # engine already current: no-op
+        with self._publish_lock:
+            if self._published is None or version > self._published[0]:
+                self._published = (version, table, res)
+        with self._stats_lock:
+            self._counters["warm_ahead"] += 1
+
+    def close(self, timeout: Optional[float] = None) -> None:
+        """Stop serving: reject new selects, stop an owned solver.
+
+        Later ``select_cohort(s)`` calls raise
+        :class:`ServiceClosedError`; a background solver created by this
+        server (not a shared one) is drained and joined within
+        ``timeout`` seconds.  Idempotent.
+        """
         with self._select_lock:
             self._closed = True
+        if self._own_solver and self._solver is not None:
+            self._solver.close(timeout)
 
     # -- serving ----------------------------------------------------------
     def _ema(self, name: str, value: float) -> None:
@@ -532,20 +659,32 @@ class CohortServer:
 
     def _policy_state(self, assign: np.ndarray,
                       table: np.ndarray) -> np.ndarray:
-        rich = self.state_features == "rich"
+        rich = self.state_features in ("rich", "system")
+        system = self.state_features == "system"
         return cluster_policy_state(
             assign, self.config.num_clusters,
             self._participation, self._reward_ema, self.prev_accuracy,
             embeds=table if rich else None,
             staleness=self._staleness if rich else None,
+            availability=self._avail_ema if system else None,
+            latency_s=self._latency_ema_s if system else None,
             features=self.state_features)
 
     def select_cohort(self, cohort_size: int):
         """Serve one cohort; returns ``(client_ids, CohortResult)``.
 
         With ``policy="dqn"`` the draw's (state, actions) pair is parked
-        until :meth:`observe_round` reports the round's accuracy.
+        until :meth:`observe_round` reports the round's accuracy.  When
+        the streaming spec sets admission knobs this path sheds with a
+        typed :class:`repro_torch.streaming.ShedError` before touching
+        the engine.
         """
+        if self.admission is not None:
+            self.admission.try_admit()
+            try:
+                return self.select_cohorts([cohort_size])[0]
+            finally:
+                self.admission.release()
         return self.select_cohorts([cohort_size])[0]
 
     def select_cohorts(self, cohort_sizes: Optional[List[int]] = None, *,
@@ -571,11 +710,37 @@ class CohortServer:
             if not sizes:
                 return []
             t0 = time.perf_counter()
-            _, table = self.snapshot()
-            with self._solve_lock:
-                res = self.engine.select_batched(table, requests=len(sizes))
+            version, table = self.snapshot()
+            res = None
+            if self._streaming is not None:
+                # drain the background solver's mailbox: swap in the
+                # warmed (version, table, result) if it is newer than what
+                # is being served
+                with self._publish_lock:
+                    pub = self._published
+                if pub is not None and (self._served is None
+                                        or pub[0] > self._served[0]):
+                    self._served = pub
+                if self._served is not None:
+                    max_stale = self._streaming.max_stale_versions
+                    if (max_stale is None
+                            or version - self._served[0] <= max_stale):
+                        _, table, res = self._served
+                        with self._stats_lock:
+                            self._counters["served_warm"] += 1
+            if res is None:
+                # not streaming, nothing warmed yet, or the served version
+                # is too stale: solve inline
+                with self._solve_lock:
+                    res = self.engine.select_batched(
+                        table, requests=len(sizes))
+                if self._streaming is not None:
+                    self._served = (version, table, res)
+                    with self._stats_lock:
+                        self._counters["forced_inline"] += 1
             t_solve = time.perf_counter()
             k = self.config.num_clusters
+            self._last_assign = res.assign
             pools = {c: list(np.flatnonzero(res.assign == c))
                      for c in range(k)}
             cohorts: List[np.ndarray] = []
@@ -623,6 +788,39 @@ class CohortServer:
             self.last_select_s = t1 - t0
             return [(picked, res) for picked in cohorts]
 
+    def _outcome_cluster_rates(self, outcome):
+        """Per-cluster completion and latency rates of a realism outcome.
+
+        Maps ``outcome.selected`` through the last solve's assignment and
+        bins the completed/dropped split and the simulated round trips per
+        cluster.  Returns ``(seen, avail, latency)``: the clusters observed
+        this round and this round's completion-rate and mean-latency
+        vectors, or ``None`` when nothing maps.  Pure; the caller holds
+        ``_select_lock`` and applies the EMA updates itself.
+        """
+        assign = self._last_assign
+        if assign is None or not len(outcome.selected):
+            return None
+        k = self.config.num_clusters
+        sel = np.asarray(outcome.selected)
+        lat = np.asarray(outcome.latencies_s)
+        in_table = (sel >= 0) & (sel < len(assign))
+        sel, lat = sel[in_table], lat[in_table]
+        if not len(sel):
+            return None
+        clusters = assign[sel]
+        completed = np.isin(sel, np.asarray(outcome.completed))
+        counts = np.bincount(clusters, minlength=k)[:k].astype(np.float64)
+        hits = np.bincount(clusters, weights=completed.astype(np.float64),
+                           minlength=k)[:k]
+        lat_sum = np.bincount(clusters, weights=lat, minlength=k)[:k]
+        seen = counts > 0
+        avail = np.zeros(k)
+        latency = np.zeros(k)
+        avail[seen] = hits[seen] / counts[seen]
+        latency[seen] = lat_sum[seen] / counts[seen]
+        return seen, avail, latency
+
     def observe_round(self, accuracy: float, timings: Optional[dict] = None,
                       outcome=None) -> float:
         """Report a completed round back to the server; returns the reward.
@@ -630,14 +828,27 @@ class CohortServer:
         The reward is ``Ξ^(acc − target) − 1``.  With ``policy="dqn"`` the
         parked (state, actions) plus the new state go into the replay
         buffer and one TD minibatch runs.  ``timings`` are folded into
-        the per-phase running means of :meth:`stats`.
+        the per-phase running means of :meth:`stats`.  ``outcome`` (a
+        ``repro_torch.fed.realism.RoundOutcome``) feeds the per-cluster
+        availability and latency EMAs of ``state_features="system"`` and
+        blends the reward with deadline attainment (``blended_reward``).
         """
         if outcome is not None:
-            raise _not_ported("observe_round(outcome=...)")
-        reward = favor_reward(accuracy, self.target_accuracy)
+            reward = blended_reward(accuracy, self.target_accuracy,
+                                    outcome.attainment)
+        else:
+            reward = favor_reward(accuracy, self.target_accuracy)
         # same lock as select_cohorts: a racing selection must not park a
         # new transition between our read of _pending and its clear
         with self._select_lock:
+            if outcome is not None:
+                rates = self._outcome_cluster_rates(outcome)
+                if rates is not None:
+                    seen, avail, latency = rates
+                    self._avail_ema[seen] += _REWARD_EMA * (
+                        avail[seen] - self._avail_ema[seen])
+                    self._latency_ema_s[seen] += _REWARD_EMA * (
+                        latency[seen] - self._latency_ema_s[seen])
             if self.policy is not None and self._pending is not None:
                 state, actions, assign, table = self._pending
                 for c in set(actions):
@@ -663,10 +874,15 @@ class CohortServer:
     def stats(self) -> dict:
         """One dict for the serving dashboard, with the JAX server's keys.
 
-        Counters, ``shed`` (always 0: no admission control), table
-        version and size, ``engine`` counters, a ``streaming`` sub-dict
-        (``enabled`` False), EMA latencies, round-timing means, the last
-        solve's provenance and the policy's ε / replay fill.
+        Counters (the streaming ones ``warm_ahead`` / ``served_warm`` /
+        ``forced_inline`` / ``dedupe_hit`` always present, 0 when
+        streaming is off), ``shed`` (selects rejected by admission
+        control), table version and size, ``engine`` counters, a
+        ``streaming`` sub-dict (enabled flag, ``max_stale_versions``, the
+        served version, delta-buffer ``materializations``, the admission
+        and, for an owned solver, the solver breakdowns), EMA latencies,
+        round-timing means, the last solve's provenance and the policy's
+        ε / replay fill.
         """
         last = self.engine.state.result
         policy = {"kind": self.policy_name}
@@ -679,17 +895,30 @@ class CohortServer:
         with self._write_lock:
             materializations = self._materializations
             num_clients = self._base.shape[0]
+        admission = (None if self.admission is None
+                     else self.admission.stats())
+        shed = (0 if admission is None
+                else admission["shed_queue"] + admission["shed_rate"])
+        spec = self._streaming
+        served = self._served
+        streaming = {
+            "enabled": spec is not None,
+            "max_stale_versions": (None if spec is None
+                                   else spec.max_stale_versions),
+            "served_version": None if served is None else served[0],
+            "materializations": materializations,
+            "admission": admission,
+        }
+        if self._own_solver and self._solver is not None:
+            streaming["solver"] = dict(self._solver.stats)
         return {
             **counters,
-            "shed": 0,
+            "shed": shed,
             "table_version": self.version,
             "num_clients": num_clients,
             "state_features": self.state_features,
             "engine": dict(self.engine.stats),
-            "streaming": {"enabled": False, "max_stale_versions": None,
-                          "served_version": None,
-                          "materializations": materializations,
-                          "admission": None},
+            "streaming": streaming,
             "latency_s": latency,
             "round_timings_s": round_timings,
             "last_select": None if last is None else {
@@ -698,6 +927,18 @@ class CohortServer:
                 "seconds": last.seconds},
             "policy": policy,
         }
+
+
+def cohort_config(args) -> CohortConfig:
+    """The engine configuration of the ``--cohort`` demos' flags."""
+    num_landmarks = args.num_landmarks
+    if num_landmarks not in (None, "auto"):
+        num_landmarks = int(num_landmarks)
+    return CohortConfig(num_clusters=args.num_clusters,
+                        landmarks=args.landmarks,
+                        num_landmarks=num_landmarks,
+                        use_pallas=args.use_pallas,
+                        affinity_dtype=args.affinity_dtype)
 
 
 def _cohort_main(args) -> None:
@@ -713,17 +954,12 @@ def _cohort_main(args) -> None:
     assign_true = rng.integers(0, args.num_clusters, args.cohort)
     embeds = (centers[assign_true]
               + rng.normal(size=(args.cohort, d)).astype(np.float32))
-    num_landmarks = args.num_landmarks
-    if num_landmarks not in (None, "auto"):
-        num_landmarks = int(num_landmarks)
+    streaming = (StreamingSpec(max_stale_versions=args.max_stale)
+                 if args.streaming else None)
     server = CohortServer(
         args.cohort, d, seed=args.seed, policy=args.policy,
-        target_accuracy=0.85, device=args.device,
-        config=CohortConfig(num_clusters=args.num_clusters,
-                            landmarks=args.landmarks,
-                            num_landmarks=num_landmarks,
-                            use_pallas=args.use_pallas,
-                            affinity_dtype=args.affinity_dtype))
+        target_accuracy=0.85, device=args.device, streaming=streaming,
+        config=cohort_config(args))
     server.update_embeddings(np.arange(args.cohort), embeds)
     for r in range(args.rounds):
         ids, res = server.select_cohort(args.cohort_size)
@@ -806,6 +1042,23 @@ def main(argv=None) -> None:
     ap.add_argument("--policy", default="stratified",
                     choices=["stratified", "dqn"])
     ap.add_argument("--rounds", type=int, default=5)
+    ap.add_argument("--tenants", type=int, default=0, metavar="T",
+                    help="with --cohort: serve T model-family tenants "
+                         "through the coalescing CohortFrontend instead "
+                         "of one CohortServer")
+    ap.add_argument("--concurrency", type=int, default=16,
+                    help="concurrent select workers in --tenants mode")
+    ap.add_argument("--batch-window", type=float, default=0.0,
+                    help="extra coalescing wait (s) in --tenants mode; "
+                         "0 = natural batching only")
+    ap.add_argument("--streaming", action="store_true",
+                    help="double-buffered background re-clustering: "
+                         "serve version v while a BackgroundSolver "
+                         "warms v+1 (repro_torch.streaming)")
+    ap.add_argument("--max-stale", type=int, default=None, metavar="V",
+                    help="with --streaming: force an inline solve when "
+                         "the served version falls more than V table "
+                         "versions behind (default: never)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--use-pallas", action="store_true",
                     help="run the hand-written CUDA kernels: the fused "
@@ -817,7 +1070,10 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args(argv)
-    if args.cohort:
+    if args.cohort and args.tenants:
+        from repro_torch.launch.frontend import run_demo
+        run_demo(args)
+    elif args.cohort:
         _cohort_main(args)
     else:
         _lm_main(args)

@@ -511,3 +511,55 @@ def test_reduced_lm_prefill_on_the_card_matches_the_cpu(cuda_device, arch):
     want = out["cpu"]
     err = float((out["cuda"] - want).abs().max() / want.abs().max())
     assert err <= 1e-4
+
+
+@pytest.mark.cuda
+def test_background_warm_equals_inline_select_on_the_card(cuda_device):
+    """The streaming server's solves run on its background solver's
+    thread and launch the fused kernels there; each warmed partition is
+    the one a second engine with the same seed gives when it solves the
+    same snapshots inline on this thread, bit for bit."""
+    import time
+
+    from repro_torch.launch.serve import CohortServer
+    from repro_torch.streaming import StreamingSpec
+
+    n, d, k = 20000, 8, 5
+    rng = np.random.default_rng(3)
+    centers = rng.normal(size=(k, d)).astype(np.float32) * 6
+    x = centers[rng.integers(0, k, n)] + rng.normal(
+        size=(n, d)).astype(np.float32)
+    cfg = CohortConfig(num_clusters=k, method="nystrom", use_pallas=True,
+                       num_landmarks=128)
+    server = CohortServer(n, d, seed=1, config=cfg, device=cuda_device,
+                          streaming=StreamingSpec())
+    ops.reset_launch_counts()
+    warmed = []
+    try:
+        for step in range(2):
+            table = x + np.float32(0.01 * step)
+            server.update_embeddings(np.arange(n), table)
+            deadline = time.monotonic() + 60
+            while server.stats()["warm_ahead"] < step + 1:
+                assert time.monotonic() < deadline, "no warm landed"
+                assert server._solver.stats["errors"] == 0
+                time.sleep(0.005)
+            _, res = server.select_cohort(16)
+            warmed.append((server.snapshot()[1], res))
+        solver_launches = {
+            name: sum(c[name] for t, c in ops.THREAD_LAUNCHES.items()
+                      if t.startswith("repro-solver"))
+            for name in FUSED}
+        stats = server.stats()
+    finally:
+        server.close(timeout=60)
+    assert not any(t.is_alive() for t in server._solver._threads)
+    assert stats["forced_inline"] == 0 and stats["served_warm"] == 2
+    assert server._solver.stats["errors"] == 0
+    assert all(count >= 2 for count in solver_launches.values())
+    assert [res.source for _, res in warmed] == ["cold", "warm"]
+    inline = CohortEngine(cfg, seed=1, device=cuda_device)
+    for table, res in warmed:
+        again = inline.select(table)
+        assert again.source == res.source
+        np.testing.assert_array_equal(again.assign, res.assign)

@@ -42,6 +42,7 @@ from repro.fed import RunnerConfig as JaxConfig
 from repro_torch.convert import (cnn_params_from_jax, dqn_params_from_jax,
                                  embedder_from_jax)
 from repro_torch.core.kmeans import _lloyd
+from repro_torch.fed.realism import RoundSpec, TraceSpec
 from repro_torch.fed.rounds import FederatedRunner, RunnerConfig
 from repro_torch.models.cnn import pool_noise_shape
 
@@ -161,5 +162,14 @@ def test_dqre_sc_round_partitions_like_jax(decisive_pooling, monkeypatch):
 
 
 def test_realism_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="A9b"):
-        FederatedRunner(RunnerConfig(realism=object()), device="cpu")
+    """RunnerConfig.realism raised NotImplementedError until client
+    realism was ported (tests/test_torch_realism.py holds it to the JAX
+    package); now it attaches a trace and the simulated clock."""
+    spec = TraceSpec(dropout_hazard=0.1)
+    runner = FederatedRunner(RunnerConfig(**CONFIG, realism=spec,
+                                          round_spec=RoundSpec(3.0)),
+                             device="cpu")
+    assert runner.trace.spec == spec
+    assert runner.trace.num_clients == CONFIG["num_clients"]
+    assert runner.round_spec.deadline_s == 3.0
+    assert runner._clock is runner.sim_clock and runner.sim_clock() == 0.0

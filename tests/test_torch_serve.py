@@ -18,13 +18,17 @@ from repro.core.selection import favor_reward as jax_favor_reward
 from repro.fed import metrics as jax_metrics
 from repro.launch.serve import CohortServer as JaxServer
 from repro.policy import ClusterPolicy as JaxPolicy
+from repro.streaming import StreamingSpec as JaxStreamingSpec
 from repro_torch.cohort import CohortConfig
 from repro_torch.convert import dqn_params_from_jax
 from repro_torch.core.dqn import DQNAgent, DQNConfig, QNet, td_loss
 from repro_torch.fed import metrics
 from repro_torch.launch import serve
+from repro_torch.fed.realism import (ClientTrace, RoundSpec, TraceSpec,
+                                     blended_reward)
 from repro_torch.launch.serve import CohortServer
 from repro_torch.policy import ClusterPolicy
+from repro_torch.streaming import StreamingSpec
 
 KEY = jax.random.PRNGKey(0)
 
@@ -227,17 +231,46 @@ def test_stratified_batch_draws_disjoint_cohorts():
         server.select_cohort(5)
 
 
-@pytest.mark.parametrize("kwargs", [dict(streaming=object()),
+@pytest.mark.parametrize("kwargs", [dict(streaming=StreamingSpec()),
                                     dict(state_features="system")])
 def test_unported_server_features_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        CohortServer(10, 2, device="cpu", **kwargs)
+    """Streaming and the "system" state raised NotImplementedError until
+    they were ported; now they build, with the JAX server's stats keys,
+    and a malformed value of either still raises."""
+    server = CohortServer(10, 2, policy="dqn", device="cpu", **kwargs)
+    jax_kwargs = dict(kwargs)
+    if "streaming" in kwargs:
+        jax_kwargs["streaming"] = JaxStreamingSpec()
+    reference = JaxServer(10, 2, policy="dqn", **jax_kwargs)
+    try:
+        stats = server.stats()
+        assert set(stats) == set(reference.stats())
+        assert set(stats["streaming"]) == set(reference.stats()["streaming"])
+        assert stats["streaming"]["enabled"] == ("streaming" in kwargs)
+        assert server.policy.state_dim == metrics.serving_state_dim(
+            server.config.num_clusters, kwargs.get("state_features", "rich"))
+    finally:
+        server.close(timeout=30)
+        reference.close(timeout=30)
+    with pytest.raises(ValueError):
+        if "streaming" in kwargs:
+            StreamingSpec(max_stale_versions=-1)
+        else:
+            CohortServer(10, 2, device="cpu", state_features="systems")
 
 
 def test_observe_round_outcome_is_not_ported_yet():
+    """observe_round(outcome=...) raised NotImplementedError until client
+    realism was ported; now it blends deadline attainment into the
+    reward, as the JAX server does."""
     server = CohortServer(10, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="outcome"):
-        server.observe_round(0.5, outcome=object())
+    outcome = ClientTrace(10, TraceSpec(), seed=0).simulate_round(
+        0, 0.0, np.arange(4), RoundSpec())
+    outcome.completed = outcome.completed[:2]      # half the cohort made it
+    want = JaxServer(10, 2).observe_round(0.5, outcome=outcome)
+    assert server.observe_round(0.5, outcome=outcome) == pytest.approx(
+        want, rel=1e-12)
+    assert want == pytest.approx(blended_reward(0.5, 0.85, 0.5))
 
 
 def test_server_without_a_device_raises_when_cuda_is_absent(monkeypatch):
