@@ -20,7 +20,8 @@ Phases (any failure raises and the script exits non-zero):
    each also at a ragged shape, the panel matmul also bit-identical on a
    repeat call and for every block_rows; flash attention (B9) at the
    qwen2-7b prefill's shape (q (1, 2048, 28, 128) against a 2112-row
-   cache), at gemma-2b's (q (1, 2048, 8, 256) against one KV head) and
+   cache), at gemma-2b's (q (1, 2048, 8, 256) against one KV head), at
+   moonshot-v1-16b-a3b's (16 heads over 16, dh 128) and
    at deepseek-v3's MLA prefill (128 heads, q/k 192, v 128), in bf16 and
    in f32, and the SSD chunk (B10) at the mamba2-2.7b prefill's (8
    chunks of 256, 80 heads, P=64, N=128) and jamba-v0.1's (128 heads,
@@ -48,10 +49,12 @@ Phases (any failure raises and the script exits non-zero):
    library call, and their share of the bound and factor to the library
    printed.
 3. The cohort server: ``CohortServer(policy="dqn")`` over the fused
-   Nyström engine at N=100 000 on the card, 5 rounds of select ->
-   observe -> drift update, with the fused kernels' launch counts read
-   afterwards; checks of the result (purity, cold-then-warm, the same
-   partition as the CPU solve, bit-identical cold re-solve), and one
+   Nyström engine at N=100 000 on the card (method "auto": the mesh
+   route, ``cohort/sharded.py``, one shard a visible card), 5 rounds of
+   select -> observe -> drift update, with the fused kernels' launch
+   counts read afterwards; checks of the result (purity,
+   cold-then-warm, the same partition as the CPU solve, bit-identical
+   cold re-solve), and one
    select each at bf16 and int8.
 4. The paper's federated loop: ``FederatedRunner(policy="dqre_sc",
    use_pallas=True)`` at paper scale (100 clients, 10 a round, 20 local
@@ -66,8 +69,9 @@ Phases (any failure raises and the script exits non-zero):
    (see ``decisive_pool_noise``) to the same cohort, accuracy within 0.01
    and loss within 1e-3 relative.
 5. The other routes of Algorithm I: the engine at m=4096 landmarks
-   (subspace solver, panel-matmul launches 82 cold / 18 warm, one
-   cross-affinity, colsum, Gram and extension launch a select, purity),
+   (the mesh route on the subspace solver, panel-matmul launches 82
+   cold / 18 warm, one cross-affinity, colsum, Gram and extension
+   launch a select, purity),
    ``spectral_cluster(method="nystrom", use_pallas=True)`` at N=100 000
    (purity), ``spectral_cluster(method="dense", use_pallas=True)`` at
    n=2048 (one pairwise-distance launch, the CPU's partition) and
@@ -103,6 +107,20 @@ Phases (any failure raises and the script exits non-zero):
    of phase 4 under a chaos trace and a 3 s deadline, 3 rounds with
    decisive pooling noise: completed + dropped = the cohort, the
    simulated seconds the outcome's, a finite model, B7 every round.
+
+8. (a) The mesh route: ``CohortEngine(method="sharded", mesh=...)``
+   at the path shape and at N + 3 rows (padded at every D > 1), fused
+   at f32, bf16 and int8, on (cuda:0,) * D for D = 1, 2, 4 (and every
+   visible card when there are more than one): D = 1 equal bit for bit
+   to the single-device ``"nystrom"`` solve, every D re-solving bit
+   for bit, B1 once and B2-B4 D times a solve, the leading k
+   eigenvalues within 1e-4 of D = 1's, purity >= 0.95 and D = 1's
+   partition.  (b) The MoE server: moonshot-v1-16b-a3b at full width
+   and depth in bf16 (phase 6's slots and requests; 48 B9 launches a
+   prefill, peak memory, a profiled prefill and decode step split into
+   B9, the MoE layers' routing and expert GEMMs, and the host); then
+   moonshot, llama4-scout and jamba reduced, card against CPU as in
+   phase 6 (jamba: one B9 and one B10 launch a prefill).
 
 It prints the kernel table as one JSON line, then the card's name and
 power limit, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -227,13 +245,33 @@ FLASH_PATH = dict(B=1, S=2048, T=LM_MAX_SEQ, H=28, K=4, dh=128)
 # B9 at gemma-2b's prefill: 8 heads over one KV head (MQA), dh 256
 FLASH_GEMMA = dict(B=1, S=2048, T=LM_MAX_SEQ, H=8, K=1, dh=256)
 SSD_PATH = dict(B=1, c=8, Q=256, H=80, P=64, G=1, N=128)
-# Shapes no served path reaches yet (MLA and jamba's Mamba layers wait for
-# the MoE and MLA modules), held and timed in phase 2 with 0 launches on
-# the paths: B9 at deepseek-v3's MLA prefill, its 128 heads expanded, q/k
-# 192 wide (128 + 64 RoPE), v 128, scale 1/sqrt(192); B10 at jamba-v0.1's
-# Mamba layer (128 heads of P = 64 in one group, N = 16, chunks of 256)
+# Shapes no served path reaches yet (MLA is not ported; full-width
+# jamba-v0.1, 51.5e9 parameters, does not fit one card), held and timed
+# in phase 2 with 0 launches on the paths: B9 at deepseek-v3's MLA
+# prefill, its 128 heads expanded, q/k 192 wide (128 + 64 RoPE), v 128,
+# scale 1/sqrt(192); B10 at jamba-v0.1's Mamba layer (128 heads of P =
+# 64 in one group, N = 16, chunks of 256)
 FLASH_MLA = dict(B=1, S=2048, T=2048, H=128, K=128, dh=192, dv=128)
 SSD_JAMBA = dict(B=1, c=8, Q=256, H=128, P=64, G=1, N=16)
+# B9 at moonshot-v1-16b-a3b's prefill (phase 8b): 16 heads over 16 (MHA)
+FLASH_MOONSHOT = dict(B=1, S=2048, T=LM_MAX_SEQ, H=16, K=16, dh=128)
+
+# phase 8a: the mesh route at the path shape and at N + 3 rows (padded at
+# every D > 1), on (cuda:0,) * D, and on every visible card when there
+# are more than one
+SHARD_COUNTS = (1, 2, 4)
+LIMIT_SHARD_EVALS = 1e-4   # leading k eigenvalues, D against D = 1
+# phase 8b: the MoE server, moonshot-v1-16b-a3b at full width and depth
+# in bf16 (28.39e9 parameters, 56.8 GB), phase 6's 4 slots and requests;
+# then the three MoE archs reduced, card against CPU
+MOE_ARCH = "moonshot-v1-16b-a3b"
+MOE_REDUCED = ("moonshot-v1-16b-a3b", "llama4-scout-17b-a16e",
+               "jamba-v0.1-52b")
+# where a profiled MoE prefill and decode step spend their device time
+MOE_GROUPS = {"B9 (flash_attention)": ("kernel", "flash"),
+              "MoE layers": ("range", "moe"),
+              "  routing (router, top-k, sort)": ("range", "moe.route"),
+              "  expert GEMMs": ("range", "moe.experts")}
 LIMIT_F32_REL = 1e-5     # f32 output: summation order only
 # bf16 output, elementwise: |got - want| <= 2^-7 |want| + 1e-3 rms(want).
 # Both sides round an f32 result to bf16, so they may differ by one unit
@@ -913,11 +951,15 @@ def plain_on_card_forbidden():
             setattr(ref, name, fn)
 
 
-def profile_device(phase, what, fn, host_top=0):
+def profile_device(phase, what, fn, host_top=0, groups=None):
     """Run ``fn()`` once under torch.profiler; prints the wall time, the
     device's busy time and idle share and the top device operations (and,
     with ``host_top``, the operators with the most host time and the
-    count of kernel launches).  Returns (fn's result, wall ms, busy ms)."""
+    count of kernel launches).  ``groups`` ({label: ("kernel", pattern)
+    or ("range", name)}) also splits the busy time: the device time of
+    the kernels whose name matches ``pattern``, or of every kernel
+    launched inside the ``record_function`` range ``name``; wall - busy
+    is the host's.  Returns (fn's result, wall ms, busy ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -929,10 +971,13 @@ def profile_device(phase, what, fn, host_top=0):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     # device-side events only (kernels, copies): an operator's own row
-    # repeats the device time of the kernels it launched
+    # repeats the device time of the kernels it launched, and a range's
+    # device row spans its kernels and the gaps between them
+    ranges = {name for kind, name in (groups or {}).values()
+              if kind == "range"}
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0]
+              and e.self_device_time_total > 0 and e.key not in ranges]
     busy = sum(e.self_device_time_total for e in events) / 1e3
     print(f"phase {phase}: profiled {what}: wall {wall:.3f} ms, device "
           f"busy {busy:.3f} ms"
@@ -941,6 +986,19 @@ def profile_device(phase, what, fn, host_top=0):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"phase {phase}:   {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:<5d} {e.key[:90]}")
+    if groups:
+        # a range's kernels: the device time its host-side row collects
+        launched = {e.key: e.device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CPU}
+        split = {}
+        for label, (kind, name) in groups.items():
+            split[label] = (sum(e.self_device_time_total for e in events
+                                if re.search(name, e.key))
+                            if kind == "kernel" else launched.get(name, 0.0)
+                            ) / 1e3
+        split["host (wall - busy)"] = wall - busy
+        print(f"phase {phase}:   split (ms): " + ", ".join(
+            f"{label} {ms:.3f}" for label, ms in split.items()))
     if host_top:
         host = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CPU]
@@ -977,8 +1035,9 @@ def phase3(x, labels):
     from repro_torch.kernels import nystrom as kn
     from repro_torch.launch.serve import CohortServer
 
-    config = CohortConfig(num_clusters=K, method="nystrom", use_pallas=True,
-                          num_landmarks=M)
+    # method "auto": N > dense_cutoff takes the mesh route, 1-way on one
+    # card
+    config = CohortConfig(num_clusters=K, use_pallas=True, num_landmarks=M)
     with plain_on_card_forbidden():
         server = CohortServer(N, D, policy="dqn", seed=ENGINE_SEED,
                               config=config)
@@ -1008,8 +1067,8 @@ def phase3(x, labels):
             if count <= 0:
                 raise AssertionError(f"{name} never launched on the path")
         first = results[0]
-        if any(res.method != "nystrom" for res in results):
-            raise AssertionError("the path did not solve with nystrom")
+        if any(res.method != "sharded" for res in results):
+            raise AssertionError("the path did not take the mesh route")
         if first.source != "cold" or results[1].source not in ("warm",
                                                                "cache"):
             raise AssertionError(
@@ -1246,8 +1305,8 @@ def phase5(x, labels):
     with plain_on_card_forbidden():
         # the engine on the subspace solver: m > eigh_cutoff
         eng = CohortEngine(CohortConfig(
-            num_clusters=K, method="nystrom", num_landmarks=M_SUBSPACE,
-            use_pallas=True), seed=ENGINE_SEED)
+            num_clusters=K, num_landmarks=M_SUBSPACE, use_pallas=True),
+            seed=ENGINE_SEED)
         counts = []
         fused = {name: [] for name in EXTRA_ROWS.values()}
         results = []
@@ -1447,6 +1506,8 @@ def _lm_kernel_cases():
                    ("gemma", *flash(**FLASH_GEMMA, dtype="bf16",
                                     library=True)),
                    ("gemma f32", *flash(**FLASH_GEMMA, dtype="f32")),
+                   ("moonshot", *flash(**FLASH_MOONSHOT, dtype="bf16",
+                                       library=True)),
                    ("mla", *flash(**FLASH_MLA, dtype="bf16", library=True)),
                    ("mla f32", *flash(**FLASH_MLA, dtype="f32",
                                       library=True))]
@@ -1539,9 +1600,11 @@ def phase2_lm():
                     torch.equal(a, b) for a, b in zip(kern(), got)):
                 raise AssertionError(f"{name} {label}: a repeat call "
                                      f"differs")
-            # timed: the path shape (the JSON row), gemma-2b's prefill,
-            # and the MLA and jamba shapes (0 launches on the paths)
-            if label not in ("path", "gemma", "gemma f32", *UNSERVED):
+            # timed: the path shape (the JSON row), gemma-2b's and
+            # moonshot's prefills, and the MLA and jamba shapes (0
+            # launches on the paths)
+            if label not in ("path", "gemma", "gemma f32", "moonshot",
+                             *UNSERVED):
                 continue
             ms, plain_ms = time_ms(kern), time_ms(plain)
             bound_ms, bound_by, f32_bound = bound
@@ -1577,10 +1640,15 @@ def phase2_lm():
 
 # -- phase 6 ----------------------------------------------------------------
 
+def _has_ssm(cfg):
+    from repro_torch.models import transformer as T
+    return any(mixer == "ssm" for mixer, _ in T.layer_types(cfg))
+
+
 def _lm_requests(cfg, arch, rng, lens=None, new_tokens=LM_NEW_TOKENS):
     """Prompts of the given lengths, or LM_REQUESTS of 256–2048 tokens
-    (multiples of the bucket for the SSM arch: the reference pads them
-    into the recurrence)."""
+    (multiples of the bucket for an arch with Mamba layers: the reference
+    pads them into the recurrence)."""
     import numpy as np
     from repro_torch.launch.serve import Request
 
@@ -1589,7 +1657,7 @@ def _lm_requests(cfg, arch, rng, lens=None, new_tokens=LM_NEW_TOKENS):
     for i in range(LM_REQUESTS if lens is None else len(lens)):
         if lens is not None:
             plen = lens[i]
-        elif arch.startswith("mamba"):
+        elif _has_ssm(cfg):
             plen = LM_BUCKET * int(rng.integers(lo // LM_BUCKET,
                                                 hi // LM_BUCKET + 1))
         else:
@@ -1599,9 +1667,12 @@ def _lm_requests(cfg, arch, rng, lens=None, new_tokens=LM_NEW_TOKENS):
     return reqs
 
 
-def _serve_full(arch, lens=None, new_tokens=LM_NEW_TOKENS):
+def _serve_full(arch, lens=None, new_tokens=LM_NEW_TOKENS, phase="6",
+                groups=None):
     """One full-width arch on the card, serving ``lens`` prompts (the
-    seed's 6 when None); returns its kernel launches."""
+    seed's 6 when None); returns its kernel launches.  ``groups`` splits
+    the profiled prefill's and decode step's device time (see
+    ``profile_device``)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1620,12 +1691,14 @@ def _serve_full(arch, lens=None, new_tokens=LM_NEW_TOKENS):
     torch.cuda.synchronize()
     if server.device.type != "cuda":
         raise AssertionError(f"server on {server.device}")
-    print(f"phase 6: {arch}: {cfg.param_count() / 1e9:.3f}e9 parameters in "
+    print(f"phase {phase}: {arch}: {cfg.param_count() / 1e9:.3f}e9 "
+          f"parameters in "
           f"{cfg.param_dtype}, {cfg.num_layers} layers, drawn on the card in "
           f"{time.perf_counter() - t0:.2f} s")
     reqs = _lm_requests(cfg, arch, np.random.default_rng(LM_SEED), lens,
                         new_tokens)
-    print(f"phase 6: {arch}: prompt lengths {[len(r.prompt) for r in reqs]}")
+    print(f"phase {phase}: {arch}: prompt lengths "
+          f"{[len(r.prompt) for r in reqs]}")
     with plain_on_card_forbidden(), ops.use_pallas_scoped(True):
         ops.reset_launch_counts()
         t0 = time.perf_counter()
@@ -1636,8 +1709,9 @@ def _serve_full(arch, lens=None, new_tokens=LM_NEW_TOKENS):
                                                        "ssd_chunk")}
     stats = server.stats()
     prefills = stats["prefills"]
-    print(f"phase 6: {arch}: {len(done)} requests answered in {wall:.3f} s; "
-          f"{prefills} prefills, {stats['prefill_seconds'] / prefills * 1e3:.2f}"
+    print(f"phase {phase}: {arch}: {len(done)} requests answered in "
+          f"{wall:.3f} s; {prefills} prefills, "
+          f"{stats['prefill_seconds'] / prefills * 1e3:.2f}"
           f" ms a request; {stats['decode_steps']} decode steps, "
           f"{stats['decode_tokens']} tokens, {server.last_decode_tok_s:.1f} "
           f"decode tok/s (EMA {stats['tok_s_ema']:.1f}); launches "
@@ -1651,7 +1725,8 @@ def _serve_full(arch, lens=None, new_tokens=LM_NEW_TOKENS):
             or not all(0 <= x < cfg.vocab_size for x in r.generated)
             for r in done):
         raise AssertionError(f"{arch}: malformed answers")
-    print(f"phase 6: {arch}: request 0 generated {done[0].generated[:8]}")
+    print(f"phase {phase}: {arch}: request 0 generated "
+          f"{done[0].generated[:8]}")
 
     # one profiled prefill of the longest prompt, one decode step
     sched = server.scheduler
@@ -1659,27 +1734,30 @@ def _serve_full(arch, lens=None, new_tokens=LM_NEW_TOKENS):
         0, cfg.vocab_size, (1, LM_PROMPT[1])), device="cuda")
     with ops.use_pallas_scoped(True):
         (logits, _), _, _ = profile_device(
-            6, f"{arch} prefill S={LM_PROMPT[1]}",
+            phase, f"{arch} prefill S={LM_PROMPT[1]}",
             lambda: T.lm_prefill_slot(server.params, cfg, {"tokens": toks},
-                                      sched.caches, 0), host_top=6)
+                                      sched.caches, 0), host_top=6,
+            groups=groups)
         if logits.shape != (1, cfg.vocab_size) or \
                 not torch.isfinite(logits).all():
             raise AssertionError(f"{arch}: malformed prefill logits")
         pos = torch.full((LM_BATCH,), LM_PROMPT[1], device="cuda")
         tok = torch.zeros((LM_BATCH, 1), dtype=torch.long, device="cuda")
-        profile_device(6, f"{arch} decode step (batch {LM_BATCH})",
+        profile_device(phase, f"{arch} decode step (batch {LM_BATCH})",
                        lambda: T.lm_decode_step(server.params, cfg, tok,
                                                 sched.caches, pos),
-                       host_top=6)
-    print(f"phase 6: {arch}: peak device memory "
+                       host_top=6, groups=groups)
+    print(f"phase {phase}: {arch}: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del server, sched
     torch.cuda.empty_cache()
     return launches
 
 
-def _reduced_card_vs_cpu(arch):
-    """Reduced f32 config, the same weights on the card and the CPU."""
+def _reduced_card_vs_cpu(arch, phase="6"):
+    """Reduced f32 config, the same weights on the card and the CPU.
+    Returns the card prefill's kernel launches: one B9 an attention
+    layer, one B10 a Mamba layer."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1699,16 +1777,27 @@ def _reduced_card_vs_cpu(arch):
     with ops.use_pallas_scoped(True):
         for dev, p in (("cuda", on_card), ("cpu", params)):
             caches = T.init_lm_cache(cfg, 2, 64, device=dev)
+            ops.reset_launch_counts()
             out, _ = T.lm_prefill(p, cfg, {"tokens": toks.to(dev)}, caches)
             logits[dev] = out.cpu()
+            if dev == "cuda":
+                launches = {k: ops.LAUNCH_COUNTS[k]
+                            for k in ("flash_attention", "ssd_chunk")}
+    mixers = [mixer for mixer, _ in T.layer_types(cfg)]
+    want = {"flash_attention": mixers.count("attn"),
+            "ssd_chunk": mixers.count("ssm")}
+    if launches != want:
+        raise AssertionError(f"reduced {arch}: launches {launches}, "
+                             f"expected {want}")
     err = float((logits["cuda"] - logits["cpu"]).abs().max()
                 / logits["cpu"].abs().max())
-    print(f"phase 6: reduced {arch}: prefill logits card vs CPU {err:.3e} "
+    print(f"phase {phase}: reduced {arch}: prefill logits card vs CPU "
+          f"{err:.3e} "
           f"of max |logit| (limit {LIMIT_LOGIT_REL:.0e})")
     if err > LIMIT_LOGIT_REL:
         raise AssertionError(f"reduced {arch}: logits differ by {err:.3e}")
 
-    lens = ([(16, 6), (40, 4), (24, 7)] if arch.startswith("mamba")
+    lens = ([(16, 6), (40, 4), (24, 7)] if _has_ssm(cfg)
             else [(5, 6), (37, 4), (18, 7)])
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n, _ in lens]
@@ -1725,12 +1814,16 @@ def _reduced_card_vs_cpu(arch):
     solo = {}
     for i in range(3):
         solo.update(serve("cuda", on_card, 1, [i]))
-    print(f"phase 6: reduced {arch}: card {card}; CPU same: {card == cpu}; "
+    print(f"phase {phase}: reduced {arch}: card {card}; CPU same: "
+          f"{card == cpu}; "
           f"batch-1 oracle same: {card == solo}")
     if card != cpu:
         raise AssertionError(f"reduced {arch}: card tokens != CPU tokens")
     if card != solo:
         raise AssertionError(f"reduced {arch}: batch != batch-1 oracle")
+    print(f"phase {phase}: reduced {arch}: card prefill launches "
+          f"{json.dumps(launches)}")
+    return launches
 
 
 def phase6():
@@ -1850,8 +1943,7 @@ def phase7a(x, labels):
     from repro_torch.launch.serve import CohortServer
     from repro_torch.streaming import StreamingSpec
 
-    config = CohortConfig(num_clusters=K, method="nystrom", use_pallas=True,
-                          num_landmarks=M)
+    config = CohortConfig(num_clusters=K, use_pallas=True, num_landmarks=M)
     first_load = _fresh_library()
     server = CohortServer(N, D, policy="dqn", state_features="system",
                           seed=ENGINE_SEED, config=config,
@@ -2060,8 +2152,7 @@ def phase7b(x):
     from repro_torch.launch.frontend import make_demo_frontend
     from repro_torch.streaming import StreamingSpec
 
-    config = CohortConfig(num_clusters=K, method="nystrom", use_pallas=True,
-                          num_landmarks=M)
+    config = CohortConfig(num_clusters=K, use_pallas=True, num_landmarks=M)
     tables = [x, x, blobs(np.random.default_rng(SEED + 11))[0],
               blobs(np.random.default_rng(SEED + 12))[0]]
     seeds = [ENGINE_SEED + i for i in range(TENANTS)]
@@ -2200,6 +2291,143 @@ def phase7(x, labels):
     return launches
 
 
+# -- phase 8 ----------------------------------------------------------------
+
+def phase8a(x, labels):
+    """The mesh route: ``CohortEngine(method="sharded", mesh=...)`` at the
+    path shape and at N + 3 rows, fused at f32, bf16 and int8, on
+    (cuda:0,) * D for D in SHARD_COUNTS (and every visible card when
+    there are more than one).  Returns the fused kernels' launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.cohort import CohortConfig, CohortEngine
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_cohort_mesh
+
+    cards = torch.cuda.device_count()
+    meshes = [(torch.device("cuda", 0),) * d for d in SHARD_COUNTS]
+    if cards > 1:
+        meshes.append(make_cohort_mesh())
+    print(f"phase 8a: {cards} visible CUDA device(s); meshes "
+          f"{[[str(d) for d in mesh] for mesh in meshes]}")
+    padded, padded_labels = blobs(np.random.default_rng(SEED + 13), n=N + 3)
+    launches = dict.fromkeys(FUSED, 0)
+    with plain_on_card_forbidden():
+        for table, truth in ((x, labels), (padded, padded_labels)):
+            for dtype in DTYPES:
+                config = CohortConfig(num_clusters=K, method="sharded",
+                                      use_pallas=True, num_landmarks=M,
+                                      affinity_dtype=dtype)
+                single = CohortEngine(
+                    dataclasses.replace(config, method="nystrom"),
+                    seed=ENGINE_SEED).select(table)
+                one = None
+                for mesh in meshes:
+                    shards = len(mesh)
+                    runs = []
+                    for _ in range(2):
+                        ops.reset_launch_counts()
+                        runs.append(CohortEngine(
+                            config, seed=ENGINE_SEED, mesh=mesh).select(table))
+                        torch.cuda.synchronize()
+                        counts = {n: ops.LAUNCH_COUNTS[n] for n in FUSED}
+                        want = {n: 1 if n == FUSED[0] else shards
+                                for n in FUSED}
+                        if counts != want:
+                            raise AssertionError(
+                                f"D={shards}: launches {counts}, expected "
+                                f"{want}")
+                        for n, c in counts.items():
+                            launches[n] += c
+                    res, again = runs
+                    label = f"N={len(table)} {dtype} D={shards}"
+                    if res.method != "sharded" or res.source != "cold":
+                        raise AssertionError(f"{label}: {res.method}/"
+                                             f"{res.source}")
+                    if not (np.array_equal(res.embedding, again.embedding)
+                            and np.array_equal(res.evals, again.evals)
+                            and np.array_equal(res.assign, again.assign)):
+                        raise AssertionError(f"{label}: a re-solve is not "
+                                             f"bit-identical")
+                    if shards == 1:
+                        one = res
+                        if not (np.array_equal(res.embedding,
+                                               single.embedding)
+                                and np.array_equal(res.evals, single.evals)):
+                            raise AssertionError(
+                                f"{label}: not nystrom_from_landmarks' "
+                                f"result bit for bit")
+                    ev_err = float(np.abs(res.evals[:K]
+                                          - one.evals[:K]).max())
+                    p = purity(res.assign, truth)
+                    same = same_partition(res.assign, one.assign)
+                    print(f"phase 8a: {label}: select {res.seconds:.4f} s, "
+                          f"leading evals vs D=1 {ev_err:.3e} (limit "
+                          f"{LIMIT_SHARD_EVALS:.0e}), purity {p:.5f}, "
+                          f"partition = D=1's: {same}; re-solve "
+                          f"bit-identical"
+                          + ("; = the single-device solve bit for bit"
+                             if shards == 1 else ""))
+                    if ev_err > LIMIT_SHARD_EVALS:
+                        raise AssertionError(f"{label}: evals differ by "
+                                             f"{ev_err:.3e}")
+                    if p < 0.95:
+                        raise AssertionError(f"{label}: purity {p:.4f}")
+                    if not same:
+                        raise AssertionError(f"{label}: partition differs "
+                                             f"from D=1's")
+    print(f"phase 8a: B1-B4 launches {json.dumps(launches)}")
+    return launches
+
+
+@contextlib.contextmanager
+def moe_ranges():
+    """Name the MoE layers' work for the profiler: ``record_function``
+    ranges around each MoE layer, its routing and its expert GEMMs, for
+    the duration of the block only."""
+    import torch
+    from repro_torch.models import moe as MOE
+
+    saved = {name: getattr(MOE, name)
+             for name in ("_moe_shard", "route", "_experts")}
+    labels = {"_moe_shard": "moe", "route": "moe.route",
+              "_experts": "moe.experts"}
+
+    def ranged(name, fn):
+        def wrapped(*args, **kwargs):
+            with torch.profiler.record_function(labels[name]):
+                return fn(*args, **kwargs)
+        return wrapped
+
+    for name, fn in saved.items():
+        setattr(MOE, name, ranged(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(MOE, name, fn)
+
+
+def phase8b():
+    """The MoE server: moonshot at full width on the card, then the three
+    MoE archs reduced, card against CPU.  Returns {kernel: launches}: the
+    full-width serving run's and reduced jamba's (B9 and B10 beside an
+    MoE FFN)."""
+    import torch
+
+    with moe_ranges():
+        launches = _serve_full(MOE_ARCH, phase="8b", groups=MOE_GROUPS)
+    for arch in MOE_REDUCED:
+        counts = _reduced_card_vs_cpu(arch, phase="8b")
+        if arch.startswith("jamba"):
+            for name, n in counts.items():
+                launches[name] += n
+    torch.cuda.empty_cache()
+    return launches
+
+
 def path_data():
     """(x, labels, gamma): the cohort server's N=10⁵ blobs on the host and
     the RBF width the server picks for them (on the card)."""
@@ -2240,6 +2468,10 @@ def main() -> int:
     launches.update(phase5(x, labels))
     launches.update(phase6())
     for name, n in phase7(x, labels).items():
+        launches[name] += n
+    for name, n in phase8a(x, labels).items():
+        launches[name] += n
+    for name, n in phase8b().items():
         launches[name] += n
     for name, rec in records.items():
         rec["launches"] = launches[name]

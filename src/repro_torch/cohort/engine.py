@@ -1,14 +1,16 @@
 """CohortEngine — the select–cluster–cache lifecycle, in PyTorch.
 
 Port of the JAX package's ``cohort/engine.py`` with the same public API:
-``CohortEngine(config, seed=..., device=...)``, ``engine.select(embeds)
--> CohortResult``, ``prepare`` / ``publish``, ``reset()``, ``stats``.
+``CohortEngine(config, seed=..., device=..., mesh=...)``,
+``engine.select(embeds) -> CohortResult``, ``prepare`` / ``publish``,
+``reset()``, ``stats``.
 
 * **method resolution** — ``dense`` below ``dense_cutoff`` clients, the
-  landmark (Nyström) path above it.  ``"sharded"`` runs the same
-  single-device Nyström core the JAX package runs on a 1-way mesh when
-  one device is visible; sharding across GPUs is not ported yet
-  (ROADMAP A10).
+  mesh route (``"sharded"``, ``cohort/sharded.py``) above it: client
+  rows spread over ``mesh``, a tuple of devices (default
+  ``launch.mesh.make_cohort_mesh(device=device)``: every visible card,
+  the engine's first; the CPU alone on the CPU).  On one device it is
+  the single-device ``"nystrom"`` solve bit for bit.
 * **determinism** — every solve draws its landmarks, k-means++ seeds and
   subspace ranges from CPU ``torch.Generator``s seeded from ``(seed,
   fingerprint(embeds)[:4])``, and the kernels sum in a fixed order, so
@@ -37,10 +39,12 @@ import torch
 
 from repro_torch.cohort.landmarks import LANDMARK_STRATEGIES, select_landmarks
 from repro_torch.cohort.nystrom import nystrom_from_landmarks
+from repro_torch.cohort.sharded import sharded_nystrom_from_landmarks
 from repro_torch.core import spectral as _spectral
 from repro_torch.core.kmeans import kmeans, pairwise_sq_dists
 from repro_torch.core.spectral import row_normalize
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import as_mesh, make_cohort_mesh
 
 _METHODS = ("auto", "dense", "nystrom", "sharded")
 _SKETCH_EPS = 1e-12
@@ -200,9 +204,10 @@ class CohortEngine:
     """
 
     def __init__(self, config: Optional[CohortConfig] = None, *,
-                 seed: int = 0, device=None):
+                 seed: int = 0, device=None, mesh=None):
         self.config = config or CohortConfig()
         self.device = resolve_device(device)
+        self._mesh = None if mesh is None else as_mesh(mesh)
         self.seed = int(seed)
         self._sketch_sign: Optional[np.ndarray] = None
         self._sketch_seed = seed ^ 0x5EED
@@ -249,6 +254,11 @@ class CohortEngine:
         if self.config.solver != "auto":
             return self.config.solver
         return "eigh" if m <= self.config.eigh_cutoff else "subspace"
+
+    def _cohort_mesh(self):
+        if self._mesh is None:
+            self._mesh = make_cohort_mesh(device=self.device)
+        return self._mesh
 
     # -- solve ----------------------------------------------------------
     def select(self, embeds, *, key: Optional[int] = None) -> CohortResult:
@@ -460,13 +470,18 @@ class CohortEngine:
 
         w_rank = (None if solver == "eigh"
                   else min(m, cfg.w_rank or max(8 * k, 64)))
-        # "sharded" runs the single-device core (the JAX 1-way mesh math);
-        # use_pallas routes the solve through the fused kernels
-        y, evals, mm_basis, w_basis = nystrom_from_landmarks(
-            x, idx, k, gamma, use_pallas=cfg.use_pallas,
-            fused=cfg.use_pallas, affinity_dtype=cfg.affinity_dtype,
-            w_solver=solver, w_rank=w_rank, mm_solver=solver,
+        kwargs = dict(
+            use_pallas=cfg.use_pallas, fused=cfg.use_pallas,
+            affinity_dtype=cfg.affinity_dtype, w_solver=solver,
+            w_rank=w_rank, mm_solver=solver,
             iters=cfg.warm_iters if warm_basis else cfg.cold_iters,
             w_q0=basis(st.w_basis), mm_q0=basis(st.mm_basis),
             generator=solve_gen, block_rows=cfg.block_rows)
+        # use_pallas routes the solve through the fused kernels
+        if method == "sharded":
+            y, evals, mm_basis, w_basis = sharded_nystrom_from_landmarks(
+                x, idx, k, gamma, self._cohort_mesh(), **kwargs)
+        else:
+            y, evals, mm_basis, w_basis = nystrom_from_landmarks(
+                x, idx, k, gamma, **kwargs)
         return y, evals, warm, idx, gamma, w_basis, mm_basis

@@ -17,9 +17,12 @@ projector) stay ``torch.matmul``.  The tiled summation order rotates the
 degenerate leading eigenspace, so compare rotation-invariant quantities
 (eigenvalues, the ``y·yᵀ`` projector, partitions), not raw embeddings.
 
-The mesh-sharded twin of this module (``cohort/sharded.py``) is not
-ported yet (ROADMAP A10): the engine's ``"sharded"`` method runs this
-single-device core, the same math a 1-way mesh runs.
+Both cores are written as steps split at the JAX package's two ``psum``
+points: the column sum ``col`` (m,) and the rotated Gram (m, m) are the
+only quantities summed over client rows.  The mesh-sharded twin
+(``cohort/sharded.py``) runs the row-sized steps once per shard and the
+m-sized ones (``_degree_direction``, ``_solve_operator``,
+``_extension_factors``) once, between the two sums.
 """
 
 from __future__ import annotations
@@ -35,6 +38,34 @@ from repro_torch.kernels import ops as kernel_ops
 _EPS = 1e-12
 
 
+def _degree_direction(w_isqrt, col):
+    """``u = W⁻¹ᐟ²(W⁻¹ᐟ² col)``: the approximate degrees are ``d̂ = C u``."""
+    return w_isqrt @ (w_isqrt @ col)
+
+
+def _degree_normalize(c, u):
+    """S = C with each row scaled by ``rsqrt(d̂)``, ``d̂ = C u``."""
+    return c * torch.rsqrt(torch.clamp_min(c @ u, _EPS))[:, None]
+
+
+def _solve_operator(mm, k: int, *, mm_solver: str, mm_iters: int, mm_q0,
+                    generator, block_rows: int, use_pallas: bool = False):
+    """Symmetrize the summed operator M and take its top-k eigenpairs:
+    ``(lam descending, basis (m, k))``."""
+    mm = 0.5 * (mm + mm.T)
+    r = mm.shape[0] if mm_solver == "eigh" else k
+    lam, top = topk_eigh(mm, r, solver=mm_solver, iters=mm_iters, q0=mm_q0,
+                         generator=generator, block_rows=block_rows,
+                         use_pallas=use_pallas)
+    return lam, top[:, :k]
+
+
+def _extension_factors(w_isqrt, basis, lam, k: int):
+    """``(W⁻¹ᐟ² basis, rsqrt(λ))``: V = S (W⁻¹ᐟ² basis) diag(rsqrt(λ))."""
+    return (w_isqrt @ basis,
+            torch.rsqrt(torch.clamp_min(lam[:k], _EPS))[None, :])
+
+
 def _nystrom_core(c, w_isqrt, k: int, *, mm_solver: str = "eigh",
                   mm_iters: int = 30, mm_q0=None, generator=None,
                   block_rows: int = 2048):
@@ -43,18 +74,13 @@ def _nystrom_core(c, w_isqrt, k: int, *, mm_solver: str = "eigh",
     Returns ``(y_rownormed, evals_of_L_norm_ascending, mm_basis)``.
     """
     col = c.sum(0)                                             # (m,)
-    # approximate degrees d̂ = C W⁺ (Cᵀ 1); W⁺ = W^{-1/2} W^{-1/2}
-    d_hat = c @ (w_isqrt @ (w_isqrt @ col))
-    s = c * torch.rsqrt(torch.clamp_min(d_hat, _EPS))[:, None]
+    s = _degree_normalize(c, _degree_direction(w_isqrt, col))
     mm = w_isqrt @ (s.T @ s) @ w_isqrt
-    mm = 0.5 * (mm + mm.T)
-    r = mm.shape[0] if mm_solver == "eigh" else k
-    lam, top = topk_eigh(mm, r, solver=mm_solver, iters=mm_iters, q0=mm_q0,
-                         generator=generator, block_rows=block_rows)
-    basis = top[:, :k]
-    v = (s @ (w_isqrt @ basis)) * torch.rsqrt(
-        torch.clamp_min(lam[:k], _EPS))[None, :]
-    return row_normalize(v), 1.0 - lam, basis
+    lam, basis = _solve_operator(mm, k, mm_solver=mm_solver,
+                                 mm_iters=mm_iters, mm_q0=mm_q0,
+                                 generator=generator, block_rows=block_rows)
+    wb, scale = _extension_factors(w_isqrt, basis, lam, k)
+    return row_normalize((s @ wb) * scale), 1.0 - lam, basis
 
 
 def _nystrom_core_fused(x, z, gamma, w_isqrt, k: int, *, mask=None,
@@ -69,20 +95,23 @@ def _nystrom_core_fused(x, z, gamma, w_isqrt, k: int, *, mask=None,
     """
     col = kernel_ops.nystrom_colsum(x, z, gamma, mask,
                                     affinity_dtype=affinity_dtype)
-    u = w_isqrt @ (w_isqrt @ col)                              # (m,)
+    u = _degree_direction(w_isqrt, col)                        # (m,)
     mm = kernel_ops.nystrom_gram(x, z, gamma, u, w_isqrt, mask,
                                  affinity_dtype=affinity_dtype)
-    mm = 0.5 * (mm + mm.T)
-    r = mm.shape[0] if mm_solver == "eigh" else k
-    lam, top = topk_eigh(mm, r, solver=mm_solver, iters=mm_iters, q0=mm_q0,
-                         generator=generator, block_rows=block_rows,
-                         use_pallas=True)
-    basis = top[:, :k]
-    proj = (w_isqrt @ basis) * torch.rsqrt(
-        torch.clamp_min(lam[:k], _EPS))[None, :]               # (m, k)
-    v = kernel_ops.nystrom_extension(x, z, gamma, u, proj.contiguous(), mask,
+    lam, basis = _solve_operator(mm, k, mm_solver=mm_solver,
+                                 mm_iters=mm_iters, mm_q0=mm_q0,
+                                 generator=generator, block_rows=block_rows,
+                                 use_pallas=True)
+    proj = _fused_projection(w_isqrt, basis, lam, k)           # (m, k)
+    v = kernel_ops.nystrom_extension(x, z, gamma, u, proj, mask,
                                      affinity_dtype=affinity_dtype)
     return v, 1.0 - lam, basis
+
+
+def _fused_projection(w_isqrt, basis, lam, k: int):
+    """The extension kernel's (m, k) projector ``W⁻¹ᐟ² basis rsqrt(λ)``."""
+    wb, scale = _extension_factors(w_isqrt, basis, lam, k)
+    return (wb * scale).contiguous()
 
 
 def landmark_block_isqrt(z, gamma, *, w=None, w_solver: str = "eigh",

@@ -114,7 +114,10 @@ def lm_params_from_jax(params_np: Mapping, cfg) -> dict:
     a leading ``repeats`` axis, dense ``w`` as (in, out).  The port keeps
     the (in, out) layout and lists the layers in order, so segment s's
     repeat r, period position j becomes ``layers[...]`` in the order the
-    JAX scan applies them.
+    JAX scan applies them.  An MoE block's ``moe`` leaves (the f32
+    router, the (E, ·, ·) experts and the shared MLP) keep their layout
+    too.  The multi-token-prediction heads (deepseek-v3's, which need
+    MLA) raise.
     """
     from repro_torch.models.transformer import _check_supported, build_plan
 

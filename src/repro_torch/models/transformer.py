@@ -1,10 +1,12 @@
 """Decoder-only LM over attention and SSM blocks: prefill and decode.
 
 Port of the serving half of the JAX package's ``models/transformer.py``
-for the ``attn`` and ``ssm`` mixers with a dense or no FFN (``qwen2-7b``,
-``mamba2-2.7b`` and the other dense archs).  MoE, MLA, the
-encoder-decoder and prefix embeddings raise ``NotImplementedError``; the
-training loss waits for the LM-training slice.
+for the ``attn`` and ``ssm`` mixers with a dense, MoE (``models/moe.py``)
+or no FFN: ``qwen2-7b``, ``mamba2-2.7b``, the other dense archs,
+``moonshot-v1-16b-a3b``, ``llama4-scout-17b-a16e`` and ``jamba-v0.1-52b``.
+MLA, the encoder-decoder and prefix embeddings raise
+``NotImplementedError``; the training loss (and with it the MoE
+auxiliary losses) waits for the LM-training slice.
 
 Parameters are a dict like the JAX package's, except that the layers are
 a list in layer order (``params["layers"][i]`` is layer i's block dict)
@@ -22,11 +24,12 @@ import torch
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
+from repro_torch.models import moe as MOE
 
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP A11)")
+        f"{what} is not ported to repro_torch yet (ROADMAP §A6)")
 
 
 # -- layer plan ---------------------------------------------------------------
@@ -80,8 +83,6 @@ def _check_supported(cfg):
     for mixer, ffn in layer_types(cfg):
         if mixer == "mla":
             raise _not_ported("MLA attention")
-        if ffn == "moe":
-            raise _not_ported("MoE FFN layers")
 
 
 # -- blocks -------------------------------------------------------------------
@@ -98,6 +99,10 @@ def _block_init(gen, cfg, mixer, ffn, device):
                                        device=device)
         p["ffn"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, act=cfg.mlp_act,
                               dtype=cfg.param_dtype, device=device)
+    elif ffn == "moe":
+        p["ffn_norm"] = L.rmsnorm_init(cfg.d_model, dtype=cfg.param_dtype,
+                                       device=device)
+        p["moe"] = MOE.moe_init(gen, cfg, device=device)
     return p
 
 
@@ -120,6 +125,10 @@ def _block_apply(p, cfg, h, mixer, ffn, *, positions, window, cache=None,
     if ffn == "dense":
         hn = L.rmsnorm(p["ffn_norm"], h, cfg.norm_eps)
         h = h + L.mlp(p["ffn"], hn, act=cfg.mlp_act).to(h.dtype)
+    elif ffn == "moe":
+        hn = L.rmsnorm(p["ffn_norm"], h, cfg.norm_eps)
+        out, _ = MOE.moe_apply(p["moe"], hn, cfg)    # serving: no aux loss
+        h = h + out.to(h.dtype)
     return h, new_cache
 
 
@@ -128,8 +137,10 @@ def _block_apply(p, cfg, h, mixer, ffn, *, positions, window, cache=None,
 def init_lm(gen, cfg, *, device=None):
     """Random LM parameters drawn from ``gen`` (a generator on ``device``).
 
-    bf16 configs are drawn in f32 one tensor at a time and cast, so the
-    peak is the parameters plus the largest tensor in f32.
+    bf16 configs are drawn in f32 one tensor at a time and cast (an MoE
+    layer's experts one (E, ·, ·) tensor at a time), so the peak is the
+    parameters plus the largest tensor in f32: at moonshot-v1-16b-a3b the
+    (163840, 2048) embedding, 1.34 GB.
     """
     _check_supported(cfg)
     params = {"embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model,

@@ -490,9 +490,12 @@ def test_nystrom_gram_repeat_call_is_bit_identical(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["qwen2-7b", "mamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["qwen2-7b", "mamba2-2.7b",
+                                  "jamba-v0.1-52b", "moonshot-v1-16b-a3b"])
 def test_reduced_lm_prefill_on_the_card_matches_the_cpu(cuda_device, arch):
-    """The reduced f32 LM with the kernels on: card logits = CPU logits."""
+    """The reduced f32 LM with the kernels on: card logits = CPU logits;
+    B9 launches once an attention layer, B10 once a Mamba layer (jamba
+    has one of each, beside an MoE FFN)."""
     cfg = get_config(arch).reduced()
     params = T.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
     toks = torch.tensor(np.random.default_rng(7).integers(
@@ -506,8 +509,9 @@ def test_reduced_lm_prefill_on_the_card_matches_the_cpu(cuda_device, arch):
                                      {"tokens": toks.to(dev)}, caches)
             out[str(dev)] = logits.cpu()
             launches = dict(ops.LAUNCH_COUNTS)
-    name = "flash_attention" if arch == "qwen2-7b" else "ssd_chunk"
-    assert launches[name] == cfg.num_layers
+    mixers = [mixer for mixer, _ in T.layer_types(cfg)]
+    assert launches["flash_attention"] == mixers.count("attn")
+    assert launches["ssd_chunk"] == mixers.count("ssm")
     want = out["cpu"]
     err = float((out["cuda"] - want).abs().max() / want.abs().max())
     assert err <= 1e-4
@@ -563,3 +567,40 @@ def test_background_warm_equals_inline_select_on_the_card(cuda_device):
         again = inline.select(table)
         assert again.source == res.source
         np.testing.assert_array_equal(again.assign, res.assign)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sharded_four_way_on_one_card_matches_one_way(cuda_device, dtype):
+    """The mesh route on (cuda:0,) * 4 at a row count that pads: B1 once,
+    B2-B4 once a shard; the leading eigenvalues within 1e-4 of the 1-way
+    solve's, the same partition, and a bit-identical re-solve."""
+    from repro_torch.cohort import sharded_nystrom_from_landmarks
+    from repro_torch.core.kmeans import kmeans
+
+    n, d, k, m = 20003, 8, 5, 256
+    rng = np.random.default_rng(5)
+    centers = rng.normal(size=(k, d)).astype(np.float32) * 8
+    x = torch.tensor(centers[rng.integers(0, k, n)] + rng.normal(
+        size=(n, d)).astype(np.float32), device=cuda_device)
+    idx = torch.tensor(rng.choice(n, m, replace=False), device=cuda_device)
+    kw = dict(fused=True, use_pallas=True, affinity_dtype=dtype)
+    runs = {}
+    for shards in (1, 4, 4):
+        ops.reset_launch_counts()
+        runs.setdefault(shards, []).append(sharded_nystrom_from_landmarks(
+            x, idx, k, 0.02, (cuda_device,) * shards, **kw))
+        torch.cuda.synchronize()
+        assert ops.LAUNCH_COUNTS["quantized_cross_affinity"] == 1
+        assert all(ops.LAUNCH_COUNTS[name] == shards for name in FUSED[1:])
+    (one,), (four, again) = runs[1], runs[4]
+    assert all(torch.equal(a, b) for a, b in zip(four, again))
+    assert float((four[1][:k] - one[1][:k]).abs().max()) <= 1e-4
+
+    def partition(y):
+        return kmeans(torch.Generator().manual_seed(0), y, k)[0].cpu()
+
+    a, b = partition(four[0]), partition(one[0])
+    # equal up to relabelling: the (a, b) label pairs map one to one
+    pairs = torch.unique(a * k + b).numel()
+    assert pairs == torch.unique(a).numel() == torch.unique(b).numel()
