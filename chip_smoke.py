@@ -21,8 +21,9 @@ Phases (any failure raises and the script exits non-zero):
    repeat call and for every block_rows; flash attention (B9) at the
    qwen2-7b prefill's shape (q (1, 2048, 28, 128) against a 2112-row
    cache), at gemma-2b's (q (1, 2048, 8, 256) against one KV head), at
-   moonshot-v1-16b-a3b's (16 heads over 16, dh 128) and
-   at deepseek-v3's MLA prefill (128 heads, q/k 192, v 128), in bf16 and
+   moonshot-v1-16b-a3b's (16 heads over 16, dh 128), at
+   internvl2-26b's (48 heads over 8, dh 128) and at deepseek-v3's MLA
+   prefill (128 heads, q/k 192, v 128; bf16 and f32), in bf16 and
    in f32, and the SSD chunk (B10) at the mamba2-2.7b prefill's (8
    chunks of 256, 80 heads, P=64, N=128) and jamba-v0.1's (128 heads,
    P=64, N=16), each also at ragged shapes (B9's MLA widths with an
@@ -121,6 +122,21 @@ Phases (any failure raises and the script exits non-zero):
    B9, the MoE layers' routing and expert GEMMs, and the host); then
    moonshot, llama4-scout and jamba reduced, card against CPU as in
    phase 6 (jamba: one B9 and one B10 launch a prefill).
+9. MLA and prefix embeddings.  (a) deepseek-v3-671b through ``Server``
+   at full width in bf16, depth cut to 4 layers (the 3 dense MLA layers
+   and the first MoE layer, 256 experts top-8) plus the MTP head, phase
+   6's slots and requests: exactly 4 B9 launches a prefill, all at (dh,
+   dv) = (192, 128) over 128 heads, peak memory, a profiled prefill and
+   decode step.  (b) One full-width MLA block in f32: the expanded
+   prefill at S = 2048 (B9 on the card, its plain version on the CPU)
+   and one absorbed decode step at position 2048, card against CPU
+   within 1e-4 of the largest entry, and the card's absorbed decode
+   against its expanded prefill of S + 1 tokens.  (c) internvl2-26b at
+   full width and depth in bf16 through ``Server`` on token prompts (48
+   B9 launches a prefill at 48 heads over 8), then one ``lm_prefill`` of
+   256 prefix embeddings and 1792 tokens (48 B9 launches, finite
+   logits, its time).  (d) Both archs reduced, card against CPU as in
+   phase 6; internvl2 also with its 4 prefix embeddings.
 
 It prints the kernel table as one JSON line, then the card's name and
 power limit, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -245,13 +261,16 @@ FLASH_PATH = dict(B=1, S=2048, T=LM_MAX_SEQ, H=28, K=4, dh=128)
 # B9 at gemma-2b's prefill: 8 heads over one KV head (MQA), dh 256
 FLASH_GEMMA = dict(B=1, S=2048, T=LM_MAX_SEQ, H=8, K=1, dh=256)
 SSD_PATH = dict(B=1, c=8, Q=256, H=80, P=64, G=1, N=128)
-# Shapes no served path reaches yet (MLA is not ported; full-width
-# jamba-v0.1, 51.5e9 parameters, does not fit one card), held and timed
-# in phase 2 with 0 launches on the paths: B9 at deepseek-v3's MLA
-# prefill, its 128 heads expanded, q/k 192 wide (128 + 64 RoPE), v 128,
-# scale 1/sqrt(192); B10 at jamba-v0.1's Mamba layer (128 heads of P =
-# 64 in one group, N = 16, chunks of 256)
+# B9 at deepseek-v3's MLA prefill (phase 9): its 128 heads expanded over
+# this call's own keys, q/k 192 wide (128 + 64 RoPE), v 128, scale
+# 1/sqrt(192)
 FLASH_MLA = dict(B=1, S=2048, T=2048, H=128, K=128, dh=192, dv=128)
+# B9 at internvl2-26b's prefill (phase 9): 48 heads over 8, dh 128
+FLASH_INTERNVL = dict(B=1, S=2048, T=LM_MAX_SEQ, H=48, K=8, dh=128)
+# A shape no served path reaches (full-width jamba-v0.1, 51.5e9
+# parameters, does not fit one card), held and timed in phase 2 with 0
+# launches on the paths: B10 at jamba-v0.1's Mamba layer (128 heads of P
+# = 64 in one group, N = 16, chunks of 256)
 SSD_JAMBA = dict(B=1, c=8, Q=256, H=128, P=64, G=1, N=16)
 # B9 at moonshot-v1-16b-a3b's prefill (phase 8b): 16 heads over 16 (MHA)
 FLASH_MOONSHOT = dict(B=1, S=2048, T=LM_MAX_SEQ, H=16, K=16, dh=128)
@@ -272,6 +291,21 @@ MOE_GROUPS = {"B9 (flash_attention)": ("kernel", "flash"),
               "MoE layers": ("range", "moe"),
               "  routing (router, top-k, sort)": ("range", "moe.route"),
               "  expert GEMMs": ("range", "moe.experts")}
+# phase 9: MLA and prefix embeddings.  (a) deepseek-v3-671b at full
+# width in bf16, depth cut to its 3 dense MLA layers and its first MoE
+# layer (256 experts top-8, 1 shared, d_ff 2048), with the depth-1 MTP
+# head: the 61 layers (671e9 parameters) do not fit one card, and a
+# second MoE layer would put the peak near 80 GB.  (b) one full-width MLA
+# block in f32, card against CPU: the expanded prefill of MLA_BLOCK_S
+# tokens (B9), one absorbed decode step after it, and that step against
+# the expanded prefill of MLA_BLOCK_S + 1 tokens.  (c) internvl2-26b at
+# full width and depth in bf16 through Server on token prompts, then one
+# prefill of VLM_PREFIX prefix embeddings and VLM_TEXT tokens.  (d) both
+# archs reduced, card against CPU.
+MLA_ARCH, MLA_LAYERS = "deepseek-v3-671b", 4
+MLA_BLOCK_S = 2048
+VLM_ARCH, VLM_PREFIX, VLM_TEXT = "internvl2-26b", 256, 1792
+LIMIT_MLA_REL = 1e-4     # the f32 MLA block: card vs CPU, absorbed vs expanded
 LIMIT_F32_REL = 1e-5     # f32 output: summation order only
 # bf16 output, elementwise: |got - want| <= 2^-7 |want| + 1e-3 rms(want).
 # Both sides round an f32 result to bf16, so they may differ by one unit
@@ -1510,7 +1544,9 @@ def _lm_kernel_cases():
                                        library=True)),
                    ("mla", *flash(**FLASH_MLA, dtype="bf16", library=True)),
                    ("mla f32", *flash(**FLASH_MLA, dtype="f32",
-                                      library=True))]
+                                      library=True)),
+                   ("internvl", *flash(**FLASH_INTERNVL, dtype="bf16",
+                                       library=True))]
     for dtype in ("f32", "bf16"):
         flash_cases += [
             ("ragged", *flash(2, 33, 33, 4, 4, 32, dtype)),          # G = 1
@@ -1540,8 +1576,8 @@ def _lm_kernel_cases():
     return {"flash_attention": flash_cases, "ssd_chunk": ssd_cases}
 
 
-# phase 2's LM cases at shapes no served path reaches yet
-UNSERVED = ("mla", "mla f32", "jamba")
+# phase 2's LM cases at shapes no served path reaches
+UNSERVED = ("jamba",)
 
 
 def _case_error(got, want, limit):
@@ -1600,11 +1636,11 @@ def phase2_lm():
                     torch.equal(a, b) for a, b in zip(kern(), got)):
                 raise AssertionError(f"{name} {label}: a repeat call "
                                      f"differs")
-            # timed: the path shape (the JSON row), gemma-2b's and
-            # moonshot's prefills, and the MLA and jamba shapes (0
-            # launches on the paths)
+            # timed: the path shape (the JSON row), gemma-2b's,
+            # moonshot's, deepseek-v3's (MLA) and internvl2-26b's
+            # prefills, and the jamba shape (0 launches on the paths)
             if label not in ("path", "gemma", "gemma f32", "moonshot",
-                             *UNSERVED):
+                             "mla", "mla f32", "internvl", *UNSERVED):
                 continue
             ms, plain_ms = time_ms(kern), time_ms(plain)
             bound_ms, bound_by, f32_bound = bound
@@ -1667,12 +1703,43 @@ def _lm_requests(cfg, arch, rng, lens=None, new_tokens=LM_NEW_TOKENS):
     return reqs
 
 
+@contextlib.contextmanager
+def flash_shapes():
+    """Record (dh, dv, H, K) of every B9 call on the card inside the
+    block (the list it yields)."""
+    from repro_torch.kernels import flash_attention as FA
+
+    calls = []
+    real = FA.flash_attention
+
+    def recorded(q, k, v, **kw):
+        if q.is_cuda:
+            calls.append((q.shape[3], v.shape[3], q.shape[2], k.shape[2]))
+        return real(q, k, v, **kw)
+
+    FA.flash_attention = recorded
+    try:
+        yield calls
+    finally:
+        FA.flash_attention = real
+
+
+def _numel(tree):
+    if isinstance(tree, dict):
+        return sum(_numel(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_numel(v) for v in tree)
+    return tree.numel()
+
+
 def _serve_full(arch, lens=None, new_tokens=LM_NEW_TOKENS, phase="6",
-                groups=None):
-    """One full-width arch on the card, serving ``lens`` prompts (the
-    seed's 6 when None); returns its kernel launches.  ``groups`` splits
-    the profiled prefill's and decode step's device time (see
-    ``profile_device``)."""
+                groups=None, cfg=None, flash_shape=None, after=None):
+    """One full-width arch on the card (``cfg``, or the arch's config),
+    serving ``lens`` prompts (the seed's 6 when None); returns its kernel
+    launches.  ``groups`` splits the profiled prefill's and decode step's
+    device time (see ``profile_device``); ``flash_shape`` is the (dh, dv,
+    H, K) every served B9 launch must have; ``after(server)`` runs before
+    the server is freed."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1680,8 +1747,8 @@ def _serve_full(arch, lens=None, new_tokens=LM_NEW_TOKENS, phase="6",
     from repro_torch.launch.serve import Server
     from repro_torch.models import transformer as T
 
-    cfg = get_config(arch)
-    attn_layers = sum(m == "attn" for m, _ in T.layer_types(cfg))
+    cfg = get_config(arch) if cfg is None else cfg
+    attn_layers = sum(m in ("attn", "mla") for m, _ in T.layer_types(cfg))
     ssm_layers = sum(m == "ssm" for m, _ in T.layer_types(cfg))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1694,12 +1761,15 @@ def _serve_full(arch, lens=None, new_tokens=LM_NEW_TOKENS, phase="6",
     print(f"phase {phase}: {arch}: {cfg.param_count() / 1e9:.3f}e9 "
           f"parameters in "
           f"{cfg.param_dtype}, {cfg.num_layers} layers, drawn on the card in "
-          f"{time.perf_counter() - t0:.2f} s")
+          f"{time.perf_counter() - t0:.2f} s ({_numel(server.params) / 1e9:.3f}"
+          f"e9 in the tree; {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"allocated)")
     reqs = _lm_requests(cfg, arch, np.random.default_rng(LM_SEED), lens,
                         new_tokens)
     print(f"phase {phase}: {arch}: prompt lengths "
           f"{[len(r.prompt) for r in reqs]}")
-    with plain_on_card_forbidden(), ops.use_pallas_scoped(True):
+    with plain_on_card_forbidden(), ops.use_pallas_scoped(True), \
+            flash_shapes() as shapes:
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         done = server.serve_batch(reqs)
@@ -1720,6 +1790,12 @@ def _serve_full(arch, lens=None, new_tokens=LM_NEW_TOKENS, phase="6",
             "ssd_chunk": ssm_layers * prefills}
     if launches != want:
         raise AssertionError(f"{arch}: launches {launches}, expected {want}")
+    seen = sorted(set(shapes))
+    print(f"phase {phase}: {arch}: B9 (dh, dv, H, K) of the served "
+          f"launches: {seen}")
+    if flash_shape is not None and seen != [flash_shape]:
+        raise AssertionError(f"{arch}: B9 shapes {seen}, expected "
+                             f"{flash_shape}")
     if len(done) != len(reqs) or stats["truncated"] or any(
             len(r.generated) != new_tokens
             or not all(0 <= x < cfg.vocab_size for x in r.generated)
@@ -1749,6 +1825,8 @@ def _serve_full(arch, lens=None, new_tokens=LM_NEW_TOKENS, phase="6",
                        host_top=6, groups=groups)
     print(f"phase {phase}: {arch}: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if after is not None:
+        after(server)
     del server, sched
     torch.cuda.empty_cache()
     return launches
@@ -1784,7 +1862,7 @@ def _reduced_card_vs_cpu(arch, phase="6"):
                 launches = {k: ops.LAUNCH_COUNTS[k]
                             for k in ("flash_attention", "ssd_chunk")}
     mixers = [mixer for mixer, _ in T.layer_types(cfg)]
-    want = {"flash_attention": mixers.count("attn"),
+    want = {"flash_attention": mixers.count("attn") + mixers.count("mla"),
             "ssd_chunk": mixers.count("ssm")}
     if launches != want:
         raise AssertionError(f"reduced {arch}: launches {launches}, "
@@ -1796,6 +1874,29 @@ def _reduced_card_vs_cpu(arch, phase="6"):
           f"of max |logit| (limit {LIMIT_LOGIT_REL:.0e})")
     if err > LIMIT_LOGIT_REL:
         raise AssertionError(f"reduced {arch}: logits differ by {err:.3e}")
+    if cfg.num_prefix_embeds:
+        # a VLM prompt: the prefix embeddings, then the tokens
+        pfx = torch.tensor(rng.normal(size=(2, cfg.num_prefix_embeds,
+                                            cfg.d_model)) * 0.02,
+                           dtype=torch.float32)
+        with ops.use_pallas_scoped(True):
+            for dev, p in (("cuda", on_card), ("cpu", params)):
+                ops.reset_launch_counts()
+                out, _ = T.lm_prefill(
+                    p, cfg, {"tokens": toks.to(dev),
+                             "prefix_embeds": pfx.to(dev)},
+                    T.init_lm_cache(cfg, 2, 64, device=dev))
+                logits[dev] = out.cpu()
+                if dev == "cuda":
+                    n = ops.LAUNCH_COUNTS["flash_attention"]
+        err = float((logits["cuda"] - logits["cpu"]).abs().max()
+                    / logits["cpu"].abs().max())
+        print(f"phase {phase}: reduced {arch}: prefill with "
+              f"{cfg.num_prefix_embeds} prefix embeddings, card vs CPU "
+              f"{err:.3e} of max |logit|; {n} B9 launches")
+        if err > LIMIT_LOGIT_REL or n != want["flash_attention"]:
+            raise AssertionError(f"reduced {arch}: prefix prefill differs "
+                                 f"by {err:.3e}, {n} B9 launches")
 
     lens = ([(16, 6), (40, 4), (24, 7)] if _has_ssm(cfg)
             else [(5, 6), (37, 4), (18, 7)])
@@ -2428,6 +2529,156 @@ def phase8b():
     return launches
 
 
+def _mla_cut():
+    """deepseek-v3-671b's config cut to MLA_LAYERS layers; prints the
+    cut."""
+    import dataclasses
+    from repro_torch.configs import get_config
+
+    full = get_config(MLA_ARCH)
+    cfg = dataclasses.replace(full, num_layers=MLA_LAYERS)
+    print(f"phase 9: {MLA_ARCH} reduced: " + json.dumps({
+        "num_layers": [full.num_layers, cfg.num_layers],
+        "param_count": [full.param_count(), cfg.param_count()],
+        "why": "the 61 layers do not fit one card; the cut keeps the 3 "
+               "dense MLA layers, the first MoE layer and the MTP head"}))
+    return cfg
+
+
+def _mla_block():
+    """One full-width MLA block in f32: the card's expanded prefill (B9)
+    and absorbed decode against the CPU's, and the absorbed decode
+    against the expanded prefill one token longer.  Returns the B9
+    launches of the card's prefill."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import mla as MLA
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config(MLA_ARCH), num_layers=1,
+                              param_dtype="float32",
+                              compute_dtype="float32")
+    params = MLA.mla_init(torch.Generator().manual_seed(LM_SEED), cfg,
+                          device="cpu")
+    on_card = T.params_to(params, "cuda")
+    S = MLA_BLOCK_S
+    x = torch.tensor(np.random.default_rng(LM_SEED + 3).normal(
+        size=(1, S + 1, cfg.d_model)), dtype=torch.float32)
+    print(f"phase 9: MLA block: {_numel(params) / 1e9:.4f}e9 parameters "
+          f"in f32 ({cfg.num_heads} heads, q_lora {cfg.mla.q_lora_rank}, "
+          f"kv_lora {cfg.mla.kv_lora_rank}, d_model {cfg.d_model})")
+    outs = {}
+    for dev, p in (("cuda", on_card), ("cpu", params)):
+        cache = MLA.init_mla_cache(cfg, 1, LM_MAX_SEQ, device=dev)
+        guard = plain_on_card_forbidden() if dev == "cuda" \
+            else contextlib.nullcontext()
+        with guard, ops.use_pallas_scoped(True):
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            pre, _ = MLA.mla_attention(
+                p, x[:, :S].to(dev), cfg,
+                positions=torch.arange(S, device=dev), cache=cache,
+                cache_pos=0)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches = ops.LAUNCH_COUNTS["flash_attention"]
+            t1 = time.perf_counter()
+            step, _ = MLA.mla_attention(
+                p, x[:, S:].to(dev), cfg,
+                positions=S + torch.arange(1, device=dev), cache=cache,
+                cache_pos=S)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                expanded, _ = MLA.mla_attention(
+                    p, x.to(dev), cfg,
+                    positions=torch.arange(S + 1, device=dev))
+                outs["expanded"] = expanded[:, -1].cpu()
+            t2 = time.perf_counter()
+        outs[dev] = (pre.cpu(), step.cpu())
+        print(f"phase 9: MLA block on the {dev}: expanded prefill S={S} "
+              f"{(t1 - t0) * 1e3:.3f} ms, absorbed decode step at "
+              f"position {S} {(t2 - t1) * 1e3:.3f} ms (one call each"
+              + ("; the second includes the S + 1 expanded prefill)"
+                 if dev == "cuda" else ")"))
+    if launches != 1:
+        raise AssertionError(f"MLA block: {launches} B9 launches, "
+                             f"expected 1")
+    for name, got, want in (("prefill", outs["cuda"][0], outs["cpu"][0]),
+                            ("decode", outs["cuda"][1], outs["cpu"][1]),
+                            ("absorbed vs expanded", outs["cuda"][1][:, 0],
+                             outs["expanded"])):
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"MLA block {name}: malformed output")
+        err = float((got - want).abs().max() / want.abs().max())
+        print(f"phase 9: MLA block {name}: {err:.3e} of the largest "
+              f"|entry| (limit {LIMIT_MLA_REL:.0e})")
+        if err > LIMIT_MLA_REL:
+            raise AssertionError(f"MLA block {name}: error {err:.3e}")
+    return launches
+
+
+def _vlm_prefix_prefill(server):
+    """One prefill on the card of VLM_PREFIX prefix embeddings (drawn
+    from the seed) and VLM_TEXT tokens through ``server``'s weights."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    cfg = server.cfg
+    rng = np.random.default_rng(LM_SEED + 4)
+    batch = {"tokens": torch.tensor(rng.integers(
+                 0, cfg.vocab_size, (1, VLM_TEXT)), device="cuda"),
+             "prefix_embeds": torch.tensor(
+                 rng.normal(size=(1, VLM_PREFIX, cfg.d_model)) * 0.02,
+                 dtype=torch.float32, device="cuda")}
+    caches = T.init_lm_cache(cfg, 1, LM_MAX_SEQ, device="cuda")
+
+    def prefill():
+        return T.lm_prefill(server.params, cfg, batch, caches)[0]
+
+    with plain_on_card_forbidden(), ops.use_pallas_scoped(True), \
+            flash_shapes() as shapes:
+        ops.reset_launch_counts()
+        logits = prefill()
+        torch.cuda.synchronize()
+        n = ops.LAUNCH_COUNTS["flash_attention"]
+        ms = time_ms(prefill, reps=5)
+    print(f"phase 9: {VLM_ARCH}: prefill of {VLM_PREFIX} prefix embeddings "
+          f"and {VLM_TEXT} tokens {ms:.3f} ms (median of 5); {n} B9 "
+          f"launches at {sorted(set(shapes))}")
+    if n != cfg.num_layers:
+        raise AssertionError(f"{VLM_ARCH}: {n} B9 launches in the prefix "
+                             f"prefill, expected {cfg.num_layers}")
+    if logits.shape != (1, cfg.vocab_size) or \
+            not torch.isfinite(logits).all():
+        raise AssertionError(f"{VLM_ARCH}: malformed prefix prefill logits")
+
+
+def phase9():
+    """MLA and prefix embeddings: deepseek-v3 (depth cut) and
+    internvl2-26b served at full width, one full-width MLA block card vs
+    CPU, both archs reduced card vs CPU.  Returns {kernel: launches}."""
+    import torch
+
+    launches = _serve_full(MLA_ARCH, phase="9", cfg=_mla_cut(),
+                           flash_shape=(192, 128, 128, 128))
+    launches["flash_attention"] += _mla_block()
+    torch.cuda.empty_cache()
+    for name, n in _serve_full(VLM_ARCH, phase="9",
+                               flash_shape=(128, 128, 48, 8),
+                               after=_vlm_prefix_prefill).items():
+        launches[name] += n
+    for arch in (MLA_ARCH, VLM_ARCH):
+        for name, n in _reduced_card_vs_cpu(arch, phase="9").items():
+            launches[name] += n
+    return launches
+
+
 def path_data():
     """(x, labels, gamma): the cohort server's N=10⁵ blobs on the host and
     the RBF width the server picks for them (on the card)."""
@@ -2472,6 +2723,8 @@ def main() -> int:
     for name, n in phase8a(x, labels).items():
         launches[name] += n
     for name, n in phase8b().items():
+        launches[name] += n
+    for name, n in phase9().items():
         launches[name] += n
     for name, rec in records.items():
         rec["launches"] = launches[name]

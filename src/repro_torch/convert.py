@@ -116,16 +116,15 @@ def lm_params_from_jax(params_np: Mapping, cfg) -> dict:
     repeat r, period position j becomes ``layers[...]`` in the order the
     JAX scan applies them.  An MoE block's ``moe`` leaves (the f32
     router, the (E, ·, ·) experts and the shared MLP) keep their layout
-    too.  The multi-token-prediction heads (deepseek-v3's, which need
-    MLA) raise.
+    too, and so do an MLA block's leaves.  deepseek-v3's
+    multi-token-prediction head (``mtp``: ``proj``, ``norm`` and one
+    block, not stacked on a ``repeats`` axis) is carried leaf for leaf.
     """
     from repro_torch.models.transformer import _check_supported, build_plan
 
     _check_supported(cfg)
-    if "mtp" in params_np:
-        raise NotImplementedError("multi-token prediction heads are not "
-                                  "ported to repro_torch yet")
-    out = {k: _tree(params_np[k]) for k in ("embed", "final_norm", "lm_head")
+    out = {k: _tree(params_np[k])
+           for k in ("embed", "final_norm", "lm_head", "mtp")
            if k in params_np}
     layers = []
     plan = build_plan(cfg)

@@ -4,7 +4,7 @@
 policy) selects the cohort every communication round.  The flags are the
 JAX package's ``repro.launch.train`` flags plus ``--device`` (``"cuda"``
 unless given; ``--device cpu`` runs the plain PyTorch path on the CPU).
-The distributed LM training mode is not ported yet (ROADMAP A11).
+The distributed LM training mode is not ported yet (ROADMAP §A5).
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --fl --dataset mnist \\
@@ -18,8 +18,8 @@ import argparse
 
 def train_lm(args) -> None:
     raise NotImplementedError(
-        "LM training is not ported to repro_torch yet (ROADMAP A11: the "
-        "LM zoo); run it with `python -m repro.launch.train`, or pass --fl")
+        "LM training is not ported to repro_torch yet (ROADMAP §A5: LM "
+        "training); run it with `python -m repro.launch.train`, or pass --fl")
 
 
 def train_fl(args) -> None:

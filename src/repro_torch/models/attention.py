@@ -96,20 +96,20 @@ def make_mask(q_positions, k_positions, *, causal: bool, window=None):
 
 
 def blocked_attention(q, k, v, *, causal=True, window=None, softcap=None,
-                      q_positions=None, k_positions=None, q_chunk=256,
-                      kv_chunk=512):
+                      q_positions=None, k_positions=None, scale=None,
+                      q_chunk=256, kv_chunk=512):
     """Online-softmax attention over (q_chunk, kv_chunk) blocks, plain
     PyTorch: the JAX package's memory-bounded path for long prompts.
 
     q: (B, Sq, H, d); k/v: (B, T, K, dv) with H = K * G.  Returns
-    (B, Sq, H, dv) in v's dtype.
+    (B, Sq, H, dv) in v's dtype.  ``scale`` defaults to 1/sqrt(d).
     """
     B, Sq, H, dh = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K
     dv = v.shape[-1]
     dev = q.device
-    scale = 1.0 / np.sqrt(dh)
+    scale = 1.0 / np.sqrt(dh) if scale is None else scale
     if q_positions is None:
         q_positions = torch.arange(Sq, device=dev)
     if k_positions is None:
@@ -206,7 +206,7 @@ def attention(p, x, cfg, *, positions, causal=True, window=None,
     if cross or memory is not None:
         raise NotImplementedError(
             "cross-attention is not ported to repro_torch yet (ROADMAP "
-            "A11: the encoder-decoder family)")
+            "§A6: the encoder-decoder family)")
     B, S, _ = x.shape
     x = x.to(L.dtype_of(cfg.compute_dtype))
     q = _split_heads(L.dense(p["wq"], x), cfg.num_heads, cfg.head_dim)

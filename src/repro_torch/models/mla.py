@@ -1,0 +1,208 @@
+"""Multi-head Latent Attention (DeepSeek-V2/V3, arXiv:2412.19437).
+
+Port of the JAX package's ``models/mla.py``.  Queries and keys/values
+are projected through low-rank latents; only the compressed KV latent
+(``kv_lora_rank`` wide) and a small RoPE key shared by every head are
+cached: at deepseek-v3's widths, 512 + 64 entries a token a layer.
+
+Two execution paths, as in the JAX package:
+
+* **expanded** (prefill): the latents are up-projected to per-head keys
+  and values, and attention runs over this call's own projections (not
+  over the cache, which the call only writes).  With
+  ``ops.use_pallas()`` on, it takes the route of the ``attn`` prefill
+  (``attention._flash_route``) and runs the flash-attention kernel (B9)
+  with ``scale=1/sqrt(qk_nope + qk_rope)``: at (dh, dv) = (192, 128) at
+  full width.  The JAX expanded prefill never reaches its Pallas kernel
+  (it runs the einsum, or ``blocked_attention`` at long prompts); B9
+  computes the same function, as the port's ``attn`` prefill already
+  does.  Otherwise the JAX split: the masked einsum below
+  ``BLOCKED_ATTN_THRESHOLD`` and :func:`attention.blocked_attention`
+  at or above it.
+* **absorbed** (decode, S == 1 with a cache): the up-projections are
+  absorbed into the query and output sides, so attention reads the
+  compressed cache directly.  Plain PyTorch, as in the JAX package.
+
+Cache writes are in place, as in ``models/attention.py``: the returned
+cache is the dict that was given.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+
+NEG_INF = -1e30
+
+
+def mla_init(gen, cfg, *, device=None):
+    m = cfg.mla
+    d = cfg.d_model
+    H = cfg.num_heads
+    kw = dict(dtype=cfg.param_dtype, device=device)
+    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_a": L.dense_init(gen, d, m.q_lora_rank, **kw),
+        "q_norm": L.rmsnorm_init(m.q_lora_rank, **kw),
+        "wq_b": L.dense_init(gen, m.q_lora_rank, H * qk_head, **kw),
+        "wkv_a": L.dense_init(gen, d, m.kv_lora_rank + m.qk_rope_head_dim,
+                              **kw),
+        "kv_norm": L.rmsnorm_init(m.kv_lora_rank, **kw),
+        "wkv_b": L.dense_init(gen, m.kv_lora_rank,
+                              H * (m.qk_nope_head_dim + m.v_head_dim), **kw),
+        "wo_mla": L.dense_init(gen, H * m.v_head_dim, d, **kw),
+    }
+
+
+def init_mla_cache(cfg, batch: int, max_seq: int, dtype=None, device=None):
+    """The compressed cache: ``ckv`` (batch, max_seq, kv_lora_rank) and
+    ``krope`` (batch, max_seq, qk_rope_head_dim), the slot on axis 0."""
+    m = cfg.mla
+    dtype = L.dtype_of(dtype or cfg.compute_dtype)
+    return {
+        "ckv": torch.zeros((batch, max_seq, m.kv_lora_rank), dtype=dtype,
+                           device=device),
+        "krope": torch.zeros((batch, max_seq, m.qk_rope_head_dim),
+                             dtype=dtype, device=device),
+    }
+
+
+def _project_q(p, x, cfg, positions):
+    m = cfg.mla
+    cq = L.rmsnorm(p["q_norm"], L.dense(p["wq_a"], x), cfg.norm_eps)
+    q = L.dense(p["wq_b"], cq)
+    q = q.reshape(*q.shape[:-1], cfg.num_heads,
+                  m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope = q[..., : m.qk_nope_head_dim]
+    q_rope = L.apply_rope(q[..., m.qk_nope_head_dim:], positions,
+                          cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _project_kv_latent(p, x, cfg, positions):
+    m = cfg.mla
+    ckv_full = L.dense(p["wkv_a"], x)
+    ckv = L.rmsnorm(p["kv_norm"], ckv_full[..., : m.kv_lora_rank],
+                    cfg.norm_eps)
+    # the RoPE key is shared by every head: RoPE over a head axis of 1
+    k_rope = L.apply_rope(ckv_full[..., None, m.kv_lora_rank:], positions,
+                          cfg.rope_theta)[..., 0, :]
+    return ckv, k_rope
+
+
+def _split_wkv_b(p, cfg):
+    """(W_uk (r, H, dn), W_uv (r, H, dv)): views of ``wkv_b``."""
+    m = cfg.mla
+    w = p["wkv_b"]["w"].reshape(m.kv_lora_rank, cfg.num_heads,
+                                m.qk_nope_head_dim + m.v_head_dim)
+    return w[..., : m.qk_nope_head_dim], w[..., m.qk_nope_head_dim:]
+
+
+def _write_cache(cache, ckv, k_rope, cache_pos, per_row):
+    """Write this call's latents into the cache in place."""
+    if per_row:
+        rows = torch.arange(ckv.shape[0], device=ckv.device)
+        pos = torch.as_tensor(cache_pos, device=ckv.device)
+        cache["ckv"][rows, pos] = ckv[:, 0].to(cache["ckv"].dtype)
+        cache["krope"][rows, pos] = k_rope[:, 0].to(cache["krope"].dtype)
+    else:
+        # the JAX dynamic_update_slice clamps the start so the block fits
+        S = ckv.shape[1]
+        start = max(0, min(int(cache_pos), cache["ckv"].shape[1] - S))
+        cache["ckv"][:, start:start + S] = ckv.to(cache["ckv"].dtype)
+        cache["krope"][:, start:start + S] = k_rope.to(
+            cache["krope"].dtype)
+
+
+def _absorbed(q_nope, q_rope, ckv, krope, w_uk, w_uv, *, scale, positions,
+              k_positions, window, cdt):
+    """Decode against the compressed cache: scores q_nope·(W_uk c) +
+    q_rope·k_rope in f32, then (softmax · c)·W_uv.  (B, S, H, dv)."""
+    ckv = ckv.to(cdt)
+    q_abs = torch.einsum("bshd,rhd->bshr", q_nope, w_uk.to(cdt))
+    s_nope = torch.einsum("bshr,btr->bhst", q_abs.float(), ckv.float())
+    s_rope = torch.einsum("bshd,btd->bhst", q_rope.float(),
+                          krope.to(cdt).float())
+    scores = (s_nope + s_rope) * scale
+    qp = positions[None] if positions.dim() == 1 else positions
+    mask = A.make_mask(qp, k_positions[None], causal=True, window=window)
+    scores = torch.where(mask[:, None], scores,
+                         torch.full_like(scores, NEG_INF))
+    w = torch.softmax(scores, dim=-1)
+    o_lat = torch.einsum("bhst,btr->bshr", w.to(cdt), ckv)
+    return torch.einsum("bshr,rhd->bshd", o_lat, w_uv.to(cdt))
+
+
+def _expanded(p, q_nope, q_rope, ckv, k_rope, cfg, *, scale, positions,
+              window, flash):
+    """Prefill over this call's own keys and values.  (B, S, H, dv)."""
+    m = cfg.mla
+    B, S, H = q_nope.shape[:3]
+    kv = L.dense(p["wkv_b"], ckv).reshape(
+        B, S, H, m.qk_nope_head_dim + m.v_head_dim)
+    k_nope, v = kv[..., : m.qk_nope_head_dim], kv[..., m.qk_nope_head_dim:]
+    k_rope_h = k_rope[:, :, None, :].expand(B, S, H, m.qk_rope_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope_h], dim=-1)
+    if flash:
+        return ops.flash_attention(q, k, v, causal=True, window=window,
+                                   scale=scale)
+    qpos = positions if positions.dim() == 1 else positions[0]
+    if S >= A.BLOCKED_ATTN_THRESHOLD:
+        return A.blocked_attention(q, k, v, causal=True, window=window,
+                                   q_positions=qpos, k_positions=qpos,
+                                   scale=scale)
+    scores = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
+    qp = positions[None] if positions.dim() == 1 else positions
+    mask = A.make_mask(qp, qp, causal=True, window=window)
+    scores = torch.where(mask[:, None], scores,
+                         torch.full_like(scores, NEG_INF))
+    w = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhst,bthd->bshd", w.to(v.dtype), v)
+
+
+def mla_attention(p, x, cfg, *, positions, window=None, cache=None,
+                  cache_pos=None):
+    """MLA forward.  Same contract as ``attention.attention``: returns
+    (out (B, S, d), cache), the cache None unless one was given."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    cdt = L.dtype_of(cfg.compute_dtype)
+    x = x.to(cdt)
+    scale = 1.0 / np.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+
+    q_nope, q_rope = _project_q(p, x, cfg, positions)
+    ckv, k_rope = _project_kv_latent(p, x, cfg, positions)
+    flash = A._flash_route(S, cfg, positions, cache, cache_pos)
+
+    if cache is not None:
+        per_row = torch.is_tensor(cache_pos) and cache_pos.dim() == 1
+        if per_row and S != 1:
+            raise ValueError(
+                "per-request cache_pos requires S == 1 (decode); "
+                "slot-targeted prefill goes through lm_prefill_slot")
+        _write_cache(cache, ckv, k_rope, cache_pos, per_row)
+        ckv_used, kr_used = cache["ckv"], cache["krope"]
+        T = ckv_used.shape[1]
+        k_positions = torch.arange(T, device=x.device)
+        if window is not None and S == 1 and not per_row and T > 2 * window:
+            # windowed decode reads only the live window of the cache
+            start = max(0, min(int(cache_pos) - window + 1, T - window))
+            ckv_used = ckv_used[:, start:start + window]
+            kr_used = kr_used[:, start:start + window]
+            k_positions = start + torch.arange(window, device=x.device)
+
+    if cache is not None and S == 1:
+        w_uk, w_uv = _split_wkv_b(p, cfg)
+        out = _absorbed(q_nope, q_rope, ckv_used, kr_used, w_uk, w_uv,
+                        scale=scale, positions=positions,
+                        k_positions=k_positions, window=window, cdt=cdt)
+    else:
+        out = _expanded(p, q_nope, q_rope, ckv, k_rope, cfg, scale=scale,
+                        positions=positions, window=window, flash=flash)
+    out = out.reshape(B, S, cfg.num_heads * m.v_head_dim)
+    return L.dense(p["wo_mla"], out), cache

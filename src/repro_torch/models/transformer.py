@@ -1,20 +1,21 @@
-"""Decoder-only LM over attention and SSM blocks: prefill and decode.
+"""Decoder-only LM over attention, MLA and SSM blocks: prefill and decode.
 
 Port of the serving half of the JAX package's ``models/transformer.py``
-for the ``attn`` and ``ssm`` mixers with a dense, MoE (``models/moe.py``)
-or no FFN: ``qwen2-7b``, ``mamba2-2.7b``, the other dense archs,
-``moonshot-v1-16b-a3b``, ``llama4-scout-17b-a16e`` and ``jamba-v0.1-52b``.
-MLA, the encoder-decoder and prefix embeddings raise
-``NotImplementedError``; the training loss (and with it the MoE
-auxiliary losses) waits for the LM-training slice.
+for the ``attn``, ``mla`` (``models/mla.py``) and ``ssm`` mixers with a
+dense, MoE (``models/moe.py``) or no FFN, and for VLM prefix embeddings
+(``prefix_embeds``, concatenated before the tokens): every arch but the
+encoder-decoder, which raises ``NotImplementedError``.  deepseek-v3's
+multi-token-prediction head (``params["mtp"]``) is built as the JAX
+package builds it; serving never reads it, and the training loss that
+does (with the MoE auxiliary losses) waits for the LM-training slice.
 
 Parameters are a dict like the JAX package's, except that the layers are
 a list in layer order (``params["layers"][i]`` is layer i's block dict)
 where the JAX package stacks each segment on a leading ``repeats`` axis
 for ``lax.scan``: a Python loop over the layers takes the scan's place.
 Caches are a list too, one dict per layer, each leaf with the request
-**slot** on axis 0.  Attention caches are written in place
-(``models/attention.py``).
+**slot** on axis 0.  Attention and MLA caches are written in place
+(``models/attention.py``, ``models/mla.py``).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 
 
@@ -78,11 +80,6 @@ def build_plan(cfg):
 def _check_supported(cfg):
     if cfg.is_encoder_decoder:
         raise _not_ported("the encoder-decoder family")
-    if cfg.num_prefix_embeds:
-        raise _not_ported("prefix embeddings (VLM)")
-    for mixer, ffn in layer_types(cfg):
-        if mixer == "mla":
-            raise _not_ported("MLA attention")
 
 
 # -- blocks -------------------------------------------------------------------
@@ -92,6 +89,8 @@ def _block_init(gen, cfg, mixer, ffn, device):
                                       device=device)}
     if mixer == "attn":
         p["attn"] = A.attn_init(gen, cfg, device=device)
+    elif mixer == "mla":
+        p["mla"] = MLA.mla_init(gen, cfg, device=device)
     else:
         p["ssm"] = M.mamba_init(gen, cfg, device=device)
     if ffn == "dense":
@@ -109,6 +108,8 @@ def _block_init(gen, cfg, mixer, ffn, device):
 def _block_cache(cfg, mixer, batch, max_seq, dtype, device):
     if mixer == "attn":
         return A.init_kv_cache(cfg, batch, max_seq, dtype, device=device)
+    if mixer == "mla":
+        return MLA.init_mla_cache(cfg, batch, max_seq, dtype, device=device)
     return M.init_mamba_cache(cfg, batch, dtype, device=device)
 
 
@@ -119,6 +120,10 @@ def _block_apply(p, cfg, h, mixer, ffn, *, positions, window, cache=None,
         out, new_cache = A.attention(p["attn"], hn, cfg, positions=positions,
                                      window=window, cache=cache,
                                      cache_pos=cache_pos)
+    elif mixer == "mla":
+        out, new_cache = MLA.mla_attention(p["mla"], hn, cfg,
+                                           positions=positions, window=window,
+                                           cache=cache, cache_pos=cache_pos)
     else:
         out, new_cache = M.mamba_apply(p["ssm"], hn, cfg, cache=cache)
     h = h + out.to(h.dtype)
@@ -154,6 +159,17 @@ def init_lm(gen, cfg, *, device=None):
                                          device=device)
     params["layers"] = [_block_init(gen, cfg, mixer, ffn, device)
                         for mixer, ffn in layer_types(cfg)]
+    if cfg.mtp_depth > 0:
+        # deepseek-v3's depth-1 multi-token-prediction head, as the JAX
+        # package builds it; serving never reads it
+        params["mtp"] = {
+            "proj": L.dense_init(gen, 2 * cfg.d_model, cfg.d_model,
+                                 dtype=cfg.param_dtype, device=device),
+            "norm": L.rmsnorm_init(cfg.d_model, dtype=cfg.param_dtype,
+                                   device=device),
+            "block": _block_init(gen, cfg, "mla" if cfg.use_mla else "attn",
+                                 "dense" if cfg.d_ff else "none", device),
+        }
     return params
 
 
@@ -205,11 +221,15 @@ def lm_hidden(params, cfg, h, *, positions, window=None, caches=None,
 
 
 def embed_inputs(params, cfg, tokens=None, prefix_embeds=None):
-    """Token embedding -> (B, S, d) in the compute dtype."""
+    """Token (and optional VLM prefix) embedding -> (B, S, d) in the
+    compute dtype; the prefix comes first."""
+    cdt = L.dtype_of(cfg.compute_dtype)
+    parts = []
     if prefix_embeds is not None:
-        raise _not_ported("prefix embeddings (VLM)")
-    return L.embed(params["embed"], tokens).to(
-        L.dtype_of(cfg.compute_dtype))
+        parts.append(prefix_embeds.to(cdt))
+    if tokens is not None:
+        parts.append(L.embed(params["embed"], tokens).to(cdt))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
 def lm_logits(params, cfg, h):
@@ -228,12 +248,12 @@ def lm_prefill(params, cfg, batch, caches, *, window=None, last_pos=None):
     logits (B, V) and the caches.
 
     ``last_pos`` — optional (B,) of each sequence's final *prompt*
-    position; logits are read there instead of at the padded end.
+    position; logits are read there instead of at the padded end.  With
+    ``batch["prefix_embeds"]`` (B, P, d) the prompt is the prefix and then
+    the tokens: positions and ``last_pos`` count the prefix.
     """
-    tokens = batch.get("tokens")
-    if batch.get("prefix_embeds") is not None:
-        raise _not_ported("prefix embeddings (VLM)")
-    h = embed_inputs(params, cfg, tokens)
+    h = embed_inputs(params, cfg, batch.get("tokens"),
+                     batch.get("prefix_embeds"))
     positions = torch.arange(h.shape[1], device=h.device)
     h, caches = lm_hidden(params, cfg, h, positions=positions, window=window,
                           caches=caches, cache_pos=0)

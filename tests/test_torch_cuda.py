@@ -382,6 +382,38 @@ def test_flash_attention_mla_widths(cuda_device, B, S, T_len, H, K, dh, dv,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B, S, T_len, H, K, dh, dv, scale", [
+    # deepseek-v3's MLA prefill: 128 heads over 128, q/k 128 + 64 RoPE
+    (1, 2048, 2048, 128, 128, 192, 128, 1 / np.sqrt(192)),
+    # internvl2-26b's prefill: 48 heads over 8, dh 128, a 2112-row cache
+    (1, 2048, 2112, 48, 8, 128, 128, None),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_at_mla_and_vlm_prefill_shapes(
+        cuda_device, B, S, T_len, H, K, dh, dv, scale, dtype):
+    rng = np.random.default_rng(9)
+
+    def t(*shape):
+        return torch.tensor(rng.normal(size=shape), dtype=dtype,
+                            device=cuda_device)
+
+    q, k, v = t(B, S, H, dh), t(B, T_len, K, dh), t(B, T_len, K, dv)
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, scale=scale)
+    torch.cuda.synchronize()
+    assert ops.LAUNCH_COUNTS["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == (B, S, H, dv)
+    want = ref.flash_attention_ref(q, k, v, scale=scale)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+    else:
+        w = want.float()
+        limit = 2.0 ** -7 * w.abs() + 1e-3 * torch.sqrt(torch.mean(w * w))
+        assert bool(((got.float() - w).abs() <= limit).all())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_reads_strided_inputs(cuda_device, dtype):
     rng = np.random.default_rng(5)
@@ -491,11 +523,12 @@ def test_nystrom_gram_repeat_call_is_bit_identical(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["qwen2-7b", "mamba2-2.7b",
-                                  "jamba-v0.1-52b", "moonshot-v1-16b-a3b"])
+                                  "jamba-v0.1-52b", "moonshot-v1-16b-a3b",
+                                  "deepseek-v3-671b", "internvl2-26b"])
 def test_reduced_lm_prefill_on_the_card_matches_the_cpu(cuda_device, arch):
     """The reduced f32 LM with the kernels on: card logits = CPU logits;
-    B9 launches once an attention layer, B10 once a Mamba layer (jamba
-    has one of each, beside an MoE FFN)."""
+    B9 launches once an attention or MLA layer, B10 once a Mamba layer
+    (jamba has one of each, beside an MoE FFN)."""
     cfg = get_config(arch).reduced()
     params = T.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
     toks = torch.tensor(np.random.default_rng(7).integers(
@@ -510,7 +543,8 @@ def test_reduced_lm_prefill_on_the_card_matches_the_cpu(cuda_device, arch):
             out[str(dev)] = logits.cpu()
             launches = dict(ops.LAUNCH_COUNTS)
     mixers = [mixer for mixer, _ in T.layer_types(cfg)]
-    assert launches["flash_attention"] == mixers.count("attn")
+    assert launches["flash_attention"] == mixers.count("attn") + \
+        mixers.count("mla")
     assert launches["ssd_chunk"] == mixers.count("ssm")
     want = out["cpu"]
     err = float((out["cuda"] - want).abs().max() / want.abs().max())

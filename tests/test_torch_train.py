@@ -16,5 +16,5 @@ def test_fl_cli_runs_rounds_on_the_cpu(capsys):
 
 
 def test_lm_mode_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(NotImplementedError, match="§A5"):
         train.main(["--arch", "gemma-2b", "--device", "cpu"])

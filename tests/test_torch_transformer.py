@@ -134,11 +134,10 @@ def test_build_plan_matches_jax(arch):
         jax_config(arch))
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "seamless-m4t-medium",
-                                  "internvl2-26b"])
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium"])
 def test_unported_families_raise(arch):
-    """MLA, the encoder-decoder and prefix embeddings; MoE is ported
-    (tests/test_torch_moe.py)."""
+    """The encoder-decoder; MoE, MLA and prefix embeddings are ported
+    (tests/test_torch_moe.py, test_torch_mla.py, test_torch_prefix.py)."""
     with pytest.raises(NotImplementedError):
         PT.init_lm(torch.Generator(), get_config(arch).reduced(),
                    device="cpu")
