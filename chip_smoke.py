@@ -22,9 +22,14 @@ Phases (any failure raises and the script exits non-zero):
    qwen2-7b prefill's shape (q (1, 2048, 28, 128) against a 2112-row
    cache), at gemma-2b's (q (1, 2048, 8, 256) against one KV head), at
    moonshot-v1-16b-a3b's (16 heads over 16, dh 128), at
-   internvl2-26b's (48 heads over 8, dh 128) and at deepseek-v3's MLA
-   prefill (128 heads, q/k 192, v 128; bf16 and f32), in bf16 and
-   in f32, and the SSD chunk (B10) at the mamba2-2.7b prefill's (8
+   internvl2-26b's (48 heads over 8, dh 128), at deepseek-v3's MLA
+   prefill (128 heads, q/k 192, v 128; bf16 and f32) and at
+   seamless-m4t-medium's three prefill attentions (B = 4, 16 heads over
+   16, dh 64: the encoder, non-causal over 1024 frames, also in f32;
+   cross-attention, the 128-token prompt against the 1024 frames; the
+   decoder's causal self-attention against a 160-row cache), in bf16 and
+   in f32, also non-causal with more keys than queries and more queries
+   than keys, and the SSD chunk (B10) at the mamba2-2.7b prefill's (8
    chunks of 256, 80 heads, P=64, N=128) and jamba-v0.1's (128 heads,
    P=64, N=16), each also at ragged shapes (B9's MLA widths with an
    explicit scale).  The bf16 outputs of B9 are held elementwise (see
@@ -137,6 +142,23 @@ Phases (any failure raises and the script exits non-zero):
    256 prefix embeddings and 1792 tokens (48 B9 launches, finite
    logits, its time).  (d) Both archs reduced, card against CPU as in
    phase 6; internvl2 also with its 4 prefix embeddings.
+10. The encoder-decoder, seamless-m4t-medium, through the step
+   builders of ``launch/steps.py``.  (a) Full width and depth in bf16
+   (12 encoder + 12 decoder layers, 0.877e9 parameters), 4 lockstep
+   rows, a source of 1024 frame embeddings drawn from the seed, prompts
+   of 128 tokens, 32 greedy decode steps (argmax on the card) against a
+   160-row self cache: exactly 36 B9 launches a prefill, all (dh, dv, H,
+   K) = (64, 64, 16, 16), 12 in each role (the encoder, non-causal; the
+   decoder's causal self-attention; cross-attention, non-causal), none
+   in a decode step; peak memory, encode and prefill ms (median of 5),
+   decode tok/s, a profiled prefill and decode step, and a repeat
+   prefill bit-identical to the first.  (b) Full width in f32, depth cut
+   to 2 + 2 layers, one row: prefill and 8 greedy decode steps card
+   against CPU within 1e-4 of the largest logit with the same tokens,
+   and the card's decode step against teacher forcing (``_decoder`` over
+   the prompt and the token) within 1e-4.  (c) Reduced, card against
+   CPU: the same through the step builders, and ``Server``, which serves
+   the config as a decoder-only LM as the JAX ``Server`` does.
 
 It prints the kernel table as one JSON line, then the card's name and
 power limit, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -306,6 +328,29 @@ MLA_ARCH, MLA_LAYERS = "deepseek-v3-671b", 4
 MLA_BLOCK_S = 2048
 VLM_ARCH, VLM_PREFIX, VLM_TEXT = "internvl2-26b", 256, 1792
 LIMIT_MLA_REL = 1e-4     # the f32 MLA block: card vs CPU, absorbed vs expanded
+# phase 10: the encoder-decoder, seamless-m4t-medium, through the step
+# builders.  (a) Full width and depth in bf16 (0.877e9 parameters): 4
+# lockstep rows, a source of the config's encoder_seq_len (1024) frames
+# drawn from the seed (the stub frontend's frame embeddings), prompts of
+# 128 target tokens, 32 greedy decode steps against a 160-row self cache.
+# (b) Full width in f32, depth cut to 2 encoder + 2 decoder layers, one
+# row, card against CPU.  (c) Reduced, card against CPU: the step
+# builders, and Server (the decoder-only route the JAX Server takes).
+ENCDEC_ARCH = "seamless-m4t-medium"
+ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_NEW_TOKENS = 4, 128, 32
+ENCDEC_SEQ = ENCDEC_PROMPT + ENCDEC_NEW_TOKENS
+ENCDEC_CUT_LAYERS, ENCDEC_CUT_STEPS = 2, 8
+# (dh, dv, H, K) of every B9 launch of (a)
+ENCDEC_FLASH_SHAPE = (64, 64, 16, 16)
+# B9 at seamless's three prefill attentions, B = 4: the encoder (S = T
+# = 1024 frames, non-causal), cross-attention (the 128-token prompt
+# against the frames, non-causal) and the decoder's self-attention (the
+# prompt against the 160-row cache, causal)
+FLASH_SEAMLESS_ENC = dict(B=4, S=1024, T=1024, H=16, K=16, dh=64,
+                          causal=False)
+FLASH_SEAMLESS_CROSS = dict(B=4, S=128, T=1024, H=16, K=16, dh=64,
+                            causal=False)
+FLASH_SEAMLESS_SELF = dict(B=4, S=128, T=160, H=16, K=16, dh=64)
 LIMIT_F32_REL = 1e-5     # f32 output: summation order only
 # bf16 output, elementwise: |got - want| <= 2^-7 |want| + 1e-3 rms(want).
 # Both sides round an f32 result to bf16, so they may differ by one unit
@@ -1546,13 +1591,26 @@ def _lm_kernel_cases():
                    ("mla f32", *flash(**FLASH_MLA, dtype="f32",
                                       library=True)),
                    ("internvl", *flash(**FLASH_INTERNVL, dtype="bf16",
-                                       library=True))]
+                                       library=True)),
+                   ("seamless enc", *flash(**FLASH_SEAMLESS_ENC,
+                                           dtype="bf16", library=True)),
+                   ("seamless enc f32", *flash(**FLASH_SEAMLESS_ENC,
+                                               dtype="f32", library=True)),
+                   ("seamless cross", *flash(**FLASH_SEAMLESS_CROSS,
+                                             dtype="bf16", library=True)),
+                   ("seamless self", *flash(**FLASH_SEAMLESS_SELF,
+                                            dtype="bf16", library=True))]
     for dtype in ("f32", "bf16"):
         flash_cases += [
             ("ragged", *flash(2, 33, 33, 4, 4, 32, dtype)),          # G = 1
             ("T>S G=7", *flash(1, 50, 90, 7, 1, 64, dtype)),
             ("noncausal", *flash(2, 70, 70, 8, 2, 128, dtype,
                                  causal=False)),
+            # non-causal with Sq != T: a prompt against a long source,
+            # and more queries than keys
+            ("nc S<T", *flash(2, 37, 1000, 16, 16, 64, dtype,
+                              causal=False)),
+            ("nc S>T", *flash(1, 300, 45, 4, 4, 32, dtype, causal=False)),
             ("window 8", *flash(1, 97, 130, 4, 2, 64, dtype, window=8)),
             # MLA's widths with a scale other than 1/sqrt(dh), ragged
             ("mla rag", *flash(1, 77, 100, 8, 8, 192, dtype, dv=128,
@@ -1637,10 +1695,13 @@ def phase2_lm():
                 raise AssertionError(f"{name} {label}: a repeat call "
                                      f"differs")
             # timed: the path shape (the JSON row), gemma-2b's,
-            # moonshot's, deepseek-v3's (MLA) and internvl2-26b's
-            # prefills, and the jamba shape (0 launches on the paths)
+            # moonshot's, deepseek-v3's (MLA), internvl2-26b's and
+            # seamless-m4t-medium's prefills, and the jamba shape (0
+            # launches on the paths)
             if label not in ("path", "gemma", "gemma f32", "moonshot",
-                             "mla", "mla f32", "internvl", *UNSERVED):
+                             "mla", "mla f32", "internvl", "seamless enc",
+                             "seamless enc f32", "seamless cross",
+                             "seamless self", *UNSERVED):
                 continue
             ms, plain_ms = time_ms(kern), time_ms(plain)
             bound_ms, bound_by, f32_bound = bound
@@ -1704,9 +1765,10 @@ def _lm_requests(cfg, arch, rng, lens=None, new_tokens=LM_NEW_TOKENS):
 
 
 @contextlib.contextmanager
-def flash_shapes():
+def flash_shapes(roles=False):
     """Record (dh, dv, H, K) of every B9 call on the card inside the
-    block (the list it yields)."""
+    block (the list it yields); with ``roles``, (dh, dv, H, K, S, T,
+    causal)."""
     from repro_torch.kernels import flash_attention as FA
 
     calls = []
@@ -1714,7 +1776,10 @@ def flash_shapes():
 
     def recorded(q, k, v, **kw):
         if q.is_cuda:
-            calls.append((q.shape[3], v.shape[3], q.shape[2], k.shape[2]))
+            call = (q.shape[3], v.shape[3], q.shape[2], k.shape[2])
+            if roles:
+                call += (q.shape[1], k.shape[1], kw.get("causal", True))
+            calls.append(call)
         return real(q, k, v, **kw)
 
     FA.flash_attention = recorded
@@ -2679,6 +2744,238 @@ def phase9():
     return launches
 
 
+# -- phase 10 ---------------------------------------------------------------
+
+def _greedy(decode, params, caches, logits, start, steps):
+    """``steps`` greedy decode steps from the prefill's ``logits``, the
+    argmax taken on the device.  Returns (the tokens fed (B, steps), the
+    logits of every step, caches)."""
+    import torch
+
+    fed, seq = [], []
+    tok = logits.argmax(-1, keepdim=True)
+    for i in range(steps):
+        fed.append(tok)
+        logits, caches = decode(params, caches, tok, start + i)
+        seq.append(logits)
+        tok = logits.argmax(-1, keepdim=True)
+    return torch.cat(fed, 1), seq, caches
+
+
+def _encdec_full():
+    """(a): seamless-m4t-medium at full width and depth in bf16 through
+    the port's step builders.  Returns the B9 launches of the prefill."""
+    import collections
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import encdec as ED
+
+    cfg = get_config(ENCDEC_ARCH)
+    B, P, F = ENCDEC_BATCH, ENCDEC_PROMPT, cfg.encoder_seq_len
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = ED.init_encdec(torch.Generator(device="cuda").manual_seed(
+        LM_SEED), cfg, device="cuda")
+    torch.cuda.synchronize()
+    print(f"phase 10: {ENCDEC_ARCH}: {cfg.param_count() / 1e9:.3f}e9 "
+          f"parameters in {cfg.param_dtype}, {cfg.num_encoder_layers} "
+          f"encoder + {cfg.num_layers} decoder layers, drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s ({_numel(params) / 1e9:.3f}e9 "
+          f"in the tree)")
+    shape = ShapeConfig("encdec_smoke", ENCDEC_SEQ, B, "prefill")
+    prefill = steps.make_prefill_step(cfg, shape)
+    decode = steps.make_decode_step(cfg, shape)
+    rng = np.random.default_rng(LM_SEED + 5)
+    batch = {"src_embeds": torch.tensor(
+                 rng.normal(size=(B, F, cfg.d_model)),
+                 dtype=torch.bfloat16, device="cuda"),
+             "tokens": torch.tensor(rng.integers(0, cfg.vocab_size, (B, P)),
+                                    device="cuda")}
+    print(f"phase 10: {ENCDEC_ARCH}: batch {B} (lockstep), source {F} "
+          f"frames, prompt {P} tokens, self cache {ENCDEC_SEQ} rows, "
+          f"{ENCDEC_NEW_TOKENS} greedy decode steps")
+    with plain_on_card_forbidden(), ops.use_pallas_scoped(True):
+        with flash_shapes(roles=True) as calls:
+            ops.reset_launch_counts()
+            logits, caches = prefill(params, batch)
+            torch.cuda.synchronize()
+            launches = ops.LAUNCH_COUNTS["flash_attention"]
+            roles = collections.Counter(calls)
+            first = (logits.clone(),
+                     [{k: t[:, :P].clone() for k, t in c.items()}
+                      for c in caches["self"]], caches["cross"])
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            fed, seq, caches = _greedy(decode, params, caches, logits, P,
+                                       ENCDEC_NEW_TOKENS)
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t0
+            decode_launches = ops.LAUNCH_COUNTS["flash_attention"]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        enc_ms = time_ms(lambda: ED.encode(params, cfg, batch["src_embeds"]),
+                         reps=5)
+        pre_ms = time_ms(lambda: prefill(params, batch), reps=5)
+        again, again_caches = prefill(params, batch)
+        torch.cuda.synchronize()
+        same = torch.equal(again, first[0]) and all(
+            torch.equal(c[k][:, :P], f[k])
+            for c, f in zip(again_caches["self"], first[1]) for k in f) \
+            and all(torch.equal(c[k], f[k])
+                    for c, f in zip(again_caches["cross"], first[2])
+                    for k in f)
+        profile_device("10", f"{ENCDEC_ARCH} prefill (batch {B}, source "
+                       f"{F}, prompt {P})", lambda: prefill(params, batch),
+                       host_top=6)
+        profile_device("10", f"{ENCDEC_ARCH} decode step (batch {B})",
+                       lambda: decode(params, again_caches, fed[:, :1], P),
+                       host_top=6)
+    dh, dv, H, K = ENCDEC_FLASH_SHAPE
+    want = {(dh, dv, H, K, F, F, False): cfg.num_encoder_layers,
+            (dh, dv, H, K, P, ENCDEC_SEQ, True): cfg.num_layers,
+            (dh, dv, H, K, P, F, False): cfg.num_layers}
+    print(f"phase 10: {ENCDEC_ARCH}: peak device memory {peak:.2f} GiB; "
+          f"encode {enc_ms:.3f} ms, prefill (encode included) {pre_ms:.3f} "
+          f"ms (median of 5); decode {B * ENCDEC_NEW_TOKENS / decode_s:.1f} "
+          f"tok/s ({ENCDEC_NEW_TOKENS} steps of batch {B} in "
+          f"{decode_s * 1e3:.3f} ms)")
+    print(f"phase 10: {ENCDEC_ARCH}: B9 launches: prefill {launches} "
+          f"({sum(n for r, n in roles.items() if not r[6])} non-causal), "
+          f"{ENCDEC_NEW_TOKENS} decode steps {decode_launches}; (dh, dv, H, "
+          f"K, S, T, causal) of the prefill's: {sorted(roles.items())}")
+    print(f"phase 10: {ENCDEC_ARCH}: row 0 generated "
+          f"{fed[0, :8].tolist()}; repeat prefill bit-identical "
+          f"(logits and caches): {same}")
+    if launches != sum(want.values()) or roles != want:
+        raise AssertionError(f"{ENCDEC_ARCH}: B9 launches {dict(roles)}, "
+                             f"expected {want}")
+    if decode_launches:
+        raise AssertionError(f"{ENCDEC_ARCH}: {decode_launches} B9 launches "
+                             f"in decode")
+    if first[0].shape != (B, cfg.vocab_size) or not all(
+            torch.isfinite(t).all() for t in (first[0], *seq)) or \
+            not bool(((fed >= 0) & (fed < cfg.vocab_size)).all()):
+        raise AssertionError(f"{ENCDEC_ARCH}: malformed logits or tokens")
+    if not same:
+        raise AssertionError(f"{ENCDEC_ARCH}: a repeat prefill differs")
+    del params, caches, again_caches, first
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _encdec_card_vs_cpu(cfg, label, frames, prompt, steps_n):
+    """One row through the step builders on the card and on the CPU, the
+    same weights (drawn on the CPU): prefill and decode logits within
+    LIMIT_LOGIT_REL of the largest entry and the same greedy tokens; then
+    the card's first decode step against teacher forcing (``_decoder``
+    over the prompt and that token).  Returns the card prefill's B9
+    launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmul is on")
+    params = ED.init_encdec(torch.Generator().manual_seed(LM_SEED), cfg,
+                            device="cpu")
+    on_card = T.params_to(params, "cuda")
+    rng = np.random.default_rng(LM_SEED + 6)
+    src = torch.tensor(rng.normal(size=(1, frames, cfg.d_model)),
+                       dtype=torch.float32)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (1, prompt)))
+    shape = ShapeConfig("encdec_smoke", prompt + steps_n, 1, "prefill")
+    prefill = steps.make_prefill_step(cfg, shape)
+    decode = steps.make_decode_step(cfg, shape)
+    out = {}
+    for where, dev, p in (("card", "cuda", on_card), ("CPU", "cpu", params)):
+        guard = plain_on_card_forbidden() if where == "card" \
+            else contextlib.nullcontext()
+        with guard, ops.use_pallas_scoped(True):
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            logits, caches = prefill(p, {"src_embeds": src.to(dev),
+                                         "tokens": toks.to(dev)})
+            if where == "card":
+                torch.cuda.synchronize()
+                launches = ops.LAUNCH_COUNTS["flash_attention"]
+            t1 = time.perf_counter()
+            fed, seq, _ = _greedy(decode, p, caches, logits, prompt, steps_n)
+            t2 = time.perf_counter()
+        out[where] = ([logits.cpu()] + [x.cpu() for x in seq], fed.cpu())
+        print(f"phase 10: {label} on the {where}: prefill "
+              f"{(t1 - t0) * 1e3:.3f} ms, {steps_n} decode steps "
+              f"{(t2 - t1) * 1e3:.3f} ms (one call each)")
+    err = max(float((g - w).abs().max() / w.abs().max())
+              for g, w in zip(out["card"][0], out["CPU"][0]))
+    same = torch.equal(out["card"][1], out["CPU"][1])
+    with plain_on_card_forbidden(), ops.use_pallas_scoped(True):
+        src_c = src.to("cuda")
+        ids = torch.cat([toks, out["card"][1][:, :1]], 1).to("cuda")
+        h = L.embed(on_card["embed"], ids).to(L.dtype_of(cfg.compute_dtype))
+        full, _ = ED._decoder(on_card, cfg, h, ED.encode(on_card, cfg, src_c),
+                              positions=torch.arange(prompt + 1,
+                                                     device="cuda"))
+        forced = T.lm_logits(on_card, cfg, full[:, -1:])[:, 0].cpu()
+    step = out["card"][0][1]
+    tf_err = float((step - forced).abs().max() / forced.abs().max())
+    print(f"phase 10: {label}: prefill and {steps_n} decode logits card vs "
+          f"CPU {err:.3e} of max |logit| (limit {LIMIT_LOGIT_REL:.0e}); the "
+          f"same greedy tokens: {same} ({out['card'][1][0].tolist()}); the "
+          f"card's first decode step vs teacher forcing over {prompt + 1} "
+          f"tokens {tf_err:.3e}; {launches} B9 launches a card prefill")
+    if err > LIMIT_LOGIT_REL or tf_err > LIMIT_LOGIT_REL or not same:
+        raise AssertionError(f"{label}: card differs from the CPU or from "
+                             f"teacher forcing ({err:.3e}, {tf_err:.3e}, "
+                             f"same tokens {same})")
+    want = cfg.num_encoder_layers + 2 * cfg.num_layers
+    if launches != want:
+        raise AssertionError(f"{label}: {launches} B9 launches a prefill, "
+                             f"expected {want}")
+    return launches
+
+
+def phase10():
+    """The encoder-decoder: seamless-m4t-medium at full width in bf16,
+    cut to 2 + 2 layers in f32 and reduced, card against CPU; reduced
+    through ``Server`` too.  Returns the B9 launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    launches = _encdec_full()
+    full = get_config(ENCDEC_ARCH)
+    cut = dataclasses.replace(full, num_layers=ENCDEC_CUT_LAYERS,
+                              num_encoder_layers=ENCDEC_CUT_LAYERS,
+                              param_dtype="float32", compute_dtype="float32")
+    print(f"phase 10: {ENCDEC_ARCH} reduced: " + json.dumps({
+        "num_layers": [full.num_layers, cut.num_layers],
+        "num_encoder_layers": [full.num_encoder_layers,
+                               cut.num_encoder_layers],
+        "dtype": [full.param_dtype, cut.param_dtype],
+        "param_count": [full.param_count(), cut.param_count()],
+        "why": "f32 card against CPU at full width: the CPU's time bounds "
+               "the depth"}))
+    launches += _encdec_card_vs_cpu(cut, f"{ENCDEC_ARCH} f32 2 + 2 layers",
+                                    full.encoder_seq_len, ENCDEC_PROMPT,
+                                    ENCDEC_CUT_STEPS)
+    small = full.reduced()
+    launches += _encdec_card_vs_cpu(small, f"reduced {ENCDEC_ARCH}", 24, 13,
+                                    4)
+    launches += _reduced_card_vs_cpu(ENCDEC_ARCH, phase="10")[
+        "flash_attention"]
+    return launches
+
+
 def path_data():
     """(x, labels, gamma): the cohort server's N=10⁵ blobs on the host and
     the RBF width the server picks for them (on the card)."""
@@ -2726,6 +3023,7 @@ def main() -> int:
         launches[name] += n
     for name, n in phase9().items():
         launches[name] += n
+    launches["flash_attention"] += phase10()
     for name, rec in records.items():
         rec["launches"] = launches[name]
     keys = ("name", "route", "source", "replaces", "launches",

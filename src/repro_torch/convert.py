@@ -120,9 +120,8 @@ def lm_params_from_jax(params_np: Mapping, cfg) -> dict:
     multi-token-prediction head (``mtp``: ``proj``, ``norm`` and one
     block, not stacked on a ``repeats`` axis) is carried leaf for leaf.
     """
-    from repro_torch.models.transformer import _check_supported, build_plan
+    from repro_torch.models.transformer import build_plan
 
-    _check_supported(cfg)
     out = {k: _tree(params_np[k])
            for k in ("embed", "final_norm", "lm_head", "mtp")
            if k in params_np}
@@ -141,3 +140,34 @@ def lm_params_from_jax(params_np: Mapping, cfg) -> dict:
                 layers.append(_tree(blocks[pos], r))
     out["layers"] = layers
     return out
+
+
+def encdec_params_from_jax(params_np: Mapping, cfg) -> dict:
+    """The port's encoder-decoder parameters from the JAX package's
+    ``init_encdec`` tree (numpy leaves).
+
+    The encoder's and the decoder's blocks, stacked there on a leading
+    axis of ``num_encoder_layers`` and ``num_layers`` entries, become
+    lists in layer order; ``embed``, ``final_norm``, ``lm_head`` and both
+    stacks' ``norm`` are carried leaf for leaf.
+    """
+    out = {k: _tree(params_np[k])
+           for k in ("embed", "final_norm", "lm_head") if k in params_np}
+    for part, n in (("encoder", cfg.num_encoder_layers),
+                    ("decoder", cfg.num_layers)):
+        blocks = params_np[part]["blocks"]
+        depth = {np.asarray(leaf).shape[0] for leaf in _leaves(blocks)}
+        if depth != {n}:
+            raise ValueError(f"{part} blocks stacked {sorted(depth)} deep, "
+                             f"expected {n}")
+        out[part] = {"blocks": [_tree(blocks, i) for i in range(n)],
+                     "norm": _tree(params_np[part]["norm"])}
+    return out
+
+
+def _leaves(node):
+    if isinstance(node, Mapping):
+        for v in node.values():
+            yield from _leaves(v)
+    else:
+        yield node

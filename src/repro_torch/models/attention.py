@@ -1,31 +1,42 @@
-"""Grouped-query attention with a KV cache: prefill, per-row decode, window.
+"""Grouped-query attention with a KV cache: prefill, per-row decode, window,
+bidirectional and cross-attention.
 
-Port of the JAX package's ``models/attention.py`` for causal
-self-attention: GQA and MQA, qk-norm, QKV bias, sliding windows, the
-scalar and per-request ``cache_pos`` cache writes, and the windowed
-long-context decode slice.  Cross-attention (``memory=``/``cross=``)
-raises ``NotImplementedError`` (the encoder-decoder slice).
+Port of the JAX package's ``models/attention.py``: GQA and MQA, qk-norm,
+QKV bias, sliding windows, the scalar and per-request ``cache_pos``
+cache writes, the windowed long-context decode slice, and the
+encoder-decoder's attentions (``models/encdec.py``): the encoder's
+bidirectional self-attention (``causal=False``) and cross-attention
+(``memory=``, or ``cross=True`` with a precomputed cross ``cache``).
 
 Modes
 -----
-* full   : (B, S, d) -> (B, S, d), causal mask.
+* full   : (B, S, d) -> (B, S, d), causal (or bidirectional) mask.
 * cache  : ``cache`` {k, v: (B, S_max, K, hd)} and ``cache_pos``, a
            scalar (every row writes at one position: a prefill block) or
            a per-request (B,) vector (decode, S == 1: row i writes at
            ``cache_pos[i]`` and attends only ``[0, cache_pos[i]]``).
+* cross  : K/V from ``memory`` (B, T, d) through ``wk``/``wv`` (qk-norm on
+           q and k), or read from a cross ``cache`` when no memory is
+           given (qk-norm on q only); no RoPE, no causal mask, and the
+           cache is returned as given.
 
 The port writes the cache in place (the JAX package returns new arrays):
 a decode step touches one row per request instead of copying every
 layer's cache.  The returned cache is the dict it was given.
 
-With ``ops.use_pallas()`` on, causal self-attention of a prompt (S > 1,
-no logit softcap, q positions ``0..S-1`` when a cache is given) runs the
-flash-attention kernel (:func:`repro_torch.kernels.ops.flash_attention`,
-B9); in the cache case k/v are the whole ``max_seq`` cache, and the
-kernel's causal mask and block skip keep the entries past the prompt
-out of reach.  Everything else is the plain path: the einsum below
-``BLOCKED_ATTN_THRESHOLD`` and :func:`blocked_attention` at or above it,
-as in the JAX package, whose own decode is an einsum too.
+With ``ops.use_pallas()`` on, the attention of a prompt (S > 1, no
+logit softcap) runs the flash-attention kernel
+(:func:`repro_torch.kernels.ops.flash_attention`, B9) in two cases:
+causal self-attention with q positions ``0..S-1`` when a cache is given
+(k/v are then the whole ``max_seq`` cache, and the kernel's causal mask
+and block skip keep the entries past the prompt out of reach), and
+every non-causal call: the encoder's self-attention and both cross
+routes, Sq = S against T = the source's length.  A non-causal call with
+a window raises there: the JAX package drops the window on its einsum
+path and keeps it on its blocked path.  Everything else is the plain
+path: the einsum below ``BLOCKED_ATTN_THRESHOLD`` and
+:func:`blocked_attention` at or above it, as in the JAX package, whose
+own decode is an einsum too.
 """
 
 from __future__ import annotations
@@ -179,10 +190,15 @@ def _write_cache(cache, k, v, cache_pos, per_row):
         cache["v"][:, start:start + S] = v.to(cache["v"].dtype)
 
 
-def _flash_route(S, cfg, positions, cache, cache_pos) -> bool:
-    """Whether this call's attention runs the flash-attention kernel."""
+def _flash_route(S, cfg, positions, cache, cache_pos, causal=True) -> bool:
+    """Whether this call's attention runs the flash-attention kernel.
+    ``causal`` is the call's mask after the cache rules (a self-attention
+    cache forces it on, cross-attention off)."""
     if not ops.use_pallas() or S <= 1 or cfg.logit_softcap:
         return False
+    if not causal:
+        # the q positions do not enter a non-causal mask
+        return True
     if positions.dim() != 1:
         return False
     # with a cache, the kernel's q positions 0..S-1 are the prompt's
@@ -197,29 +213,38 @@ def attention(p, x, cfg, *, positions, causal=True, window=None,
       p: params from :func:`attn_init`.
       x: (B, S, d) queries' residual stream.
       positions: (S,) or (B, S) absolute positions for RoPE and masking.
-      causal / window: mask controls.
-      cache / cache_pos: KV cache, written in place; ``cache_pos`` is the
-        write position (an int, or a (B,) tensor for per-row decode).
+      causal / window: mask controls (cross-attention is never causal).
+      memory: (B, T, d) cross-attention memory (the encoder output).
+      cross: cross-attention; with ``cache`` given and no ``memory``, K/V
+        are read from that precomputed cross cache.
+      cache / cache_pos: KV cache; a self-attention cache is written in
+        place at ``cache_pos`` (an int, or a (B,) tensor for per-row
+        decode), a cross cache only read.
 
     Returns (out, cache) — cache is None unless one was given.
     """
-    if cross or memory is not None:
-        raise NotImplementedError(
-            "cross-attention is not ported to repro_torch yet (ROADMAP "
-            "§A6: the encoder-decoder family)")
     B, S, _ = x.shape
-    x = x.to(L.dtype_of(cfg.compute_dtype))
+    cross = cross or memory is not None
+    cdt = L.dtype_of(cfg.compute_dtype)
+    x = x.to(cdt)
     q = _split_heads(L.dense(p["wq"], x), cfg.num_heads, cfg.head_dim)
-    k = _split_heads(L.dense(p["wk"], x), cfg.num_kv_heads, cfg.head_dim)
-    v = _split_heads(L.dense(p["wv"], x), cfg.num_kv_heads, cfg.head_dim)
+    if cross and memory is None:
+        k = v = None                       # read from the cross cache below
+    else:
+        kv_src = x if memory is None else memory.to(cdt)
+        k = _split_heads(L.dense(p["wk"], kv_src), cfg.num_kv_heads,
+                         cfg.head_dim)
+        v = _split_heads(L.dense(p["wv"], kv_src), cfg.num_kv_heads,
+                         cfg.head_dim)
     if "q_norm" in p:
         q = L.rmsnorm(p["q_norm"], q, cfg.norm_eps)
-        k = L.rmsnorm(p["k_norm"], k, cfg.norm_eps)
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
+        if k is not None:
+            k = L.rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    if not cross:
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
 
-    flash = _flash_route(S, cfg, positions, cache, cache_pos)
-    if cache is not None:
+    if cache is not None and not cross:
         per_row = torch.is_tensor(cache_pos) and cache_pos.dim() == 1
         if per_row and S != 1:
             raise ValueError(
@@ -239,9 +264,21 @@ def attention(p, x, cfg, *, positions, causal=True, window=None,
             v = v[:, start:start + window]
             k_positions = start + torch.arange(window, device=x.device)
     else:
-        k_positions = positions
+        if cache is not None:
+            # cross-attention against the precomputed memory cache
+            k, v = cache["k"], cache["v"]
+        if cross:
+            k_positions = torch.arange(k.shape[1], device=x.device)
+            causal = False
+        else:
+            k_positions = positions
 
-    if flash:
+    if _flash_route(S, cfg, positions, cache, cache_pos, causal):
+        if window is not None and not causal:
+            raise ValueError(
+                "a non-causal attention with a window has no flash route: "
+                "the reference drops the window below "
+                f"{BLOCKED_ATTN_THRESHOLD} query rows and keeps it above")
         out = ops.flash_attention(q, k, v, causal=causal, window=window)
     else:
         q_pos1d = positions if positions.dim() == 1 else positions[0]
@@ -250,6 +287,8 @@ def attention(p, x, cfg, *, positions, causal=True, window=None,
         # masks against its own write position
         q_pos2d = positions if positions.dim() == 2 else q_pos1d[None]
         if S >= BLOCKED_ATTN_THRESHOLD:
+            # as in the JAX package, the window reaches the blocked path
+            # even when the call is not causal
             out = blocked_attention(
                 q, k, v, causal=causal, window=window,
                 softcap=cfg.logit_softcap, q_positions=q_pos1d,

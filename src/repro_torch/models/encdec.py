@@ -1,0 +1,171 @@
+"""Encoder-decoder transformer for the audio family (Seamless-M4T medium).
+
+Port of the serving half of the JAX package's ``models/encdec.py``.  The
+modality frontend (mel-spectrogram and conv feature extractor) is a stub
+there and here: callers supply precomputed frame embeddings
+``src_embeds`` (B, T_src, d_model).  The backbone is a bidirectional
+encoder over the frames and a causal text decoder with cross-attention,
+with cached decode.
+
+Parameters are the JAX package's tree, except that the encoder's and the
+decoder's blocks are lists in layer order where the JAX package stacks
+them on a leading layer axis for ``lax.scan``
+(:func:`repro_torch.convert.encdec_params_from_jax` unstacks them).
+``params["decoder"]["norm"]`` is built and converted as there, and read
+by nothing: the decoder normalizes with ``params["final_norm"]``.
+
+Cache layout for decode: ``{"self": [...], "cross": [...]}``, one
+``{"k", "v"}`` dict per decoder layer.  The self caches (B, max_seq, K,
+hd) are written in place; the cross caches (B, T_src, K, hd) hold the
+encoder memory's K/V and are only read.
+
+The training loss (``encdec_train_loss``) waits for the LM-training
+slice, which brings ``chunked_ce_loss``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models.transformer import lm_logits
+
+
+# -- init ---------------------------------------------------------------------
+
+def _enc_block_init(gen, cfg, device):
+    kw = dict(dtype=cfg.param_dtype, device=device)
+    return {"attn_norm": L.rmsnorm_init(cfg.d_model, **kw),
+            "attn": A.attn_init(gen, cfg, device=device),
+            "ffn_norm": L.rmsnorm_init(cfg.d_model, **kw),
+            "ffn": L.mlp_init(gen, cfg.d_model, cfg.d_ff, act=cfg.mlp_act,
+                              **kw)}
+
+
+def _dec_block_init(gen, cfg, device):
+    kw = dict(dtype=cfg.param_dtype, device=device)
+    return {"self_norm": L.rmsnorm_init(cfg.d_model, **kw),
+            "self_attn": A.attn_init(gen, cfg, device=device),
+            "cross_norm": L.rmsnorm_init(cfg.d_model, **kw),
+            "cross_attn": A.attn_init(gen, cfg, device=device),
+            "ffn_norm": L.rmsnorm_init(cfg.d_model, **kw),
+            "ffn": L.mlp_init(gen, cfg.d_model, cfg.d_ff, act=cfg.mlp_act,
+                              **kw)}
+
+
+def init_encdec(gen, cfg, *, device=None):
+    """Random encoder-decoder parameters drawn from ``gen`` (a generator
+    on ``device``).  bf16 configs are drawn in f32 one tensor at a time
+    and cast, as :func:`repro_torch.models.transformer.init_lm` does."""
+    kw = dict(dtype=cfg.param_dtype, device=device)
+    params = {
+        "encoder": {
+            "blocks": [_enc_block_init(gen, cfg, device)
+                       for _ in range(cfg.num_encoder_layers)],
+            "norm": L.rmsnorm_init(cfg.d_model, **kw),
+        },
+        "decoder": {
+            "blocks": [_dec_block_init(gen, cfg, device)
+                       for _ in range(cfg.num_layers)],
+            "norm": L.rmsnorm_init(cfg.d_model, **kw),
+        },
+        "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, **kw),
+        "final_norm": L.rmsnorm_init(cfg.d_model, **kw),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size,
+                                         **kw)
+    return params
+
+
+def init_encdec_cache(cfg, batch: int, max_seq: int, dtype=None,
+                      device=None):
+    """Zeroed decode caches: a (batch, max_seq) self cache per decoder
+    layer, and cross caches of ``cfg.encoder_seq_len`` rows, one zero
+    pair shared by every layer as the JAX package broadcasts one
+    (:func:`encdec_prefill` replaces them; nothing writes them)."""
+    cross = A.init_kv_cache(cfg, batch, cfg.encoder_seq_len, dtype,
+                            device=device)
+    return {"self": [A.init_kv_cache(cfg, batch, max_seq, dtype,
+                                     device=device)
+                     for _ in range(cfg.num_layers)],
+            "cross": [dict(cross) for _ in range(cfg.num_layers)]}
+
+
+# -- forward ------------------------------------------------------------------
+
+def encode(params, cfg, src_embeds):
+    """Bidirectional encoder over stub frame embeddings (B, T, d)."""
+    h = src_embeds.to(L.dtype_of(cfg.compute_dtype))
+    positions = torch.arange(h.shape[1], device=h.device)
+    for blk in params["encoder"]["blocks"]:
+        hn = L.rmsnorm(blk["attn_norm"], h, cfg.norm_eps)
+        out, _ = A.attention(blk["attn"], hn, cfg, positions=positions,
+                             causal=False)
+        h = h + out.to(h.dtype)
+        hn = L.rmsnorm(blk["ffn_norm"], h, cfg.norm_eps)
+        h = h + L.mlp(blk["ffn"], hn, act=cfg.mlp_act).to(h.dtype)
+    return L.rmsnorm(params["encoder"]["norm"], h, cfg.norm_eps)
+
+
+def _decoder(params, cfg, h, memory, *, positions, caches=None,
+             cache_pos=None, window=None):
+    """Decoder stack.  ``memory`` may be None when cross caches are given.
+    Returns (normed hidden, caches or None)."""
+    for i, blk in enumerate(params["decoder"]["blocks"]):
+        self_c = caches["self"][i] if caches is not None else None
+        cross_c = caches["cross"][i] if caches is not None else None
+        hn = L.rmsnorm(blk["self_norm"], h, cfg.norm_eps)
+        out, _ = A.attention(blk["self_attn"], hn, cfg, positions=positions,
+                             window=window, cache=self_c,
+                             cache_pos=cache_pos)
+        h = h + out.to(h.dtype)
+        hn = L.rmsnorm(blk["cross_norm"], h, cfg.norm_eps)
+        out, _ = A.attention(blk["cross_attn"], hn, cfg, positions=positions,
+                             memory=memory, cross=True, cache=cross_c)
+        h = h + out.to(h.dtype)
+        hn = L.rmsnorm(blk["ffn_norm"], h, cfg.norm_eps)
+        h = h + L.mlp(blk["ffn"], hn, act=cfg.mlp_act).to(h.dtype)
+    return L.rmsnorm(params["final_norm"], h, cfg.norm_eps), caches
+
+
+def build_cross_cache(params, cfg, memory):
+    """Per-layer cross-attention K/V of the encoder output: the raw
+    memory through ``wk``/``wv`` (no ``k_norm``, as in the JAX package)."""
+    cache = []
+    for blk in params["decoder"]["blocks"]:
+        k = L.dense(blk["cross_attn"]["wk"], memory)
+        v = L.dense(blk["cross_attn"]["wv"], memory)
+        shape = (*k.shape[:-1], cfg.num_kv_heads, cfg.head_dim)
+        cache.append({"k": k.reshape(shape), "v": v.reshape(shape)})
+    return cache
+
+
+def encdec_prefill(params, cfg, batch, caches, *, window=None):
+    """Encode ``batch["src_embeds"]``, build cross caches of the source's
+    length, and prefill the self caches (in place, from position 0) with
+    ``batch["tokens"]``.  Returns (last-position logits (B, V), caches)."""
+    memory = encode(params, cfg, batch["src_embeds"])
+    caches = {"self": caches["self"],
+              "cross": build_cross_cache(params, cfg, memory)}
+    h = L.embed(params["embed"], batch["tokens"]).to(
+        L.dtype_of(cfg.compute_dtype))
+    positions = torch.arange(h.shape[1], device=h.device)
+    h, caches = _decoder(params, cfg, h, None, positions=positions,
+                         caches=caches, cache_pos=0, window=window)
+    return lm_logits(params, cfg, h[:, -1:])[:, 0], caches
+
+
+def encdec_decode_step(params, cfg, token, caches, pos: int, *,
+                       window=None):
+    """One decode step against prefilled self and cross caches.  token:
+    (B, 1); ``pos``, the position every row writes and reads up to (the
+    batch steps in lockstep), is a Python int, so a step needs no host
+    sync.  Returns (logits (B, V), caches)."""
+    h = L.embed(params["embed"], token).to(L.dtype_of(cfg.compute_dtype))
+    pos = int(pos)
+    positions = pos + torch.arange(1, device=h.device)
+    h, caches = _decoder(params, cfg, h, None, positions=positions,
+                         caches=caches, cache_pos=pos, window=window)
+    return lm_logits(params, cfg, h)[:, 0], caches

@@ -3,8 +3,12 @@
 Port of the serving half of the JAX package's ``models/transformer.py``
 for the ``attn``, ``mla`` (``models/mla.py``) and ``ssm`` mixers with a
 dense, MoE (``models/moe.py``) or no FFN, and for VLM prefix embeddings
-(``prefix_embeds``, concatenated before the tokens): every arch but the
-encoder-decoder, which raises ``NotImplementedError``.  deepseek-v3's
+(``prefix_embeds``, concatenated before the tokens).  As in the JAX
+package, an encoder-decoder config (seamless-m4t-medium) builds here as
+a decoder-only stack of its ``num_layers`` (attention, dense) blocks,
+which is what the JAX ``Server`` serves; its real route, encoder and
+cross-attention, is ``models/encdec.py`` through the step builders of
+``launch/steps.py``.  deepseek-v3's
 multi-token-prediction head (``params["mtp"]``) is built as the JAX
 package builds it; serving never reads it, and the training loss that
 does (with the MoE auxiliary losses) waits for the LM-training slice.
@@ -27,11 +31,6 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP §A6)")
 
 
 # -- layer plan ---------------------------------------------------------------
@@ -75,11 +74,6 @@ def build_plan(cfg):
         period += 1
     segments.append((len(rest) // period, tuple(rest[:period])))
     return segments
-
-
-def _check_supported(cfg):
-    if cfg.is_encoder_decoder:
-        raise _not_ported("the encoder-decoder family")
 
 
 # -- blocks -------------------------------------------------------------------
@@ -147,7 +141,6 @@ def init_lm(gen, cfg, *, device=None):
     parameters plus the largest tensor in f32: at moonshot-v1-16b-a3b the
     (163840, 2048) embedding, 1.34 GB.
     """
-    _check_supported(cfg)
     params = {"embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model,
                                     dtype=cfg.param_dtype, device=device),
               "final_norm": L.rmsnorm_init(cfg.d_model,
@@ -185,7 +178,6 @@ def params_to(params, device):
 def init_lm_cache(cfg, batch: int, max_seq: int, dtype=None, device=None):
     """Decode caches for ``batch`` independent request **slots**: one dict
     per layer, every leaf (batch, ...), so axis 0 is the slot table."""
-    _check_supported(cfg)
     return [_block_cache(cfg, mixer, batch, max_seq, dtype, device)
             for mixer, _ in layer_types(cfg)]
 

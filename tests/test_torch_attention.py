@@ -3,7 +3,9 @@
 Both modules get the same weights (the JAX ``attn_init`` draw, converted)
 and the same numpy inputs.  Covered: full causal attention, a prefill
 into a cache, per-row decode, the windowed decode slice and the blocked
-long-prompt path.  With ``use_pallas`` on, the port's prompt attention
+long-prompt path, and cross-attention through ``memory=``
+(``tests/test_torch_encdec.py`` holds both cross routes).  With
+``use_pallas`` on, the port's prompt attention
 runs the flash-attention wrapper (on the CPU, its plain version); the
 JAX module has no kernel route, so it is the oracle for both.  f32 to
 1e-5 of the largest entry.
@@ -169,7 +171,15 @@ def test_blocked_attention_matches_jax(causal, window, softcap):
 
 
 def test_cross_attention_is_not_ported():
-    _, pcfg, _, pp = _setup("qwen2-7b")
-    x = torch.zeros((1, 2, pcfg.d_model))
-    with pytest.raises(NotImplementedError):
-        PA.attention(pp, x, pcfg, positions=torch.arange(2), memory=x)
+    """Cross-attention raised NotImplementedError until the
+    encoder-decoder was ported (tests/test_torch_encdec.py holds both of
+    its routes); now ``memory=`` gives the JAX module's output."""
+    jcfg, pcfg, jp, pp = _setup("qwen2-7b")
+    x, mem = _x(1, 2, jcfg.d_model), _x(1, 6, jcfg.d_model, seed=2)
+    want, _ = JA.attention(jp, jnp.asarray(x), jcfg, positions=jnp.arange(2),
+                           memory=jnp.asarray(mem))
+    got, cache = PA.attention(pp, torch.from_numpy(x), pcfg,
+                              positions=torch.arange(2),
+                              memory=torch.from_numpy(mem))
+    assert cache is None
+    _close(got, want)

@@ -302,6 +302,41 @@ def test_dense_spectral_cluster_on_the_card_launches_b7(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B, S, T_len, H, K, dh", [
+    (2, 37, 1000, 16, 16, 64),    # a prompt against a long source
+    (1, 300, 45, 4, 4, 32),       # Sq > T, reduced seamless's widths
+    (4, 128, 1024, 16, 16, 64),   # seamless's cross-attention, full width
+    (2, 24, 24, 4, 4, 32),        # reduced seamless's encoder
+    (1, 1024, 1024, 16, 16, 64),  # seamless's encoder, full width
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_noncausal_cross_shapes(cuda_device, B, S, T_len, H,
+                                                K, dh, dtype):
+    """Non-causal, Sq != T: the encoder-decoder's encoder and
+    cross-attention."""
+    rng = np.random.default_rng(10)
+
+    def t(*shape):
+        return torch.tensor(rng.normal(size=shape), dtype=dtype,
+                            device=cuda_device)
+
+    q, k, v = t(B, S, H, dh), t(B, T_len, K, dh), t(B, T_len, K, dh)
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert ops.LAUNCH_COUNTS["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == (B, S, H, dh)
+    want = ref.flash_attention_ref(q, k, v, causal=False)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+    else:
+        w = want.float()
+        limit = 2.0 ** -7 * w.abs() + 1e-3 * torch.sqrt(torch.mean(w * w))
+        assert bool(((got.float() - w).abs() <= limit).all())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B, S, T_len, H, K, dh, causal, window", [
     (2, 33, 33, 4, 4, 32, True, None),       # ragged, G = 1
     (1, 50, 90, 7, 1, 64, True, None),       # T > S (a cache), G = 7
@@ -524,7 +559,8 @@ def test_nystrom_gram_repeat_call_is_bit_identical(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["qwen2-7b", "mamba2-2.7b",
                                   "jamba-v0.1-52b", "moonshot-v1-16b-a3b",
-                                  "deepseek-v3-671b", "internvl2-26b"])
+                                  "deepseek-v3-671b", "internvl2-26b",
+                                  "seamless-m4t-medium"])
 def test_reduced_lm_prefill_on_the_card_matches_the_cpu(cuda_device, arch):
     """The reduced f32 LM with the kernels on: card logits = CPU logits;
     B9 launches once an attention or MLA layer, B10 once a Mamba layer
@@ -549,6 +585,58 @@ def test_reduced_lm_prefill_on_the_card_matches_the_cpu(cuda_device, arch):
     want = out["cpu"]
     err = float((out["cuda"] - want).abs().max() / want.abs().max())
     assert err <= 1e-4
+
+
+@pytest.mark.cuda
+def test_reduced_encdec_on_the_card_matches_the_cpu(cuda_device):
+    """Reduced seamless-m4t-medium in f32 with the kernels on, through the
+    step builders: encode, prefill and 4 greedy decode steps, card logits
+    within 1e-4 of the CPU's and the same tokens; B9 launches once in
+    every encoder layer, decoder self-attention and cross-attention of
+    the prefill, never in a decode step."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.models import encdec as ED
+
+    cfg = get_config("seamless-m4t-medium").reduced()
+    shape = ShapeConfig("prefill_smoke", 32, 2, "prefill")
+    params = ED.init_encdec(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    rng = np.random.default_rng(11)
+    src = torch.tensor(rng.normal(size=(2, 24, cfg.d_model)),
+                       dtype=torch.float32)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (2, 13)))
+    prefill = steps.make_prefill_step(cfg, shape)
+    decode = steps.make_decode_step(cfg, shape)
+    out = {}
+    with ops.use_pallas_scoped(True):
+        for dev in ("cpu", cuda_device):
+            p = T.params_to(params, dev)
+            memory = ED.encode(p, cfg, src.to(dev))
+            ops.reset_launch_counts()
+            logits, caches = prefill(p, {"src_embeds": src.to(dev),
+                                         "tokens": toks.to(dev)})
+            torch.cuda.synchronize()
+            launches = [ops.LAUNCH_COUNTS["flash_attention"]]
+            seq = [logits.cpu()]
+            tok = logits.argmax(-1, keepdim=True)
+            for i in range(4):
+                ops.reset_launch_counts()
+                logits, caches = decode(p, caches, tok, 13 + i)
+                torch.cuda.synchronize()
+                launches.append(ops.LAUNCH_COUNTS["flash_attention"])
+                seq.append(logits.cpu())
+                tok = logits.argmax(-1, keepdim=True)
+            out[str(dev)] = (memory.cpu(), seq, launches)
+    memory, seq, launches = out["cuda"]
+    want_memory, want_seq, _ = out["cpu"]
+    assert launches == [cfg.num_encoder_layers + 2 * cfg.num_layers] + \
+        [0] * 4
+    err = float((memory - want_memory).abs().max() / want_memory.abs().max())
+    assert err <= 1e-4
+    for got, want in zip(seq, want_seq):
+        assert float((got - want).abs().max() / want.abs().max()) <= 1e-4
+        assert torch.equal(got.argmax(-1), want.argmax(-1))
 
 
 @pytest.mark.cuda

@@ -134,15 +134,6 @@ def test_build_plan_matches_jax(arch):
         jax_config(arch))
 
 
-@pytest.mark.parametrize("arch", ["seamless-m4t-medium"])
-def test_unported_families_raise(arch):
-    """The encoder-decoder; MoE, MLA and prefix embeddings are ported
-    (tests/test_torch_moe.py, test_torch_mla.py, test_torch_prefix.py)."""
-    with pytest.raises(NotImplementedError):
-        PT.init_lm(torch.Generator(), get_config(arch).reduced(),
-                   device="cpu")
-
-
 def test_full_configs_have_the_published_sizes():
     """qwen2-7b: 7.62e9 parameters; mamba2-2.7b: 2.70e9."""
     qwen = get_config("qwen2-7b")
