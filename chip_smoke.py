@@ -160,6 +160,24 @@ Phases (any failure raises and the script exits non-zero):
    CPU: the same through the step builders, and ``Server``, which serves
    the config as a decoder-only LM as the JAX ``Server`` does.
 
+11. LM training through ``launch/steps.py::make_train_step`` with the
+   kernels on, which launches none of them: the JAX package's training
+   reaches no Pallas kernel, and a call that autograd records takes the
+   plain attention and SSD.  (a) gemma-2b and (b) seamless-m4t-medium
+   at full width and depth in bf16 with the launcher's optimizer
+   (``make_optimizer``: AdamW, f32 moments), global batch 8 x 256 tokens
+   from the synthetic token pipeline in 2 microbatches: 6 steps timed
+   (host clock ending in a synchronize) and one profiled, split into
+   the loss's forward, the clip and the optimizer update; finite losses
+   and grad norms, moved parameters, peak memory, no kernel launch.
+   (c) Six families reduced in f32 (gemma-2b, mamba2-2.7b,
+   moonshot-v1-16b-a3b, deepseek-v3-671b, internvl2-26b,
+   seamless-m4t-medium), B 2, S 16, at 1 and 2 microbatches, card
+   against CPU: the first loss within 1e-5, every grad norm within
+   1e-4 and the loss after 1-3 AdamW steps within 1e-4, relative; then
+   on the card a checkpoint of the state before the last step, restored
+   bit for bit, whose next step equals the continued run's bit for bit.
+
 It prints the kernel table as one JSON line, then the card's name and
 power limit, then ``{"ok": true, "device": {...}}`` as the last line.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -186,6 +204,7 @@ RAGGED = dict(n=261, m=65, d=7, k=5)     # odd sizes, ~10 % masked rows
 RAGGED_GRAM = dict(n=3001, m=640)        # m not a multiple of B3's tile
 DTYPES = ("f32", "bf16", "int8")
 REPS = 20
+PROFILE_TRIES = 3       # profiler sessions a device time may take
 SEED = 0          # the table and the kernel inputs
 # The engine's seed.  One k-means++ seeding (as in the JAX package) can
 # put two of its 8 seeds in one blob and merge two blobs; on this table
@@ -351,6 +370,41 @@ FLASH_SEAMLESS_ENC = dict(B=4, S=1024, T=1024, H=16, K=16, dh=64,
 FLASH_SEAMLESS_CROSS = dict(B=4, S=128, T=1024, H=16, K=16, dh=64,
                             causal=False)
 FLASH_SEAMLESS_SELF = dict(B=4, S=128, T=160, H=16, K=16, dh=64)
+# phase 11: LM training through the port's train step (launch/steps.py),
+# with the kernels on: no kernel launches (training takes the plain path,
+# as the JAX package's training reaches no Pallas kernel).  (a) gemma-2b
+# and (b) seamless-m4t-medium at full width and depth in bf16 with the
+# launcher's AdamW (make_optimizer): global batch 8 of 256 tokens from
+# the synthetic Markov pipeline, 2 microbatches, 6 steps timed and one
+# profiled.  (c) Six families reduced, f32, B 2, S 16, G 1 and 2: card
+# against CPU, then a checkpoint round trip on the card.
+TRAIN_FULL = ("gemma-2b", "seamless-m4t-medium")
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 8, 256, 2, 6
+TRAIN_REDUCED = ("gemma-2b", "mamba2-2.7b", "moonshot-v1-16b-a3b",
+                 "deepseek-v3-671b", "internvl2-26b", "seamless-m4t-medium")
+TRAIN_REDUCED_B, TRAIN_REDUCED_S, TRAIN_REDUCED_STEPS = 2, 16, 4
+TRAIN_REDUCED_LR = 1e-3
+# card vs CPU from the same parameters (the first step), then the loss
+# after 1-3 AdamW steps: past the first update, Adam's m / (sqrt(v) +
+# eps) turns last-bit differences of near-zero gradients into different
+# signs, so the states part and only the loss trajectory is held (the
+# later grad norms are printed)
+LIMIT_TRAIN_LOSS_REL = 1e-5      # the first step's loss
+LIMIT_TRAIN_GNORM_REL = 1e-4     # the first step's grad_norm
+LIMIT_TRAIN_TRAJ_REL = 1e-4      # the loss after 1-3 AdamW steps
+# a later grad_norm: within LIMIT_TRAIN_GNORM_REL, or within this many
+# times the parting of two CPU runs one ulp apart in every parameter
+# (AdamW normalises a near-zero gradient to about ±0.45 lr, so the sign
+# that rounding gives it moves the trajectory: PERF.md §7)
+TRAIN_ULP_FACTOR = 10
+# the profiled step's device time: the loss's forward, the gradient
+# clipping and the optimizer update by record_function range (the
+# backward runs on autograd's device thread, outside any range), GEMMs by
+# kernel name
+TRAIN_GROUPS = {"loss forward": ("range", "train.loss"),
+                "clip": ("range", "train.clip"),
+                "optimizer": ("range", "train.update"),
+                "GEMMs": ("kernel", r"gemm|xmma|cutlass|nvjet")}
 LIMIT_F32_REL = 1e-5     # f32 output: summation order only
 # bf16 output, elementwise: |got - want| <= 2^-7 |want| + 1e-3 rms(want).
 # Both sides round an f32 result to bf16, so they may differ by one unit
@@ -395,23 +449,36 @@ def time_ms(fn, reps=REPS) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps=REPS) -> float:
+def device_ms(fn, reps=REPS):
     """Mean device time of one call: the kernels' own time from
     torch.profiler, without the host's launch overhead that CUDA events
-    around a small call include."""
+    around a small call include.  Now and then a profiler session comes
+    back without the device's records; such a session is run again, up to
+    PROFILE_TRIES times, and None (not measured) is returned if none saw
+    device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    return total / 1e3 / reps
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total > 0:
+            return total / 1e3 / reps
+    print(f"device time not measured: {PROFILE_TRIES} profiler sessions "
+          f"saw no device records", file=sys.stderr)
+    return None
+
+
+def ms_text(ms):
+    """A device time for a printed line: "not measured" for None."""
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def vs_library(kern, library):
@@ -427,11 +494,12 @@ def vs_library(kern, library):
 
 def print_vs_library(name, label, times, bound_ms, bound_by):
     ms, lib_ms, dev, lib_dev = times
-    print(f"phase 2: {name:25s} {label:9s} device {dev:.4f} ms, library "
-          f"{lib_dev:.4f} ms (events {ms:.4f} and {lib_ms:.4f} ms, in "
-          f"turns); bound {bound_ms:.5f} ms by {bound_by}: "
-          f"{bound_ms / dev:.4f} of the bound, {dev / lib_dev:.3f}x the "
-          f"library's device time")
+    shares = ("" if dev is None or lib_dev is None else
+              f": {bound_ms / dev:.4f} of the bound, {dev / lib_dev:.3f}x "
+              f"the library's device time")
+    print(f"phase 2: {name:25s} {label:9s} device {ms_text(dev)}, library "
+          f"{ms_text(lib_dev)} (events {ms:.4f} and {lib_ms:.4f} ms, in "
+          f"turns); bound {bound_ms:.5f} ms by {bound_by}{shares}")
 
 
 # -- phase 1 ----------------------------------------------------------------
@@ -651,7 +719,7 @@ def phase2(x_path, gamma_path):
         # no single PyTorch call computes any of these four functions
         rec["library_ms"] = None
         print(f"phase 2: {name:25s} {rec['ms']:.4f} ms (device "
-              f"{device_ms(kern):.4f} ms; plain {rec['plain_ms']:.4f} ms, "
+              f"{ms_text(device_ms(kern))}; plain {rec['plain_ms']:.4f} ms, "
               f"bound {rec['bound_ms']:.4f} ms by {rec['bound_by']})")
     return records
 
@@ -827,7 +895,7 @@ def phase2_m4096(x_path, gamma_path):
             "library_ms": None}
         rec["bound_ms"], rec["bound_by"] = _bound(name, N, M_SUBSPACE, D, K)
         print(f"phase 2: {row:25s} {rec['ms']:.4f} ms (device "
-              f"{device_ms(kern, reps=5):.4f} ms; plain {rec['plain_ms']:.4f} "
+              f"{ms_text(device_ms(kern, reps=5))}; plain {rec['plain_ms']:.4f} "
               f"ms, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}); "
               f"a repeat call bit-identical")
         profile_device(2, f"{row} (one call)", kern)
@@ -839,7 +907,7 @@ def phase2_m4096(x_path, gamma_path):
                              f"error {err:.3e} > {limit:.0e}")
     print(f"phase 2: {'quantized_cross_affinity':25s} m={M_SUBSPACE} int8 "
           f"err {err:.3e}: {time_ms(kern, reps=5):.4f} ms (device "
-          f"{device_ms(kern, reps=5):.4f} ms)")
+          f"{ms_text(device_ms(kern, reps=5))})")
     # and B3 at m=2048, masked
     t2 = _inputs(rng, N, 2048, D, K, x=x_path, gamma=gamma_path)
     k2048 = _calls(t2, "f32", t2["mask"])["nystrom_gram"][0]
@@ -900,7 +968,7 @@ def phase2_slice2(x_path, gamma_path):
                 ms, library_ms = times[:2]
                 print_vs_library(name, label, times, bound_ms, bound_by)
             print(f"phase 2: {name:25s} {label:6s} {ms:.4f} ms (device "
-                  f"{device_ms(kern):.4f} ms; plain "
+                  f"{ms_text(device_ms(kern))}; plain "
                   f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms by "
                   f"{bound_by}, library "
                   f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'})")
@@ -1336,7 +1404,7 @@ def phase4():
             raise AssertionError(f"round {res.round_idx}: cohort "
                                  f"{res.selected.tolist()}")
     print(f"phase 4: the profiled round's device idle share "
-          f"{1 - busy / wall:.4f}")
+          + (f"{1 - busy / wall:.4f}" if busy else "not measured"))
 
     _small_dqre_sc_select()
 
@@ -1724,7 +1792,7 @@ def phase2_lm():
             f32_note = ("" if f32_bound is None else
                         f", f32 CUDA-core bound {f32_bound:.4f} ms")
             print(f"phase 2: {name:25s} {label:9s} {ms:.4f} ms (device "
-                  f"{device_ms(kern):.4f} ms; plain {plain_ms:.4f} ms, bound "
+                  f"{ms_text(device_ms(kern))}; plain {plain_ms:.4f} ms, bound "
                   f"{bound_ms:.5f} ms by {bound_by}{f32_note}, library "
                   f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'})"
                   + ("; 0 launches on the paths" if label in UNSERVED
@@ -2976,6 +3044,334 @@ def phase10():
     return launches
 
 
+def _train_batch(cfg, batch, rng, dev, dtype):
+    """``batch`` plus the encoder-decoder's frames (drawn from ``rng``,
+    where the launcher feeds zeros, so the encoder trains too) or a
+    VLM's prefix embeddings."""
+    import torch
+
+    B, S = batch["tokens"].shape
+    if cfg.is_encoder_decoder:
+        batch["src_embeds"] = torch.tensor(
+            rng.normal(size=(B, S, cfg.d_model)), dtype=dtype, device=dev)
+    elif cfg.num_prefix_embeds:
+        batch["prefix_embeds"] = torch.tensor(
+            rng.normal(size=(B, cfg.num_prefix_embeds, cfg.d_model)),
+            dtype=dtype, device=dev)
+    return batch
+
+
+@contextlib.contextmanager
+def train_ranges(cfg):
+    """``record_function`` ranges around the loss's forward, the clip and
+    the optimizer update of a train step built inside the block."""
+    import torch
+    from repro_torch.launch import steps
+
+    def ranged(name, fn):
+        def wrapped(*args, **kwargs):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return wrapped
+
+    mod = steps.ED if cfg.is_encoder_decoder else steps.T
+    attr = "encdec_train_loss" if cfg.is_encoder_decoder else \
+        "lm_train_loss"
+    saved = (getattr(mod, attr), steps.clip_by_global_norm)
+    setattr(mod, attr, ranged("train.loss", saved[0]))
+    steps.clip_by_global_norm = ranged("train.clip", saved[1])
+    try:
+        yield lambda opt: type(opt)(opt.init,
+                                    ranged("train.update", opt.update))
+    finally:
+        setattr(mod, attr, saved[0])
+        steps.clip_by_global_norm = saved[1]
+
+
+def _train_full(arch):
+    """(a), (b): ``arch`` at full width and depth in bf16, the launcher's
+    optimizer and batch, TRAIN_STEPS steps timed and one profiled, with
+    the kernels on.  Returns the kernel launches of the steps."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import TokenDataConfig, make_batch_iterator
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    init = ED.init_encdec if cfg.is_encoder_decoder else T.init_lm
+    params = init(torch.Generator(device="cuda").manual_seed(LM_SEED), cfg,
+                  device="cuda")
+    shape = ShapeConfig("custom_train", TRAIN_SEQ, TRAIN_BATCH, "train",
+                        TRAIN_MICRO)
+    G = steps.num_microbatches(cfg, shape)
+    opt = steps.make_optimizer(cfg, TRAIN_STEPS)
+    opt_state = opt.init(params)
+    torch.cuda.synchronize()
+    print(f"phase 11: {arch}: {_numel(params) / 1e9:.3f}e9 parameters in "
+          f"{cfg.param_dtype}, AdamW moments in "
+          f"{opt_state['m']['embed']['w'].dtype}; global batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens in {G} microbatches; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    data = make_batch_iterator(
+        TokenDataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                        seed=LM_SEED), device="cuda",
+        num_batches=TRAIN_STEPS + 1)
+    rng = np.random.default_rng(LM_SEED + 11)
+    # bf16 weights move only where the warm-up's small steps cross half
+    # an ulp: count the changed entries of two leaves (the step updates
+    # them in place)
+    first = (params["decoder"]["blocks"] if cfg.is_encoder_decoder
+             else params["layers"])[0]
+    watched = {"embed": params["embed"]["w"][:4096],
+               "layer 0 ffn down": first["ffn"]["down"]["w"]}
+    probe = {name: t.clone() for name, t in watched.items()}
+    times, losses, norms = [], [], []
+    with ops.use_pallas_scoped(True), train_ranges(cfg) as ranged:
+        step_fn = steps.make_train_step(cfg, shape, ranged(opt))
+        ops.reset_launch_counts()
+        for step, batch in enumerate(data):
+            batch = _train_batch(cfg, batch, rng, "cuda", torch.bfloat16)
+            if step == TRAIN_STEPS:
+                (params, opt_state, m), wall, busy = profile_device(
+                    "11", f"{arch} train step (batch {TRAIN_BATCH} x "
+                    f"{TRAIN_SEQ}, G {G})",
+                    lambda: step_fn(params, opt_state, step, batch),
+                    host_top=6, groups=TRAIN_GROUPS)
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt_state, m = step_fn(params, opt_state, step,
+                                               batch)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCH_COUNTS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = statistics.median(times[1:])
+    moved = {name: float((t != probe[name]).float().mean())
+             for name, t in watched.items()}
+    print(f"phase 11: {arch}: losses {[round(x, 4) for x in losses]}, "
+          f"grad norms {[round(x, 4) for x in norms]}")
+    print(f"phase 11: {arch}: step {step_ms:.3f} ms (host clock ending in "
+          f"a synchronize, median of steps 2-{TRAIN_STEPS}; all "
+          f"{[round(t, 3) for t in times]}), "
+          f"{TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3:.1f} tok/s; peak "
+          f"device memory {peak:.2f} GiB; profiled step wall {wall:.3f} ms,"
+          f" busy {busy:.3f} ms ({busy / step_ms:.4f} of the unprofiled "
+          f"median step{'' if busy else '; device time not measured'}); share of entries moved {moved}; kernel "
+          f"launches in {TRAIN_STEPS + 1} steps "
+          f"{ {k: n for k, n in launches.items() if n} or 0}")
+    if not all(np.isfinite(losses)) or not all(np.isfinite(norms)):
+        raise AssertionError(f"{arch}: a loss or grad norm is not finite")
+    if not all(moved.values()):
+        raise AssertionError(f"{arch}: the parameters did not move")
+    if sum(launches.values()):
+        raise AssertionError(f"{arch}: training launched kernels "
+                             f"{launches}")
+    del params, opt_state, first, watched, probe, step_fn, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def nudge_one_ulp(params, seed):
+    """Move every parameter entry one ulp up or down (a seeded coin)."""
+    import torch
+    from repro_torch.tree import leaves
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in leaves(params):
+            up = (torch.rand(p.shape, generator=g) < 0.5).to(p.device)
+            p.copy_(torch.nextafter(p, torch.where(up, torch.inf,
+                                                   -torch.inf)))
+
+
+def _train_run(cfg, batches, G, dev, state=None, nudge=False):
+    """TRAIN_REDUCED_STEPS AdamW steps of ``cfg`` on ``dev`` from the
+    seed's parameters (each moved one ulp with ``nudge``), or from
+    ``state``, a ``(params, opt_state)`` pair.  Returns (params,
+    opt_state, [metrics of each step])."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import transformer as T
+
+    opt = optim.adamw(TRAIN_REDUCED_LR)
+    B, S = batches[0]["tokens"].shape
+    step_fn = steps.make_train_step(
+        cfg, ShapeConfig("custom_train", S, B, "train", G), opt)
+    if state is None:
+        init = ED.init_encdec if cfg.is_encoder_decoder else T.init_lm
+        params = T.params_to(init(torch.Generator().manual_seed(LM_SEED),
+                                  cfg, device="cpu"), dev)
+        if nudge:
+            nudge_one_ulp(params, LM_SEED + 1)
+        opt_state = opt.init(params)
+        first = 0
+    else:
+        params, opt_state = state
+        first = len(batches) - 1
+    ms = []
+    for step in range(first, len(batches)):
+        batch = {k: v.to(dev) for k, v in batches[step].items()}
+        params, opt_state, m = step_fn(params, opt_state, step, batch)
+        ms.append(m)
+    return params, opt_state, ms
+
+
+def _bits_equal(a, b):
+    """Whether two trees hold the same tensors bit for bit."""
+    import torch
+    from repro_torch.tree import leaves
+
+    la, lb = leaves(a), leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x.detach(), y.detach())
+        for x, y in zip(la, lb))
+
+
+def _train_card_vs_cpu(arch):
+    """(c): reduced ``arch`` in f32, card against CPU at G = 1 and 2 (the
+    first loss, every grad norm and the loss trajectory; a later grad
+    norm also within TRAIN_ULP_FACTOR times the parting of a CPU run one
+    ulp away in every parameter); then on the
+    card a checkpoint of the state after all but the last step, restored
+    bit for bit, whose last step equals the continued run's bit for bit.
+    Returns the kernel launches."""
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenDataConfig, synthetic_token_batches
+    from repro_torch.kernels import ops
+    from repro_torch.tree import leaves
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is on")
+    cfg = get_config(arch).reduced()
+    rng = np.random.default_rng(LM_SEED + 12)
+    batches = [_train_batch(cfg, {k: torch.from_numpy(v.astype(np.int64))
+                                  for k, v in b.items()},
+                            rng, "cpu", torch.float32)
+               for b in synthetic_token_batches(
+                   TokenDataConfig(cfg.vocab_size, TRAIN_REDUCED_S,
+                                   TRAIN_REDUCED_B, seed=LM_SEED),
+                   TRAIN_REDUCED_STEPS)]
+    launches = dict.fromkeys(ops.LAUNCH_COUNTS, 0)
+    worst = {"loss": 0.0, "grad_norm": 0.0, "trajectory": 0.0,
+             "later grad_norm": 0.0, "later grad_norm, CPU one ulp "
+             "away": 0.0}
+
+    def rel(a, b, key):
+        return abs(a[key] - b[key]) / abs(b[key])
+
+    with ops.use_pallas_scoped(True):
+        for G in (1, 2):
+            out = {}
+            for dev, nudge in (("cpu", False), ("cuda", False),
+                               ("cpu", True)):
+                ops.reset_launch_counts()
+                _, _, ms = _train_run(cfg, batches, G, dev, nudge=nudge)
+                for k, n in ops.LAUNCH_COUNTS.items():
+                    launches[k] += n
+                out["ulp" if nudge else dev] = [
+                    {k: float(v) for k, v in m.items()} for m in ms]
+            for i, (c, w, u) in enumerate(zip(out["cuda"], out["cpu"],
+                                              out["ulp"])):
+                if i == 0:
+                    checks = (("loss", LIMIT_TRAIN_LOSS_REL, "loss"),
+                              ("grad_norm", LIMIT_TRAIN_GNORM_REL,
+                               "grad_norm"))
+                else:
+                    ulp = rel(u, w, "grad_norm")
+                    worst["later grad_norm, CPU one ulp away"] = max(
+                        worst["later grad_norm, CPU one ulp away"], ulp)
+                    checks = (("loss", LIMIT_TRAIN_TRAJ_REL, "trajectory"),
+                              ("grad_norm", max(LIMIT_TRAIN_GNORM_REL,
+                                                TRAIN_ULP_FACTOR * ulp),
+                               "later grad_norm"))
+                for key, limit, name in checks:
+                    err = rel(c, w, key)
+                    worst[name] = max(worst[name], err)
+                    if not err <= limit:
+                        raise AssertionError(
+                            f"reduced {arch} G {G} step {i}: {key} card "
+                            f"{c[key]!r} vs CPU {w[key]!r} ({err:.3e}, "
+                            f"limit {limit:.3e})")
+            print(f"phase 11: reduced {arch} G {G}: " + "; ".join(
+                f"{label} card {[round(m[key], 6) for m in out['cuda']]}, "
+                f"CPU {[round(m[key], 6) for m in out['cpu']]}, CPU one "
+                f"ulp away {[round(m[key], 6) for m in out['ulp']]}"
+                for key, label in (("loss", "losses"),
+                                   ("grad_norm", "grad norms"))))
+        # checkpoint round trip and a bit-identical continuation on the
+        # card, with deterministic kernels (index_put's accumulation)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                params, opt_state, _ = _train_run(
+                    cfg, batches[:-1], 2, "cuda")
+                with tempfile.TemporaryDirectory() as tmp:
+                    ck = Checkpointer(tmp)
+                    ck.save(len(batches) - 1, {"params": params,
+                                               "opt_state": opt_state})
+                    template = {"params": params, "opt_state": opt_state}
+                    tree, step, _ = ck.restore(template=template)
+                restored = _bits_equal(tree, template) and all(
+                    t.is_cuda for t in leaves(tree))
+                cont = _train_run(cfg, batches, 2, "cuda",
+                                  state=(params, opt_state))
+                again = _train_run(cfg, batches, 2, "cuda",
+                                   state=(tree["params"],
+                                          tree["opt_state"]))
+        finally:
+            torch.use_deterministic_algorithms(False)
+    same = _bits_equal(cont, again)
+    print(f"phase 11: reduced {arch}: worst card vs CPU "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f"; checkpoint of step {step} restored bit for bit on the "
+          f"card: {restored}; the next step from it equals the continued "
+          f"run bit for bit: {same}")
+    if not restored or not same:
+        raise AssertionError(f"reduced {arch}: checkpoint round trip "
+                             f"{restored}, continuation {same}")
+    return launches
+
+
+def phase11():
+    """LM training: gemma-2b and seamless-m4t-medium at full width in
+    bf16, then six families reduced, card against CPU.  Returns the
+    kernel launches (none)."""
+    launches = {}
+    for arch in TRAIN_FULL:
+        launches[arch] = sum(_train_full(arch).values())
+    for arch in TRAIN_REDUCED:
+        launches[f"reduced {arch}"] = sum(_train_card_vs_cpu(arch).values())
+    if any(launches.values()):
+        raise AssertionError(f"phase 11 launched kernels: {launches}")
+    return launches
+
+
 def path_data():
     """(x, labels, gamma): the cohort server's N=10⁵ blobs on the host and
     the RBF width the server picks for them (on the card)."""
@@ -3024,6 +3420,7 @@ def main() -> int:
     for name, n in phase9().items():
         launches[name] += n
     launches["flash_attention"] += phase10()
+    phase11()
     for name, rec in records.items():
         rec["launches"] = launches[name]
     keys = ("name", "route", "source", "replaces", "launches",

@@ -71,6 +71,26 @@ def check_tensors(name, *, dtypes=(torch.float32,), contiguous=True,
     return dev
 
 
+def differentiated(*tensors) -> bool:
+    """Whether autograd records a call on ``tensors``: grad mode is on and
+    one of them requires grad.  The CUDA kernels have no backward, so
+    the model code takes its plain path on such a call (as the JAX
+    package's training does, which reaches no Pallas kernel), and the
+    wrappers refuse one on the card."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def check_no_grad(name, *tensors) -> None:
+    """Raise on a differentiated call of a kernel (:func:`differentiated`):
+    its output would cut the autograd graph."""
+    if differentiated(*tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward; a differentiated "
+            f"call (grad mode on and an input that requires grad) takes "
+            f"the model's plain path")
+
+
 def check_block(name, label, value) -> None:
     if int(value) < 1:
         raise ValueError(f"{name}: {label}={value} must be >= 1")

@@ -4,7 +4,8 @@ The PyTorch counterpart of the JAX package's
 ``kernels/flash_attention_pallas.py``, with its signature less the TPU
 tile sizes.  CPU tensors run the plain version
 (:func:`repro_torch.kernels.ref.flash_attention_ref`); CUDA tensors launch
-the kernel, or raise.  The kernel reads q, k and v in the JAX layout
+the kernel, or raise: a differentiated call (the kernel has no backward)
+raises too.  The kernel reads q, k and v in the JAX layout
 through their strides (the head dimension must be unit-stride), so the
 TPU wrapper's pads and transposes have no counterpart.  bf16 inputs go
 to the tensor-core body, which copies rows in 16-byte pieces: their
@@ -21,7 +22,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels._common import check_tensors, launched, stream
+from repro_torch.kernels._common import (check_no_grad, check_tensors,
+                                         launched, stream)
 
 #: (dh, dv) = (q and k width, v width) pairs the kernel is instantiated
 #: for: the square widths, and deepseek-v3's MLA prefill (q/k 128 + 64
@@ -58,6 +60,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     if dev.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        scale=scale)
+    check_no_grad(name, q, k, v)
     if not q.dtype == k.dtype == v.dtype:
         raise TypeError(f"{name}: q, k and v must share a dtype, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")

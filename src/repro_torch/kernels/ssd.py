@@ -2,7 +2,8 @@
 
 The PyTorch counterpart of the JAX package's ``kernels/ssd_pallas.py``.
 CPU tensors run the plain version (:func:`repro_torch.kernels.ref.
-ssd_chunk_ref`); CUDA tensors launch the kernel, or raise.  One launch
+ssd_chunk_ref`); CUDA tensors launch the kernel, or raise (a
+differentiated call too: the kernel has no backward).  One launch
 computes every (batch, chunk, head) cell: the diagonal-block outputs and
 the per-chunk states.  :func:`ssd_plan` and :func:`ssd_blocks` mirror how
 the kernel splits that work into blocks.
@@ -15,7 +16,8 @@ import math
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels._common import check_tensors, launched, stream
+from repro_torch.kernels._common import (check_no_grad, check_tensors,
+                                         launched, stream)
 
 #: (P, N) = (head_dim, d_state) the kernel is instantiated for: the
 #: reduced configs', mamba2's and jamba-v0.1's
@@ -90,6 +92,7 @@ def ssd_chunk(xdt, cs, Bm, Cm):
                          f"{tuple(Cm.shape)} do not match")
     if dev.type == "cpu":
         return ref.ssd_chunk_ref(xdt, cs, Bm, Cm)
+    check_no_grad(name, xdt, cs, Bm, Cm)
     if xdt.dtype != torch.float32 or cs.dtype != torch.float32:
         raise TypeError(f"{name}: the CUDA kernel takes float32 xdt and cs")
     if Bm.dtype != Cm.dtype:

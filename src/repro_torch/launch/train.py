@@ -1,12 +1,15 @@
-"""Training launcher of the port: federated (FL) training.
+"""Training launcher of the port: LM training or federated (FL) training.
 
-``--fl`` runs the paper's federated workflow: DQRE-SCnet (or a baseline
-policy) selects the cohort every communication round.  The flags are the
-JAX package's ``repro.launch.train`` flags plus ``--device`` (``"cuda"``
-unless given; ``--device cpu`` runs the plain PyTorch path on the CPU).
-The distributed LM training mode is not ported yet (ROADMAP §A5).
+Standard mode trains an LM of the zoo on one device over the synthetic
+token pipeline, with checkpointing.  ``--fl`` runs the paper's
+federated workflow: DQRE-SCnet (or a baseline policy) selects the cohort
+every communication round.  The flags are the JAX package's
+``repro.launch.train`` flags plus ``--device`` (``"cuda"`` unless given;
+``--device cpu`` runs the plain PyTorch path on the CPU).
 
-Example:
+Examples:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \\
+      --reduced --device cpu --steps 20 --global-batch 8 --seq-len 128
   PYTHONPATH=src python -m repro_torch.launch.train --fl --dataset mnist \\
       --policy dqre_sc --rounds 30
 """
@@ -14,12 +17,66 @@ Example:
 from __future__ import annotations
 
 import argparse
+import time
 
 
 def train_lm(args) -> None:
-    raise NotImplementedError(
-        "LM training is not ported to repro_torch yet (ROADMAP §A5: LM "
-        "training); run it with `python -m repro.launch.train`, or pass --fl")
+    import torch
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import TokenDataConfig, make_batch_iterator
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.steps import make_optimizer, make_train_step
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves
+
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    shape = ShapeConfig("custom_train", args.seq_len, args.global_batch,
+                        "train", args.microbatches)
+
+    opt = make_optimizer(cfg, args.steps)
+    step_fn = make_train_step(cfg, shape, opt)
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    init = ED.init_encdec if cfg.is_encoder_decoder else T.init_lm
+    params = init(gen, cfg, device=dev)
+    opt_state = opt.init(params)
+    n_params = sum(p.numel() for p in leaves(params))
+    print(f"arch={cfg.name} params={n_params/1e6:.1f}M device={dev}")
+
+    data_cfg = TokenDataConfig(cfg.vocab_size, args.seq_len,
+                               args.global_batch, seed=args.seed)
+    it = make_batch_iterator(data_cfg, device=dev, num_batches=args.steps)
+    ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
+
+    t0 = time.time()
+    for step, batch in enumerate(it):
+        if cfg.is_encoder_decoder:
+            # the stub frontend's frames: zeros, as the JAX launcher feeds
+            bsz = batch["tokens"].shape[0]
+            batch = dict(batch, src_embeds=torch.zeros(
+                (bsz, args.seq_len, cfg.d_model),
+                dtype=L.dtype_of(cfg.compute_dtype), device=dev))
+        params, opt_state, metrics = step_fn(params, opt_state, step, batch)
+        if step % args.log_every == 0:
+            loss = float(metrics["loss"])
+            dt = time.time() - t0
+            tok_s = args.global_batch * args.seq_len * (step + 1) / dt
+            print(f"step {step:5d}  loss {loss:.4f}  {tok_s:,.0f} tok/s")
+        if ckpt and step and step % args.ckpt_every == 0:
+            ckpt.save(step, {"params": params, "opt_state": opt_state},
+                      {"loss": float(metrics['loss'])})
+    print(f"done in {time.time()-t0:.1f}s; final loss "
+          f"{float(metrics['loss']):.4f}")
+    if ckpt:
+        ckpt.save(args.steps, {"params": params, "opt_state": opt_state})
 
 
 def train_fl(args) -> None:
@@ -47,7 +104,7 @@ def train_fl(args) -> None:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--fl", action="store_true")
-    # LM mode (not ported: kept so the JAX package's command lines parse)
+    # LM mode
     ap.add_argument("--arch", default="gemma-2b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--steps", type=int, default=100)

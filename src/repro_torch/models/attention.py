@@ -36,7 +36,8 @@ a window raises there: the JAX package drops the window on its einsum
 path and keeps it on its blocked path.  Everything else is the plain
 path: the einsum below ``BLOCKED_ATTN_THRESHOLD`` and
 :func:`blocked_attention` at or above it, as in the JAX package, whose
-own decode is an einsum too.
+own decode is an einsum too.  A differentiated call (the training loss)
+takes the plain path too: the kernel has no backward.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels._common import differentiated
 from repro_torch.models import layers as L
 
 NEG_INF = -1e30
@@ -190,11 +192,19 @@ def _write_cache(cache, k, v, cache_pos, per_row):
         cache["v"][:, start:start + S] = v.to(cache["v"].dtype)
 
 
-def _flash_route(S, cfg, positions, cache, cache_pos, causal=True) -> bool:
+def _flash_route(S, cfg, positions, cache, cache_pos, causal=True,
+                 inputs=()) -> bool:
     """Whether this call's attention runs the flash-attention kernel.
     ``causal`` is the call's mask after the cache rules (a self-attention
-    cache forces it on, cross-attention off)."""
-    if not ops.use_pallas() or S <= 1 or cfg.logit_softcap:
+    cache forces it on, cross-attention off).  ``inputs`` are the
+    kernel's would-be operands: a call that autograd records on them
+    (``kernels._common.differentiated``) takes the plain path, because
+    the kernel has no backward and the JAX package's training loss
+    never reaches its Pallas kernel; that is the reference's route, not
+    a fallback.  Serving (no grad mode, or weights that need no grad)
+    keeps the kernel."""
+    if not ops.use_pallas() or S <= 1 or cfg.logit_softcap \
+            or differentiated(*inputs):
         return False
     if not causal:
         # the q positions do not enter a non-causal mask
@@ -273,7 +283,8 @@ def attention(p, x, cfg, *, positions, causal=True, window=None,
         else:
             k_positions = positions
 
-    if _flash_route(S, cfg, positions, cache, cache_pos, causal):
+    if _flash_route(S, cfg, positions, cache, cache_pos, causal,
+                    inputs=(q, k, v)):
         if window is not None and not causal:
             raise ValueError(
                 "a non-causal attention with a window has no flash route: "

@@ -1,11 +1,10 @@
 """Encoder-decoder transformer for the audio family (Seamless-M4T medium).
 
-Port of the serving half of the JAX package's ``models/encdec.py``.  The
-modality frontend (mel-spectrogram and conv feature extractor) is a stub
-there and here: callers supply precomputed frame embeddings
-``src_embeds`` (B, T_src, d_model).  The backbone is a bidirectional
-encoder over the frames and a causal text decoder with cross-attention,
-with cached decode.
+Port of the JAX package's ``models/encdec.py``.  The modality frontend
+(mel-spectrogram and conv feature extractor) is a stub there and here:
+callers supply precomputed frame embeddings ``src_embeds`` (B, T_src,
+d_model).  The backbone is a bidirectional encoder over the frames and a
+causal text decoder with cross-attention, with cached decode.
 
 Parameters are the JAX package's tree, except that the encoder's and the
 decoder's blocks are lists in layer order where the JAX package stacks
@@ -19,8 +18,12 @@ Cache layout for decode: ``{"self": [...], "cross": [...]}``, one
 hd) are written in place; the cross caches (B, T_src, K, hd) hold the
 encoder memory's K/V and are only read.
 
-The training loss (``encdec_train_loss``) waits for the LM-training
-slice, which brings ``chunked_ce_loss``.
+The training loss (:func:`encdec_train_loss`) runs the encoder over the
+frames and the decoder over the tokens with cross-attention to the
+encoder's output (no caches), then the chunked cross-entropy of
+``models/transformer.py``.  With ``remat`` each encoder and decoder
+block runs under ``torch.utils.checkpoint``, where the JAX package wraps
+its scan bodies in ``jax.checkpoint``.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ import torch
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import lm_logits
+from repro_torch.models.transformer import (chunked_ce_loss, lm_logits,
+                                            maybe_checkpoint)
 
 
 # -- init ---------------------------------------------------------------------
@@ -95,38 +99,49 @@ def init_encdec_cache(cfg, batch: int, max_seq: int, dtype=None,
 
 # -- forward ------------------------------------------------------------------
 
-def encode(params, cfg, src_embeds):
+def _enc_block(blk, cfg, h, positions):
+    hn = L.rmsnorm(blk["attn_norm"], h, cfg.norm_eps)
+    out, _ = A.attention(blk["attn"], hn, cfg, positions=positions,
+                         causal=False)
+    h = h + out.to(h.dtype)
+    hn = L.rmsnorm(blk["ffn_norm"], h, cfg.norm_eps)
+    return h + L.mlp(blk["ffn"], hn, act=cfg.mlp_act).to(h.dtype)
+
+
+def encode(params, cfg, src_embeds, *, remat=False):
     """Bidirectional encoder over stub frame embeddings (B, T, d)."""
     h = src_embeds.to(L.dtype_of(cfg.compute_dtype))
     positions = torch.arange(h.shape[1], device=h.device)
+    block = maybe_checkpoint(_enc_block, remat)
     for blk in params["encoder"]["blocks"]:
-        hn = L.rmsnorm(blk["attn_norm"], h, cfg.norm_eps)
-        out, _ = A.attention(blk["attn"], hn, cfg, positions=positions,
-                             causal=False)
-        h = h + out.to(h.dtype)
-        hn = L.rmsnorm(blk["ffn_norm"], h, cfg.norm_eps)
-        h = h + L.mlp(blk["ffn"], hn, act=cfg.mlp_act).to(h.dtype)
+        h = block(blk, cfg, h, positions)
     return L.rmsnorm(params["encoder"]["norm"], h, cfg.norm_eps)
 
 
+def _dec_block(blk, cfg, h, memory, positions, self_c, cross_c, cache_pos,
+               window):
+    hn = L.rmsnorm(blk["self_norm"], h, cfg.norm_eps)
+    out, _ = A.attention(blk["self_attn"], hn, cfg, positions=positions,
+                         window=window, cache=self_c, cache_pos=cache_pos)
+    h = h + out.to(h.dtype)
+    hn = L.rmsnorm(blk["cross_norm"], h, cfg.norm_eps)
+    out, _ = A.attention(blk["cross_attn"], hn, cfg, positions=positions,
+                         memory=memory, cross=True, cache=cross_c)
+    h = h + out.to(h.dtype)
+    hn = L.rmsnorm(blk["ffn_norm"], h, cfg.norm_eps)
+    return h + L.mlp(blk["ffn"], hn, act=cfg.mlp_act).to(h.dtype)
+
+
 def _decoder(params, cfg, h, memory, *, positions, caches=None,
-             cache_pos=None, window=None):
+             cache_pos=None, window=None, remat=False):
     """Decoder stack.  ``memory`` may be None when cross caches are given.
     Returns (normed hidden, caches or None)."""
+    block = maybe_checkpoint(_dec_block, remat)
     for i, blk in enumerate(params["decoder"]["blocks"]):
         self_c = caches["self"][i] if caches is not None else None
         cross_c = caches["cross"][i] if caches is not None else None
-        hn = L.rmsnorm(blk["self_norm"], h, cfg.norm_eps)
-        out, _ = A.attention(blk["self_attn"], hn, cfg, positions=positions,
-                             window=window, cache=self_c,
-                             cache_pos=cache_pos)
-        h = h + out.to(h.dtype)
-        hn = L.rmsnorm(blk["cross_norm"], h, cfg.norm_eps)
-        out, _ = A.attention(blk["cross_attn"], hn, cfg, positions=positions,
-                             memory=memory, cross=True, cache=cross_c)
-        h = h + out.to(h.dtype)
-        hn = L.rmsnorm(blk["ffn_norm"], h, cfg.norm_eps)
-        h = h + L.mlp(blk["ffn"], hn, act=cfg.mlp_act).to(h.dtype)
+        h = block(blk, cfg, h, memory, positions, self_c, cross_c,
+                  cache_pos, window)
     return L.rmsnorm(params["final_norm"], h, cfg.norm_eps), caches
 
 
@@ -140,6 +155,19 @@ def build_cross_cache(params, cfg, memory):
         shape = (*k.shape[:-1], cfg.num_kv_heads, cfg.head_dim)
         cache.append({"k": k.reshape(shape), "v": v.reshape(shape)})
     return cache
+
+
+def encdec_train_loss(params, cfg, batch, *, remat=True):
+    """batch: {src_embeds (B,T,d), tokens (B,S), labels (B,S), [mask]}.
+    Returns (loss, metrics): the decoder's chunked cross-entropy, as
+    ``loss`` and ``ce``."""
+    memory = encode(params, cfg, batch["src_embeds"], remat=remat)
+    h = L.embed(params["embed"], batch["tokens"]).to(
+        L.dtype_of(cfg.compute_dtype))
+    positions = torch.arange(h.shape[1], device=h.device)
+    h, _ = _decoder(params, cfg, h, memory, positions=positions, remat=remat)
+    ce = chunked_ce_loss(params, cfg, h, batch["labels"], batch.get("mask"))
+    return ce, {"loss": ce, "ce": ce}
 
 
 def encdec_prefill(params, cfg, batch, caches, *, window=None):

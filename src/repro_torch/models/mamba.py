@@ -13,7 +13,8 @@ intra-chunk outputs and the per-chunk states of every chunk with one
 launch of the SSD kernel (:func:`repro_torch.kernels.ops.ssd_chunk`,
 B10), then runs the inter-chunk recurrence as a loop over chunks in
 plain PyTorch: the split ``kernels/ssd_pallas.py`` prescribes.  With it
-off, every chunk runs the JAX package's plain step.
+off, or on a differentiated call (the training loss: the kernel has no
+backward), every chunk runs the JAX package's plain step.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.kernels._common import differentiated
 from repro_torch.models import layers as L
 
 
@@ -139,8 +141,11 @@ def _ssd_chunked(xh, dt, A, Bm, Cm, cfg, h0):
     Bc = Bm.reshape(b, c, Q, G, N)
     Cc = Cm.reshape(b, c, Q, G, N)
 
-    # one read of the process-wide toggle serves both branches below
-    kernel = ops.use_pallas()
+    # one read of the process-wide toggle serves both branches below; a
+    # differentiated call (the training loss) takes the plain path, as
+    # the kernel has no backward (the reference's training reaches no
+    # Pallas kernel either)
+    kernel = ops.use_pallas() and not differentiated(xdt, cs, Bc, Cc)
     if kernel:
         # every chunk's intra-chunk half in one kernel launch
         y_diag_all, states = ops.ssd_chunk(

@@ -11,9 +11,9 @@ Two execution paths, as in the JAX package:
   and values, and attention runs over this call's own projections (not
   over the cache, which the call only writes).  With
   ``ops.use_pallas()`` on, it takes the route of the ``attn`` prefill
-  (``attention._flash_route``) and runs the flash-attention kernel (B9)
-  with ``scale=1/sqrt(qk_nope + qk_rope)``: at (dh, dv) = (192, 128) at
-  full width.  The JAX expanded prefill never reaches its Pallas kernel
+  (``attention._flash_route``: not on a differentiated call) and runs
+  the flash-attention kernel (B9) with ``scale=1/sqrt(qk_nope +
+  qk_rope)``: at (dh, dv) = (192, 128) at full width.  The JAX expanded prefill never reaches its Pallas kernel
   (it runs the einsum, or ``blocked_attention`` at long prompts); B9
   computes the same function, as the port's ``attn`` prefill already
   does.  Otherwise the JAX split: the masked einsum below
@@ -177,7 +177,8 @@ def mla_attention(p, x, cfg, *, positions, window=None, cache=None,
 
     q_nope, q_rope = _project_q(p, x, cfg, positions)
     ckv, k_rope = _project_kv_latent(p, x, cfg, positions)
-    flash = A._flash_route(S, cfg, positions, cache, cache_pos)
+    flash = A._flash_route(S, cfg, positions, cache, cache_pos,
+                           inputs=(q_nope, q_rope, ckv, k_rope))
 
     if cache is not None:
         per_row = torch.is_tensor(cache_pos) and cache_pos.dim() == 1

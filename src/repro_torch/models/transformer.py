@@ -1,17 +1,26 @@
-"""Decoder-only LM over attention, MLA and SSM blocks: prefill and decode.
+"""Decoder-only LM over attention, MLA and SSM blocks: training loss,
+prefill and decode.
 
-Port of the serving half of the JAX package's ``models/transformer.py``
-for the ``attn``, ``mla`` (``models/mla.py``) and ``ssm`` mixers with a
-dense, MoE (``models/moe.py``) or no FFN, and for VLM prefix embeddings
+Port of the JAX package's ``models/transformer.py`` for the ``attn``,
+``mla`` (``models/mla.py``) and ``ssm`` mixers with a dense, MoE
+(``models/moe.py``) or no FFN, and for VLM prefix embeddings
 (``prefix_embeds``, concatenated before the tokens).  As in the JAX
 package, an encoder-decoder config (seamless-m4t-medium) builds here as
 a decoder-only stack of its ``num_layers`` (attention, dense) blocks,
 which is what the JAX ``Server`` serves; its real route, encoder and
 cross-attention, is ``models/encdec.py`` through the step builders of
-``launch/steps.py``.  deepseek-v3's
-multi-token-prediction head (``params["mtp"]``) is built as the JAX
-package builds it; serving never reads it, and the training loss that
-does (with the MoE auxiliary losses) waits for the LM-training slice.
+``launch/steps.py``.  deepseek-v3's multi-token-prediction head
+(``params["mtp"]``) is built as the JAX package builds it; serving never
+reads it, and :func:`lm_train_loss` adds its loss (:func:`mtp_loss`).
+
+The training loss never materializes (B, S, vocab) logits: the
+cross-entropy runs over sequence chunks (:func:`chunked_ce_loss`).  With
+``remat`` each block runs under ``torch.utils.checkpoint`` (its
+activations are recomputed in the backward pass), where the JAX package
+wraps each scan body in ``jax.checkpoint(nothing_saveable)``.  The
+loss's attention and SSD take the plain PyTorch path even with
+``ops.use_pallas()`` on, as the reference's training never reaches a
+Pallas kernel (``models/attention.py::_flash_route``).
 
 Parameters are a dict like the JAX package's, except that the layers are
 a list in layer order (``params["layers"][i]`` is layer i's block dict)
@@ -24,7 +33,10 @@ Caches are a list too, one dict per layer, each leaf with the request
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -109,6 +121,11 @@ def _block_cache(cfg, mixer, batch, max_seq, dtype, device):
 
 def _block_apply(p, cfg, h, mixer, ffn, *, positions, window, cache=None,
                  cache_pos=None):
+    """One block.  Returns (h, new cache, aux): aux is an MoE layer's
+    metrics dict from ``moe_apply`` (None for another FFN), which
+    :func:`moe_aux_loss` weighs into the JAX package's aux scalar only
+    where a loss wants it, so serving launches nothing for it."""
+    aux = None
     hn = L.rmsnorm(p["mixer_norm"], h, cfg.norm_eps)
     if mixer == "attn":
         out, new_cache = A.attention(p["attn"], hn, cfg, positions=positions,
@@ -126,9 +143,29 @@ def _block_apply(p, cfg, h, mixer, ffn, *, positions, window, cache=None,
         h = h + L.mlp(p["ffn"], hn, act=cfg.mlp_act).to(h.dtype)
     elif ffn == "moe":
         hn = L.rmsnorm(p["ffn_norm"], h, cfg.norm_eps)
-        out, _ = MOE.moe_apply(p["moe"], hn, cfg)    # serving: no aux loss
+        out, aux = MOE.moe_apply(p["moe"], hn, cfg)
         h = h + out.to(h.dtype)
-    return h, new_cache
+    return h, new_cache, aux
+
+
+def maybe_checkpoint(fn, remat: bool):
+    """``fn`` itself, or ``fn`` under ``torch.utils.checkpoint`` (its
+    activations recomputed in the backward pass) with ``remat``."""
+    if not remat:
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
+def moe_aux_loss(cfg, aux, device=None):
+    """The JAX package's aux scalar from :func:`lm_hidden`'s per-layer MoE
+    metrics: the sum over MoE layers of ``router_aux_weight ·
+    moe_aux_loss + router_z_weight · moe_z_loss``, float32 (0 without
+    MoE layers)."""
+    total = torch.zeros((), dtype=torch.float32, device=device)
+    for m in aux:
+        total = total + cfg.router_aux_weight * m["moe_aux_loss"] \
+            + cfg.router_z_weight * m["moe_z_loss"]
+    return total
 
 
 # -- model init / forward -----------------------------------------------------
@@ -197,19 +234,25 @@ def write_cache_slot(caches, slot_caches, slot: int):
 
 
 def lm_hidden(params, cfg, h, *, positions, window=None, caches=None,
-              cache_pos=None):
+              cache_pos=None, remat=False):
     """Run every block.  h: (B,S,d) embedded input.  Returns (normed
-    hidden, new caches or None)."""
+    hidden, new caches or None, aux): aux lists the MoE layers' metrics
+    dicts in layer order (:func:`moe_aux_loss` sums them).  ``remat``
+    recomputes each block's activations in the backward pass."""
     new_caches = [] if caches is not None else None
+    aux = []
+    block = maybe_checkpoint(_block_apply, remat)
     for i, (mixer, ffn) in enumerate(layer_types(cfg)):
         c = caches[i] if caches is not None else None
-        h, nc = _block_apply(params["layers"][i], cfg, h, mixer, ffn,
-                             positions=positions, window=window, cache=c,
-                             cache_pos=cache_pos)
+        h, nc, a = block(params["layers"][i], cfg, h, mixer, ffn,
+                         positions=positions, window=window, cache=c,
+                         cache_pos=cache_pos)
+        if a is not None:
+            aux.append(a)
         if caches is not None:
             new_caches.append(nc)
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    return h, new_caches
+    return h, new_caches, aux
 
 
 def embed_inputs(params, cfg, tokens=None, prefix_embeds=None):
@@ -235,6 +278,93 @@ def lm_logits(params, cfg, h):
     return logits.float()
 
 
+# -- training loss ------------------------------------------------------------
+
+def chunked_ce_loss(params, cfg, h, labels, mask=None, chunk: int = 512):
+    """Mean cross-entropy over (B, S) without materializing (B, S, V)
+    logits: the sequence runs in chunks of ``chunk`` positions (the last
+    padded, its padding masked out), each chunk's f32 logits live only
+    for that chunk's term.  ``mask`` (B, S) weighs each position."""
+    B, S, d = h.shape
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    labels = labels.long()
+    mask = (torch.ones((B, S), dtype=torch.float32, device=h.device)
+            if mask is None else mask.float())
+    if pad:
+        h = torch.nn.functional.pad(h, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad))
+        mask = torch.nn.functional.pad(mask, (0, pad))
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, S + pad, chunk):
+        logits = lm_logits(params, cfg, h[:, i:i + chunk])   # (B,chunk,V)
+        lc, mc = labels[:, i:i + chunk], mask[:, i:i + chunk]
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lc[..., None])[..., 0]
+        tot = tot + torch.sum((lse - gold) * mc)
+        cnt = cnt + torch.sum(mc)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def _apply_single_block(p, cfg, h, positions):
+    mixer = "mla" if cfg.use_mla else "attn"
+    ffn = "dense" if cfg.d_ff else "none"
+    return _block_apply(p, cfg, h, mixer, ffn, positions=positions,
+                        window=cfg.attn_window)
+
+
+def mtp_loss(params, cfg, h, tokens, labels_next2, mask=None):
+    """DeepSeek-V3 depth-1 multi-token-prediction auxiliary loss.
+
+    Combines the main-path hidden state at position t with the embedding
+    of ``tokens`` at t through the MTP head's projection and block, and
+    predicts ``labels_next2``.
+    """
+    if "mtp" not in params:
+        return torch.zeros((), dtype=torch.float32, device=h.device)
+    mp = params["mtp"]
+    emb_next = L.embed(params["embed"], tokens).to(h.dtype)
+    hh = torch.cat([L.rmsnorm(mp["norm"], h, cfg.norm_eps), emb_next],
+                   dim=-1)
+    hh = L.dense(mp["proj"], hh)
+    positions = torch.arange(h.shape[1], device=h.device)
+    hh2, _, _ = _apply_single_block(mp["block"], cfg, hh, positions)
+    return chunked_ce_loss(params, cfg, hh2, labels_next2, mask)
+
+
+def lm_train_loss(params, cfg, batch, *, remat=True):
+    """batch: {tokens (B,S), labels (B,S), [mask], [prefix_embeds]}.
+    Returns (loss, metrics): ``ce``, ``aux`` (the MoE auxiliary losses),
+    ``mtp`` for an MTP config, and ``loss`` = ce + aux (+ 0.3 · mtp).
+
+    As in the JAX package: a VLM prefix gets no LM loss, and the MTP
+    loss reads ``labels`` as its tokens and ``labels`` rolled left by one
+    as its targets, so the last position's target wraps round to the
+    first label, unmasked.
+    """
+    tokens = batch["tokens"]
+    h = embed_inputs(params, cfg, tokens, batch.get("prefix_embeds"))
+    positions = torch.arange(h.shape[1], device=h.device)
+    h, _, aux = lm_hidden(params, cfg, h, positions=positions,
+                          window=cfg.attn_window, remat=remat)
+    aux = moe_aux_loss(cfg, aux, h.device)
+    labels = batch["labels"]
+    npfx = h.shape[1] - tokens.shape[1]
+    if npfx > 0:                       # VLM prefix: no LM loss on patches
+        h = h[:, npfx:]
+    ce = chunked_ce_loss(params, cfg, h, labels, batch.get("mask"))
+    loss = ce + aux
+    metrics = {"loss": loss, "ce": ce, "aux": aux}
+    if cfg.mtp_depth > 0:
+        shifted = torch.roll(labels, -1, dims=1)
+        m = mtp_loss(params, cfg, h, labels, shifted)
+        loss = loss + 0.3 * m
+        metrics["mtp"] = m
+        metrics["loss"] = loss
+    return loss, metrics
+
+
 def lm_prefill(params, cfg, batch, caches, *, window=None, last_pos=None):
     """Prefill: fill the caches with the prompt, return last-position
     logits (B, V) and the caches.
@@ -247,8 +377,8 @@ def lm_prefill(params, cfg, batch, caches, *, window=None, last_pos=None):
     h = embed_inputs(params, cfg, batch.get("tokens"),
                      batch.get("prefix_embeds"))
     positions = torch.arange(h.shape[1], device=h.device)
-    h, caches = lm_hidden(params, cfg, h, positions=positions, window=window,
-                          caches=caches, cache_pos=0)
+    h, caches, _ = lm_hidden(params, cfg, h, positions=positions,
+                             window=window, caches=caches, cache_pos=0)
     if last_pos is None:
         sel = h[:, -1:]
     else:
@@ -284,6 +414,6 @@ def lm_decode_step(params, cfg, token, caches, pos, *, window=None):
     else:
         pos = int(pos)
         positions = pos + torch.arange(1, device=h.device)
-    h, caches = lm_hidden(params, cfg, h, positions=positions, window=window,
-                          caches=caches, cache_pos=pos)
+    h, caches, _ = lm_hidden(params, cfg, h, positions=positions,
+                             window=window, caches=caches, cache_pos=pos)
     return lm_logits(params, cfg, h)[:, 0], caches

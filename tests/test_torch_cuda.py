@@ -726,3 +726,68 @@ def test_sharded_four_way_on_one_card_matches_one_way(cuda_device, dtype):
     # equal up to relabelling: the (a, b) label pairs map one to one
     pairs = torch.unique(a * k + b).numel()
     assert pairs == torch.unique(a).numel() == torch.unique(b).numel()
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_a_differentiated_call(cuda_device):
+    """B9 and B10 have no backward: on CUDA tensors a call that autograd
+    records raises instead of cutting the graph; the same call under
+    no_grad launches."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+
+    def t(*shape, grad=False):
+        return torch.randn(shape, generator=g, device=cuda_device
+                           ).requires_grad_(grad)
+
+    q, k, v = t(1, 16, 2, 32, grad=True), t(1, 16, 2, 32), t(1, 16, 2, 32)
+    xdt, cs = t(1, 2, 8, 2, 16, grad=True), -t(1, 2, 8, 2).abs().cumsum(2)
+    bm, cm = t(1, 2, 8, 1, 16), t(1, 2, 8, 1, 16)
+    ops.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(q, k, v)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.ssd_chunk(xdt, cs, bm, cm)
+    assert ops.LAUNCH_COUNTS["flash_attention"] == 0
+    assert ops.LAUNCH_COUNTS["ssd_chunk"] == 0
+    with torch.no_grad():
+        ops.flash_attention(q, k, v)
+        ops.ssd_chunk(xdt, cs, bm, cm)
+    assert ops.LAUNCH_COUNTS["flash_attention"] == 1
+    assert ops.LAUNCH_COUNTS["ssd_chunk"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch, kernel", [("gemma-2b", "flash_attention"),
+                                          ("mamba2-2.7b", "ssd_chunk")])
+def test_serving_after_a_train_step_launches_the_kernels(cuda_device, arch,
+                                                         kernel):
+    """A reduced f32 training step on the card with the kernels on
+    launches none (the loss takes the plain path), and a prefill of the
+    parameters it updated then launches B9 (attention) or B10 (SSD):
+    the step leaves no parameter requiring grad.  Card against CPU
+    training is phase 11 of the smoke run."""
+    from repro_torch import optim
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.tree import leaves
+
+    cfg = get_config(arch).reduced()
+    toks = torch.tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 17)), device=cuda_device)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    params = T.params_to(T.init_lm(torch.Generator().manual_seed(0), cfg,
+                                   device="cpu"), cuda_device)
+    opt = optim.adamw(1e-3)
+    step = steps.make_train_step(
+        cfg, ShapeConfig("custom_train", 16, 2, "train", 2), opt)
+    prefill = steps.make_prefill_step(
+        cfg, ShapeConfig("prefill", 32, 2, "prefill"))
+    with ops.use_pallas_scoped(True):
+        ops.reset_launch_counts()
+        params, _, m = step(params, opt.init(params), 0, batch)
+        assert sum(ops.LAUNCH_COUNTS.values()) == 0
+        assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+        assert not any(p.requires_grad for p in leaves(params))
+        logits, _ = prefill(params, {"tokens": batch["tokens"]})
+    assert ops.LAUNCH_COUNTS[kernel] > 0
+    assert not logits.requires_grad and torch.isfinite(logits).all()
