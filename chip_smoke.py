@@ -178,6 +178,25 @@ Phases (any failure raises and the script exits non-zero):
    on the card a checkpoint of the state before the last step, restored
    bit for bit, whose next step equals the continued run's bit for bit.
 
+12. LM training data-parallel over a mesh of devices
+   (``make_train_step(mesh=)`` on trees placed by
+   ``models/sharding.py::shard_params``), kernels on and none launched.
+   (a) D = 1 on (cuda:0,): reduced f32 gemma-2b and qwen2-7b at 1 and
+   2 microbatches, every metric, parameter and moment bit for bit the
+   step without a mesh.  (b) D = 2 and 4 on (cuda:0,) * D for reduced
+   f32 gemma-2b, qwen2-7b, mamba2-2.7b, internvl2-26b and
+   seamless-m4t-medium (B 8, G 2, 3 steps) against D = 1 at phase 11c's
+   limits; every replicated leaf identical on all D devices; a
+   checkpoint of the sharded state byte-identical to the same state's
+   on one device, restored at D = 1 bit for bit.  (c) gemma-2b at full
+   width in bf16 over (cuda:0,) * 2 with phase 11a's batch and
+   optimizer, 4 steps (the last profiled): its first loss within 1e-3
+   of phase 11a's, step ms, tok/s, peak memory, launches.  (d) With four
+   visible cards: reduced qwen2-7b over cuda:0-3 as in (b), then
+   qwen2-7b at full width in bf16 over the four cards, 7 steps of AdamW
+   at 1e-4: a falling loss, step ms, tok/s, each card's peak; with
+   fewer cards one line says that (d) was not run.
+
 It prints the kernel table as one JSON line, then the card's name and
 power limit, then ``{"ok": true, "device": {...}}`` as the last line.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -405,6 +424,32 @@ TRAIN_GROUPS = {"loss forward": ("range", "train.loss"),
                 "clip": ("range", "train.clip"),
                 "optimizer": ("range", "train.update"),
                 "GEMMs": ("kernel", r"gemm|xmma|cutlass|nvjet")}
+# phase 12: LM training data-parallel over a mesh of devices
+# (make_train_step(mesh=), models/sharding.py), with the kernels on (no
+# launches).  (a) D = 1 on (cuda:0,): bit for bit the step without a
+# mesh.  (b) D = 2 and 4 on (cuda:0,) * D, reduced f32, against the
+# card's D = 1 step at phase 11c's limits.  (c) gemma-2b at full width in
+# bf16 over (cuda:0,) * 2, phase 11a's batch.  (d) With four cards:
+# reduced qwen2-7b over cuda:0-3 as in (b), then qwen2-7b at full width
+# in bf16 over the four cards.
+MESH_EXACT = ("gemma-2b", "qwen2-7b")
+MESH_REDUCED = ("gemma-2b", "qwen2-7b", "mamba2-2.7b", "internvl2-26b",
+                "seamless-m4t-medium")
+MESH_COUNTS = (2, 4)
+MESH_REDUCED_B, MESH_REDUCED_MICRO, MESH_REDUCED_STEPS = 8, 2, 3
+MESH_FULL_ARCH, MESH_FULL_D, MESH_FULL_STEPS = "gemma-2b", 2, 4
+MESH_4_ARCH, MESH_4_CARDS, MESH_4_STEPS = "qwen2-7b", 4, 7
+# (d) must show the loss falling within its steps: the launcher's warm-up
+# (3e-4 * (step + 1) / 200) moves few bf16 weights that early (phase
+# 11a: 6.5 % of the probed embedding entries in 7 steps), so (d) takes
+# AdamW at a constant rate, f32 moments as the launcher's
+MESH_4_LR = 1e-4
+# (c)'s first loss against phase 11a's D = 1 loss on the same weights and
+# batch: the split changes only the rows each bf16 GEMM sees, hence
+# cuBLAS's algorithm and the rounding of bf16 activations (half an ulp,
+# 2^-9 relative, each); the loss is an f32 mean over 2048 tokens, which
+# averages those roundings, so it is held to about half of one:
+LIMIT_MESH_BF16_LOSS_REL = 1e-3
 LIMIT_F32_REL = 1e-5     # f32 output: summation order only
 # bf16 output, elementwise: |got - want| <= 2^-7 |want| + 1e-3 rms(want).
 # Both sides round an f32 result to bf16, so they may differ by one unit
@@ -3091,7 +3136,8 @@ def train_ranges(cfg):
 def _train_full(arch):
     """(a), (b): ``arch`` at full width and depth in bf16, the launcher's
     optimizer and batch, TRAIN_STEPS steps timed and one profiled, with
-    the kernels on.  Returns the kernel launches of the steps."""
+    the kernels on.  Returns the kernel launches of the steps and the
+    losses."""
     import gc
 
     import numpy as np
@@ -3183,7 +3229,7 @@ def _train_full(arch):
     del params, opt_state, first, watched, probe, step_fn, m
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, losses
 
 
 def nudge_one_ulp(params, seed):
@@ -3361,15 +3407,340 @@ def _train_card_vs_cpu(arch):
 def phase11():
     """LM training: gemma-2b and seamless-m4t-medium at full width in
     bf16, then six families reduced, card against CPU.  Returns the
-    kernel launches (none)."""
-    launches = {}
+    kernel launches (none) and each full-width arch's first loss."""
+    launches, first_loss = {}, {}
     for arch in TRAIN_FULL:
-        launches[arch] = sum(_train_full(arch).values())
+        counts, losses = _train_full(arch)
+        launches[arch] = sum(counts.values())
+        first_loss[arch] = losses[0]
     for arch in TRAIN_REDUCED:
         launches[f"reduced {arch}"] = sum(_train_card_vs_cpu(arch).values())
     if any(launches.values()):
         raise AssertionError(f"phase 11 launched kernels: {launches}")
-    return launches
+    return launches, first_loss
+
+
+def _mesh_batches(cfg, n, B):
+    """``n`` reduced batches (B x TRAIN_REDUCED_S) from the token
+    pipeline's generator, with the frames or prefix embeddings, on the
+    host."""
+    import numpy as np
+    import torch
+    from repro_torch.data import TokenDataConfig, synthetic_token_batches
+
+    rng = np.random.default_rng(LM_SEED + 13)
+    return [_train_batch(cfg, {k: torch.from_numpy(v.astype(np.int64))
+                               for k, v in b.items()},
+                         rng, "cpu", torch.float32)
+            for b in synthetic_token_batches(
+                TokenDataConfig(cfg.vocab_size, TRAIN_REDUCED_S, B,
+                                seed=LM_SEED), n)]
+
+
+def _mesh_run(cfg, batches, G, mesh):
+    """TRAIN_REDUCED_LR AdamW steps of reduced ``cfg`` from the seed's
+    parameters: on ``mesh`` (placed by ``shard_params``), or on the card
+    without one (``mesh`` None).  Returns (params, opt_state, [metrics as
+    floats])."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import transformer as T
+    from repro_torch.models.sharding import shard_params
+
+    opt = optim.adamw(TRAIN_REDUCED_LR)
+    B, S = batches[0]["tokens"].shape
+    step_fn = steps.make_train_step(
+        cfg, ShapeConfig("custom_train", S, B, "train", G), opt, mesh=mesh)
+    init = ED.init_encdec if cfg.is_encoder_decoder else T.init_lm
+    params = T.params_to(init(torch.Generator().manual_seed(LM_SEED), cfg,
+                              device="cpu"), "cuda")
+    if mesh is not None:
+        params = shard_params(params, mesh)
+    opt_state = opt.init(params)
+    ms = []
+    for step, batch in enumerate(batches):
+        params, opt_state, m = step_fn(
+            params, opt_state, step,
+            {k: v.to("cuda") for k, v in batch.items()})
+        ms.append({k: float(v) for k, v in m.items()})
+    return params, opt_state, ms
+
+
+def _deterministic():
+    """Deterministic kernels (index_put's accumulation), warnings off."""
+    import warnings
+
+    import torch
+
+    @contextlib.contextmanager
+    def ctx():
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                yield
+        finally:
+            torch.use_deterministic_algorithms(False)
+    return ctx()
+
+
+def phase12a():
+    """D = 1 on (cuda:0,): the mesh step is ``make_train_step``'s step bit
+    for bit (every metric, parameter and moment), G 1 and 2."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.tree import leaves
+
+    mesh = make_test_mesh(1, devices=("cuda:0",))
+    for arch in MESH_EXACT:
+        cfg = get_config(arch).reduced()
+        batches = _mesh_batches(cfg, MESH_REDUCED_STEPS, MESH_REDUCED_B)
+        for G in (1, 2):
+            with _deterministic():
+                p0, s0, m0 = _mesh_run(cfg, batches, G, None)
+                p1, s1, m1 = _mesh_run(cfg, batches, G, mesh)
+            same = m0 == m1 and all(
+                len(y.shards) == 1 and torch.equal(x, y.shards[0])
+                for a, b in ((p0, p1), (s0, s1))
+                for x, y in zip(leaves(a), leaves(b)))
+            print(f"phase 12a: reduced {arch} G {G}, D = 1 mesh vs no mesh: "
+                  f"losses {[m['loss'] for m in m1]}, grad norms "
+                  f"{[m['grad_norm'] for m in m1]}; every metric, parameter "
+                  f"and moment bit for bit: {same}")
+            if not same:
+                raise AssertionError(f"phase 12a: reduced {arch} G {G}: the "
+                                     f"one-device mesh step differs")
+
+
+def _mesh_vs_one(arch, mesh, label):
+    """(b): reduced ``arch`` on ``mesh`` against the card's D = 1 step:
+    the first loss and grad norm, the loss trajectory, replicated leaves
+    identical on every device, and a checkpoint of the sharded state
+    byte-identical to the same state's on one device, restored at D =
+    1.  Returns the worst relative errors."""
+    import filecmp
+    import os
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint import load_pytree, save_pytree
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.sharding import gather_params, shard_params
+    from repro_torch.tree import leaves
+
+    cfg = get_config(arch).reduced()
+    batches = _mesh_batches(cfg, MESH_REDUCED_STEPS, MESH_REDUCED_B)
+    one = make_test_mesh(1, devices=("cuda:0",))
+    _, _, want = _mesh_run(cfg, batches, MESH_REDUCED_MICRO, one)
+    params, opt_state, got = _mesh_run(cfg, batches, MESH_REDUCED_MICRO,
+                                       mesh)
+    D = mesh.size
+
+    def rel(i, key):
+        return abs(got[i][key] - want[i][key]) / abs(want[i][key])
+
+    worst = {"first loss": rel(0, "loss"), "first grad_norm":
+             rel(0, "grad_norm"), "trajectory": max(
+                 rel(i, "loss") for i in range(1, len(got)))}
+    limits = {"first loss": LIMIT_TRAIN_LOSS_REL,
+              "first grad_norm": LIMIT_TRAIN_GNORM_REL,
+              "trajectory": LIMIT_TRAIN_TRAJ_REL}
+    state = {"params": params, "opt_state": opt_state}
+    replicated = [x for x in leaves(state) if x.parts < D]
+    copies = all(torch.equal(s.to(x.shards[d % x.parts].device),
+                             x.shards[d % x.parts])
+                 for x in replicated for d, s in enumerate(x.shards))
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b = os.path.join(tmp, "d.npz"), os.path.join(tmp, "one.npz")
+        save_pytree(a, state)
+        whole = gather_params(state, "cuda:0")
+        save_pytree(b, {k: shard_params(v, one) for k, v in whole.items()})
+        same_file = filecmp.cmp(a, b, shallow=False)
+        template = {k: shard_params(v, one) for k, v in whole.items()}
+        back = load_pytree(a, template)
+        restored = all(torch.equal(x.shards[0], w) for x, w in
+                       zip(leaves(back), leaves(whole)))
+    print(f"phase 12b: reduced {arch} {label} vs D = 1 (G "
+          f"{MESH_REDUCED_MICRO}): losses {[m['loss'] for m in got]} vs "
+          f"{[m['loss'] for m in want]}, grad norms "
+          f"{[m['grad_norm'] for m in got]} vs "
+          f"{[m['grad_norm'] for m in want]}; "
+          + ", ".join(f"{k} {v:.3e} (limit {limits[k]:.0e})"
+                      for k, v in worst.items())
+          + f"; {len(replicated)} replicated leaves identical on all {D} "
+          f"devices: {copies}; sharded checkpoint byte-identical to D = "
+          f"1's: {same_file}, restored at D = 1 bit for bit: {restored}")
+    bad = {k: v for k, v in worst.items() if not v <= limits[k]}
+    if bad or not copies or not same_file or not restored:
+        raise AssertionError(f"phase 12b: reduced {arch} {label}: {bad}, "
+                             f"copies {copies}, checkpoint {same_file}, "
+                             f"restored {restored}")
+    return worst
+
+
+def phase12b():
+    from repro_torch.launch.mesh import make_test_mesh
+
+    for arch in MESH_REDUCED:
+        for D in MESH_COUNTS:
+            _mesh_vs_one(arch, make_test_mesh(D, devices=("cuda:0",) * D),
+                         f"D = {D} on (cuda:0,) * {D}")
+
+
+def _sync_all(mesh):
+    import torch
+    for dev in dict.fromkeys(mesh.devices):
+        torch.cuda.synchronize(dev)
+
+
+def _mesh_full(arch, mesh, steps_n, label, profile=False, lr=None):
+    """``arch`` at full width and depth in bf16 on ``mesh``: the
+    launcher's optimizer (AdamW at a constant ``lr`` if given), phase
+    11a's batch of TRAIN_BATCH x TRAIN_SEQ
+    tokens (the pipeline's row shards) in TRAIN_MICRO microbatches,
+    ``steps_n`` steps timed (the last profiled with ``profile``).
+    Returns the losses."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import TokenDataConfig, make_batch_iterator
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.models.sharding import shard_params
+
+    cfg = get_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = shard_params(T.init_lm(
+        torch.Generator(device=mesh.devices[0]).manual_seed(LM_SEED), cfg,
+        device=mesh.devices[0]), mesh)
+    shape = ShapeConfig("custom_train", TRAIN_SEQ, TRAIN_BATCH, "train",
+                        TRAIN_MICRO)
+    D = mesh.size
+    G = steps.num_microbatches(cfg, shape, D)
+    opt = (steps.make_optimizer(cfg, steps_n) if lr is None
+           else optim.adamw(lr))
+    opt_state = opt.init(params)
+    cards = list(dict.fromkeys(mesh.devices))
+    gc.collect()
+    _sync_all(mesh)
+    for dev in cards:
+        torch.cuda.reset_peak_memory_stats(dev)
+    print(f"phase 12: {arch} {label}: {_numel(params) / 1e9:.3f}e9 "
+          f"parameters in {cfg.param_dtype}, sharded by the rule engine; "
+          f"global batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens in {G} "
+          f"microbatches of {TRAIN_BATCH // G // D} rows a device; "
+          + ", ".join(f"{dev} {torch.cuda.memory_allocated(dev) / 2**30:.2f}"
+                      f" GiB" for dev in cards) + " allocated")
+    data = make_batch_iterator(
+        TokenDataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                        seed=LM_SEED), num_batches=steps_n, mesh=mesh,
+        microbatches=G)
+    times, losses, norms = [], [], []
+    wall = busy = None
+    with ops.use_pallas_scoped(True):
+        step_fn = steps.make_train_step(cfg, shape, opt, mesh=mesh)
+        ops.reset_launch_counts()
+        for step, shards in enumerate(data):
+            if profile and step == steps_n - 1:
+                (params, opt_state, m), wall, busy = profile_device(
+                    "12", f"{arch} {label} train step", lambda: step_fn(
+                        params, opt_state, step, shards), host_top=4)
+            else:
+                _sync_all(mesh)
+                t0 = time.perf_counter()
+                params, opt_state, m = step_fn(params, opt_state, step,
+                                               shards)
+                _sync_all(mesh)
+                times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        _sync_all(mesh)
+        launches = sum(ops.LAUNCH_COUNTS.values())
+    peaks = {str(dev): torch.cuda.max_memory_allocated(dev) / 2**30
+             for dev in cards}
+    step_ms = statistics.median(times[1:])
+    print(f"phase 12: {arch} {label}: losses "
+          f"{[round(x, 4) for x in losses]}, grad norms "
+          f"{[round(x, 4) for x in norms]}; step {step_ms:.3f} ms (host "
+          f"clock ending in a synchronize of every card, median of steps "
+          f"2-{len(times)}; all {[round(t, 3) for t in times]}), "
+          f"{TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3:.1f} tok/s; peak "
+          f"device memory " + ", ".join(f"{k} {v:.2f} GiB"
+                                        for k, v in peaks.items())
+          + ("" if wall is None else f"; profiled step wall {wall:.3f} ms,"
+             f" busy {busy:.3f} ms") + f"; kernel launches {launches}")
+    if not all(np.isfinite(losses)) or not all(np.isfinite(norms)):
+        raise AssertionError(f"phase 12: {arch} {label}: a loss or grad "
+                             f"norm is not finite")
+    if launches:
+        raise AssertionError(f"phase 12: {arch} {label}: training launched "
+                             f"{launches} kernels")
+    del params, opt_state, step_fn, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses
+
+
+def phase12c(first_loss):
+    """gemma-2b at full width over (cuda:0,) * 2; its first loss against
+    phase 11a's D = 1 loss (``first_loss``)."""
+    from repro_torch.launch.mesh import make_test_mesh
+
+    D = MESH_FULL_D
+    losses = _mesh_full(MESH_FULL_ARCH,
+                        make_test_mesh(D, devices=("cuda:0",) * D),
+                        MESH_FULL_STEPS, f"D = {D} on (cuda:0,) * {D}",
+                        profile=True)
+    err = abs(losses[0] - first_loss) / abs(first_loss)
+    print(f"phase 12c: {MESH_FULL_ARCH} D = {D} first loss {losses[0]!r} vs "
+          f"phase 11a's D = 1 {first_loss!r}: {err:.3e} relative (limit "
+          f"{LIMIT_MESH_BF16_LOSS_REL:.0e})")
+    if not err <= LIMIT_MESH_BF16_LOSS_REL:
+        raise AssertionError(f"phase 12c: first loss {err:.3e} apart")
+
+
+def phase12d():
+    """With MESH_4_CARDS cards: reduced qwen2-7b over cuda:0-3 against
+    D = 1 as in (b), then qwen2-7b at full width in bf16 over the cards,
+    whose loss must fall.  With fewer, one line says so."""
+    import torch
+    from repro_torch.launch.mesh import make_test_mesh
+
+    visible = torch.cuda.device_count()
+    if visible < MESH_4_CARDS:
+        print(f"phase 12d: not run: it needs {MESH_4_CARDS} cards, "
+              f"{visible} visible")
+        return
+    mesh = make_test_mesh(MESH_4_CARDS, device="cuda:0")
+    label = f"D = {MESH_4_CARDS} on {[str(d) for d in mesh.devices]}"
+    _mesh_vs_one(MESH_4_ARCH, mesh, label)
+    losses = _mesh_full(MESH_4_ARCH, mesh, MESH_4_STEPS, label,
+                        lr=MESH_4_LR)
+    print(f"phase 12d: {MESH_4_ARCH} loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} in {MESH_4_STEPS} steps of AdamW at "
+          f"{MESH_4_LR}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"phase 12d: the loss did not fall: {losses}")
+
+
+def phase12(first_loss):
+    """Data-parallel LM training over a mesh; ``first_loss``: phase 11a's
+    first gemma-2b loss."""
+    phase12a()
+    phase12b()
+    phase12c(first_loss)
+    phase12d()
 
 
 def path_data():
@@ -3420,7 +3791,8 @@ def main() -> int:
     for name, n in phase9().items():
         launches[name] += n
     launches["flash_attention"] += phase10()
-    phase11()
+    _, first_loss = phase11()
+    phase12(first_loss[MESH_FULL_ARCH])
     for name, rec in records.items():
         rec["launches"] = launches[name]
     keys = ("name", "route", "source", "replaces", "launches",

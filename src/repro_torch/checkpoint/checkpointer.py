@@ -20,6 +20,14 @@ or hands back the uint16 bits as the leaf (with one), so it cannot read
 a bf16 checkpoint the port wrote.  Loaded leaves are CPU tensors; with
 a ``template``, each takes the place (and device) of the template's
 leaf.
+
+Sharded trees (``models/sharding.py::Sharded`` leaves): a sharded leaf
+is gathered to the host and written as the whole leaf, so a tree saved
+sharded over any number of devices writes the file its unsharded tree
+writes, byte for byte (``np.savez`` stamps every member with the zip
+epoch, so equal trees give equal files).  A sharded leaf of
+a ``template`` is cut again as the template's is: a checkpoint saved
+at one device count restores at any other.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as _tree
+from repro_torch.models.sharding import Sharded
 
 _SEP = "::"
 _NONE = "__none__"
@@ -52,6 +61,8 @@ def _flatten_with_paths(tree):
                 walk(v, path + [f"#{i}"])
         elif node is None:
             flat[_SEP.join(path + [_NONE])] = np.zeros((0,))
+        elif isinstance(node, Sharded):
+            walk(node.gather("cpu"), path)
         elif torch.is_tensor(node) and node.dtype == torch.bfloat16:
             bits = node.detach().cpu().view(torch.int16).numpy()
             flat[_SEP.join(path + [_BF16])] = bits.view(np.uint16)
@@ -96,7 +107,8 @@ def _unflatten_from_paths(flat: dict, template=None):
         want, got = _tree.leaves(template), _tree.leaves(tree)
         if len(want) != len(got):
             raise ValueError("checkpoint does not match template structure")
-        got = [g.to(w.device) if torch.is_tensor(w) else g
+        got = [w.place(g) if isinstance(w, Sharded)
+               else g.to(w.device) if torch.is_tensor(w) else g
                for w, g in zip(want, got)]
         return _tree.unflatten(template, got)
     return tree

@@ -7,8 +7,9 @@ has learnable structure, unlike uniform noise): no download.
 generator, so a config gives the same batches bit for bit.
 ``make_batch_iterator`` yields them on a device as int64 tensors
 (torch's ``gather`` and indexing take int64), with host prefetch on a
-producer thread; the JAX package's mesh placement has no counterpart
-on one card.
+producer thread.  With a mesh it yields each batch as row shards, one
+per device, as the JAX package shards a batch over the data axes
+(``models/sharding.py::batch_rows``).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models.sharding import batch_rows, data_parallel_devices
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,15 +69,25 @@ def synthetic_token_batches(cfg: TokenDataConfig,
 
 def make_batch_iterator(cfg: TokenDataConfig, device=None,
                         num_batches: Optional[int] = None,
-                        prefetch: int = 2) -> Iterator[dict]:
+                        prefetch: int = 2, *, mesh=None,
+                        microbatches: int = 1) -> Iterator:
     """Host-prefetched iterator of batches on ``device`` (None: the card).
 
     A producer thread generates up to ``prefetch`` batches ahead and
     turns them into int64 tensors, in pinned memory when the device is a
     card, so the copy to the card is asynchronous (``non_blocking``).
+
+    With ``mesh`` (a ``launch/mesh.py::NamedMesh``; no ``device``), each
+    batch is a list of one dict per device of the mesh: device d's rows
+    under ``microbatches`` G (``sharding.batch_rows``, the order
+    ``launch/steps.py::make_train_step(mesh=)`` takes), cut and pinned
+    on the producer thread and copied to device d.
     """
-    dev = resolve_device(device)
-    pin = dev.type == "cuda"
+    if mesh is not None and device is not None:
+        raise ValueError("pass device or mesh, not both")
+    devices = ((resolve_device(device),) if mesh is None
+               else data_parallel_devices(mesh))
+    pin = devices[0].type == "cuda"
     gen = synthetic_token_batches(cfg, num_batches)
 
     q: Queue = Queue(maxsize=prefetch)
@@ -85,10 +97,15 @@ def make_batch_iterator(cfg: TokenDataConfig, device=None,
         t = torch.from_numpy(a.astype(np.int64))
         return t.pin_memory() if pin else t
 
+    def rows(batch, d):
+        return {k: host(batch_rows(v, len(devices), microbatches, d))
+                for k, v in batch.items()}
+
     def producer():
         try:
             for batch in gen:
-                q.put({k: host(v) for k, v in batch.items()})
+                q.put({k: host(v) for k, v in batch.items()} if mesh is None
+                      else [rows(batch, d) for d in range(len(devices))])
         except Exception as err:     # handed to the consumer, which raises
             q.put(err)
             return
@@ -97,10 +114,14 @@ def make_batch_iterator(cfg: TokenDataConfig, device=None,
     th = threading.Thread(target=producer, daemon=True)
     th.start()
 
+    def to(shard, dev):
+        return {k: v.to(dev, non_blocking=True) for k, v in shard.items()}
+
     while True:
         batch = q.get()
         if batch is _DONE:
             return
         if isinstance(batch, Exception):
             raise batch
-        yield {k: v.to(dev, non_blocking=True) for k, v in batch.items()}
+        yield (to(batch, devices[0]) if mesh is None
+               else [to(s, dev) for s, dev in zip(batch, devices)])

@@ -1,23 +1,34 @@
-"""The cohort engine's device mesh: a tuple of devices.
+"""Device meshes of the port: one process driving a tuple of devices.
 
-Port of the cohort half of the JAX package's ``launch/mesh.py``.  The JAX
-engine shards client rows over a 1-D ``("clients",)`` mesh with
-``shard_map`` from one Python process; here one process places row
-shards on a tuple of ``torch.device``s (``cohort/sharded.py``) and sums
-the two per-solve partials on the first device in shard order.  A tuple
-may repeat a device: ``(cpu,) * 8`` or ``(cuda:0,) * 4`` is the
-counterpart of ``--xla_force_host_platform_device_count``, and runs the
-padding, the masks and both cross-shard sums on one device.
+Port of the JAX package's ``launch/mesh.py``.  There is no
+``torch.distributed``: one Python process places shards on a tuple of
+``torch.device``s and sums partials on the first device in device order,
+as the JAX package drives its mesh from one process.  A tuple may repeat
+a device: ``(cpu,) * 8`` or ``(cuda:0,) * 4`` is the counterpart of
+``--xla_force_host_platform_device_count``, and runs every cut, copy
+and cross-device sum on one device.
 
-The TPU production meshes (``make_production_mesh``, ``make_test_mesh``)
-have no counterpart: the port targets one host.
+* ``make_cohort_mesh``: the cohort engine's 1-D mesh, a plain tuple of
+  devices (``cohort/sharded.py`` spreads client rows over it).
+* ``make_test_mesh``: a :class:`NamedMesh` with the JAX package's axis
+  names, ``("data", "model")`` or ``("pod", "data", "model")``, that
+  ``models/sharding.py`` lays parameters out on and LM training runs
+  data-parallel over (``launch/steps.py::make_train_step``).  A
+  ``model`` axis larger than 1 can be built, and the rule engine gives
+  its specs, but training on it raises: tensor parallelism is not
+  ported.
+
+``make_production_mesh`` (the TPU v5e 16x16 pod, 2 pods multi-pod) is
+not ported: the port targets the cards of one host.
 
 Functions only: importing this module touches no device.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Tuple
+import dataclasses
+import math
+from typing import Iterable, Optional, Tuple
 
 import torch
 
@@ -27,7 +38,7 @@ Mesh = Tuple[torch.device, ...]
 
 
 def as_mesh(devices: Iterable) -> Mesh:
-    """``devices`` as a cohort mesh, checked.
+    """``devices`` as a mesh, checked.
 
     Every entry must be the CPU, or every entry a visible CUDA device
     (an index-less ``"cuda"`` takes the current one).  Raises, naming the
@@ -37,20 +48,20 @@ def as_mesh(devices: Iterable) -> Mesh:
     mesh = tuple(torch.device(d) for d in devices)
     names = [str(d) for d in mesh]
     if not mesh:
-        raise ValueError("a cohort mesh needs at least one device")
+        raise ValueError("a mesh needs at least one device")
     kinds = {d.type for d in mesh}
     if kinds - {"cpu", "cuda"}:
-        raise ValueError(f"a cohort mesh holds CPU or CUDA devices, got "
+        raise ValueError(f"a mesh holds CPU or CUDA devices, got "
                          f"{names}")
     if len(kinds) != 1:
-        raise ValueError(f"a cohort mesh cannot mix the CPU and CUDA "
+        raise ValueError(f"a mesh cannot mix the CPU and CUDA "
                          f"devices: {names}")
     if kinds == {"cuda"}:
         mesh = tuple(resolve_device(d) for d in mesh)
         visible = torch.cuda.device_count()
         bad = [str(d) for d in mesh if d.index >= visible]
         if bad:
-            raise ValueError(f"cohort mesh {names}: {bad} not among the "
+            raise ValueError(f"mesh {names}: {bad} not among the "
                              f"{visible} visible CUDA devices")
     return mesh
 
@@ -72,7 +83,7 @@ def make_cohort_mesh(num_devices: int | None = None, *, device=None) -> Mesh:
     n = num_devices or visible
     if n > visible:
         raise ValueError(
-            f"make_cohort_mesh: {n} CUDA devices asked for, "
+            f"a mesh of {n} CUDA devices asked for, "
             f"{visible} visible: "
             f"{[f'cuda:{i}' for i in range(visible)]}")
     others = [torch.device("cuda", i) for i in range(visible)
@@ -83,3 +94,55 @@ def make_cohort_mesh(num_devices: int | None = None, *, device=None) -> Mesh:
 def device_count_available(n: int) -> bool:
     """Whether ``n`` CUDA devices are visible."""
     return torch.cuda.device_count() >= n
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedMesh:
+    """A mesh with named axes: ``devices`` in row-major order over
+    ``axis_names`` of ``sizes`` (the first axis slowest)."""
+
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+    devices: Mesh
+
+    def __post_init__(self):
+        if len(self.axis_names) != len(self.sizes):
+            raise ValueError(f"axes {self.axis_names} and sizes "
+                             f"{self.sizes} differ in length")
+        if math.prod(self.sizes) != len(self.devices):
+            raise ValueError(f"a {dict(zip(self.axis_names, self.sizes))} "
+                             f"mesh needs {math.prod(self.sizes)} devices, "
+                             f"got {len(self.devices)}")
+
+    @property
+    def shape(self) -> dict:
+        """Each axis name's size, as the JAX ``Mesh.shape``."""
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+
+def make_test_mesh(data: int, model: int = 1, pod: int = 1, *,
+                   device=None, devices: Optional[Iterable] = None
+                   ) -> NamedMesh:
+    """A ``(data, model)`` mesh, or ``(pod, data, model)`` with ``pod``
+    larger than 1, over ``pod * data * model`` devices.
+
+    ``devices`` names them explicitly (a tuple may repeat a device:
+    ``(cuda:0,) * 4`` runs a 4-way mesh on one card).  Otherwise, on the
+    card (``device`` None or CUDA): that many visible CUDA devices,
+    ``device`` first and the others in index order, raising when fewer
+    are visible; ``device="cpu"``: that many copies of the CPU.
+    """
+    names = ("pod", "data", "model") if pod > 1 else ("data", "model")
+    sizes = (pod, data, model) if pod > 1 else (data, model)
+    if min(sizes) < 1:
+        raise ValueError(f"mesh axes {dict(zip(names, sizes))} must be >= 1")
+    n = math.prod(sizes)
+    if devices is not None:
+        if device is not None:
+            raise ValueError("pass device or devices, not both")
+        return NamedMesh(names, sizes, as_mesh(devices))
+    return NamedMesh(names, sizes, make_cohort_mesh(n, device=device))

@@ -15,7 +15,9 @@ serving its ``global_batch`` is the batch and its ``seq_len`` the self
 cache's length, so a prompt shorter than ``seq_len`` leaves room for
 decode; caches are allocated on the device of the parameters.  For
 training it sets the batch and the gradient-accumulation factor
-(:func:`num_microbatches`).
+(:func:`num_microbatches`).  ``make_train_step(..., mesh=)`` trains
+data-parallel over a mesh's devices (``launch/mesh.py::make_test_mesh``),
+on a tree placed by ``models/sharding.py::shard_params``.
 
 Not ported: the input, parameter and cache ``ShapeDtypeStruct``s, their
 shardings, ``build_step`` and ``lower_step`` (the TPU mesh).
@@ -29,9 +31,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import encdec as ED
+from repro_torch.models import sharding as SH
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw, clip_by_global_norm, linear_warmup_cosine
-from repro_torch.tree import leaves, unflatten
+from repro_torch.tree import leaves, tree_map, unflatten
 
 # -- microbatch policy (activation memory) ------------------------------------
 
@@ -123,60 +126,165 @@ def make_optimizer(cfg: ModelConfig, total_steps: int = 10_000,
 
 
 def make_train_step(cfg: ModelConfig, shape: ShapeConfig, opt,
-                    dp: int = 1) -> Callable:
+                    dp: int = 1, *, mesh=None) -> Callable:
     """``train_step(params, opt_state, step, batch) -> (params, opt_state,
     metrics)``: one optimizer step on ``batch`` (``tokens`` and
     ``labels`` (B, S); ``src_embeds`` for the encoder-decoder,
-    ``prefix_embeds`` for a VLM).
+    ``prefix_embeds`` for a VLM; ``mask`` (B, S) optional).
 
     The batch splits into G = :func:`num_microbatches` microbatches of
     B / G rows.  Each one's loss is differentiated with
     ``torch.autograd.grad`` over detached aliases of the parameter leaves
     (the caller's tensors never come to require grad): bf16 leaves get
-    bf16 grads, as in the JAX package.  The grads are accumulated as ``(g.float() / G)`` in an f32
-    accumulator (bf16 above 5e10 parameters); with G = 1 they are only
-    cast to f32.  Then ``clip_by_global_norm(·, 1.0)`` and
-    ``opt.update``, which writes the new parameters and moments in place
-    (:mod:`repro_torch.optim`).  The metrics are the loss function's,
-    averaged over the microbatches and detached, plus ``grad_norm``
-    (before clipping).
+    bf16 grads, as in the JAX package.  The grads are accumulated as
+    ``(g.float() / G)`` in an f32 accumulator (bf16 above 5e10
+    parameters); with G = 1 they are only cast to f32.  Then
+    ``clip_by_global_norm(·, 1.0)`` and ``opt.update``, which writes the
+    new parameters and moments in place (:mod:`repro_torch.optim`).  The
+    metrics are the loss function's, averaged over the microbatches and
+    detached, plus ``grad_norm`` (before clipping).
+
+    With ``mesh`` (a ``launch/mesh.py::NamedMesh``; a ``model`` axis
+    larger than 1 raises) the step trains data-parallel over the mesh's
+    D devices, with G = ``num_microbatches(cfg, shape, D)``, on trees of
+    ``models/sharding.py::Sharded`` leaves (``shard_params``; the
+    optimizer state ``opt.init`` of such a tree).  ``batch`` is then one
+    dict per device (``data/pipeline.py``'s iterator with this mesh) or
+    a whole batch, cut by ``sharding.shard_batch``.  Microbatch g keeps
+    rows ``[g·B/G, (g+1)·B/G)``, and device d takes the d-th contiguous
+    block of them (``sharding.batch_rows``).  Once a step each device
+    gets detached aliases of the whole leaves (a replicated leaf's own
+    copy, else the shards gathered onto it).  Device d's loss is
+    weighted by its share of the microbatch's CE tokens, so the
+    gradients and the metrics are the global batch's.  Each device's
+    gradients are reduce-scattered into the owners' accumulator shards,
+    summed in device order, and freed before the next device's
+    microbatch; a chunk held by more than one device gets its owner's
+    sum.  The clip and the update then run over the shards, each on its
+    own device.  Nothing synchronizes between devices' launches.
+    Without a mesh the step is this one on one device, the caller's
+    leaves their own shards, so a one-device mesh gives it bit for bit.
+
+    An MoE family over more than one device raises: the JAX MoE routes
+    over the whole batch's tokens (one data shard), and a per-device
+    route would be another model.
     """
-    G = num_microbatches(cfg, shape, dp)
+    devices = None if mesh is None else SH.data_parallel_devices(mesh)
+    D = 1 if mesh is None else len(devices)
+    if D > 1 and _has_moe(cfg):
+        raise NotImplementedError(
+            f"{cfg.name} has MoE layers, which route over the whole "
+            f"batch's tokens; training it over {D} devices is not ported "
+            f"({SH.MOE_MESH_ITEM}); use a one-device mesh")
+    if shape.global_batch % D:
+        raise ValueError(f"a global batch of {shape.global_batch} rows "
+                         f"does not split over {D} devices")
+    G = num_microbatches(cfg, shape, dp if mesh is None else D)
     loss_fn = (ED.encdec_train_loss if cfg.is_encoder_decoder
                else T.lm_train_loss)
     acc_dtype = torch.bfloat16 if _large(cfg) else torch.float32
 
-    def grad_fn(params, flat, mb):
-        loss, metrics = loss_fn(params, cfg, mb)
-        grads = torch.autograd.grad(loss, flat, materialize_grads=True)
-        return {k: v.detach() for k, v in metrics.items()}, grads
+    def accumulate(acc, sharded, grads, devs):
+        # one device's gradients into the owners' shards, leaf by leaf
+        for i, (x, g) in enumerate(zip(sharded, grads)):
+            for k in range(x.parts):
+                size = x.shards[k].shape[x.dim] if x.parts > 1 else 0
+                chunk = (g if x.parts == 1 else g.narrow(x.dim, k * size,
+                                                         size)).to(devs[k])
+                if G == 1:
+                    if acc[i][k] is None:
+                        acc[i][k] = chunk.float()
+                    else:
+                        acc[i][k].add_(chunk.float())
+                    continue
+                if acc[i][k] is None:
+                    acc[i][k] = torch.zeros(chunk.shape, dtype=acc_dtype,
+                                            device=devs[k])
+                acc[i][k].add_((chunk.float() / G).to(acc_dtype))
 
     def train_step(params, opt_state, step, batch):
-        # differentiate detached aliases of the leaves: they share the
-        # caller's storage, so the in-place update lands there, and the
-        # caller's tensors never come to require grad (served after a
-        # step, they still take the kernels)
-        flat = [p.detach().requires_grad_(True) for p in leaves(params)]
-        live = unflatten(params, flat)
-        if G == 1:
-            metrics, grads = grad_fn(live, flat, batch)
-            acc = [g.float() for g in grads]
+        if mesh is None:
+            # the caller's leaves as their own one-device shards: the
+            # in-place update lands in them
+            def wrap(t):
+                return SH.Sharded(None, 1, [t])
+            tree, state = tree_map(wrap, params), tree_map(wrap, opt_state)
+            devs, shards = (leaves(params)[0].device,), [batch]
         else:
-            acc = [torch.zeros(p.shape, dtype=acc_dtype, device=p.device)
-                   for p in flat]
-            ms = []
-            for i in range(G):
-                mb = {k: v.reshape(G, v.shape[0] // G, *v.shape[1:])[i]
-                      for k, v in batch.items()}
-                m, grads = grad_fn(live, flat, mb)
-                for a, g in zip(acc, grads):
-                    a.add_((g.float() / G).to(a.dtype))
-                del grads
-                ms.append(m)
-            metrics = {k: torch.stack([m[k] for m in ms]).mean()
-                       for k in ms[0]}
-        grads, gnorm = clip_by_global_norm(unflatten(params, acc), 1.0)
-        params, opt_state = opt.update(grads, opt_state, params, step)
+            tree, state, devs = params, opt_state, devices
+            shards = (SH.shard_batch(batch, mesh, G)
+                      if isinstance(batch, dict) else list(batch))
+            if len(shards) != D:
+                raise ValueError(f"{len(shards)} batch shards for a mesh "
+                                 f"of {D} devices")
+        sharded = leaves(tree)
+        # differentiate detached aliases of the leaves: a replicated
+        # leaf's share the caller's storage, and the caller's tensors
+        # never come to require grad (served after a step, they still
+        # take the kernels)
+        with torch.no_grad():
+            flats = [[(x.shards[d] if x.parts == 1 else x.gather(dev))
+                      .detach().requires_grad_(True) for x in sharded]
+                     for d, dev in enumerate(devs)]
+        lives = [unflatten(tree, flat) for flat in flats]
+        acc = [[None] * x.parts for x in sharded]
+        ms = []
+        for g in range(G):
+            mbs = [{k: v.reshape(G, v.shape[0] // G, *v.shape[1:])[g]
+                    for k, v in shard.items()} for shard in shards]
+            weights = _token_weights(mbs, devs) if D > 1 else None
+            parts = []
+            for d in range(D):
+                loss, metrics = loss_fn(lives[d], cfg, mbs[d])
+                if weights is not None:
+                    w = weights[d]
+                    loss = loss * (w.to(devs[d]) if torch.is_tensor(w)
+                                   else w)
+                grads = torch.autograd.grad(loss, flats[d],
+                                            materialize_grads=True)
+                accumulate(acc, sharded, grads, devs)
+                del grads, loss
+                parts.append({k: v.detach() for k, v in metrics.items()})
+            ms.append(parts[0] if weights is None else
+                      {k: _weighted_sum([p[k] for p in parts], weights,
+                                        devs[0]) for k in parts[0]})
+        del flats, lives
+        metrics = ms[0] if G == 1 else {
+            k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
+        # a chunk held by several devices: the owner's sum on each
+        grads = [SH.Sharded(x.dim, x.parts, [
+            a[d] if d < x.parts else a[d % x.parts].to(devs[d], copy=True)
+            for d in range(D)]) for x, a in zip(sharded, acc)]
+        grads, gnorm = clip_by_global_norm(unflatten(tree, grads), 1.0)
+        opt.update(grads, state, tree, step)
         return params, opt_state, dict(metrics, grad_norm=gnorm)
 
     return train_step
+
+
+def _has_moe(cfg: ModelConfig) -> bool:
+    return any(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
+
+
+def _token_weights(mbs: list, devices: tuple) -> list:
+    """Each device's share of a microbatch's loss: its CE token count
+    over the microbatch's (``tot / max(cnt, 1)`` is a token mean over
+    the whole microbatch).  Python floats without a ``mask``, else f32
+    tensors on the first device, summed there in device order."""
+    if "mask" not in mbs[0]:
+        counts = [float(mb["labels"].numel()) for mb in mbs]
+        total = max(sum(counts), 1.0)
+        return [c / total for c in counts]
+    counts = [mb["mask"].float().sum().to(devices[0]) for mb in mbs]
+    total = counts[0]
+    for c in counts[1:]:
+        total = total + c
+    return [c / torch.clamp(total, min=1.0) for c in counts]
+
+
+def _weighted_sum(values: list, weights: list, device) -> torch.Tensor:
+    """Σ_d weights[d] · values[d] on ``device``, added in device order."""
+    total = values[0].to(device) * weights[0]
+    for v, w in zip(values[1:], weights[1:]):
+        total = total + v.to(device) * w
+    return total

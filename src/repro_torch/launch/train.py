@@ -1,15 +1,26 @@
 """Training launcher of the port: LM training or federated (FL) training.
 
-Standard mode trains an LM of the zoo on one device over the synthetic
-token pipeline, with checkpointing.  ``--fl`` runs the paper's
-federated workflow: DQRE-SCnet (or a baseline policy) selects the cohort
-every communication round.  The flags are the JAX package's
-``repro.launch.train`` flags plus ``--device`` (``"cuda"`` unless given;
-``--device cpu`` runs the plain PyTorch path on the CPU).
+Standard mode trains an LM of the zoo over the synthetic token pipeline,
+with checkpointing, data-parallel over every visible card: as the JAX
+launcher does, it builds ``make_test_mesh(data=n, model=1)`` over the n
+cards (``--device`` first), shards parameters, AdamW moments and the
+gradient accumulator by ``models/sharding.py``'s rules, and splits each
+batch (with the encoder-decoder's zero frames) over the cards
+(``launch/steps.py::make_train_step(mesh=)``).  ``--device cpu`` trains
+on one CPU.  An MoE family on more than one card raises (its layers
+route over the whole batch's tokens; not ported); restrict the cards
+with ``CUDA_VISIBLE_DEVICES`` to train one on one card.  ``--fl`` runs
+the paper's federated workflow: DQRE-SCnet (or a baseline policy)
+selects the cohort every communication round.  The flags are the JAX
+package's ``repro.launch.train`` flags plus ``--device`` (``"cuda"``
+unless given; ``--device cpu`` runs the plain PyTorch path on the CPU).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \\
       --reduced --device cpu --steps 20 --global-batch 8 --seq-len 128
+  # qwen2-7b at full width over four cards
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b \\
+      --steps 20 --global-batch 8 --seq-len 256 --microbatches 2
   PYTHONPATH=src python -m repro_torch.launch.train --fl --dataset mnist \\
       --policy dqre_sc --rounds 30
 """
@@ -28,10 +39,13 @@ def train_lm(args) -> None:
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import TokenDataConfig, make_batch_iterator
     from repro_torch.device import resolve_device
-    from repro_torch.launch.steps import make_optimizer, make_train_step
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import (make_optimizer, make_train_step,
+                                          num_microbatches)
     from repro_torch.models import encdec as ED
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
+    from repro_torch.models.sharding import shard_params
     from repro_torch.tree import leaves
 
     dev = resolve_device(args.device)
@@ -41,30 +55,37 @@ def train_lm(args) -> None:
     shape = ShapeConfig("custom_train", args.seq_len, args.global_batch,
                         "train", args.microbatches)
 
+    n_dev = 1 if dev.type == "cpu" else torch.cuda.device_count()
+    mesh = make_test_mesh(data=n_dev, model=1, device=dev)
     opt = make_optimizer(cfg, args.steps)
-    step_fn = make_train_step(cfg, shape, opt)
+    step_fn = make_train_step(cfg, shape, opt, mesh=mesh)
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     init = ED.init_encdec if cfg.is_encoder_decoder else T.init_lm
-    params = init(gen, cfg, device=dev)
+    params = shard_params(init(gen, cfg, device=dev), mesh)
     opt_state = opt.init(params)
     n_params = sum(p.numel() for p in leaves(params))
-    print(f"arch={cfg.name} params={n_params/1e6:.1f}M device={dev}")
+    print(f"arch={cfg.name} params={n_params/1e6:.1f}M devices={n_dev} "
+          f"device={','.join(str(d) for d in mesh.devices)}")
 
     data_cfg = TokenDataConfig(cfg.vocab_size, args.seq_len,
                                args.global_batch, seed=args.seed)
-    it = make_batch_iterator(data_cfg, device=dev, num_batches=args.steps)
+    it = make_batch_iterator(data_cfg, num_batches=args.steps, mesh=mesh,
+                             microbatches=num_microbatches(cfg, shape,
+                                                           n_dev))
     ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
 
     t0 = time.time()
-    for step, batch in enumerate(it):
+    for step, shards in enumerate(it):
         if cfg.is_encoder_decoder:
-            # the stub frontend's frames: zeros, as the JAX launcher feeds
-            bsz = batch["tokens"].shape[0]
-            batch = dict(batch, src_embeds=torch.zeros(
-                (bsz, args.seq_len, cfg.d_model),
-                dtype=L.dtype_of(cfg.compute_dtype), device=dev))
-        params, opt_state, metrics = step_fn(params, opt_state, step, batch)
+            # the stub frontend's frames: zeros, as the JAX launcher
+            # feeds, split with their batch
+            shards = [dict(s, src_embeds=torch.zeros(
+                (s["tokens"].shape[0], args.seq_len, cfg.d_model),
+                dtype=L.dtype_of(cfg.compute_dtype), device=d))
+                for s, d in zip(shards, mesh.devices)]
+        params, opt_state, metrics = step_fn(params, opt_state, step,
+                                             shards)
         if step % args.log_every == 0:
             loss = float(metrics["loss"])
             dt = time.time() - t0

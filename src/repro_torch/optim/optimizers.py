@@ -20,6 +20,14 @@ moments.  The arithmetic is the reference's, expression
 for expression; learning rates, schedules and bias corrections are
 float32 tensors computed from the step in float32 (``step.astype(f32)``
 there), not Python doubles.
+
+Sharded trees (``models/sharding.py::Sharded`` leaves, a tree placed on
+a mesh's devices): every shard is updated in place on its own device
+with the same expressions, so an element's update is bit for bit the
+single-device one given the same gradient and clip scale.
+:func:`global_norm` sums each device's owned shards in f32 on that
+device, then adds the partial sums on the first device in device order
+(no float atomics); the clip scale is copied to every device.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.models.sharding import Sharded
 from repro_torch.tree import leaves, tree_map
 
 
@@ -37,6 +46,37 @@ from repro_torch.tree import leaves, tree_map
 class Optimizer:
     init: Callable
     update: Callable
+
+
+def _pieces(x) -> list:
+    """The tensors a leaf holds: a :class:`Sharded` leaf's shards, one
+    per device, else the leaf itself."""
+    return x.shards if isinstance(x, Sharded) else [x]
+
+
+def _flat_pieces(tree) -> list:
+    """Every tensor of ``tree``: the leaves in order, a sharded leaf's
+    shards in device order."""
+    return [x for leaf in leaves(tree) for x in _pieces(leaf)]
+
+
+def _leafwise(fn):
+    """``fn`` over a leaf's tensors, in a leaf of the same layout."""
+    return lambda x: x.map(fn) if isinstance(x, Sharded) else fn(x)
+
+
+def _per_device(*scalars):
+    """``on(device)``: the scalar tensors copied to ``device``, once a
+    device (a CPU scalar serves any device as it is)."""
+    cache = {}
+
+    def on(device):
+        if device not in cache:
+            cache[device] = tuple(
+                t if t.device.type == "cpu" or t.device == device
+                else t.to(device) for t in scalars)
+        return cache[device]
+    return on
 
 
 def _f32(step) -> torch.Tensor:
@@ -74,9 +114,26 @@ def linear_warmup_cosine(lr: float, warmup: int, total_steps: int,
 # -- gradient transforms ------------------------------------------------------
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in leaves(tree)))
+    """sqrt of the sum of squares of every leaf, in float32.
+
+    Over a sharded tree, device d's partial sum covers the shards it
+    owns (chunk d of each leaf cut into more than d parts), in leaf
+    order on device d; the partials are added on the first device in
+    device order.  One device: the sum of the leaves in leaf order.
+    """
+    flat = leaves(tree)
+    ndev = max((len(_pieces(x)) for x in flat), default=1)
+    partials = []
+    for d in range(ndev):
+        owned = [x.shards[d] if isinstance(x, Sharded) else x for x in flat
+                 if d < (x.parts if isinstance(x, Sharded) else 1)]
+        if owned:
+            partials.append(sum(torch.sum(torch.square(x.float()))
+                                for x in owned))
+    total = partials[0]
+    for part in partials[1:]:
+        total = total + part.to(total.device)
+    return torch.sqrt(total)
 
 
 def clip_by_global_norm(grads, max_norm: float):
@@ -89,8 +146,9 @@ def clip_by_global_norm(grads, max_norm: float):
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     with torch.no_grad():
-        for g in leaves(grads):
-            g.mul_(scale.to(g.dtype))
+        on = _per_device(scale)
+        for g in _flat_pieces(grads):
+            g.mul_(on(g.device)[0].to(g.dtype))
     return grads, norm
 
 
@@ -102,14 +160,16 @@ def sgd(lr, momentum: float = 0.0, nesterov: bool = False):
     def init(params):
         if momentum == 0.0:
             return {}
-        return {"mu": tree_map(torch.zeros_like, params)}
+        return {"mu": tree_map(_leafwise(torch.zeros_like), params)}
 
     @torch.no_grad()
     def update(grads, state, params, step):
-        lr_t = lr_fn(step)
-        flat_p, flat_g = leaves(params), leaves(grads)
-        flat_m = leaves(state["mu"]) if momentum else [None] * len(flat_p)
+        on = _per_device(lr_fn(step))
+        flat_p, flat_g = _flat_pieces(params), _flat_pieces(grads)
+        flat_m = (_flat_pieces(state["mu"]) if momentum
+                  else [None] * len(flat_p))
         for p, g, m in zip(flat_p, flat_g, flat_m):
+            (lr_t,) = on(p.device)
             if m is None:
                 u = g
             else:
@@ -127,18 +187,20 @@ def _adam_core(lr, b1, b2, eps, weight_decay, state_dtype):
         else state_dtype
 
     def init(params):
+        @_leafwise
         def zeros(p):
             return torch.zeros(p.shape, dtype=sdt, device=p.device)
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
 
     @torch.no_grad()
     def update(grads, state, params, step):
-        lr_t = lr_fn(step)
         s = _f32(step)
-        c1 = 1 - torch.pow(b1, s + 1)
-        c2 = 1 - torch.pow(b2, s + 1)
-        for p, g, m, v in zip(leaves(params), leaves(grads),
-                              leaves(state["m"]), leaves(state["v"])):
+        on = _per_device(lr_fn(step), 1 - torch.pow(b1, s + 1),
+                         1 - torch.pow(b2, s + 1))
+        for p, g, m, v in zip(_flat_pieces(params), _flat_pieces(grads),
+                              _flat_pieces(state["m"]),
+                              _flat_pieces(state["v"])):
+            lr_t, c1, c2 = on(p.device)
             g32 = g.float()
             m_new = b1 * m.float() + (1 - b1) * g32
             v_new = b2 * v.float() + (1 - b2) * torch.square(g32)

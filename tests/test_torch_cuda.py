@@ -791,3 +791,82 @@ def test_serving_after_a_train_step_launches_the_kernels(cuda_device, arch,
         logits, _ = prefill(params, {"tokens": batch["tokens"]})
     assert ops.LAUNCH_COUNTS[kernel] > 0
     assert not logits.requires_grad and torch.isfinite(logits).all()
+
+
+def _mesh_train(cfg, dev, mesh, G, n_steps=3):
+    """Reduced f32 AdamW steps on the card from the seed's parameters, on
+    ``mesh`` (None: ``make_train_step`` without one): (params, opt_state,
+    [metrics as floats])."""
+    from repro_torch import optim
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.models.sharding import shard_params
+
+    rng = np.random.default_rng(4)
+    opt = optim.adamw(1e-3)
+    step = steps.make_train_step(
+        cfg, ShapeConfig("custom_train", 16, 8, "train", G), opt, mesh=mesh)
+    params = T.params_to(T.init_lm(torch.Generator().manual_seed(0), cfg,
+                                   device="cpu"), dev)
+    if mesh is not None:
+        params = shard_params(params, mesh)
+    state, ms = opt.init(params), []
+    for i in range(n_steps):
+        toks = torch.tensor(rng.integers(0, cfg.vocab_size, (8, 17)),
+                            device=dev)
+        params, state, m = step(params, state, i,
+                                {"tokens": toks[:, :-1],
+                                 "labels": toks[:, 1:]})
+        ms.append({k: float(v) for k, v in m.items()})
+    return params, state, ms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 2])
+def test_one_card_mesh_train_step_is_the_plain_step(cuda_device, G):
+    """A one-device mesh on the card gives ``make_train_step``'s step bit
+    for bit, metrics, parameters and moments (deterministic index
+    accumulation; phase 12a of the smoke run)."""
+    import warnings
+
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.tree import leaves
+
+    cfg = get_config("gemma-2b").reduced()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            p0, s0, m0 = _mesh_train(cfg, cuda_device, None, G)
+            p1, s1, m1 = _mesh_train(
+                cfg, cuda_device, make_test_mesh(1, device=cuda_device), G)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert m0 == m1
+    for a, b in ((p0, p1), (s0, s1)):
+        for x, y in zip(leaves(a), leaves(b)):
+            assert len(y.shards) == 1 and torch.equal(x, y.shards[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [2, 4])
+def test_mesh_train_step_on_one_card_matches_one_device(cuda_device, D):
+    """(cuda:0,) * D against D = 1, reduced gemma-2b in f32 at G 2: the
+    first loss within 1e-5, the first grad norm and every loss within
+    1e-4, relative; replicated leaves identical on every device (phase
+    12b of the smoke run)."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.tree import leaves
+
+    cfg = get_config("gemma-2b").reduced()
+    _, _, want = _mesh_train(cfg, cuda_device, None, 2)
+    mesh = make_test_mesh(D, devices=(cuda_device,) * D)
+    params, state, got = _mesh_train(cfg, cuda_device, mesh, 2)
+    assert abs(got[0]["loss"] - want[0]["loss"]) <= 1e-5 * want[0]["loss"]
+    assert abs(got[0]["grad_norm"] - want[0]["grad_norm"]) <= \
+        1e-4 * want[0]["grad_norm"]
+    for g, w in zip(got, want):
+        assert abs(g["loss"] - w["loss"]) <= 1e-4 * w["loss"]
+    for x in leaves((params, state)):
+        assert all(torch.equal(s, x.shards[d % x.parts])
+                   for d, s in enumerate(x.shards))
