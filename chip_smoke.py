@@ -197,6 +197,23 @@ Phases (any failure raises and the script exits non-zero):
    at 1e-4: a falling loss, step ms, tok/s, each card's peak; with
    fewer cards one line says that (d) was not run.
 
+13. LM training tensor-parallel over a data x model mesh (each
+   replica's ``model`` ranks multiply only their slices of the
+   projections, ``models/parallel.py``), kernels on and none launched.
+   (a) Reduced f32 gemma-2b, qwen2-7b, qwen3-14b, mamba2-2.7b,
+   internvl2-26b and seamless-m4t-medium at (data, model) = (1, 2),
+   (2, 2) and (1, 4) on (cuda:0,) * n against the card's D = 1 step at
+   phase 12b's limits, with its checks of copied leaves and the
+   checkpoint.  (b) gemma-2b at full width in bf16 at (1, 2) on
+   (cuda:0,) * 2 (its one KV head split mid-head), phase 11a's batch and
+   optimizer, 4 steps: its first loss within 1e-3 of phase 11a's, step
+   ms, tok/s, peak memory, launches.  (c) With four visible cards:
+   reduced qwen3-14b at (1, 4) over cuda:0-3 as in (a), then qwen3-14b
+   at full width at (1, 4) and qwen2-7b at (2, 2), bf16, 7 steps of
+   AdamW at 1e-4 each: a falling loss, step ms, tok/s, each card's peak
+   under its memory; with fewer cards one line says that (c) was not
+   run.
+
 It prints the kernel table as one JSON line, then the card's name and
 power limit, then ``{"ok": true, "device": {...}}`` as the last line.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -444,6 +461,20 @@ MESH_4_ARCH, MESH_4_CARDS, MESH_4_STEPS = "qwen2-7b", 4, 7
 # 11a: 6.5 % of the probed embedding entries in 7 steps), so (d) takes
 # AdamW at a constant rate, f32 moments as the launcher's
 MESH_4_LR = 1e-4
+# phase 13: LM training tensor-parallel over a data x model mesh, kernels
+# on (no launches).  (a) Six reduced families at (data, model) = (1, 2),
+# (2, 2), (1, 4) on (cuda:0,) * n against the card's D = 1 step, as
+# phase 12b.  (b) gemma-2b at full width in bf16 at (1, 2) on
+# (cuda:0,) * 2, phase 11a's batch.  (c) With four cards: reduced
+# qwen3-14b at (1, 4) over cuda:0-3 as in (a), then qwen3-14b at (1, 4)
+# and qwen2-7b at (2, 2) at full width, AdamW at MESH_4_LR.
+TP_REDUCED = ("gemma-2b", "qwen2-7b", "qwen3-14b", "mamba2-2.7b",
+              "internvl2-26b", "seamless-m4t-medium")
+TP_MESHES = ((1, 2), (2, 2), (1, 4))
+TP_FULL_ARCH, TP_FULL_MESH, TP_FULL_STEPS = "gemma-2b", (1, 2), 4
+TP_4_REDUCED = ("qwen3-14b", (1, 4))
+TP_4_FULL = (("qwen3-14b", (1, 4)), ("qwen2-7b", (2, 2)))
+TP_4_STEPS = 7
 # (c)'s first loss against phase 11a's D = 1 loss on the same weights and
 # batch: the split changes only the rows each bf16 GEMM sees, hence
 # cuBLAS's algorithm and the rounding of bf16 activations (half an ulp,
@@ -3495,7 +3526,7 @@ def phase12a():
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.tree import leaves
 
-    mesh = make_test_mesh(1, devices=("cuda:0",))
+    mesh = make_test_mesh(1, 1, devices=("cuda:0",))
     for arch in MESH_EXACT:
         cfg = get_config(arch).reduced()
         batches = _mesh_batches(cfg, MESH_REDUCED_STEPS, MESH_REDUCED_B)
@@ -3516,12 +3547,13 @@ def phase12a():
                                      f"one-device mesh step differs")
 
 
-def _mesh_vs_one(arch, mesh, label):
-    """(b): reduced ``arch`` on ``mesh`` against the card's D = 1 step:
-    the first loss and grad norm, the loss trajectory, replicated leaves
-    identical on every device, and a checkpoint of the sharded state
+def _mesh_vs_one(arch, mesh, label, phase="12b", want=None):
+    """(b): reduced ``arch`` on ``mesh`` against the card's D = 1 step
+    (``want``: its metrics, run here if None): the first loss and grad
+    norm, the loss trajectory, every chunk held by several devices
+    identical to its owner's, and a checkpoint of the sharded state
     byte-identical to the same state's on one device, restored at D =
-    1.  Returns the worst relative errors."""
+    1.  Returns the D = 1 metrics."""
     import filecmp
     import os
     import tempfile
@@ -3535,8 +3567,9 @@ def _mesh_vs_one(arch, mesh, label):
 
     cfg = get_config(arch).reduced()
     batches = _mesh_batches(cfg, MESH_REDUCED_STEPS, MESH_REDUCED_B)
-    one = make_test_mesh(1, devices=("cuda:0",))
-    _, _, want = _mesh_run(cfg, batches, MESH_REDUCED_MICRO, one)
+    one = make_test_mesh(1, 1, devices=("cuda:0",))
+    if want is None:
+        _, _, want = _mesh_run(cfg, batches, MESH_REDUCED_MICRO, one)
     params, opt_state, got = _mesh_run(cfg, batches, MESH_REDUCED_MICRO,
                                        mesh)
     D = mesh.size
@@ -3551,10 +3584,11 @@ def _mesh_vs_one(arch, mesh, label):
               "first grad_norm": LIMIT_TRAIN_GNORM_REL,
               "trajectory": LIMIT_TRAIN_TRAJ_REL}
     state = {"params": params, "opt_state": opt_state}
-    replicated = [x for x in leaves(state) if x.parts < D]
-    copies = all(torch.equal(s.to(x.shards[d % x.parts].device),
-                             x.shards[d % x.parts])
-                 for x in replicated for d, s in enumerate(x.shards))
+    copied = [x for x in leaves(state)
+              if any(x.owner(d) != d for d in range(D))]
+    copies = all(torch.equal(s.to(x.shards[x.owner(d)].device),
+                             x.shards[x.owner(d)])
+                 for x in copied for d, s in enumerate(x.shards))
     with tempfile.TemporaryDirectory() as tmp:
         a, b = os.path.join(tmp, "d.npz"), os.path.join(tmp, "one.npz")
         save_pytree(a, state)
@@ -3565,22 +3599,23 @@ def _mesh_vs_one(arch, mesh, label):
         back = load_pytree(a, template)
         restored = all(torch.equal(x.shards[0], w) for x, w in
                        zip(leaves(back), leaves(whole)))
-    print(f"phase 12b: reduced {arch} {label} vs D = 1 (G "
+    print(f"phase {phase}: reduced {arch} {label} vs D = 1 (G "
           f"{MESH_REDUCED_MICRO}): losses {[m['loss'] for m in got]} vs "
           f"{[m['loss'] for m in want]}, grad norms "
           f"{[m['grad_norm'] for m in got]} vs "
           f"{[m['grad_norm'] for m in want]}; "
           + ", ".join(f"{k} {v:.3e} (limit {limits[k]:.0e})"
                       for k, v in worst.items())
-          + f"; {len(replicated)} replicated leaves identical on all {D} "
-          f"devices: {copies}; sharded checkpoint byte-identical to D = "
-          f"1's: {same_file}, restored at D = 1 bit for bit: {restored}")
+          + f"; {len(copied)} leaves held by several of the {D} devices "
+          f"identical to their owners': {copies}; sharded checkpoint "
+          f"byte-identical to D = 1's: {same_file}, restored at D = 1 bit "
+          f"for bit: {restored}")
     bad = {k: v for k, v in worst.items() if not v <= limits[k]}
     if bad or not copies or not same_file or not restored:
-        raise AssertionError(f"phase 12b: reduced {arch} {label}: {bad}, "
-                             f"copies {copies}, checkpoint {same_file}, "
-                             f"restored {restored}")
-    return worst
+        raise AssertionError(f"phase {phase}: reduced {arch} {label}: "
+                             f"{bad}, copies {copies}, checkpoint "
+                             f"{same_file}, restored {restored}")
+    return want
 
 
 def phase12b():
@@ -3588,7 +3623,8 @@ def phase12b():
 
     for arch in MESH_REDUCED:
         for D in MESH_COUNTS:
-            _mesh_vs_one(arch, make_test_mesh(D, devices=("cuda:0",) * D),
+            _mesh_vs_one(arch,
+                         make_test_mesh(D, 1, devices=("cuda:0",) * D),
                          f"D = {D} on (cuda:0,) * {D}")
 
 
@@ -3598,13 +3634,14 @@ def _sync_all(mesh):
         torch.cuda.synchronize(dev)
 
 
-def _mesh_full(arch, mesh, steps_n, label, profile=False, lr=None):
+def _mesh_full(arch, mesh, steps_n, label, profile=False, lr=None,
+               phase="12"):
     """``arch`` at full width and depth in bf16 on ``mesh``: the
     launcher's optimizer (AdamW at a constant ``lr`` if given), phase
     11a's batch of TRAIN_BATCH x TRAIN_SEQ
     tokens (the pipeline's row shards) in TRAIN_MICRO microbatches,
     ``steps_n`` steps timed (the last profiled with ``profile``).
-    Returns the losses."""
+    Returns the losses and each card's peak GiB."""
     import gc
 
     import numpy as np
@@ -3626,8 +3663,8 @@ def _mesh_full(arch, mesh, steps_n, label, profile=False, lr=None):
         device=mesh.devices[0]), mesh)
     shape = ShapeConfig("custom_train", TRAIN_SEQ, TRAIN_BATCH, "train",
                         TRAIN_MICRO)
-    D = mesh.size
-    G = steps.num_microbatches(cfg, shape, D)
+    R = len(mesh.replicas)
+    G = steps.num_microbatches(cfg, shape, R)
     opt = (steps.make_optimizer(cfg, steps_n) if lr is None
            else optim.adamw(lr))
     opt_state = opt.init(params)
@@ -3636,10 +3673,11 @@ def _mesh_full(arch, mesh, steps_n, label, profile=False, lr=None):
     _sync_all(mesh)
     for dev in cards:
         torch.cuda.reset_peak_memory_stats(dev)
-    print(f"phase 12: {arch} {label}: {_numel(params) / 1e9:.3f}e9 "
+    print(f"phase {phase}: {arch} {label}: {_numel(params) / 1e9:.3f}e9 "
           f"parameters in {cfg.param_dtype}, sharded by the rule engine; "
           f"global batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens in {G} "
-          f"microbatches of {TRAIN_BATCH // G // D} rows a device; "
+          f"microbatches of {TRAIN_BATCH // G // R} rows a replica of "
+          f"{mesh.ranks} ranks; "
           + ", ".join(f"{dev} {torch.cuda.memory_allocated(dev) / 2**30:.2f}"
                       f" GiB" for dev in cards) + " allocated")
     data = make_batch_iterator(
@@ -3654,7 +3692,7 @@ def _mesh_full(arch, mesh, steps_n, label, profile=False, lr=None):
         for step, shards in enumerate(data):
             if profile and step == steps_n - 1:
                 (params, opt_state, m), wall, busy = profile_device(
-                    "12", f"{arch} {label} train step", lambda: step_fn(
+                    phase, f"{arch} {label} train step", lambda: step_fn(
                         params, opt_state, step, shards), host_top=4)
             else:
                 _sync_all(mesh)
@@ -3670,7 +3708,7 @@ def _mesh_full(arch, mesh, steps_n, label, profile=False, lr=None):
     peaks = {str(dev): torch.cuda.max_memory_allocated(dev) / 2**30
              for dev in cards}
     step_ms = statistics.median(times[1:])
-    print(f"phase 12: {arch} {label}: losses "
+    print(f"phase {phase}: {arch} {label}: losses "
           f"{[round(x, 4) for x in losses]}, grad norms "
           f"{[round(x, 4) for x in norms]}; step {step_ms:.3f} ms (host "
           f"clock ending in a synchronize of every card, median of steps "
@@ -3681,15 +3719,15 @@ def _mesh_full(arch, mesh, steps_n, label, profile=False, lr=None):
           + ("" if wall is None else f"; profiled step wall {wall:.3f} ms,"
              f" busy {busy:.3f} ms") + f"; kernel launches {launches}")
     if not all(np.isfinite(losses)) or not all(np.isfinite(norms)):
-        raise AssertionError(f"phase 12: {arch} {label}: a loss or grad "
+        raise AssertionError(f"phase {phase}: {arch} {label}: a loss or grad "
                              f"norm is not finite")
     if launches:
-        raise AssertionError(f"phase 12: {arch} {label}: training launched "
+        raise AssertionError(f"phase {phase}: {arch} {label}: training launched "
                              f"{launches} kernels")
     del params, opt_state, step_fn, m
     gc.collect()
     torch.cuda.empty_cache()
-    return losses
+    return losses, peaks
 
 
 def phase12c(first_loss):
@@ -3698,10 +3736,10 @@ def phase12c(first_loss):
     from repro_torch.launch.mesh import make_test_mesh
 
     D = MESH_FULL_D
-    losses = _mesh_full(MESH_FULL_ARCH,
-                        make_test_mesh(D, devices=("cuda:0",) * D),
-                        MESH_FULL_STEPS, f"D = {D} on (cuda:0,) * {D}",
-                        profile=True)
+    losses, _ = _mesh_full(MESH_FULL_ARCH,
+                           make_test_mesh(D, 1, devices=("cuda:0",) * D),
+                           MESH_FULL_STEPS, f"D = {D} on (cuda:0,) * {D}",
+                           profile=True)
     err = abs(losses[0] - first_loss) / abs(first_loss)
     print(f"phase 12c: {MESH_FULL_ARCH} D = {D} first loss {losses[0]!r} vs "
           f"phase 11a's D = 1 {first_loss!r}: {err:.3e} relative (limit "
@@ -3722,11 +3760,11 @@ def phase12d():
         print(f"phase 12d: not run: it needs {MESH_4_CARDS} cards, "
               f"{visible} visible")
         return
-    mesh = make_test_mesh(MESH_4_CARDS, device="cuda:0")
+    mesh = make_test_mesh(MESH_4_CARDS, 1, device="cuda:0")
     label = f"D = {MESH_4_CARDS} on {[str(d) for d in mesh.devices]}"
     _mesh_vs_one(MESH_4_ARCH, mesh, label)
-    losses = _mesh_full(MESH_4_ARCH, mesh, MESH_4_STEPS, label,
-                        lr=MESH_4_LR)
+    losses, _ = _mesh_full(MESH_4_ARCH, mesh, MESH_4_STEPS, label,
+                           lr=MESH_4_LR)
     print(f"phase 12d: {MESH_4_ARCH} loss {losses[0]:.4f} -> "
           f"{losses[-1]:.4f} in {MESH_4_STEPS} steps of AdamW at "
           f"{MESH_4_LR}")
@@ -3741,6 +3779,101 @@ def phase12(first_loss):
     phase12b()
     phase12c(first_loss)
     phase12d()
+
+
+def _no_launches(phase, fn):
+    """``fn()`` with the kernels on, raising if it launched any."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    with ops.use_pallas_scoped(True):
+        out = fn()
+    launches = sum(ops.LAUNCH_COUNTS.values())
+    if launches:
+        raise AssertionError(f"phase {phase}: training launched "
+                             f"{launches} kernels")
+    return out
+
+
+def phase13a():
+    """Six reduced families tensor-parallel at TP_MESHES on (cuda:0,) *
+    n against the card's D = 1 step."""
+    from repro_torch.launch.mesh import make_test_mesh
+
+    for arch in TP_REDUCED:
+        want = None
+        for data, model in TP_MESHES:
+            n = data * model
+            mesh = make_test_mesh(data, model, devices=("cuda:0",) * n)
+            want = _no_launches("13a", lambda: _mesh_vs_one(
+                arch, mesh, f"(data, model) = ({data}, {model}) on "
+                f"(cuda:0,) * {n}", "13a", want))
+    print("phase 13a: 0 kernel launches")
+
+
+def phase13b(first_loss):
+    """gemma-2b at full width at TP_FULL_MESH on one card; its first loss
+    against phase 11a's D = 1 loss (``first_loss``)."""
+    from repro_torch.launch.mesh import make_test_mesh
+
+    data, model = TP_FULL_MESH
+    n = data * model
+    losses, _ = _mesh_full(
+        TP_FULL_ARCH, make_test_mesh(data, model, devices=("cuda:0",) * n),
+        TP_FULL_STEPS, f"(data, model) = ({data}, {model}) on (cuda:0,) * "
+        f"{n}", phase="13b")
+    err = abs(losses[0] - first_loss) / abs(first_loss)
+    print(f"phase 13b: {TP_FULL_ARCH} at ({data}, {model}) first loss "
+          f"{losses[0]!r} vs phase 11a's D = 1 {first_loss!r}: {err:.3e} "
+          f"relative (limit {LIMIT_MESH_BF16_LOSS_REL:.0e})")
+    if not err <= LIMIT_MESH_BF16_LOSS_REL:
+        raise AssertionError(f"phase 13b: first loss {err:.3e} apart")
+
+
+def phase13c():
+    """With four cards: reduced qwen3-14b at (1, 4) against D = 1, then
+    TP_4_FULL at full width, whose losses must fall and whose peaks must
+    fit each card.  With fewer, one line says so."""
+    import torch
+    from repro_torch.launch.mesh import make_test_mesh
+
+    visible = torch.cuda.device_count()
+    if visible < MESH_4_CARDS:
+        print(f"phase 13c: not run: it needs {MESH_4_CARDS} cards, "
+              f"{visible} visible")
+        return
+    arch, (data, model) = TP_4_REDUCED
+    mesh = make_test_mesh(data, model, device="cuda:0")
+    label = f"(data, model) = ({data}, {model}) on " \
+        f"{[str(d) for d in mesh.devices]}"
+    _no_launches("13c", lambda: _mesh_vs_one(arch, mesh, label, "13c"))
+    for arch, (data, model) in TP_4_FULL:
+        mesh = make_test_mesh(data, model, device="cuda:0")
+        label = f"(data, model) = ({data}, {model}) on " \
+            f"{[str(d) for d in mesh.devices]}"
+        losses, peaks = _mesh_full(arch, mesh, TP_4_STEPS, label,
+                                   lr=MESH_4_LR, phase="13c")
+        caps = {str(d): torch.cuda.get_device_properties(d).total_memory
+                / 2**30 for d in mesh.devices}
+        print(f"phase 13c: {arch} at ({data}, {model}) loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f} in {TP_4_STEPS} steps "
+              f"of AdamW at {MESH_4_LR}; peak / memory by card "
+              + ", ".join(f"{k} {v:.2f} / {caps[k]:.2f} GiB"
+                          for k, v in peaks.items()))
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"phase 13c: {arch}: the loss did not "
+                                 f"fall: {losses}")
+        if not all(v < caps[k] for k, v in peaks.items()):
+            raise AssertionError(f"phase 13c: {arch}: a peak exceeds its "
+                                 f"card: {peaks}")
+
+
+def phase13(first_loss):
+    """Tensor-parallel LM training; ``first_loss``: phase 11a's first
+    gemma-2b loss."""
+    phase13a()
+    phase13b(first_loss)
+    phase13c()
 
 
 def path_data():
@@ -3793,6 +3926,7 @@ def main() -> int:
     launches["flash_attention"] += phase10()
     _, first_loss = phase11()
     phase12(first_loss[MESH_FULL_ARCH])
+    phase13(first_loss[TP_FULL_ARCH])
     for name, rec in records.items():
         rec["launches"] = launches[name]
     keys = ("name", "route", "source", "replaces", "launches",

@@ -23,11 +23,11 @@ leaf.
 
 Sharded trees (``models/sharding.py::Sharded`` leaves): a sharded leaf
 is gathered to the host and written as the whole leaf, so a tree saved
-sharded over any number of devices writes the file its unsharded tree
+sharded over any data x model mesh writes the file its unsharded tree
 writes, byte for byte (``np.savez`` stamps every member with the zip
 epoch, so equal trees give equal files).  A sharded leaf of
 a ``template`` is cut again as the template's is: a checkpoint saved
-at one device count restores at any other.
+on one mesh restores on any other.
 """
 
 from __future__ import annotations

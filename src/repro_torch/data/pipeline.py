@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.sharding import batch_rows, data_parallel_devices
+from repro_torch.models.sharding import batch_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,15 +78,17 @@ def make_batch_iterator(cfg: TokenDataConfig, device=None,
     card, so the copy to the card is asynchronous (``non_blocking``).
 
     With ``mesh`` (a ``launch/mesh.py::NamedMesh``; no ``device``), each
-    batch is a list of one dict per device of the mesh: device d's rows
-    under ``microbatches`` G (``sharding.batch_rows``, the order
+    batch is a list of one dict per device of the mesh: device d holds
+    the rows of its replica (data coordinate) ``d // ranks`` under
+    ``microbatches`` G (``sharding.batch_rows``, the order
     ``launch/steps.py::make_train_step(mesh=)`` takes), cut and pinned
-    on the producer thread and copied to device d.
+    once a replica on the producer thread and copied to each of its
+    ``model`` ranks' devices.
     """
     if mesh is not None and device is not None:
         raise ValueError("pass device or mesh, not both")
-    devices = ((resolve_device(device),) if mesh is None
-               else data_parallel_devices(mesh))
+    devices = (resolve_device(device),) if mesh is None else mesh.devices
+    R, M = (1, 1) if mesh is None else (len(mesh.replicas), mesh.ranks)
     pin = devices[0].type == "cuda"
     gen = synthetic_token_batches(cfg, num_batches)
 
@@ -97,15 +99,15 @@ def make_batch_iterator(cfg: TokenDataConfig, device=None,
         t = torch.from_numpy(a.astype(np.int64))
         return t.pin_memory() if pin else t
 
-    def rows(batch, d):
-        return {k: host(batch_rows(v, len(devices), microbatches, d))
+    def rows(batch, r):
+        return {k: host(batch_rows(v, R, microbatches, r))
                 for k, v in batch.items()}
 
     def producer():
         try:
             for batch in gen:
                 q.put({k: host(v) for k, v in batch.items()} if mesh is None
-                      else [rows(batch, d) for d in range(len(devices))])
+                      else [rows(batch, r) for r in range(R)])
         except Exception as err:     # handed to the consumer, which raises
             q.put(err)
             return
@@ -124,4 +126,4 @@ def make_batch_iterator(cfg: TokenDataConfig, device=None,
         if isinstance(batch, Exception):
             raise batch
         yield (to(batch, devices[0]) if mesh is None
-               else [to(s, dev) for s, dev in zip(batch, devices)])
+               else [to(batch[d // M], dev) for d, dev in enumerate(devices)])

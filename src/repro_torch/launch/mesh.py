@@ -11,12 +11,11 @@ and cross-device sum on one device.
 * ``make_cohort_mesh``: the cohort engine's 1-D mesh, a plain tuple of
   devices (``cohort/sharded.py`` spreads client rows over it).
 * ``make_test_mesh``: a :class:`NamedMesh` with the JAX package's axis
-  names, ``("data", "model")`` or ``("pod", "data", "model")``, that
-  ``models/sharding.py`` lays parameters out on and LM training runs
-  data-parallel over (``launch/steps.py::make_train_step``).  A
-  ``model`` axis larger than 1 can be built, and the rule engine gives
-  its specs, but training on it raises: tensor parallelism is not
-  ported.
+  names and defaults, ``("data", "model")`` or ``("pod", "data",
+  "model")``, that ``models/sharding.py`` lays parameters out on and LM
+  training runs over (``launch/steps.py::make_train_step``): each data
+  coordinate a replica (:attr:`NamedMesh.replicas`), its ``model``
+  devices the ranks of tensor parallelism.
 
 ``make_production_mesh`` (the TPU v5e 16x16 pod, 2 pods multi-pod) is
 not ported: the port targets the cards of one host.
@@ -123,8 +122,23 @@ class NamedMesh:
     def size(self) -> int:
         return len(self.devices)
 
+    @property
+    def ranks(self) -> int:
+        """The ``model`` size M: the devices of one replica."""
+        return self.shape.get("model", 1)
 
-def make_test_mesh(data: int, model: int = 1, pod: int = 1, *,
+    @property
+    def replicas(self) -> Tuple[Mesh, ...]:
+        """The data-parallel replicas, one per (pod, data) coordinate in
+        row-major order, each the tuple of its M ``model`` ranks'
+        devices (``model`` is the innermost axis, as in
+        ``jax.make_mesh``)."""
+        M = self.ranks
+        return tuple(self.devices[r:r + M]
+                     for r in range(0, len(self.devices), M))
+
+
+def make_test_mesh(data: int = 2, model: int = 2, pod: int = 1, *,
                    device=None, devices: Optional[Iterable] = None
                    ) -> NamedMesh:
     """A ``(data, model)`` mesh, or ``(pod, data, model)`` with ``pod``

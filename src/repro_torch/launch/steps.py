@@ -16,8 +16,10 @@ cache's length, so a prompt shorter than ``seq_len`` leaves room for
 decode; caches are allocated on the device of the parameters.  For
 training it sets the batch and the gradient-accumulation factor
 (:func:`num_microbatches`).  ``make_train_step(..., mesh=)`` trains
-data-parallel over a mesh's devices (``launch/mesh.py::make_test_mesh``),
-on a tree placed by ``models/sharding.py::shard_params``.
+over a data x model mesh (``launch/mesh.py::make_test_mesh``):
+data-parallel over its replicas and tensor-parallel over each replica's
+``model`` ranks, on a tree placed by
+``models/sharding.py::shard_params``.
 
 Not ported: the input, parameter and cache ``ShapeDtypeStruct``s, their
 shardings, ``build_step`` and ``lower_step`` (the TPU mesh).
@@ -31,6 +33,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import encdec as ED
+from repro_torch.models import parallel as PL
 from repro_torch.models import sharding as SH
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw, clip_by_global_norm, linear_warmup_cosine
@@ -144,24 +147,29 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig, opt,
     metrics are the loss function's, averaged over the microbatches and
     detached, plus ``grad_norm`` (before clipping).
 
-    With ``mesh`` (a ``launch/mesh.py::NamedMesh``; a ``model`` axis
-    larger than 1 raises) the step trains data-parallel over the mesh's
-    D devices, with G = ``num_microbatches(cfg, shape, D)``, on trees of
-    ``models/sharding.py::Sharded`` leaves (``shard_params``; the
-    optimizer state ``opt.init`` of such a tree).  ``batch`` is then one
-    dict per device (``data/pipeline.py``'s iterator with this mesh) or
-    a whole batch, cut by ``sharding.shard_batch``.  Microbatch g keeps
-    rows ``[g·B/G, (g+1)·B/G)``, and device d takes the d-th contiguous
-    block of them (``sharding.batch_rows``).  Once a step each device
-    gets detached aliases of the whole leaves (a replicated leaf's own
-    copy, else the shards gathered onto it).  Device d's loss is
-    weighted by its share of the microbatch's CE tokens, so the
+    With ``mesh`` (a ``launch/mesh.py::NamedMesh``) the step trains on
+    trees of ``models/sharding.py::Sharded`` leaves (``shard_params``;
+    the optimizer state ``opt.init`` of such a tree) over the mesh's R
+    replicas (its data coordinates, pod x data) of M ``model`` ranks
+    each, with G = ``num_microbatches(cfg, shape, R)``.  ``batch`` is
+    one dict per device (``data/pipeline.py``'s iterator with this mesh)
+    or a whole batch, cut by ``sharding.shard_batch``: microbatch g keeps
+    rows ``[g·B/G, (g+1)·B/G)``, replica r takes the r-th contiguous
+    block of them (``sharding.batch_rows``), and its M ranks take the
+    same rows.  Once a step each device gets detached aliases of its
+    leaves: its own shard where a leaf is uncut over ``data``, else its
+    ``model`` chunk gathered over ``data`` onto it (``Sharded.local``).
+    With M = 1 each replica runs the loss above on its device; with M >
+    1 its ranks run it tensor-parallel (``lm_train_loss_tp``,
+    ``encdec_train_loss_tp``): rank j multiplies only its own slice of
+    each projection that the rules cut over ``model``.  A replica's loss
+    is weighted by its share of the microbatch's CE tokens, so the
     gradients and the metrics are the global batch's.  Each device's
-    gradients are reduce-scattered into the owners' accumulator shards,
-    summed in device order, and freed before the next device's
-    microbatch; a chunk held by more than one device gets its owner's
-    sum.  The clip and the update then run over the shards, each on its
-    own device.  Nothing synchronizes between devices' launches.
+    gradients are reduce-scattered into the owners' accumulator shards
+    (a leaf copied to every rank sums its M ranks' gradients), summed in
+    device order, and freed before the next replica's microbatch; a
+    chunk held by more than one device gets its owner's sum.  The clip
+    and the update then run over the shards, each on its own device.
     Without a mesh the step is this one on one device, the caller's
     leaves their own shards, so a one-device mesh gives it bit for bit.
 
@@ -169,80 +177,96 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig, opt,
     over the whole batch's tokens (one data shard), and a per-device
     route would be another model.
     """
-    devices = None if mesh is None else SH.data_parallel_devices(mesh)
-    D = 1 if mesh is None else len(devices)
+    D = 1 if mesh is None else mesh.size
+    M = 1 if mesh is None else mesh.ranks
+    R = D // M
     if D > 1 and _has_moe(cfg):
         raise NotImplementedError(
             f"{cfg.name} has MoE layers, which route over the whole "
             f"batch's tokens; training it over {D} devices is not ported "
             f"({SH.MOE_MESH_ITEM}); use a one-device mesh")
-    if shape.global_batch % D:
+    if shape.global_batch % R:
         raise ValueError(f"a global batch of {shape.global_batch} rows "
-                         f"does not split over {D} devices")
-    G = num_microbatches(cfg, shape, dp if mesh is None else D)
-    loss_fn = (ED.encdec_train_loss if cfg.is_encoder_decoder
-               else T.lm_train_loss)
+                         f"does not split over {R} data-parallel replicas")
+    G = num_microbatches(cfg, shape, dp if mesh is None else R)
+    if cfg.is_encoder_decoder:
+        loss_fn, loss_tp = ED.encdec_train_loss, ED.encdec_train_loss_tp
+    else:
+        loss_fn, loss_tp = T.lm_train_loss, T.lm_train_loss_tp
+    groups = None if mesh is None else [PL.Group(g) for g in mesh.replicas]
     acc_dtype = torch.bfloat16 if _large(cfg) else torch.float32
 
-    def accumulate(acc, sharded, grads, devs):
-        # one device's gradients into the owners' shards, leaf by leaf
+    def accumulate(acc, sharded, grads, d, devs):
+        # device d's gradients into the owners' shards, leaf by leaf
         for i, (x, g) in enumerate(zip(sharded, grads)):
-            for k in range(x.parts):
-                size = x.shards[k].shape[x.dim] if x.parts > 1 else 0
-                chunk = (g if x.parts == 1 else g.narrow(x.dim, k * size,
-                                                         size)).to(devs[k])
+            k = (d % x.ranks) % x.model_parts
+            for c in range(x.parts):
+                o = c * x.ranks + k
+                size = x.shards[o].shape[x.dim] if x.parts > 1 else 0
+                chunk = (g if x.parts == 1 else g.narrow(x.dim, c * size,
+                                                         size)).to(devs[o])
                 if G == 1:
-                    if acc[i][k] is None:
-                        acc[i][k] = chunk.float()
+                    if acc[i][o] is None:
+                        acc[i][o] = chunk.float()
                     else:
-                        acc[i][k].add_(chunk.float())
+                        acc[i][o].add_(chunk.float())
                     continue
-                if acc[i][k] is None:
-                    acc[i][k] = torch.zeros(chunk.shape, dtype=acc_dtype,
-                                            device=devs[k])
-                acc[i][k].add_((chunk.float() / G).to(acc_dtype))
+                if acc[i][o] is None:
+                    acc[i][o] = torch.zeros(chunk.shape, dtype=acc_dtype,
+                                            device=devs[o])
+                acc[i][o].add_((chunk.float() / G).to(acc_dtype))
 
     def train_step(params, opt_state, step, batch):
         if mesh is None:
             # the caller's leaves as their own one-device shards: the
             # in-place update lands in them
             def wrap(t):
-                return SH.Sharded(None, 1, [t])
+                return SH.Sharded([t])
             tree, state = tree_map(wrap, params), tree_map(wrap, opt_state)
             devs, shards = (leaves(params)[0].device,), [batch]
         else:
-            tree, state, devs = params, opt_state, devices
+            tree, state, devs = params, opt_state, mesh.devices
             shards = (SH.shard_batch(batch, mesh, G)
                       if isinstance(batch, dict) else list(batch))
             if len(shards) != D:
                 raise ValueError(f"{len(shards)} batch shards for a mesh "
                                  f"of {D} devices")
         sharded = leaves(tree)
-        # differentiate detached aliases of the leaves: a replicated
-        # leaf's share the caller's storage, and the caller's tensors
+        # differentiate detached aliases of the leaves: a leaf uncut over
+        # data shares the caller's storage, and the caller's tensors
         # never come to require grad (served after a step, they still
         # take the kernels)
         with torch.no_grad():
-            flats = [[(x.shards[d] if x.parts == 1 else x.gather(dev))
-                      .detach().requires_grad_(True) for x in sharded]
-                     for d, dev in enumerate(devs)]
+            flats = [[x.local(d).detach().requires_grad_(True)
+                      for x in sharded] for d in range(D)]
         lives = [unflatten(tree, flat) for flat in flats]
-        acc = [[None] * x.parts for x in sharded]
+        acc = [[None] * D for _ in sharded]
         ms = []
         for g in range(G):
             mbs = [{k: v.reshape(G, v.shape[0] // G, *v.shape[1:])[g]
                     for k, v in shard.items()} for shard in shards]
-            weights = _token_weights(mbs, devs) if D > 1 else None
+            weights = (_token_weights(mbs[::M], devs[::M]) if R > 1
+                       else None)
             parts = []
-            for d in range(D):
-                loss, metrics = loss_fn(lives[d], cfg, mbs[d])
+            for r in range(R):
+                ranks = range(r * M, (r + 1) * M)
+                if M == 1:
+                    loss, metrics = loss_fn(lives[r], cfg, mbs[r])
+                else:
+                    loss, metrics = loss_tp(groups[r],
+                                            [lives[d] for d in ranks], cfg,
+                                            [mbs[d] for d in ranks])
                 if weights is not None:
-                    w = weights[d]
-                    loss = loss * (w.to(devs[d]) if torch.is_tensor(w)
+                    w = weights[r]
+                    loss = loss * (w.to(loss.device) if torch.is_tensor(w)
                                    else w)
-                grads = torch.autograd.grad(loss, flats[d],
-                                            materialize_grads=True)
-                accumulate(acc, sharded, grads, devs)
+                grads = torch.autograd.grad(
+                    loss, [t for d in ranks for t in flats[d]],
+                    materialize_grads=True)
+                for n, d in enumerate(ranks):
+                    accumulate(acc, sharded,
+                               grads[n * len(sharded):(n + 1) * len(sharded)],
+                               d, devs)
                 del grads, loss
                 parts.append({k: v.detach() for k, v in metrics.items()})
             ms.append(parts[0] if weights is None else
@@ -252,9 +276,9 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig, opt,
         metrics = ms[0] if G == 1 else {
             k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
         # a chunk held by several devices: the owner's sum on each
-        grads = [SH.Sharded(x.dim, x.parts, [
-            a[d] if d < x.parts else a[d % x.parts].to(devs[d], copy=True)
-            for d in range(D)]) for x, a in zip(sharded, acc)]
+        grads = [x.like([a[d] if x.owner(d) == d else
+                         a[x.owner(d)].to(devs[d], copy=True)
+                         for d in range(D)]) for x, a in zip(sharded, acc)]
         grads, gnorm = clip_by_global_norm(unflatten(tree, grads), 1.0)
         opt.update(grads, state, tree, step)
         return params, opt_state, dict(metrics, grad_norm=gnorm)

@@ -48,6 +48,7 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels._common import differentiated
 from repro_torch.models import layers as L
+from repro_torch.models.parallel import work
 
 NEG_INF = -1e30
 # sequence length at/above which the plain full-attention path switches
@@ -215,6 +216,36 @@ def _flash_route(S, cfg, positions, cache, cache_pos, causal=True,
     return cache is None or (isinstance(cache_pos, int) and cache_pos == 0)
 
 
+def _attend(q, k, v, cfg, positions, k_positions, causal, window):
+    """The plain path: q (B, S, H, hd) against k/v (B, T, K, hd), H a
+    multiple of K -> (B, S, H, hd).  The einsum below
+    ``BLOCKED_ATTN_THRESHOLD`` query rows, :func:`blocked_attention` at
+    or above it."""
+    S = q.shape[1]
+    q_pos1d = positions if positions.dim() == 1 else positions[0]
+    k_pos1d = k_positions if k_positions.dim() == 1 else k_positions[0]
+    # per-request positions keep their (B, S) shape, so every row
+    # masks against its own write position
+    q_pos2d = positions if positions.dim() == 2 else q_pos1d[None]
+    if S >= BLOCKED_ATTN_THRESHOLD:
+        # as in the JAX package, the window reaches the blocked path
+        # even when the call is not causal
+        return blocked_attention(
+            q, k, v, causal=causal, window=window,
+            softcap=cfg.logit_softcap, q_positions=q_pos1d,
+            k_positions=k_pos1d)
+    mask = make_mask(q_pos2d, k_pos1d[None], causal=causal,
+                     window=window if causal else None)
+    scores = _gqa_scores(q, k) / np.sqrt(cfg.head_dim)
+    if cfg.logit_softcap:
+        cap = cfg.logit_softcap
+        scores = torch.tanh(scores / cap) * cap
+    scores = torch.where(mask[:, None, None], scores,
+                         torch.full_like(scores, NEG_INF))
+    w = torch.softmax(scores, dim=-1)
+    return _gqa_out(w, v)
+
+
 def attention(p, x, cfg, *, positions, causal=True, window=None,
               memory=None, cross=False, cache=None, cache_pos=None):
     """Unified attention entry point.
@@ -292,28 +323,73 @@ def attention(p, x, cfg, *, positions, causal=True, window=None,
                 f"{BLOCKED_ATTN_THRESHOLD} query rows and keeps it above")
         out = ops.flash_attention(q, k, v, causal=causal, window=window)
     else:
-        q_pos1d = positions if positions.dim() == 1 else positions[0]
-        k_pos1d = k_positions if k_positions.dim() == 1 else k_positions[0]
-        # per-request positions keep their (B, S) shape, so every row
-        # masks against its own write position
-        q_pos2d = positions if positions.dim() == 2 else q_pos1d[None]
-        if S >= BLOCKED_ATTN_THRESHOLD:
-            # as in the JAX package, the window reaches the blocked path
-            # even when the call is not causal
-            out = blocked_attention(
-                q, k, v, causal=causal, window=window,
-                softcap=cfg.logit_softcap, q_positions=q_pos1d,
-                k_positions=k_pos1d)
-        else:
-            mask = make_mask(q_pos2d, k_pos1d[None], causal=causal,
-                             window=window if causal else None)
-            scores = _gqa_scores(q, k) / np.sqrt(cfg.head_dim)
-            if cfg.logit_softcap:
-                cap = cfg.logit_softcap
-                scores = torch.tanh(scores / cap) * cap
-            scores = torch.where(mask[:, None, None], scores,
-                                 torch.full_like(scores, NEG_INF))
-            w = torch.softmax(scores, dim=-1)
-            out = _gqa_out(w, v)
+        out = _attend(q, k, v, cfg, positions, k_positions, causal, window)
     out = L.dense(p["wo"], out.reshape(B, S, cfg.q_dim))
     return out, cache
+
+
+def attention_tp(group, ps, xs, cfg, *, causal=True, window=None,
+                 memory=None):
+    """Attention over a group's ranks, without a cache (the training
+    loss): ``wq``/``wk``/``wv`` column-parallel, ``wo`` row-parallel.
+
+    Rank j computes the heads that its rows of ``wo`` read.  Where its
+    own columns of ``wq``/``wk``/``wv`` are whole heads (every family
+    whose heads split evenly), it projects and attends locally; where a
+    cut splits a head (gemma-2b's one KV head), the activation block is
+    gathered over the group before the head split.  ``q_norm``/``k_norm``,
+    RoPE, the softcap and the window apply per head, as in
+    :func:`attention`.  ``memory``: per-rank copies of the
+    cross-attention memory (K/V through ``wk``/``wv``; no RoPE, not
+    causal).  ``xs``: per-rank copies of the input (B, S, d); returns
+    per-rank copies of the output.
+    """
+    M, hd = group.size, cfg.head_dim
+    per_kv = cfg.num_heads // cfg.num_kv_heads
+    cdt = L.dtype_of(cfg.compute_dtype)
+    xs = [x.to(cdt) for x in xs]
+    spans = [work(j, M, p["wo"]["w"].shape[0], cfg.q_dim)
+             for j, p in enumerate(ps)]
+    heads = [s and (s[0] // hd, -(-s[1] // hd)) for s in spans]
+    kv_heads = [h and (h[0] // per_kv, (h[1] - 1) // per_kv + 1)
+                for h in heads]
+
+    def cols(hs):
+        return [h and (h[0] * hd, h[1] * hd) for h in hs]
+
+    q = L.dense_col(group, [p["wq"] for p in ps], xs, cfg.q_dim, cols(heads))
+    src = xs if memory is None else [m.to(cdt) for m in memory]
+    k = L.dense_col(group, [p["wk"] for p in ps], src, cfg.kv_dim,
+                    cols(kv_heads))
+    v = L.dense_col(group, [p["wv"] for p in ps], src, cfg.kv_dim,
+                    cols(kv_heads))
+    outs = []
+    for j, p in enumerate(ps):
+        if spans[j] is None:
+            outs.append(None)
+            continue
+        (h0, h1), (g0, g1) = heads[j], kv_heads[j]
+        qj = _split_heads(q[j], h1 - h0, hd)
+        kj = _split_heads(k[j], g1 - g0, hd)
+        vj = _split_heads(v[j], g1 - g0, hd)
+        if "q_norm" in p:
+            qj = L.rmsnorm(p["q_norm"], qj, cfg.norm_eps)
+            kj = L.rmsnorm(p["k_norm"], kj, cfg.norm_eps)
+        dev = qj.device
+        positions = torch.arange(qj.shape[1], device=dev)
+        if memory is None:
+            qj = L.apply_rope(qj, positions, cfg.rope_theta)
+            kj = L.apply_rope(kj, positions, cfg.rope_theta)
+            k_positions = positions
+        else:
+            k_positions = torch.arange(kj.shape[1], device=dev)
+            causal = False
+        if not (g1 - g0 == 1 or (h0 % per_kv == 0 and h1 % per_kv == 0)):
+            # the local q heads cut a KV group: one KV head per q head
+            idx = torch.arange(h0, h1, device=dev) // per_kv - g0
+            kj, vj = kj[:, :, idx], vj[:, :, idx]
+        out = _attend(qj, kj, vj, cfg, positions, k_positions, causal, window)
+        out = out.reshape(*out.shape[:2], -1)
+        outs.append(out.narrow(-1, spans[j][0] - h0 * hd,
+                               spans[j][1] - spans[j][0]))
+    return L.dense_row(group, [p["wo"] for p in ps], outs)

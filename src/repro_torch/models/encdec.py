@@ -23,16 +23,23 @@ frames and the decoder over the tokens with cross-attention to the
 encoder's output (no caches), then the chunked cross-entropy of
 ``models/transformer.py``.  With ``remat`` each encoder and decoder
 block runs under ``torch.utils.checkpoint``, where the JAX package wraps
-its scan bodies in ``jax.checkpoint``.
+its scan bodies in ``jax.checkpoint``.  :func:`encdec_train_loss_tp` is
+that loss over the ``model`` ranks of a
+:class:`repro_torch.models.parallel.Group` (``models/transformer.py``'s
+tensor-parallel layers; cross-attention applies ``wk``/``wv`` to each
+rank's copy of the memory).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import (chunked_ce_loss, lm_logits,
+from repro_torch.models.transformer import (checkpoint_tp, chunked_ce_loss,
+                                            chunked_ce_loss_tp, lm_logits,
                                             maybe_checkpoint)
 
 
@@ -167,6 +174,61 @@ def encdec_train_loss(params, cfg, batch, *, remat=True):
     positions = torch.arange(h.shape[1], device=h.device)
     h, _ = _decoder(params, cfg, h, memory, positions=positions, remat=remat)
     ce = chunked_ce_loss(params, cfg, h, batch["labels"], batch.get("mask"))
+    return ce, {"loss": ce, "ce": ce}
+
+
+def _norms(ps, key, hs, cfg):
+    return [L.rmsnorm(p[key], h, cfg.norm_eps) for p, h in zip(ps, hs)]
+
+
+def _residual(hs, out):
+    return [h + o.to(h.dtype) for h, o in zip(hs, out)]
+
+
+def _enc_block_tp(ps, hs, *, cfg, group):
+    hs = _residual(hs, A.attention_tp(
+        group, [p["attn"] for p in ps], _norms(ps, "attn_norm", hs, cfg),
+        cfg, causal=False))
+    return _residual(hs, L.mlp_tp(
+        group, [p["ffn"] for p in ps], _norms(ps, "ffn_norm", hs, cfg),
+        cfg.d_ff, cfg.mlp_act))
+
+
+def _dec_block_tp(ps, hs, memory, *, cfg, group):
+    hs = _residual(hs, A.attention_tp(
+        group, [p["self_attn"] for p in ps],
+        _norms(ps, "self_norm", hs, cfg), cfg))
+    hs = _residual(hs, A.attention_tp(
+        group, [p["cross_attn"] for p in ps],
+        _norms(ps, "cross_norm", hs, cfg), cfg, memory=memory))
+    return _residual(hs, L.mlp_tp(
+        group, [p["ffn"] for p in ps], _norms(ps, "ffn_norm", hs, cfg),
+        cfg.d_ff, cfg.mlp_act))
+
+
+def encdec_train_loss_tp(group, ps, cfg, batches, *, remat=True):
+    """:func:`encdec_train_loss` over a group's ranks: ``ps`` their
+    parameter slices, ``batches`` their copies of the batch.  Returns
+    (loss, metrics) on rank 0's device."""
+    cdt = L.dtype_of(cfg.compute_dtype)
+    hs = [b["src_embeds"].to(cdt) for b in batches]
+    block = functools.partial(_enc_block_tp, cfg=cfg, group=group)
+    for i in range(cfg.num_encoder_layers):
+        hs = checkpoint_tp(block, remat,
+                           [p["encoder"]["blocks"][i] for p in ps], hs)
+    memory = _norms([p["encoder"] for p in ps], "norm", hs, cfg)
+    hs = [h.to(cdt) for h in L.embed_tp(
+        group, [p["embed"] for p in ps], [b["tokens"] for b in batches],
+        cfg.vocab_size)]
+    block = functools.partial(_dec_block_tp, cfg=cfg, group=group)
+    for i in range(cfg.num_layers):
+        hs = checkpoint_tp(block, remat,
+                           [p["decoder"]["blocks"][i] for p in ps], hs,
+                           memory)
+    hs = _norms(ps, "final_norm", hs, cfg)
+    ce = chunked_ce_loss_tp(group, ps, cfg, hs,
+                            [b["labels"] for b in batches],
+                            batches[0].get("mask"))
     return ce, {"loss": ce, "ce": ce}
 
 

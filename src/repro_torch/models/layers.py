@@ -7,6 +7,10 @@ weights is a copy (``repro_torch.convert.lm_params_from_jax``).  Each
 ``*_init`` draws from an explicit ``torch.Generator`` on the device the
 parameters are made on; the two packages draw different numbers from the
 same seed, so tests convert the JAX parameters instead.
+
+The ``*_tp`` functions are the tensor-parallel forms over the ``model``
+ranks of a :class:`repro_torch.models.parallel.Group`: per-rank lists of
+parameter slices and activations (``models/parallel.py``).
 """
 
 from __future__ import annotations
@@ -14,6 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models.parallel import held, work
 
 
 def dtype_of(name) -> torch.dtype:
@@ -43,6 +49,27 @@ def dense(p, x):
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
+
+
+def dense_col(group, ps, xs, n: int, want):
+    """A column-parallel dense layer of ``n`` outputs: rank j multiplies
+    its slice of ``ps[j]`` (``w`` (d, n_j), optional ``b``) and receives
+    the span ``want[j]`` of the outputs (gathered from the ranks that
+    computed it where its own slice does not cover it).  A rank whose
+    slice is the whole layer and that wants nothing computes nothing."""
+    have, ys = [], []
+    for j, (p, x, w) in enumerate(zip(ps, xs, want)):
+        have.append(held(j, group.size, p["w"].shape[1], n))
+        ys.append(None if have[-1] == (0, n) and w is None else dense(p, x))
+    return group.redistribute(ys, have, want)
+
+
+def dense_row(group, ps, hs):
+    """A row-parallel dense layer: rank j's product of its rows of
+    ``ps[j]["w"]`` with ``hs[j]`` (None: no work), summed over the ranks
+    and copied to every rank."""
+    return group.all_reduce([None if h is None else dense(p, h)
+                             for p, h in zip(ps, hs)])
 
 
 # -- norms --------------------------------------------------------------------
@@ -101,14 +128,27 @@ def mlp_init(gen, d_model: int, d_ff: int, act: str = "swiglu",
     return p
 
 
-def mlp(p, x, act: str = "swiglu"):
+def _mlp_hidden(p, x, act):
     if act == "swiglu":
-        h = F.silu(dense(p["gate"], x)) * dense(p["up"], x)
-    elif act == "geglu":
-        h = _gelu(dense(p["gate"], x)) * dense(p["up"], x)
-    else:
-        h = _ACTS[act](dense(p["up"], x))
-    return dense(p["down"], h)
+        return F.silu(dense(p["gate"], x)) * dense(p["up"], x)
+    if act == "geglu":
+        return _gelu(dense(p["gate"], x)) * dense(p["up"], x)
+    return _ACTS[act](dense(p["up"], x))
+
+
+def mlp(p, x, act: str = "swiglu"):
+    return dense(p["down"], _mlp_hidden(p, x, act))
+
+
+def mlp_tp(group, ps, xs, d_ff: int, act: str = "swiglu"):
+    """The MLP over a group's ranks: ``gate``/``up`` column-parallel and
+    ``down`` row-parallel over the hidden dim ``d_ff`` (rank j computes
+    its block of it); per-rank copies of the output."""
+    M = group.size
+    hs = [None if work(j, M, p["down"]["w"].shape[0], d_ff) is None
+          else _mlp_hidden(p, x, act)
+          for j, (p, x) in enumerate(zip(ps, xs))]
+    return dense_row(group, [p["down"] for p in ps], hs)
 
 
 # -- embedding ----------------------------------------------------------------
@@ -120,6 +160,26 @@ def embed_init(gen, vocab: int, d_model: int, dtype="bfloat16", device=None):
 
 def embed(p, tokens):
     return p["w"][tokens]
+
+
+def embed_tp(group, ps, tokens, vocab: int):
+    """Vocab-parallel lookup: rank j's block of the table gives the rows
+    of the ids in its span and 0 for the others, and the group sums
+    them (one nonzero term per entry: the plain lookup's values).
+    ``tokens``: per-rank copies of the ids."""
+    M = group.size
+    parts = []
+    for j, (p, t) in enumerate(zip(ps, tokens)):
+        span = work(j, M, p["w"].shape[0], vocab)
+        if span is None or span == (0, vocab):
+            parts.append(None if span is None else embed(p, t))
+            continue
+        inside = (t >= span[0]) & (t < span[1])
+        rows = p["w"][torch.where(inside, t - span[0], 0)]
+        parts.append(torch.where(inside[..., None], rows,
+                                 torch.zeros((), dtype=rows.dtype,
+                                             device=rows.device)))
+    return group.all_reduce(parts)
 
 
 def unembed(p, x):

@@ -15,6 +15,9 @@ B10), then runs the inter-chunk recurrence as a loop over chunks in
 plain PyTorch: the split ``kernels/ssd_pallas.py`` prescribes.  With it
 off, or on a differentiated call (the training loss: the kernel has no
 backward), every chunk runs the JAX package's plain step.
+
+:func:`mamba_apply_tp` is the training mixer over the ``model`` ranks of
+a :class:`repro_torch.models.parallel.Group`.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.kernels._common import differentiated
 from repro_torch.models import layers as L
+from repro_torch.models.parallel import held, work
 
 
 def mamba_init(gen, cfg, *, device=None):
@@ -118,8 +122,7 @@ def _ssd_chunked(xh, dt, A, Bm, Cm, cfg, h0):
     """
     s_cfg = cfg.ssm
     b, S, H, P = xh.shape
-    G = s_cfg.num_groups
-    N = s_cfg.d_state
+    G, N = Bm.shape[2:]
     R = H // G
     Q = min(s_cfg.chunk_size, S)
     pad = (-S) % Q
@@ -243,3 +246,79 @@ def mamba_apply(p, x, cfg, *, cache=None):
     y = y.reshape(B_, S, di).to(cdt)
     y = L.rmsnorm(p["gated_norm"], y * F.silu(z), cfg.norm_eps)
     return L.dense(p["out_proj"], y), new_cache
+
+
+def mamba_apply_tp(group, ps, xs, cfg):
+    """The Mamba-2 mixer over a group's ranks, without a cache (the
+    training loss): ``in_proj`` column-parallel, ``out_proj``
+    row-parallel over d_inner.
+
+    Rank j computes the heads that its rows of ``out_proj`` read.  The
+    cut of ``in_proj`` crosses the z | xBC | dt boundaries, so its
+    output is gathered over the group; the small leaves (``conv_w``,
+    ``conv_b``, ``A_log``, ``D``, ``dt_bias``) are gathered too, and
+    their gradients go back to their shards.  ``gated_norm``'s RMS runs
+    over all of d_inner: the ranks' sums of squares are summed over the
+    group.  Per-rank copies of the input (B, S, d) and of the output.
+    """
+    s = cfg.ssm
+    di, H, P = s.d_inner(cfg.d_model), s.num_heads(cfg.d_model), s.head_dim
+    gn = s.num_groups * s.d_state
+    width, conv_ch, R = 2 * di + 2 * gn + H, di + 2 * gn, H // s.num_groups
+    M = group.size
+    cdt = L.dtype_of(cfg.compute_dtype)
+    xs = [x.to(cdt) for x in xs]
+    spans = [work(j, M, p["out_proj"]["w"].shape[0], di)
+             for j, p in enumerate(ps)]
+    zxbcdt = L.dense_col(group, [p["in_proj"] for p in ps], xs, width,
+                         [sp and (0, width) for sp in spans])
+
+    def whole(key, n, dim=0):
+        return group.redistribute(
+            [p[key] for p in ps],
+            [held(j, M, p[key].shape[dim], n) for j, p in enumerate(ps)],
+            [sp and (0, n) for sp in spans], dim)
+
+    conv_w, conv_b = whole("conv_w", conv_ch, 1), whole("conv_b", conv_ch)
+    A_log, D, dt_bias = whole("A_log", H), whole("D", H), whole("dt_bias", H)
+    ys, sums = [], []
+    for j, sp in enumerate(spans):
+        if sp is None:
+            ys.append(None)
+            sums.append(None)
+            continue
+        zx = zxbcdt[j]
+        B_, S = zx.shape[:2]
+        h0, h1 = sp[0] // P, -(-sp[1] // P)
+        nh, c0, c1 = h1 - h0, h0 * P, h1 * P
+        xbc = torch.cat([zx[..., di + c0: di + c1],
+                         zx[..., 2 * di: 2 * di + 2 * gn]], dim=-1)
+        w = torch.cat([conv_w[j][:, c0:c1], conv_w[j][:, di:]], dim=1)
+        b = torch.cat([conv_b[j][c0:c1], conv_b[j][di:]])
+        xbc = F.silu(_causal_conv(xbc, w, b))
+        xh = xbc[..., :nh * P].reshape(B_, S, nh, P)
+        Bm = xbc[..., nh * P: nh * P + gn].reshape(B_, S, s.num_groups,
+                                                   s.d_state)
+        Cm = xbc[..., nh * P + gn:].reshape(B_, S, s.num_groups, s.d_state)
+        g0, g1 = h0 // R, (h1 - 1) // R + 1
+        if g1 - g0 == 1 or (h0 % R == 0 and h1 % R == 0):
+            Bm, Cm = Bm[:, :, g0:g1], Cm[:, :, g0:g1]
+        else:
+            # the local heads cut a group: one group per head
+            idx = torch.arange(h0, h1, device=zx.device) // R
+            Bm, Cm = Bm[:, :, idx], Cm[:, :, idx]
+        dt = F.softplus(zx[..., 2 * di + 2 * gn + h0: 2 * di + 2 * gn + h1]
+                        .float() + dt_bias[j][h0:h1])
+        y, _ = _ssd_chunked(xh, dt, -torch.exp(A_log[j][h0:h1]), Bm, Cm,
+                            cfg, None)
+        y = y + D[j][h0:h1][None, None, :, None] * xh.to(y.dtype)
+        y = y.reshape(B_, S, nh * P).to(cdt) * F.silu(zx[..., c0:c1])
+        y = y.narrow(-1, sp[0] - c0, sp[1] - sp[0]).float()
+        ys.append(y)
+        sums.append((y * y).sum(-1, keepdim=True))
+    var = group.all_reduce(sums)
+    hs = [None if y is None else
+          (y * torch.rsqrt(v / di + cfg.norm_eps)
+           * p["gated_norm"]["scale"][sp[0]:sp[1]].float()).to(cdt)
+          for y, v, p, sp in zip(ys, var, ps, spans)]
+    return L.dense_row(group, [p["out_proj"] for p in ps], hs)

@@ -1,4 +1,4 @@
-"""Sharding rules, and data-parallel placement of trees on a mesh.
+"""Sharding rules, and the placement of trees on a data x model mesh.
 
 Port of the JAX package's ``models/sharding.py``.  The rule engine maps
 each parameter (or optimizer-state) leaf to a spec: a tuple with one
@@ -27,13 +27,18 @@ JAX leaf, and its spec is the stacked leaf's spec without the leading
 entry (which no rule shards).
 
 Execution: :func:`shard_params` places a tree on a mesh's devices as
-:class:`Sharded` leaves (``launch/steps.py::make_train_step`` and the
-optimizers take such trees), :func:`gather_params` brings one back to
-one device.  Only the ``data`` and ``pod`` axes run: a ``model`` axis
-larger than 1 raises.  ``use_mesh``, ``constrain`` and
-``constrain_batch`` are GSPMD hints inside a jitted function; eager
-PyTorch has no counterpart, so they are not ported, nor is
-``params_shardings`` (JAX ``NamedSharding`` objects).
+:class:`Sharded` leaves, cut over ``data`` (or ``(pod, data)``) and
+``model`` exactly as the JAX specs say; :func:`gather_params` brings one
+back to one device.  ``launch/steps.py::make_train_step(mesh=)`` and the
+optimizers take such trees: each data coordinate is a replica that
+trains on its own rows (:func:`batch_rows`), gathering each leaf's
+``model`` chunk over ``data`` (ZeRO-3), and the M devices of a replica
+are the ``model`` ranks of real tensor parallelism: rank j multiplies
+only its own slice of each projection (``models/parallel.py``).
+``use_mesh``, ``constrain`` and ``constrain_batch`` are GSPMD hints
+inside a jitted function; eager PyTorch has no counterpart, so they are
+not ported, nor is ``params_shardings`` (JAX ``NamedSharding``
+objects).
 """
 
 from __future__ import annotations
@@ -46,9 +51,8 @@ import torch
 
 from repro_torch.tree import leaves, tree_map, unflatten
 
-# the ROADMAP items that would lift the two refusals of this slice
-TENSOR_PARALLEL_ITEM = "ROADMAP §A, 'the model axis (tensor parallelism)'"
-MOE_MESH_ITEM = "ROADMAP §A, 'the MoE layer under a data mesh'"
+# the ROADMAP item that would lift the refusal of an MoE family on a mesh
+MOE_MESH_ITEM = "ROADMAP §A, 'the MoE layer under a data × model mesh'"
 
 
 def data_axes(mesh):
@@ -203,47 +207,47 @@ def kv_cache_pspec(mesh, *, batch: int, ndim: int, batch_dim: int,
 
 
 # ---------------------------------------------------------------------------
-# Data-parallel placement
+# Placement on a data x model mesh
 # ---------------------------------------------------------------------------
-
-def data_parallel_devices(mesh) -> tuple:
-    """The mesh's devices, in row-major order, for data-parallel work.
-
-    Raises on a ``model`` axis larger than 1: tensor parallelism is not
-    ported.
-    """
-    if mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"a mesh with a 'model' axis of {mesh.shape['model']}: tensor "
-            f"parallelism is not ported ({TENSOR_PARALLEL_ITEM}); use "
-            f"model=1")
-    return tuple(mesh.devices)
-
 
 class Sharded:
     """One leaf of a tree placed on a mesh's D devices.
 
-    The leaf is cut along ``dim`` into ``parts`` contiguous chunks of
-    equal size; ``shards[d]`` lives on the mesh's device d and holds
-    chunk ``d % parts``.  ``parts`` is D for a leaf sharded over every
-    data-parallel device, the ``data`` size for one sharded over
-    ``data`` and replicated over ``pod``, and 1 (``dim`` None) for a
-    replicated leaf: then every device holds its own copy.  Chunk k's
-    first holder, device k, owns it: gradient sums and norms read the
-    owners' shards only.
+    The devices are in the mesh's row-major order, ``model`` innermost,
+    so device d sits at data coordinate ``d // ranks`` and model
+    coordinate ``d % ranks`` (``ranks`` is the ``model`` size M).  The
+    leaf is cut along ``dim`` into ``parts`` contiguous chunks (the
+    dimension its spec puts on ``data`` or ``(pod, data)``; ``parts`` is
+    the data size, or pod x data, or 1 with ``dim`` None) and along
+    ``model_dim`` into ``model_parts`` chunks (M, or 1 with
+    ``model_dim`` None).  ``shards[d]`` lives on device d and holds data
+    chunk ``(d // ranks) % parts`` and model chunk ``(d % ranks) %
+    model_parts``: a leaf uncut along an axis is copied whole to every
+    device of that axis.  A chunk's first holder (:meth:`owner`) owns
+    it: gradient sums and norms read the owners' shards only.
     """
 
-    __slots__ = ("dim", "parts", "shards")
+    __slots__ = ("dim", "parts", "model_dim", "model_parts", "ranks",
+                 "shards")
 
-    def __init__(self, dim: Optional[int], parts: int,
-                 shards: Sequence[torch.Tensor]):
-        self.dim, self.parts, self.shards = dim, parts, list(shards)
+    def __init__(self, shards: Sequence[torch.Tensor], dim: Optional[int]
+                 = None, parts: int = 1, model_dim: Optional[int] = None,
+                 model_parts: int = 1, ranks: int = 1):
+        self.dim, self.parts = dim, parts
+        self.model_dim, self.model_parts = model_dim, model_parts
+        self.ranks, self.shards = ranks, list(shards)
+
+    def _layout(self) -> tuple:
+        return (self.dim, self.parts, self.model_dim, self.model_parts,
+                self.ranks)
 
     @property
     def shape(self) -> torch.Size:
         s = list(self.shards[0].shape)
         if self.dim is not None:
             s[self.dim] *= self.parts
+        if self.model_dim is not None:
+            s[self.model_dim] *= self.model_parts
         return torch.Size(s)
 
     @property
@@ -253,9 +257,18 @@ class Sharded:
     def numel(self) -> int:
         return math.prod(self.shape)
 
+    def owner(self, d: int) -> int:
+        """The first device that holds device d's chunks."""
+        c = (d // self.ranks) % self.parts
+        return c * self.ranks + (d % self.ranks) % self.model_parts
+
+    def like(self, shards: Sequence[torch.Tensor]) -> "Sharded":
+        """A leaf of this layout holding ``shards``."""
+        return Sharded(shards, *self._layout())
+
     def map(self, fn) -> "Sharded":
         """``fn`` over every shard, in a leaf of the same layout."""
-        return Sharded(self.dim, self.parts, [fn(s) for s in self.shards])
+        return self.like([fn(s) for s in self.shards])
 
     def place(self, full: torch.Tensor) -> "Sharded":
         """``full`` (the whole leaf, on any device) cut and copied as this
@@ -263,62 +276,85 @@ class Sharded:
         if tuple(full.shape) != tuple(self.shape):
             raise ValueError(f"a tensor of shape {tuple(full.shape)} cannot "
                              f"take the place of a {tuple(self.shape)} leaf")
-        return _split(full, self.dim, self.parts,
-                      [s.device for s in self.shards])
+        return _split(full, self._layout(), [s.device for s in self.shards])
+
+    def block(self, k: int, device) -> torch.Tensor:
+        """Model chunk ``k``, whole along the data dimension, on
+        ``device``: the data chunks' owners' shards concatenated (the
+        chunk's own shard itself when the leaf is uncut over data and it
+        is already there)."""
+        if self.parts == 1:
+            return self.shards[k].to(device)
+        return torch.cat([self.shards[c * self.ranks + k].to(device)
+                          for c in range(self.parts)], self.dim)
+
+    def local(self, d: int) -> torch.Tensor:
+        """What device d computes with: its own shard where the leaf is
+        uncut over data, else its model chunk gathered over data onto
+        it."""
+        if self.parts == 1:
+            return self.shards[d]
+        return self.block((d % self.ranks) % self.model_parts,
+                          self.shards[d].device)
 
     def gather(self, device) -> torch.Tensor:
-        """The whole leaf on ``device`` (the first shard itself when the
-        leaf is replicated and already there)."""
-        if self.parts == 1:
-            return self.shards[0].to(device)
-        return torch.cat([s.to(device) for s in self.shards[:self.parts]],
-                         self.dim)
+        """The whole leaf on ``device``."""
+        blocks = [self.block(k, device) for k in range(self.model_parts)]
+        return blocks[0] if len(blocks) == 1 else torch.cat(
+            blocks, self.model_dim)
 
     def __repr__(self):
         return (f"Sharded(shape={tuple(self.shape)}, dtype={self.dtype}, "
-                f"dim={self.dim}, parts={self.parts}, "
+                f"dim={self.dim}, parts={self.parts}, model_dim="
+                f"{self.model_dim}, model_parts={self.model_parts}, "
                 f"devices={[str(s.device) for s in self.shards]})")
 
 
-def _split(x: torch.Tensor, dim: Optional[int], parts: int,
-           devices) -> Sharded:
+def _split(x: torch.Tensor, layout: tuple, devices) -> Sharded:
+    dim, parts, mdim, mparts, ranks = layout
     size = x.shape[dim] // parts if dim is not None else 0
+    msize = x.shape[mdim] // mparts if mdim is not None else 0
     shards = []
     for d, dev in enumerate(devices):
-        chunk = x if dim is None else x.narrow(dim, (d % parts) * size, size)
+        chunk = x
+        if dim is not None:
+            chunk = chunk.narrow(dim, ((d // ranks) % parts) * size, size)
+        if mdim is not None:
+            chunk = chunk.narrow(mdim, ((d % ranks) % mparts) * msize, msize)
         shards.append(chunk.detach().to(
             dev, memory_format=torch.contiguous_format, copy=True))
-    return Sharded(dim, parts, shards)
+    return Sharded(shards, *layout)
 
 
-def _placement(spec: tuple, mesh):
-    """(dim, parts) of a spec on a data-parallel mesh: the dimension put
-    on ``data`` or ``(pod, data)`` and the number of its chunks."""
-    for dim, ax in enumerate(spec):
+def _placement(spec: tuple, mesh) -> tuple:
+    """A spec's layout on ``mesh``: (dim, parts) of the dimension put on
+    ``data`` or ``(pod, data)``, (model_dim, model_parts) of the one put
+    on ``model``, and the ``model`` size."""
+    ranks = mesh.shape.get("model", 1)
+    dim, parts, mdim, mparts = None, 1, None, 1
+    for i, ax in enumerate(spec):
         names = ax if isinstance(ax, tuple) else (ax,)
-        names = tuple(a for a in names if a in ("pod", "data"))
-        parts = math.prod(mesh.shape[a] for a in names)
-        if parts > 1:
-            return dim, parts
-    return None, 1
+        n = math.prod(mesh.shape[a] for a in names if a in ("pod", "data"))
+        if n > 1:
+            dim, parts = i, n
+        if "model" in names and ranks > 1:
+            mdim, mparts = i, ranks
+    return dim, parts, mdim, mparts, ranks
 
 
 def shard_params(tree, mesh):
     """``tree`` placed on ``mesh``'s devices by :func:`params_pspecs`.
 
-    Each leaf becomes a :class:`Sharded`: cut into contiguous chunks
-    along the dimension its spec puts on ``data`` (or ``(pod, data)``),
-    chunk d on device d, or copied whole to every device when its spec
-    shards nothing.  The shards are fresh tensors (the caller's leaves
-    are not aliased), so a mesh may repeat a device.
+    Each leaf becomes a :class:`Sharded`, cut along the dimension its
+    spec puts on ``data`` (or ``(pod, data)``) and the one it puts on
+    ``model``, as the JAX specs lay it out; an axis the spec leaves out
+    (or whose cut the divisibility check dropped) gets whole copies.
+    The shards are fresh tensors (the caller's leaves are not aliased),
+    so a mesh may repeat a device.
     """
-    devices = data_parallel_devices(mesh)
     specs = _spec_leaves(params_pspecs(tree, mesh))
-    out = []
-    for x, spec in zip(leaves(tree), specs):
-        dim, parts = _placement(spec, mesh)
-        out.append(_split(x, dim, parts, devices))
-    return unflatten(tree, out)
+    return unflatten(tree, [_split(x, _placement(spec, mesh), mesh.devices)
+                            for x, spec in zip(leaves(tree), specs)])
 
 
 def gather_params(sharded, device):
@@ -348,26 +384,28 @@ def _spec_leaves(specs) -> list:
     return out
 
 
-
-def batch_rows(x: torch.Tensor, num_devices: int, microbatches: int,
-               d: int) -> torch.Tensor:
-    """Device d's rows of a batch tensor ``x`` (B, ...) split into
-    ``microbatches`` G over ``num_devices`` D: of each microbatch g's
-    rows ``[g·B/G, (g+1)·B/G)`` the d-th contiguous block of B/(G·D),
-    for g in order (the rows GSPMD gives device d when a microbatch's
-    batch dim is sharded over the data axes).  Row block g of the result
-    is device d's part of microbatch g."""
-    G, D, B = microbatches, num_devices, x.shape[0]
-    if B % (G * D):
+def batch_rows(x: torch.Tensor, num_replicas: int, microbatches: int,
+               r: int) -> torch.Tensor:
+    """Replica r's rows of a batch tensor ``x`` (B, ...) split into
+    ``microbatches`` G over ``num_replicas`` R (the mesh's data
+    coordinates, pod x data): of each microbatch g's rows ``[g·B/G,
+    (g+1)·B/G)`` the r-th contiguous block of B/(G·R), for g in order
+    (the rows GSPMD gives data coordinate r when a microbatch's batch dim
+    is sharded over the data axes; every ``model`` rank of the replica
+    takes them).  Row block g of the result is replica r's part of
+    microbatch g."""
+    G, R, B = microbatches, num_replicas, x.shape[0]
+    if B % (G * R):
         raise ValueError(f"a batch of {B} rows does not split into {G} "
-                         f"microbatches over {D} devices")
+                         f"microbatches over {R} data-parallel replicas")
     rest = tuple(x.shape[1:])
-    return x.reshape(G, D, B // (G * D), *rest)[:, d].reshape(B // D, *rest)
+    return x.reshape(G, R, B // (G * R), *rest)[:, r].reshape(B // R, *rest)
 
 
 def shard_batch(batch: dict, mesh, microbatches: int = 1) -> list:
     """``batch`` (a dict of (B, ...) tensors) as one dict per device of
-    ``mesh``, each holding :func:`batch_rows` on its device."""
-    devices = data_parallel_devices(mesh)
-    return [{k: batch_rows(v, len(devices), microbatches, d).to(dev)
-             for k, v in batch.items()} for d, dev in enumerate(devices)]
+    ``mesh``: device d holds :func:`batch_rows` of its replica ``d //
+    ranks`` on its device."""
+    R, M = len(mesh.replicas), mesh.ranks
+    return [{k: batch_rows(v, R, microbatches, d // M).to(dev)
+             for k, v in batch.items()} for d, dev in enumerate(mesh.devices)]

@@ -29,6 +29,15 @@ for ``lax.scan``: a Python loop over the layers takes the scan's place.
 Caches are a list too, one dict per layer, each leaf with the request
 **slot** on axis 0.  Attention and MLA caches are written in place
 (``models/attention.py``, ``models/mla.py``).
+
+:func:`lm_train_loss_tp` is the training loss under tensor parallelism:
+the ``model`` ranks of a :class:`repro_torch.models.parallel.Group`
+each hold their slices of the parameters (``models/sharding.py``'s
+rules), and the forward runs as per-rank lists: a vocab-parallel
+embedding and cross-entropy, column- and row-parallel attention,
+Mamba-2 and MLP layers, norms on each rank's copy of the hidden state.
+With ``remat`` each block, collectives included, is recomputed in the
+backward pass by :func:`checkpoint_tp`.
 """
 
 from __future__ import annotations
@@ -43,6 +52,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
+from repro_torch.models.parallel import work
+from repro_torch.tree import leaves, unflatten
 
 
 # -- layer plan ---------------------------------------------------------------
@@ -148,12 +159,91 @@ def _block_apply(p, cfg, h, mixer, ffn, *, positions, window, cache=None,
     return h, new_cache, aux
 
 
+def _block_apply_tp(ps, hs, *, cfg, mixer, ffn, group, window):
+    """One block over a group's ranks (no cache): ``ps`` and ``hs`` are
+    the ranks' parameters and copies of the hidden state."""
+    if mixer not in ("attn", "ssm") or ffn not in ("dense", "none"):
+        raise NotImplementedError(f"a {mixer} mixer with a {ffn} FFN has "
+                                  f"no tensor-parallel form")
+    hn = [L.rmsnorm(p["mixer_norm"], h, cfg.norm_eps) for p, h in zip(ps, hs)]
+    if mixer == "attn":
+        out = A.attention_tp(group, [p["attn"] for p in ps], hn, cfg,
+                             window=window)
+    else:
+        out = M.mamba_apply_tp(group, [p["ssm"] for p in ps], hn, cfg)
+    hs = [h + o.to(h.dtype) for h, o in zip(hs, out)]
+    if ffn == "dense":
+        hn = [L.rmsnorm(p["ffn_norm"], h, cfg.norm_eps)
+              for p, h in zip(ps, hs)]
+        out = L.mlp_tp(group, [p["ffn"] for p in ps], hn, cfg.d_ff,
+                       cfg.mlp_act)
+        hs = [h + o.to(h.dtype) for h, o in zip(hs, out)]
+    return hs
+
+
 def maybe_checkpoint(fn, remat: bool):
     """``fn`` itself, or ``fn`` under ``torch.utils.checkpoint`` (its
     activations recomputed in the backward pass) with ``remat``."""
     if not remat:
         return fn
     return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
+def _discard(_):
+    return None
+
+
+class _Remat(torch.autograd.Function):
+    """``run(tensors)`` without its activations: the forward keeps only
+    the inputs, and the backward runs it again under autograd and
+    differentiates that.  The forward runs as a differentiated call too,
+    its saved tensors discarded, so both runs take the training loss's
+    routes (``kernels._common.differentiated``: no kernel)."""
+
+    @staticmethod
+    def forward(ctx, run, *tensors):
+        ctx.run = run
+        ctx.save_for_backward(*tensors)
+        with torch.enable_grad(), \
+                torch.autograd.graph.saved_tensors_hooks(_discard, _discard):
+            outs = run([t.detach().requires_grad_(t.requires_grad)
+                        for t in tensors])
+        return tuple(o.detach() for o in outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        tensors = [t.detach().requires_grad_(t.requires_grad)
+                   for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            outs = ctx.run(tensors)
+        wanted = [t for t in tensors if t.requires_grad]
+        got = iter(torch.autograd.grad(outs, wanted, grads,
+                                       allow_unused=True,
+                                       materialize_grads=True))
+        return (None, *[next(got) if t.requires_grad else None
+                        for t in tensors])
+
+
+def checkpoint_tp(fn, remat: bool, ps, *acts):
+    """``fn(ps, *acts)``, a tensor-parallel block (``ps`` the ranks'
+    parameters, each of ``acts`` a per-rank list of tensors; it returns
+    a per-rank list), with ``remat`` recomputed in the backward pass,
+    collectives included.  ``torch.utils.checkpoint`` cannot take it:
+    with the ranks on several cards the backward pass runs on a thread a
+    card, and two threads would recompute one block at once; here one
+    autograd node recomputes the whole block and differentiates it."""
+    if not remat:
+        return fn(ps, *acts)
+    counts = [len(leaves(p)) for p in ps]
+
+    def run(tensors):
+        it = iter(tensors)
+        ranks = [unflatten(p, [next(it) for _ in range(n)])
+                 for p, n in zip(ps, counts)]
+        return fn(ranks, *[[next(it) for _ in a] for a in acts])
+
+    flat = [t for p in ps for t in leaves(p)] + [t for a in acts for t in a]
+    return list(_Remat.apply(run, *flat))
 
 
 def moe_aux_loss(cfg, aux, device=None):
@@ -307,6 +397,59 @@ def chunked_ce_loss(params, cfg, h, labels, mask=None, chunk: int = 512):
     return tot / torch.clamp(cnt, min=1.0)
 
 
+def chunked_ce_loss_tp(group, ps, cfg, hs, labels, mask=None,
+                       chunk: int = 512):
+    """:func:`chunked_ce_loss` over a group's ranks with vocab-parallel
+    logits: rank j's block of ``lm_head`` (or of the tied embedding)
+    gives its block of each chunk's logits, so no rank holds the whole
+    vocab's (a vocab the ``model`` axis does not divide is rank 0's
+    alone).  The logsumexp takes the ranks' max, then sums their
+    ``exp`` sums in rank order; the rank whose block holds a label
+    supplies its logit.  ``hs``, ``labels``: per-rank copies; ``mask``
+    (B, S) on rank 0's device or None.  Returns the loss on rank 0's
+    device."""
+    key = "embed" if cfg.tie_embeddings else "lm_head"
+    dim = 0 if cfg.tie_embeddings else 1
+    spans = [work(j, group.size, p[key]["w"].shape[dim], cfg.vocab_size)
+             for j, p in enumerate(ps)]
+    B, S, d = hs[0].shape
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    dev0 = group.devices[0]
+    labels = [lab.long() for lab in labels]
+    mask = (torch.ones((B, S), dtype=torch.float32, device=dev0)
+            if mask is None else mask.float())
+    if pad:
+        hs = [torch.nn.functional.pad(h, (0, 0, 0, pad)) for h in hs]
+        labels = [torch.nn.functional.pad(lab, (0, pad)) for lab in labels]
+        mask = torch.nn.functional.pad(mask, (0, pad))
+    tot = torch.zeros((), dtype=torch.float32, device=dev0)
+    cnt = torch.zeros((), dtype=torch.float32, device=dev0)
+    for i in range(0, S + pad, chunk):
+        logits = [None if sp is None else
+                  lm_logits(p, cfg, h[:, i:i + chunk])
+                  for p, h, sp in zip(ps, hs, spans)]
+        top = group.all_max([None if lg is None else lg.amax(-1)
+                             for lg in logits])
+        sums, golds = [], []
+        for lg, m, lab, sp in zip(logits, top, labels, spans):
+            if lg is None:
+                sums.append(None)
+                golds.append(None)
+                continue
+            sums.append(torch.exp(lg - m[..., None]).sum(-1))
+            lc = lab[:, i:i + chunk]
+            inside = (lc >= sp[0]) & (lc < sp[1])
+            gold = torch.gather(lg, -1, torch.where(
+                inside, lc - sp[0], 0)[..., None])[..., 0]
+            golds.append(torch.where(inside, gold, 0.0))
+        lse = top[0] + torch.log(group.reduce(sums))
+        mc = mask[:, i:i + chunk]
+        tot = tot + torch.sum((lse - group.reduce(golds)) * mc)
+        cnt = cnt + torch.sum(mc)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
 def _apply_single_block(p, cfg, h, positions):
     mixer = "mla" if cfg.use_mla else "attn"
     ffn = "dense" if cfg.d_ff else "none"
@@ -363,6 +506,48 @@ def lm_train_loss(params, cfg, batch, *, remat=True):
         metrics["mtp"] = m
         metrics["loss"] = loss
     return loss, metrics
+
+
+def embed_inputs_tp(group, ps, cfg, batches):
+    """:func:`embed_inputs` over a group's ranks (a vocab-parallel
+    lookup): per-rank copies of the (B, S, d) input, from per-rank
+    copies of the batch."""
+    cdt = L.dtype_of(cfg.compute_dtype)
+    hs = [h.to(cdt) for h in L.embed_tp(
+        group, [p["embed"] for p in ps], [b["tokens"] for b in batches],
+        cfg.vocab_size)]
+    if "prefix_embeds" in batches[0]:
+        hs = [torch.cat([b["prefix_embeds"].to(cdt), h], dim=1)
+              for b, h in zip(batches, hs)]
+    return hs
+
+
+def lm_train_loss_tp(group, ps, cfg, batches, *, remat=True):
+    """:func:`lm_train_loss` over a group's ranks: ``ps`` their
+    parameter slices, ``batches`` their copies of the batch.  Returns
+    (loss, metrics) on rank 0's device, the values of
+    :func:`lm_train_loss`.  MoE, MLA and MTP layers have no
+    tensor-parallel form."""
+    if cfg.mtp_depth > 0:
+        raise NotImplementedError(f"{cfg.name}'s MTP head has no "
+                                  f"tensor-parallel form")
+    hs = embed_inputs_tp(group, ps, cfg, batches)
+    for i, (mixer, ffn) in enumerate(layer_types(cfg)):
+        block = functools.partial(_block_apply_tp, cfg=cfg, mixer=mixer,
+                                  ffn=ffn, group=group,
+                                  window=cfg.attn_window)
+        hs = checkpoint_tp(block, remat, [p["layers"][i] for p in ps], hs)
+    hs = [L.rmsnorm(p["final_norm"], h, cfg.norm_eps)
+          for p, h in zip(ps, hs)]
+    npfx = hs[0].shape[1] - batches[0]["tokens"].shape[1]
+    if npfx > 0:                       # VLM prefix: no LM loss on patches
+        hs = [h[:, npfx:] for h in hs]
+    ce = chunked_ce_loss_tp(group, ps, cfg, hs,
+                            [b["labels"] for b in batches],
+                            batches[0].get("mask"))
+    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    loss = ce + aux
+    return loss, {"loss": loss, "ce": ce, "aux": aux}
 
 
 def lm_prefill(params, cfg, batch, caches, *, window=None, last_pos=None):

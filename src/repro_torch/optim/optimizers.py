@@ -117,16 +117,17 @@ def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32.
 
     Over a sharded tree, device d's partial sum covers the shards it
-    owns (chunk d of each leaf cut into more than d parts), in leaf
-    order on device d; the partials are added on the first device in
-    device order.  One device: the sum of the leaves in leaf order.
+    owns (``Sharded.owner``: each chunk counted once, on its first
+    holder), in leaf order on device d; the partials are added on the
+    first device in device order.  One device: the sum of the leaves in
+    leaf order.
     """
     flat = leaves(tree)
     ndev = max((len(_pieces(x)) for x in flat), default=1)
     partials = []
     for d in range(ndev):
         owned = [x.shards[d] if isinstance(x, Sharded) else x for x in flat
-                 if d < (x.parts if isinstance(x, Sharded) else 1)]
+                 if (x.owner(d) == d if isinstance(x, Sharded) else d == 0)]
         if owned:
             partials.append(sum(torch.sum(torch.square(x.float()))
                                 for x in owned))

@@ -839,7 +839,7 @@ def test_one_card_mesh_train_step_is_the_plain_step(cuda_device, G):
             warnings.simplefilter("ignore")
             p0, s0, m0 = _mesh_train(cfg, cuda_device, None, G)
             p1, s1, m1 = _mesh_train(
-                cfg, cuda_device, make_test_mesh(1, device=cuda_device), G)
+                cfg, cuda_device, make_test_mesh(1, 1, device=cuda_device), G)
     finally:
         torch.use_deterministic_algorithms(False)
     assert m0 == m1
@@ -860,7 +860,7 @@ def test_mesh_train_step_on_one_card_matches_one_device(cuda_device, D):
 
     cfg = get_config("gemma-2b").reduced()
     _, _, want = _mesh_train(cfg, cuda_device, None, 2)
-    mesh = make_test_mesh(D, devices=(cuda_device,) * D)
+    mesh = make_test_mesh(D, 1, devices=(cuda_device,) * D)
     params, state, got = _mesh_train(cfg, cuda_device, mesh, 2)
     assert abs(got[0]["loss"] - want[0]["loss"]) <= 1e-5 * want[0]["loss"]
     assert abs(got[0]["grad_norm"] - want[0]["grad_norm"]) <= \
@@ -869,4 +869,34 @@ def test_mesh_train_step_on_one_card_matches_one_device(cuda_device, D):
         assert abs(g["loss"] - w["loss"]) <= 1e-4 * w["loss"]
     for x in leaves((params, state)):
         assert all(torch.equal(s, x.shards[d % x.parts])
+                   for d, s in enumerate(x.shards))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma-2b", "qwen3-14b"])
+def test_tensor_parallel_train_step_on_one_card(cuda_device, arch):
+    """(1, 2) on (cuda:0,) * 2 (tensor parallelism over two ranks)
+    against the card's D = 1 step, reduced f32 at G 2: the first loss
+    within 1e-5, the first grad norm and every loss within 1e-4,
+    relative; a leaf copied to both ranks identical on each, and no
+    kernel launched (phase 13a of the smoke run)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.tree import leaves
+
+    cfg = get_config(arch).reduced()
+    _, _, want = _mesh_train(cfg, cuda_device, None, 2)
+    mesh = make_test_mesh(1, 2, devices=(cuda_device,) * 2)
+    ops.reset_launch_counts()
+    with ops.use_pallas_scoped(True):
+        params, state, got = _mesh_train(cfg, cuda_device, mesh, 2)
+    assert sum(ops.LAUNCH_COUNTS.values()) == 0
+    assert abs(got[0]["loss"] - want[0]["loss"]) <= 1e-5 * want[0]["loss"]
+    assert abs(got[0]["grad_norm"] - want[0]["grad_norm"]) <= \
+        1e-4 * want[0]["grad_norm"]
+    for g, w in zip(got, want):
+        assert abs(g["loss"] - w["loss"]) <= 1e-4 * w["loss"]
+    assert any(x.model_parts == 2 for x in leaves(params))
+    for x in leaves((params, state)):
+        assert all(torch.equal(s, x.shards[x.owner(d)])
                    for d, s in enumerate(x.shards))

@@ -239,26 +239,75 @@ def test_shard_params_places_and_gathers(shape):
         tree["embed"]["w"] * 2)
 
 
+def jax_slice(spec, shape, mesh, d):
+    """The index of device d's block of a ``shape`` leaf under the JAX
+    ``PartitionSpec`` ``spec`` on ``mesh``: a dimension on axes (a name
+    or a tuple of names) is cut into their product of chunks, and device
+    d takes the chunk at its coordinates on those axes, row-major in the
+    tuple's order; the mesh's devices are row-major over its axes."""
+    coords = dict(zip(mesh.axis_names, np.unravel_index(d, mesh.sizes)))
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    index = []
+    for dim, ax in zip(shape, spec):
+        k, n = 0, 1
+        for a in (() if ax is None else ax if isinstance(ax, tuple)
+                  else (ax,)):
+            k, n = k * mesh.shape[a] + int(coords[a]), n * mesh.shape[a]
+        index.append(slice(k * (dim // n), (k + 1) * (dim // n)))
+    return tuple(index)
+
+
 def test_a_model_axis_raises():
+    """A ``model`` axis, once refused, now places the tree: on the (2, 2)
+    mesh every device's shard is the block the JAX specs name."""
     mesh = make_test_mesh(2, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        SH.shard_params(_tree(np.random.default_rng(0)), mesh)
+    tree = _tree(np.random.default_rng(0))
+    sharded = SH.shard_params(tree, mesh)
+    specs = _flat(JSH.params_pspecs(
+        jax.tree.map(lambda t: np.asarray(t.float()), tree), mesh))
+    assert specs["/embed/w"] == P("model", "data")
+    assert specs["/layers/0/ffn/down/w"] == P("model", "data")
+    wholes = _flat(tree)
+    for path, x in _flat(sharded).items():
+        whole = wholes[path]
+        assert len(x.shards) == 4
+        for d, shard in enumerate(x.shards):
+            want = whole[jax_slice(specs[path], whole.shape, mesh, d)]
+            assert torch.equal(shard, want), (path, d)
+    assert sharded["embed"]["w"].shards[1].shape == (8, 4)
+    for a, b in zip(leaves(SH.gather_params(sharded, "cpu")), leaves(tree)):
+        assert torch.equal(a, b)
 
 
 def test_make_test_mesh():
-    mesh = make_test_mesh(4, device="cpu")
+    import inspect
+
+    from repro.launch import mesh as JM
+
+    # the JAX signature's defaults: a (data 2, model 2) mesh
+    want = {k: v.default for k, v in inspect.signature(
+        JM.make_test_mesh).parameters.items()}
+    got = {k: v.default for k, v in inspect.signature(
+        make_test_mesh).parameters.items() if k in want}
+    assert got == want == {"data": 2, "model": 2, "pod": 1}
+    default = make_test_mesh(device="cpu")
+    assert default.axis_names == ("data", "model")
+    assert default.shape == {"data": 2, "model": 2}
+    assert default.ranks == 2 and len(default.replicas) == 2
+    mesh = make_test_mesh(4, 1, device="cpu")
     assert mesh.axis_names == ("data", "model")
     assert mesh.shape == {"data": 4, "model": 1}
     assert mesh.devices == (torch.device("cpu"),) * 4
+    assert mesh.replicas == tuple((torch.device("cpu"),) for _ in range(4))
     pod = make_test_mesh(2, 1, 2, device="cpu")
     assert pod.axis_names == ("pod", "data", "model")
     assert pod.shape == {"pod": 2, "data": 2, "model": 1} and pod.size == 4
-    explicit = make_test_mesh(2, devices=("cpu", "cpu"))
+    explicit = make_test_mesh(2, 1, devices=("cpu", "cpu"))
     assert explicit.devices == (torch.device("cpu"),) * 2
     with pytest.raises(ValueError, match="needs 2 devices"):
-        make_test_mesh(2, devices=("cpu",))
+        make_test_mesh(2, 1, devices=("cpu",))
     with pytest.raises(ValueError, match="not both"):
-        make_test_mesh(2, device="cpu", devices=("cpu", "cpu"))
+        make_test_mesh(2, 1, device="cpu", devices=("cpu", "cpu"))
     with pytest.raises(ValueError, match="needs 3 devices"):
         NamedMesh(("data",), (3,), (torch.device("cpu"),))
 
@@ -274,6 +323,6 @@ def test_batch_rows_order():
     with pytest.raises(ValueError, match="does not split"):
         SH.batch_rows(x, 3, 1, 0)
     shards = SH.shard_batch({"tokens": x[:, None]},
-                            make_test_mesh(2, device="cpu"), 2)
+                            make_test_mesh(2, 1, device="cpu"), 2)
     assert [s["tokens"][:, 0].tolist() for s in shards] == [[0, 1, 4, 5],
                                                            [2, 3, 6, 7]]
