@@ -475,6 +475,35 @@ TP_FULL_ARCH, TP_FULL_MESH, TP_FULL_STEPS = "gemma-2b", (1, 2), 4
 TP_4_REDUCED = ("qwen3-14b", (1, 4))
 TP_4_FULL = (("qwen3-14b", (1, 4)), ("qwen2-7b", (2, 2)))
 TP_4_STEPS = 7
+# phase 14: the MoE families trained over a data x model mesh, kernels on
+# (no launches): each MoE layer routes the whole microbatch's tokens
+# (capacity, ranks within an expert and aux metrics global) and sends each
+# row to the replica that holds its expert (expert parallelism).  (a) The
+# four reduced MoE families at (2, 1), (1, 2), (2, 2) on (cuda:0,) * n
+# against the card's D = 1 step as 13a, on batches whose microbatches
+# hold MOE_MESH_ROWS expanded rows (S = 2048 / k at B 8, G 2) at capacity
+# factor MOE_MESH_CAPACITY: the capacity binds over the microbatch
+# (C = 2048 of 8192 rows) while one replica's 4096 rows alone would be
+# lossless; ``aux`` within LIMIT_AUX_REL.  (b) With four cards: reduced
+# moonshot at (2, 2) over cuda:0-3 as (a); the launcher on reduced
+# moonshot over the four cards, as a subprocess; then moonshot cut to 24
+# layers at (4, 1) (expert parallelism across the cards, a global route
+# that drops rows: C = 120) and deepseek-v3 cut to 4 layers at (1, 4)
+# (MLA, MoE and MTP tensor-parallel, 32 heads a rank), full width, bf16,
+# phase 11a's batch, MOE_4_STEPS steps of AdamW at MESH_4_LR, the first
+# loss against a no-grad forward of the whole model on cuda:0.
+MOE_MESH_REDUCED = ("deepseek-v3-671b", "jamba-v0.1-52b",
+                    "llama4-scout-17b-a16e", "moonshot-v1-16b-a3b")
+MOE_MESH_MESHES = ((2, 1), (1, 2), (2, 2))
+MOE_MESH_ROWS, MOE_MESH_CAPACITY = 8192, 1.0
+LIMIT_AUX_REL = 1e-5     # aux, f32: summation order only
+MOE_4_REDUCED = ("moonshot-v1-16b-a3b", (2, 2))
+MOE_4_FULL = (("moonshot-v1-16b-a3b", (4, 1), 24),
+              ("deepseek-v3-671b", (1, 4), 4))
+MOE_4_STEPS = 7
+MOE_4_LAUNCHER = ("--arch", "moonshot-v1-16b-a3b", "--reduced", "--steps",
+                  "3", "--global-batch", "8", "--seq-len", "128")
+MOE_4_LAUNCHER_TIMEOUT_S = 600
 # (c)'s first loss against phase 11a's D = 1 loss on the same weights and
 # batch: the split changes only the rows each bf16 GEMM sees, hence
 # cuBLAS's algorithm and the rounding of bf16 activations (half an ulp,
@@ -3451,10 +3480,9 @@ def phase11():
     return launches, first_loss
 
 
-def _mesh_batches(cfg, n, B):
-    """``n`` reduced batches (B x TRAIN_REDUCED_S) from the token
-    pipeline's generator, with the frames or prefix embeddings, on the
-    host."""
+def _mesh_batches(cfg, n, B, S=TRAIN_REDUCED_S):
+    """``n`` reduced batches (B x S) from the token pipeline's generator,
+    with the frames or prefix embeddings, on the host."""
     import numpy as np
     import torch
     from repro_torch.data import TokenDataConfig, synthetic_token_batches
@@ -3464,8 +3492,7 @@ def _mesh_batches(cfg, n, B):
                                for k, v in b.items()},
                          rng, "cpu", torch.float32)
             for b in synthetic_token_batches(
-                TokenDataConfig(cfg.vocab_size, TRAIN_REDUCED_S, B,
-                                seed=LM_SEED), n)]
+                TokenDataConfig(cfg.vocab_size, S, B, seed=LM_SEED), n)]
 
 
 def _mesh_run(cfg, batches, G, mesh):
@@ -3547,13 +3574,15 @@ def phase12a():
                                      f"one-device mesh step differs")
 
 
-def _mesh_vs_one(arch, mesh, label, phase="12b", want=None):
-    """(b): reduced ``arch`` on ``mesh`` against the card's D = 1 step
-    (``want``: its metrics, run here if None): the first loss and grad
-    norm, the loss trajectory, every chunk held by several devices
-    identical to its owner's, and a checkpoint of the sharded state
-    byte-identical to the same state's on one device, restored at D =
-    1.  Returns the D = 1 metrics."""
+def _mesh_vs_one(arch, mesh, label, phase="12b", want=None, cfg=None,
+                 S=TRAIN_REDUCED_S):
+    """(b): reduced ``arch`` (or ``cfg``) on ``mesh`` against the card's
+    D = 1 step (``want``: its metrics, run here if None) on batches of
+    MESH_REDUCED_B x ``S`` tokens: the first loss and grad norm, the
+    loss trajectory, an MoE config's ``aux`` at every step, every chunk
+    held by several devices identical to its owner's, and a checkpoint
+    of the sharded state byte-identical to the same state's on one
+    device, restored at D = 1.  Returns the D = 1 metrics."""
     import filecmp
     import os
     import tempfile
@@ -3565,8 +3594,8 @@ def _mesh_vs_one(arch, mesh, label, phase="12b", want=None):
     from repro_torch.models.sharding import gather_params, shard_params
     from repro_torch.tree import leaves
 
-    cfg = get_config(arch).reduced()
-    batches = _mesh_batches(cfg, MESH_REDUCED_STEPS, MESH_REDUCED_B)
+    cfg = cfg or get_config(arch).reduced()
+    batches = _mesh_batches(cfg, MESH_REDUCED_STEPS, MESH_REDUCED_B, S)
     one = make_test_mesh(1, 1, devices=("cuda:0",))
     if want is None:
         _, _, want = _mesh_run(cfg, batches, MESH_REDUCED_MICRO, one)
@@ -3583,6 +3612,13 @@ def _mesh_vs_one(arch, mesh, label, phase="12b", want=None):
     limits = {"first loss": LIMIT_TRAIN_LOSS_REL,
               "first grad_norm": LIMIT_TRAIN_GNORM_REL,
               "trajectory": LIMIT_TRAIN_TRAJ_REL}
+    if want[0].get("aux"):
+        # the first step's: past it AdamW's sign-like update turns
+        # eps-sized gradient differences into parameter differences of up
+        # to ~1e-4, which may flip a token's top-k experts, and aux counts
+        # the rows each expert takes (the loss trajectory holds them)
+        worst["first aux"] = rel(0, "aux")
+        limits["first aux"] = LIMIT_AUX_REL
     state = {"params": params, "opt_state": opt_state}
     copied = [x for x in leaves(state)
               if any(x.owner(d) != d for d in range(D))]
@@ -3603,7 +3639,9 @@ def _mesh_vs_one(arch, mesh, label, phase="12b", want=None):
           f"{MESH_REDUCED_MICRO}): losses {[m['loss'] for m in got]} vs "
           f"{[m['loss'] for m in want]}, grad norms "
           f"{[m['grad_norm'] for m in got]} vs "
-          f"{[m['grad_norm'] for m in want]}; "
+          f"{[m['grad_norm'] for m in want]}"
+          + (f", aux {[m['aux'] for m in got]} vs {[m['aux'] for m in want]}"
+             if "first aux" in worst else "") + "; "
           + ", ".join(f"{k} {v:.3e} (limit {limits[k]:.0e})"
                       for k, v in worst.items())
           + f"; {len(copied)} leaves held by several of the {D} devices "
@@ -3635,13 +3673,16 @@ def _sync_all(mesh):
 
 
 def _mesh_full(arch, mesh, steps_n, label, profile=False, lr=None,
-               phase="12"):
-    """``arch`` at full width and depth in bf16 on ``mesh``: the
-    launcher's optimizer (AdamW at a constant ``lr`` if given), phase
-    11a's batch of TRAIN_BATCH x TRAIN_SEQ
-    tokens (the pipeline's row shards) in TRAIN_MICRO microbatches,
-    ``steps_n`` steps timed (the last profiled with ``profile``).
-    Returns the losses and each card's peak GiB."""
+               phase="12", cfg=None, reference=False):
+    """``arch`` (or ``cfg``, a depth cut of it) at full width in bf16 on
+    ``mesh``: the launcher's optimizer (AdamW at a constant ``lr`` if
+    given), phase 11a's batch of TRAIN_BATCH x TRAIN_SEQ tokens (the
+    pipeline's row shards) in TRAIN_MICRO microbatches, ``steps_n``
+    steps timed (the last profiled with ``profile``).  Returns the
+    losses and each card's peak GiB; with ``reference`` also the first
+    batch's loss from a no-grad ``lm_train_loss`` of the freshly drawn
+    model, whole on the mesh's first device (the mean of its
+    microbatches' losses, as the step's metric), before it is placed."""
     import gc
 
     import numpy as np
@@ -3655,16 +3696,23 @@ def _mesh_full(arch, mesh, steps_n, label, profile=False, lr=None,
     from repro_torch.models import transformer as T
     from repro_torch.models.sharding import shard_params
 
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     gc.collect()
     torch.cuda.empty_cache()
-    params = shard_params(T.init_lm(
-        torch.Generator(device=mesh.devices[0]).manual_seed(LM_SEED), cfg,
-        device=mesh.devices[0]), mesh)
     shape = ShapeConfig("custom_train", TRAIN_SEQ, TRAIN_BATCH, "train",
                         TRAIN_MICRO)
     R = len(mesh.replicas)
     G = steps.num_microbatches(cfg, shape, R)
+    whole = T.init_lm(
+        torch.Generator(device=mesh.devices[0]).manual_seed(LM_SEED), cfg,
+        device=mesh.devices[0])
+    ref = None
+    if reference:
+        ref = _whole_loss(cfg, whole, mesh.devices[0], G)
+        print(f"phase {phase}: {arch} {label}: the whole model's no-grad "
+              f"first loss on {mesh.devices[0]}: {ref!r}")
+    params = shard_params(whole, mesh)
+    del whole
     opt = (steps.make_optimizer(cfg, steps_n) if lr is None
            else optim.adamw(lr))
     opt_state = opt.init(params)
@@ -3727,7 +3775,29 @@ def _mesh_full(arch, mesh, steps_n, label, profile=False, lr=None,
     del params, opt_state, step_fn, m
     gc.collect()
     torch.cuda.empty_cache()
-    return losses, peaks
+    return (losses, peaks, ref) if reference else (losses, peaks)
+
+
+def _whole_loss(cfg, params, dev, G):
+    """The first batch of TRAIN_BATCH x TRAIN_SEQ tokens' loss from a
+    no-grad ``lm_train_loss`` of ``params`` (whole, on ``dev``): the mean
+    of its G microbatches' losses (an MoE layer routes each microbatch's
+    tokens)."""
+    import numpy as np
+    import torch
+    from repro_torch.data import TokenDataConfig, synthetic_token_batches
+    from repro_torch.models import transformer as T
+
+    batch = next(iter(synthetic_token_batches(TokenDataConfig(
+        cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=LM_SEED), 1)))
+    batch = {k: torch.from_numpy(np.asarray(v).astype(np.int64)).to(dev)
+             for k, v in batch.items()}
+    rows = TRAIN_BATCH // G
+    with torch.no_grad():
+        losses = [float(T.lm_train_loss(params, cfg, {
+            k: v[g * rows:(g + 1) * rows] for k, v in batch.items()})[0])
+            for g in range(G)]
+    return sum(losses) / G
 
 
 def phase12c(first_loss):
@@ -3876,6 +3946,162 @@ def phase13(first_loss):
     phase13c()
 
 
+def _moe_cfg(arch):
+    """Reduced ``arch`` at capacity factor MOE_MESH_CAPACITY, and the
+    sequence length that gives its microbatches MOE_MESH_ROWS expanded
+    rows (MESH_REDUCED_B rows in MESH_REDUCED_MICRO microbatches)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              capacity_factor=MOE_MESH_CAPACITY)
+    S = MOE_MESH_ROWS * MESH_REDUCED_MICRO // (MESH_REDUCED_B
+                                               * cfg.experts_per_token)
+    return cfg, S
+
+
+def _moe_dropped(cfg, S):
+    """The dropped share of each MoE layer of reduced ``cfg`` on the
+    first microbatch of phase 14a's first batch, from the card's D = 1
+    forward (the parameters ``_mesh_run`` draws), and that microbatch's
+    tokens."""
+    import torch
+    from repro_torch.models import transformer as T
+
+    batch = _mesh_batches(cfg, 1, MESH_REDUCED_B, S)[0]
+    tokens = batch["tokens"][:MESH_REDUCED_B // MESH_REDUCED_MICRO]
+    params = T.params_to(T.init_lm(torch.Generator().manual_seed(LM_SEED),
+                                   cfg, device="cpu"), "cuda")
+    with torch.no_grad():
+        h = T.embed_inputs(params, cfg, tokens.to("cuda"))
+        _, _, aux = T.lm_hidden(params, cfg, h, positions=torch.arange(
+            h.shape[1], device=h.device), window=cfg.attn_window)
+    return [float(m["moe_dropped_frac"]) for m in aux], tokens.numel()
+
+
+def phase14a():
+    """The four reduced MoE families at MOE_MESH_MESHES on (cuda:0,) * n
+    against the card's D = 1 step, on batches whose microbatches bind
+    the capacity over the whole microbatch but not over one replica."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import moe as MOE
+
+    for arch in MOE_MESH_REDUCED:
+        cfg, S = _moe_cfg(arch)
+        dropped, T = _moe_dropped(cfg, S)
+        k = cfg.experts_per_token
+        lossless = MOE._capacity(T // 2, cfg) == T // 2 * k
+        print(f"phase 14a: reduced {arch} at capacity factor "
+              f"{cfg.capacity_factor}, batch {MESH_REDUCED_B} x {S}, G "
+              f"{MESH_REDUCED_MICRO}: a microbatch's {T * k} expanded rows, "
+              f"capacity {MOE._capacity(T, cfg)}; D = 1 dropped share by MoE "
+              f"layer {dropped}; one of two replicas' {T // 2 * k} rows "
+              f"lossless: {lossless}")
+        if not (min(dropped) > 0 and lossless):
+            raise AssertionError(f"phase 14a: {arch}: the batch does not "
+                                 f"bind the capacity over the microbatch "
+                                 f"alone")
+        want = None
+        for data, model in MOE_MESH_MESHES:
+            n = data * model
+            mesh = make_test_mesh(data, model, devices=("cuda:0",) * n)
+            want = _no_launches("14a", lambda: _mesh_vs_one(
+                arch, mesh, f"(data, model) = ({data}, {model}) on "
+                f"(cuda:0,) * {n}", "14a", want, cfg=cfg, S=S))
+    print("phase 14a: 0 kernel launches")
+
+
+def _launcher_over_cards(phase, args, cards):
+    """``python -m repro_torch.launch.train`` with ``args`` in a
+    subprocess over every visible card: exit 0, ``cards`` devices, a
+    final loss."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                          *args], cwd=str(REPO), env=env, capture_output=True,
+                         text=True, timeout=MOE_4_LAUNCHER_TIMEOUT_S)
+    lines = out.stdout.strip().splitlines()
+    print(f"phase {phase}: launcher {' '.join(args)}: exit {out.returncode} "
+          f"in {time.perf_counter() - t0:.1f} s; "
+          + " | ".join(lines[:1] + lines[-2:]))
+    if out.returncode or f"devices={cards}" not in out.stdout \
+            or "final loss" not in out.stdout:
+        raise AssertionError(f"phase {phase}: the launcher failed: "
+                             f"{out.stderr[-2000:]}")
+
+
+def phase14b():
+    """With four cards: reduced moonshot at (2, 2) over cuda:0-3 against
+    D = 1, the launcher over the cards, then MOE_4_FULL at full width
+    (depth cut), whose first loss must match the whole model's forward,
+    whose losses must fall and whose peaks must fit each card.  With
+    fewer cards, one line says so."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+
+    visible = torch.cuda.device_count()
+    if visible < MESH_4_CARDS:
+        print(f"phase 14b: not run: it needs {MESH_4_CARDS} cards, "
+              f"{visible} visible")
+        return
+    arch, (data, model) = MOE_4_REDUCED
+    cfg, S = _moe_cfg(arch)
+    mesh = make_test_mesh(data, model, device="cuda:0")
+    _no_launches("14b", lambda: _mesh_vs_one(
+        arch, mesh, f"(data, model) = ({data}, {model}) on "
+        f"{[str(d) for d in mesh.devices]}", "14b", cfg=cfg, S=S))
+    torch.cuda.empty_cache()
+    _launcher_over_cards("14b", MOE_4_LAUNCHER, visible)
+    for arch, (data, model), layers in MOE_4_FULL:
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=layers)
+        print(f"phase 14b: {arch} reduced: " + json.dumps({
+            "num_layers": [full.num_layers, cfg.num_layers],
+            "param_count": [full.param_count(), cfg.param_count()],
+            "why": "the full depth's training state does not fit four "
+                   f"cards; the cut keeps the first {layers} layers ("
+                   f"{cfg.first_dense_layers} dense, "
+                   f"{layers - cfg.first_dense_layers} MoE)"
+                   + (" and the MTP head" if cfg.mtp_depth else "")}))
+        mesh = make_test_mesh(data, model, device="cuda:0")
+        label = f"(data, model) = ({data}, {model}) on " \
+            f"{[str(d) for d in mesh.devices]}"
+        losses, peaks, ref = _mesh_full(arch, mesh, MOE_4_STEPS, label,
+                                        profile=True, lr=MESH_4_LR,
+                                        phase="14b", cfg=cfg, reference=True)
+        caps = {str(d): torch.cuda.get_device_properties(d).total_memory
+                / 2**30 for d in mesh.devices}
+        err = abs(losses[0] - ref) / abs(ref)
+        print(f"phase 14b: {arch} at ({data}, {model}): first loss "
+              f"{losses[0]!r} vs the whole model's {ref!r}: {err:.3e} "
+              f"relative (limit {LIMIT_MESH_BF16_LOSS_REL:.0e}); loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f} in {MOE_4_STEPS} steps "
+              f"of AdamW at {MESH_4_LR}; peak / memory by card "
+              + ", ".join(f"{k} {v:.2f} / {caps[k]:.2f} GiB"
+                          for k, v in peaks.items()))
+        if not err <= LIMIT_MESH_BF16_LOSS_REL:
+            raise AssertionError(f"phase 14b: {arch}: first loss {err:.3e} "
+                                 f"apart")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"phase 14b: {arch}: the loss did not "
+                                 f"fall: {losses}")
+        if not all(v < caps[k] for k, v in peaks.items()):
+            raise AssertionError(f"phase 14b: {arch}: a peak exceeds its "
+                                 f"card: {peaks}")
+
+
+def phase14():
+    """The MoE families trained over a data x model mesh."""
+    phase14a()
+    phase14b()
+
+
 def path_data():
     """(x, labels, gamma): the cohort server's N=10⁵ blobs on the host and
     the RBF width the server picks for them (on the card)."""
@@ -3927,6 +4153,7 @@ def main() -> int:
     _, first_loss = phase11()
     phase12(first_loss[MESH_FULL_ARCH])
     phase13(first_loss[TP_FULL_ARCH])
+    phase14()
     for name, rec in records.items():
         rec["launches"] = launches[name]
     keys = ("name", "route", "source", "replaces", "launches",

@@ -37,6 +37,7 @@ from repro_torch.models import parallel as PL
 from repro_torch.models import sharding as SH
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw, clip_by_global_norm, linear_warmup_cosine
+from repro_torch.optim.optimizers import row_slices
 from repro_torch.tree import leaves, tree_map, unflatten
 
 # -- microbatch policy (activation memory) ------------------------------------
@@ -157,9 +158,10 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig, opt,
     rows ``[g·B/G, (g+1)·B/G)``, replica r takes the r-th contiguous
     block of them (``sharding.batch_rows``), and its M ranks take the
     same rows.  Once a step each device gets detached aliases of its
-    leaves: its own shard where a leaf is uncut over ``data``, else its
-    ``model`` chunk gathered over ``data`` onto it (``Sharded.local``).
-    With M = 1 each replica runs the loss above on its device; with M >
+    leaves: its own shard where a leaf is uncut over ``data`` or holds
+    experts, else its ``model`` chunk gathered over ``data`` onto it
+    (``Sharded.local``).  With M = 1 each replica runs the loss above on
+    its device; with M >
     1 its ranks run it tensor-parallel (``lm_train_loss_tp``,
     ``encdec_train_loss_tp``): rank j multiplies only its own slice of
     each projection that the rules cut over ``model``.  A replica's loss
@@ -173,18 +175,23 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig, opt,
     Without a mesh the step is this one on one device, the caller's
     leaves their own shards, so a one-device mesh gives it bit for bit.
 
-    An MoE family over more than one device raises: the JAX MoE routes
-    over the whole batch's tokens (one data shard), and a per-device
-    route would be another model.
+    A config with MoE layers on more than one device trains over the
+    whole mesh at once: the JAX MoE routes over the whole microbatch's
+    tokens (one data shard), so each microbatch's loss runs layer by
+    layer across every replica (``lm_train_loss_mesh``; each MoE layer
+    routes globally and sends the rows to the replica that owns their
+    experts, ``moe.moe_apply_mesh``), and one ``torch.autograd.grad``
+    takes every device's gradients.  ``ce`` is weighted by each
+    replica's share of the CE tokens, ``mtp`` by its share of the rows
+    (its cross-entropy takes no mask), and ``aux``, already the
+    microbatch's, is added once.  An expert leaf is never gathered over
+    data: each device computes with its own chunk of experts and its
+    gradient goes into that chunk's accumulator shard.
     """
     D = 1 if mesh is None else mesh.size
     M = 1 if mesh is None else mesh.ranks
     R = D // M
-    if D > 1 and _has_moe(cfg):
-        raise NotImplementedError(
-            f"{cfg.name} has MoE layers, which route over the whole "
-            f"batch's tokens; training it over {D} devices is not ported "
-            f"({SH.MOE_MESH_ITEM}); use a one-device mesh")
+    moe_mesh = D > 1 and _has_moe(cfg)
     if shape.global_batch % R:
         raise ValueError(f"a global batch of {shape.global_batch} rows "
                          f"does not split over {R} data-parallel replicas")
@@ -196,25 +203,49 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig, opt,
     groups = None if mesh is None else [PL.Group(g) for g in mesh.replicas]
     acc_dtype = torch.bfloat16 if _large(cfg) else torch.float32
 
+    def pieces(x, g, d):
+        # (owner, its chunk) of device d's gradient g of leaf x: an expert
+        # leaf's is its own chunk; another's is its model chunk, whole
+        # along the data dimension
+        if x.expert:
+            return [(x.owner(d), g)]
+        k = (d % x.ranks) % x.model_parts
+        if x.parts == 1:
+            return [(k, g)]
+        size = x.shards[k].shape[x.dim]
+        return [(c * x.ranks + k, g.narrow(x.dim, c * size, size))
+                for c in range(x.parts)]
+
     def accumulate(acc, sharded, grads, d, devs):
         # device d's gradients into the owners' shards, leaf by leaf
         for i, (x, g) in enumerate(zip(sharded, grads)):
-            k = (d % x.ranks) % x.model_parts
-            for c in range(x.parts):
-                o = c * x.ranks + k
-                size = x.shards[o].shape[x.dim] if x.parts > 1 else 0
-                chunk = (g if x.parts == 1 else g.narrow(x.dim, c * size,
-                                                         size)).to(devs[o])
-                if G == 1:
-                    if acc[i][o] is None:
-                        acc[i][o] = chunk.float()
-                    else:
-                        acc[i][o].add_(chunk.float())
+            for o, chunk in pieces(x, g, d):
+                chunk = chunk.to(devs[o])
+                if acc[i][o] is None and G == 1:
+                    acc[i][o] = chunk.float()
                     continue
                 if acc[i][o] is None:
                     acc[i][o] = torch.zeros(chunk.shape, dtype=acc_dtype,
                                             device=devs[o])
-                acc[i][o].add_((chunk.float() / G).to(acc_dtype))
+                # slice by slice: a large leaf's f32 temporaries stay small
+                for a, c in row_slices(acc[i][o], chunk):
+                    a.add_(c.float() if G == 1
+                           else (c.float() / G).to(acc_dtype))
+
+    def mesh_loss(lives, mbs, devs):
+        # the microbatch's loss over every replica at once
+        ces, mtps, aux = T.lm_train_loss_mesh(groups, lives, cfg, mbs)
+        heads = mbs[::M]
+        ce = _weighted_sum(ces, _token_weights(heads, devs[::M]), devs[0])
+        loss = ce + aux
+        metrics = {"loss": loss, "ce": ce, "aux": aux}
+        if mtps is not None:
+            rows = _token_weights([{"labels": mb["labels"]} for mb in heads],
+                                  devs[::M])
+            mtp = _weighted_sum(mtps, rows, devs[0])
+            loss = loss + 0.3 * mtp
+            metrics.update(mtp=mtp, loss=loss)
+        return loss, metrics
 
     def train_step(params, opt_state, step, batch):
         if mesh is None:
@@ -245,6 +276,18 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig, opt,
         for g in range(G):
             mbs = [{k: v.reshape(G, v.shape[0] // G, *v.shape[1:])[g]
                     for k, v in shard.items()} for shard in shards]
+            if moe_mesh:
+                loss, metrics = mesh_loss(lives, mbs, devs)
+                grads = torch.autograd.grad(
+                    loss, [t for flat in flats for t in flat],
+                    materialize_grads=True)
+                n = len(sharded)
+                for d in range(D):
+                    accumulate(acc, sharded, grads[d * n:(d + 1) * n], d,
+                               devs)
+                del grads, loss
+                ms.append({k: v.detach() for k, v in metrics.items()})
+                continue
             weights = (_token_weights(mbs[::M], devs[::M]) if R > 1
                        else None)
             parts = []

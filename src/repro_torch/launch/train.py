@@ -7,9 +7,9 @@ cards (``--device`` first), shards parameters, AdamW moments and the
 gradient accumulator by ``models/sharding.py``'s rules, and splits each
 batch (with the encoder-decoder's zero frames) over the cards
 (``launch/steps.py::make_train_step(mesh=)``).  ``--device cpu`` trains
-on one CPU.  An MoE family on more than one card raises (its layers
-route over the whole batch's tokens; not ported); restrict the cards
-with ``CUDA_VISIBLE_DEVICES`` to train one on one card.  ``--fl`` runs
+on one CPU.  An MoE family trains over the cards too: each MoE layer
+routes the whole microbatch's tokens across them and sends each row to
+the card that holds its expert (expert parallelism).  ``--fl`` runs
 the paper's federated workflow: DQRE-SCnet (or a baseline policy)
 selects the cohort every communication round.  The flags are the JAX
 package's ``repro.launch.train`` flags plus ``--device`` (``"cuda"``
@@ -21,6 +21,10 @@ Examples:
   # qwen2-7b at full width over four cards
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b \\
       --steps 20 --global-batch 8 --seq-len 256 --microbatches 2
+  # reduced moonshot-v1-16b-a3b (MoE) over every visible card
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch moonshot-v1-16b-a3b --reduced --steps 3 --global-batch 8 \\
+      --seq-len 128
   PYTHONPATH=src python -m repro_torch.launch.train --fl --dataset mnist \\
       --policy dqre_sc --rounds 30
 """

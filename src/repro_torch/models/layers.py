@@ -86,6 +86,22 @@ def rmsnorm(p, x, eps: float = 1e-6):
     return (x * p["scale"].float()).to(dt)
 
 
+def layernorm_init(dim: int, dtype="bfloat16", device=None):
+    return {"scale": torch.ones((dim,), dtype=dtype_of(dtype), device=device),
+            "bias": torch.zeros((dim,), dtype=dtype_of(dtype), device=device)}
+
+
+def layernorm(p, x, eps: float = 1e-6):
+    """LayerNorm in float32 (the biased variance, as ``jnp.var``), cast
+    back to the input's dtype."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * p["scale"].float() + p["bias"].float()).to(dt)
+
+
 # -- rotary position embeddings -----------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float, device=None):

@@ -25,6 +25,13 @@ Two execution paths, as in the JAX package:
 
 Cache writes are in place, as in ``models/attention.py``: the returned
 cache is the dict that was given.
+
+:func:`mla_attention_tp` is the training form (the expanded path, no
+cache) over the ``model`` ranks of a
+:class:`repro_torch.models.parallel.Group`, by ``models/sharding.py``'s
+rules: the latent projections ``wq_a`` and ``wkv_a`` (and their norms)
+whole on every rank, ``wq_b`` and ``wkv_b`` column-parallel with whole
+heads a rank, ``wo_mla`` row-parallel.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models.parallel import work
 
 NEG_INF = -1e30
 
@@ -144,6 +152,17 @@ def _expanded(p, q_nope, q_rope, ckv, k_rope, cfg, *, scale, positions,
     B, S, H = q_nope.shape[:3]
     kv = L.dense(p["wkv_b"], ckv).reshape(
         B, S, H, m.qk_nope_head_dim + m.v_head_dim)
+    return _attend_expanded(q_nope, q_rope, kv, k_rope, cfg, scale=scale,
+                            positions=positions, window=window, flash=flash)
+
+
+def _attend_expanded(q_nope, q_rope, kv, k_rope, cfg, *, scale, positions,
+                     window, flash):
+    """Attention of the expanded path: ``kv`` (B, S, H, dn + dv) the
+    heads' up-projected keys and values, ``k_rope`` (B, S, dr) the
+    shared RoPE key.  (B, S, H, dv)."""
+    m = cfg.mla
+    B, S, H = q_nope.shape[:3]
     k_nope, v = kv[..., : m.qk_nope_head_dim], kv[..., m.qk_nope_head_dim:]
     k_rope_h = k_rope[:, :, None, :].expand(B, S, H, m.qk_rope_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
@@ -207,3 +226,59 @@ def mla_attention(p, x, cfg, *, positions, window=None, cache=None,
                         positions=positions, window=window, flash=flash)
     out = out.reshape(B, S, cfg.num_heads * m.v_head_dim)
     return L.dense(p["wo_mla"], out), cache
+
+
+def mla_attention_tp(group, ps, xs, cfg, *, window=None):
+    """MLA over a group's ranks, without a cache (the training loss): the
+    expanded path of :func:`mla_attention`.
+
+    Each rank computes the query and KV latents from its whole copies of
+    ``wq_a``/``q_norm`` and ``wkv_a``/``kv_norm`` (and the shared RoPE
+    key), and the heads that its rows of ``wo_mla`` read: its columns of
+    ``wq_b`` and ``wkv_b`` where they are those heads (whole heads a
+    rank wherever the heads split evenly), else the columns gathered
+    over the group.  RoPE, ``scale`` and the window as in
+    :func:`mla_attention`; ``wo_mla`` row-parallel, one sum over the
+    group.  ``xs``: per-rank copies of the input (B, S, d); returns
+    per-rank copies of the output.
+    """
+    m = cfg.mla
+    M, H = group.size, cfg.num_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    kvw = m.qk_nope_head_dim + m.v_head_dim
+    cdt = L.dtype_of(cfg.compute_dtype)
+    xs = [x.to(cdt) for x in xs]
+    scale = 1.0 / np.sqrt(qk)
+    B, S = xs[0].shape[:2]
+    spans = [work(j, M, p["wo_mla"]["w"].shape[0], H * m.v_head_dim)
+             for j, p in enumerate(ps)]
+    heads = [s and (s[0] // m.v_head_dim, -(-s[1] // m.v_head_dim))
+             for s in spans]
+    positions = torch.arange(S, device=xs[0].device)
+    cq = [L.rmsnorm(p["q_norm"], L.dense(p["wq_a"], x), cfg.norm_eps)
+          for p, x in zip(ps, xs)]
+    latents = [_project_kv_latent(p, x, cfg, positions.to(x.device))
+               for p, x in zip(ps, xs)]
+    q = L.dense_col(group, [p["wq_b"] for p in ps], cq, H * qk,
+                    [h and (h[0] * qk, h[1] * qk) for h in heads])
+    kv = L.dense_col(group, [p["wkv_b"] for p in ps],
+                     [ckv for ckv, _ in latents], H * kvw,
+                     [h and (h[0] * kvw, h[1] * kvw) for h in heads])
+    outs = []
+    for j in range(M):
+        if spans[j] is None:
+            outs.append(None)
+            continue
+        h0, h1 = heads[j]
+        pos = positions.to(q[j].device)
+        qj = q[j].reshape(B, S, h1 - h0, qk)
+        q_rope = L.apply_rope(qj[..., m.qk_nope_head_dim:], pos,
+                              cfg.rope_theta)
+        out = _attend_expanded(
+            qj[..., : m.qk_nope_head_dim], q_rope,
+            kv[j].reshape(B, S, h1 - h0, kvw), latents[j][1], cfg,
+            scale=scale, positions=pos, window=window, flash=False)
+        out = out.reshape(B, S, -1)
+        outs.append(out.narrow(-1, spans[j][0] - h0 * m.v_head_dim,
+                               spans[j][1] - spans[j][0]))
+    return L.dense_row(group, [p["wo_mla"] for p in ps], outs)

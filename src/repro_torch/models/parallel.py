@@ -13,7 +13,10 @@ the ranks' tensors in rank order on the first rank's device and copies
 the result out, and every backward pass sums its gradients in rank order
 too: a run is deterministic and needs no float atomics and no
 ``torch.distributed`` (NCCL refuses two ranks on one card, and the CPU
-tests run ``("cpu",) * M``).
+tests run ``("cpu",) * M``).  :func:`reduce_to` and :func:`broadcast_to`
+are the same two moves between any devices of a mesh: the MoE layer's
+expert-parallel exchange over the data axis is built of them
+(``models/moe.py::moe_apply_mesh``).
 
 A dimension is held in column spans ``(lo, hi)``: a leaf cut over
 ``model`` holds block j on rank j (:func:`held`); a leaf whose cut the
@@ -72,6 +75,26 @@ class _Broadcast(torch.autograd.Function):
         return total, None
 
 
+def reduce_to(xs: Sequence, device) -> Optional[torch.Tensor]:
+    """Σ xs on ``device``, added in list order (``None`` entries
+    skipped; None if every entry is).  The backward pass copies the
+    sum's gradient to each term's device: no sum."""
+    total = None
+    for x in xs:
+        if x is not None:
+            x = x.to(device)
+            total = x if total is None else total + x
+    return total
+
+
+def broadcast_to(x: torch.Tensor, devices: Sequence) -> list:
+    """A copy of ``x`` on each of ``devices`` (in that order); the
+    backward pass sums the copies' gradients in that order on ``x``'s
+    device."""
+    return list(_Broadcast.apply(x, tuple(torch.device(d)
+                                          for d in devices)))
+
+
 class _Redistribute(torch.autograd.Function):
     """Column spans moved between ranks: output j is the concatenation
     of ``plan[j]``'s pieces ``(source, lo, hi)``; the backward adds each
@@ -120,16 +143,11 @@ class Group:
     def reduce(self, xs: Sequence) -> torch.Tensor:
         """Σ_j xs[j] on rank 0's device, added in rank order (``None``
         entries skipped)."""
-        total = None
-        for x in xs:
-            if x is not None:
-                x = x.to(self.devices[0])
-                total = x if total is None else total + x
-        return total
+        return reduce_to(xs, self.devices[0])
 
     def broadcast(self, x: torch.Tensor) -> list:
         """A copy of ``x`` on every rank's device."""
-        return list(_Broadcast.apply(x, self.devices))
+        return broadcast_to(x, self.devices)
 
     def all_reduce(self, xs: Sequence) -> list:
         """Σ_j xs[j], added in rank order, copied to every rank."""

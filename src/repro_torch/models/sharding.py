@@ -34,7 +34,11 @@ optimizers take such trees: each data coordinate is a replica that
 trains on its own rows (:func:`batch_rows`), gathering each leaf's
 ``model`` chunk over ``data`` (ZeRO-3), and the M devices of a replica
 are the ``model`` ranks of real tensor parallelism: rank j multiplies
-only its own slice of each projection (``models/parallel.py``).
+only its own slice of each projection (``models/parallel.py``).  An MoE
+layer's expert leaves (``experts/gate``, ``up``, ``down``) are the
+exception: expert parallelism cuts them over the data axes, and a
+device computes with its own chunk of experts, never gathered (the
+rows travel to their experts instead, ``models/moe.py``).
 ``use_mesh``, ``constrain`` and ``constrain_batch`` are GSPMD hints
 inside a jitted function; eager PyTorch has no counterpart, so they are
 not ported, nor is ``params_shardings`` (JAX ``NamedSharding``
@@ -51,8 +55,9 @@ import torch
 
 from repro_torch.tree import leaves, tree_map, unflatten
 
-# the ROADMAP item that would lift the refusal of an MoE family on a mesh
-MOE_MESH_ITEM = "ROADMAP §A, 'the MoE layer under a data × model mesh'"
+# expert-stacked leaves: cut over the data axes by expert parallelism and
+# computed where they lie (``Sharded.expert``)
+_EXPERT_LEAF = r"experts/(gate|up|down)$"
 
 
 def data_axes(mesh):
@@ -224,22 +229,24 @@ class Sharded:
     chunk ``(d // ranks) % parts`` and model chunk ``(d % ranks) %
     model_parts``: a leaf uncut along an axis is copied whole to every
     device of that axis.  A chunk's first holder (:meth:`owner`) owns
-    it: gradient sums and norms read the owners' shards only.
+    it: gradient sums and norms read the owners' shards only.  An
+    ``expert`` leaf (an MoE layer's expert weights) is computed with
+    where it lies: :meth:`local` gives device d its own shard.
     """
 
     __slots__ = ("dim", "parts", "model_dim", "model_parts", "ranks",
-                 "shards")
+                 "expert", "shards")
 
     def __init__(self, shards: Sequence[torch.Tensor], dim: Optional[int]
                  = None, parts: int = 1, model_dim: Optional[int] = None,
-                 model_parts: int = 1, ranks: int = 1):
+                 model_parts: int = 1, ranks: int = 1, expert: bool = False):
         self.dim, self.parts = dim, parts
         self.model_dim, self.model_parts = model_dim, model_parts
-        self.ranks, self.shards = ranks, list(shards)
+        self.ranks, self.expert, self.shards = ranks, expert, list(shards)
 
     def _layout(self) -> tuple:
         return (self.dim, self.parts, self.model_dim, self.model_parts,
-                self.ranks)
+                self.ranks, self.expert)
 
     @property
     def shape(self) -> torch.Size:
@@ -290,9 +297,9 @@ class Sharded:
 
     def local(self, d: int) -> torch.Tensor:
         """What device d computes with: its own shard where the leaf is
-        uncut over data, else its model chunk gathered over data onto
-        it."""
-        if self.parts == 1:
+        uncut over data or an ``expert`` leaf, else its model chunk
+        gathered over data onto it."""
+        if self.parts == 1 or self.expert:
             return self.shards[d]
         return self.block((d % self.ranks) % self.model_parts,
                           self.shards[d].device)
@@ -307,11 +314,12 @@ class Sharded:
         return (f"Sharded(shape={tuple(self.shape)}, dtype={self.dtype}, "
                 f"dim={self.dim}, parts={self.parts}, model_dim="
                 f"{self.model_dim}, model_parts={self.model_parts}, "
+                f"expert={self.expert}, "
                 f"devices={[str(s.device) for s in self.shards]})")
 
 
 def _split(x: torch.Tensor, layout: tuple, devices) -> Sharded:
-    dim, parts, mdim, mparts, ranks = layout
+    dim, parts, mdim, mparts, ranks, _ = layout
     size = x.shape[dim] // parts if dim is not None else 0
     msize = x.shape[mdim] // mparts if mdim is not None else 0
     shards = []
@@ -326,10 +334,10 @@ def _split(x: torch.Tensor, layout: tuple, devices) -> Sharded:
     return Sharded(shards, *layout)
 
 
-def _placement(spec: tuple, mesh) -> tuple:
+def _placement(spec: tuple, mesh, expert: bool = False) -> tuple:
     """A spec's layout on ``mesh``: (dim, parts) of the dimension put on
     ``data`` or ``(pod, data)``, (model_dim, model_parts) of the one put
-    on ``model``, and the ``model`` size."""
+    on ``model``, the ``model`` size and ``expert``."""
     ranks = mesh.shape.get("model", 1)
     dim, parts, mdim, mparts = None, 1, None, 1
     for i, ax in enumerate(spec):
@@ -339,7 +347,7 @@ def _placement(spec: tuple, mesh) -> tuple:
             dim, parts = i, n
         if "model" in names and ranks > 1:
             mdim, mparts = i, ranks
-    return dim, parts, mdim, mparts, ranks
+    return dim, parts, mdim, mparts, ranks, expert
 
 
 def shard_params(tree, mesh):
@@ -350,11 +358,15 @@ def shard_params(tree, mesh):
     ``model``, as the JAX specs lay it out; an axis the spec leaves out
     (or whose cut the divisibility check dropped) gets whole copies.
     The shards are fresh tensors (the caller's leaves are not aliased),
-    so a mesh may repeat a device.
+    so a mesh may repeat a device.  An MoE layer's expert leaves are
+    marked ``expert`` (:meth:`Sharded.local`).
     """
     specs = _spec_leaves(params_pspecs(tree, mesh))
-    return unflatten(tree, [_split(x, _placement(spec, mesh), mesh.devices)
-                            for x, spec in zip(leaves(tree), specs)])
+    return unflatten(tree, [
+        _split(x, _placement(spec, mesh, bool(re.search(_EXPERT_LEAF,
+                                                        path))),
+               mesh.devices)
+        for x, spec, path in zip(leaves(tree), specs, _leaf_paths(tree))])
 
 
 def gather_params(sharded, device):
@@ -362,6 +374,25 @@ def gather_params(sharded, device):
     :class:`Sharded` leaves (a plain tensor leaf is moved)."""
     return tree_map(lambda x: x.gather(device) if isinstance(x, Sharded)
                     else x.to(device), sharded)
+
+
+def _leaf_paths(tree) -> list:
+    """The ``/``-joined path of each leaf of ``tree``, in
+    :func:`repro_torch.tree.leaves` order."""
+    out = []
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], f"{path}/{k}")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{path}/{i}")
+        elif node is not None:
+            out.append(path)
+
+    walk(tree, "")
+    return out
 
 
 def _spec_leaves(specs) -> list:

@@ -34,10 +34,14 @@ Caches are a list too, one dict per layer, each leaf with the request
 the ``model`` ranks of a :class:`repro_torch.models.parallel.Group`
 each hold their slices of the parameters (``models/sharding.py``'s
 rules), and the forward runs as per-rank lists: a vocab-parallel
-embedding and cross-entropy, column- and row-parallel attention,
-Mamba-2 and MLP layers, norms on each rank's copy of the hidden state.
-With ``remat`` each block, collectives included, is recomputed in the
-backward pass by :func:`checkpoint_tp`.
+embedding and cross-entropy, column- and row-parallel attention, MLA,
+Mamba-2 and MLP layers, norms on each rank's copy of the hidden state,
+the MTP head (:func:`mtp_loss_tp`).  :func:`lm_train_loss_mesh` runs
+the loss over every replica of a data x model mesh at once, layer by
+layer, because an MoE layer routes the whole microbatch's tokens
+(``models/moe.py::moe_apply_mesh``).  With ``remat`` each layer,
+collectives included, is recomputed in the backward pass by
+:func:`checkpoint_tp`.
 """
 
 from __future__ import annotations
@@ -159,26 +163,54 @@ def _block_apply(p, cfg, h, mixer, ffn, *, positions, window, cache=None,
     return h, new_cache, aux
 
 
+# an MoE layer's metrics, in the order the mesh block returns them
+MOE_METRICS = ("moe_aux_loss", "moe_z_loss", "moe_dropped_frac")
+
+
 def _block_apply_tp(ps, hs, *, cfg, mixer, ffn, group, window):
     """One block over a group's ranks (no cache): ``ps`` and ``hs`` are
-    the ranks' parameters and copies of the hidden state."""
-    if mixer not in ("attn", "ssm") or ffn not in ("dense", "none"):
-        raise NotImplementedError(f"a {mixer} mixer with a {ffn} FFN has "
-                                  f"no tensor-parallel form")
-    hn = [L.rmsnorm(p["mixer_norm"], h, cfg.norm_eps) for p, h in zip(ps, hs)]
-    if mixer == "attn":
-        out = A.attention_tp(group, [p["attn"] for p in ps], hn, cfg,
-                             window=window)
-    else:
-        out = M.mamba_apply_tp(group, [p["ssm"] for p in ps], hn, cfg)
-    hs = [h + o.to(h.dtype) for h, o in zip(hs, out)]
-    if ffn == "dense":
-        hn = [L.rmsnorm(p["ffn_norm"], h, cfg.norm_eps)
-              for p, h in zip(ps, hs)]
-        out = L.mlp_tp(group, [p["ffn"] for p in ps], hn, cfg.d_ff,
-                       cfg.mlp_act)
-        hs = [h + o.to(h.dtype) for h, o in zip(hs, out)]
-    return hs
+    the ranks' parameters and copies of the hidden state.  An MoE FFN
+    routes over this group's tokens alone (a one-replica mesh)."""
+    return _block_apply_mesh(ps, hs, cfg=cfg, mixer=mixer, ffn=ffn,
+                             groups=[group], window=window)[:len(ps)]
+
+
+def _block_apply_mesh(ps, hs, *, cfg, mixer, ffn, groups, window):
+    """One block over a mesh's devices (no cache): ``ps`` and ``hs`` are
+    every device's parameters and copy of its replica's hidden state,
+    replica after replica (``groups``: the replicas' groups of ranks).
+    The mixer and a dense FFN run replica by replica in their
+    tensor-parallel forms; an MoE FFN routes the replicas' tokens
+    together (``moe_apply_mesh``), and its metrics (``MOE_METRICS``)
+    follow the D hidden states in the returned list."""
+    ranks = groups[0].size
+    out = []
+    for r, group in enumerate(groups):
+        rp, rh = ps[r * ranks:(r + 1) * ranks], hs[r * ranks:(r + 1) * ranks]
+        hn = [L.rmsnorm(p["mixer_norm"], h, cfg.norm_eps)
+              for p, h in zip(rp, rh)]
+        if mixer == "attn":
+            o = A.attention_tp(group, [p["attn"] for p in rp], hn, cfg,
+                               window=window)
+        elif mixer == "mla":
+            o = MLA.mla_attention_tp(group, [p["mla"] for p in rp], hn, cfg,
+                                     window=window)
+        else:
+            o = M.mamba_apply_tp(group, [p["ssm"] for p in rp], hn, cfg)
+        rh = [h + x.to(h.dtype) for h, x in zip(rh, o)]
+        if ffn == "dense":
+            hn = [L.rmsnorm(p["ffn_norm"], h, cfg.norm_eps)
+                  for p, h in zip(rp, rh)]
+            o = L.mlp_tp(group, [p["ffn"] for p in rp], hn, cfg.d_ff,
+                         cfg.mlp_act)
+            rh = [h + x.to(h.dtype) for h, x in zip(rh, o)]
+        out += rh
+    if ffn != "moe":
+        return out
+    hn = [L.rmsnorm(p["ffn_norm"], h, cfg.norm_eps) for p, h in zip(ps, out)]
+    o, metrics = MOE.moe_apply_mesh(groups, [p["moe"] for p in ps], hn, cfg)
+    return [h + x.to(h.dtype) for h, x in zip(out, o)] + \
+        [metrics[k] for k in MOE_METRICS]
 
 
 def maybe_checkpoint(fn, remat: bool):
@@ -217,7 +249,11 @@ class _Remat(torch.autograd.Function):
         with torch.enable_grad():
             outs = ctx.run(tensors)
         wanted = [t for t in tensors if t.requires_grad]
-        got = iter(torch.autograd.grad(outs, wanted, grads,
+        # an output no input reaches (an MoE layer's dropped share) has
+        # no gradient to pass on
+        pairs = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
+        got = iter(torch.autograd.grad([o for o, _ in pairs], wanted,
+                                       [g for _, g in pairs],
                                        allow_unused=True,
                                        materialize_grads=True))
         return (None, *[next(got) if t.requires_grad else None
@@ -227,11 +263,12 @@ class _Remat(torch.autograd.Function):
 def checkpoint_tp(fn, remat: bool, ps, *acts):
     """``fn(ps, *acts)``, a tensor-parallel block (``ps`` the ranks'
     parameters, each of ``acts`` a per-rank list of tensors; it returns
-    a per-rank list), with ``remat`` recomputed in the backward pass,
-    collectives included.  ``torch.utils.checkpoint`` cannot take it:
-    with the ranks on several cards the backward pass runs on a thread a
-    card, and two threads would recompute one block at once; here one
-    autograd node recomputes the whole block and differentiates it."""
+    a list of tensors), with ``remat`` recomputed in the backward pass,
+    collectives included; the ranks may be a whole mesh's devices.
+    ``torch.utils.checkpoint`` cannot take it: with the ranks on several
+    cards the backward pass runs on a thread a card, and two threads
+    would recompute one block at once; here one autograd node recomputes
+    the whole block and differentiates it."""
     if not remat:
         return fn(ps, *acts)
     counts = [len(leaves(p)) for p in ps]
@@ -522,32 +559,88 @@ def embed_inputs_tp(group, ps, cfg, batches):
     return hs
 
 
-def lm_train_loss_tp(group, ps, cfg, batches, *, remat=True):
-    """:func:`lm_train_loss` over a group's ranks: ``ps`` their
-    parameter slices, ``batches`` their copies of the batch.  Returns
-    (loss, metrics) on rank 0's device, the values of
-    :func:`lm_train_loss`.  MoE, MLA and MTP layers have no
-    tensor-parallel form."""
-    if cfg.mtp_depth > 0:
-        raise NotImplementedError(f"{cfg.name}'s MTP head has no "
-                                  f"tensor-parallel form")
-    hs = embed_inputs_tp(group, ps, cfg, batches)
+def mtp_loss_tp(group, ps, cfg, hs, tokens, labels_next2, mask=None):
+    """:func:`mtp_loss` over a group's ranks: each rank's norm of its
+    copy of ``hs``, the vocab-parallel embedding of ``tokens``
+    (per-rank copies), the concatenation, ``mtp/proj`` column-parallel
+    over d_model with its output gathered over the group, the single
+    block in its tensor-parallel form, and the vocab-parallel
+    cross-entropy against ``labels_next2`` (per-rank copies).  The loss
+    on rank 0's device."""
+    if "mtp" not in ps[0]:
+        return torch.zeros((), dtype=torch.float32,
+                           device=group.devices[0])
+    mps = [p["mtp"] for p in ps]
+    emb = L.embed_tp(group, [p["embed"] for p in ps], tokens, cfg.vocab_size)
+    xs = [torch.cat([L.rmsnorm(mp["norm"], h, cfg.norm_eps),
+                     e.to(h.dtype)], dim=-1)
+          for mp, h, e in zip(mps, hs, emb)]
+    d = cfg.d_model
+    hh = L.dense_col(group, [mp["proj"] for mp in mps], xs, d,
+                     [(0, d)] * group.size)
+    hh = _block_apply_tp([mp["block"] for mp in mps], hh, cfg=cfg,
+                         mixer="mla" if cfg.use_mla else "attn",
+                         ffn="dense" if cfg.d_ff else "none", group=group,
+                         window=cfg.attn_window)
+    return chunked_ce_loss_tp(group, ps, cfg, hh, labels_next2, mask)
+
+
+def lm_train_loss_mesh(groups, ps, cfg, batches, *, remat=True):
+    """The training loss's terms over a data x model mesh: ``groups``
+    the replicas' groups of ranks, ``ps`` and ``batches`` every
+    device's parameters and batch rows, replica after replica.  Embed,
+    blocks and head run layer by layer across every replica, each
+    replica's tensor-parallel forms over its ranks; an MoE layer routes
+    all replicas' tokens together (:func:`_block_apply_mesh`), so the
+    MoE metrics are the whole microbatch's.  Returns (each replica's
+    ``ce`` on its rank 0, each replica's ``mtp`` likewise or None
+    without an MTP head, the microbatch's ``aux`` on the first
+    device)."""
+    ranks = groups[0].size
+    parts = [slice(r * ranks, (r + 1) * ranks) for r in range(len(groups))]
+    hs = [h for group, sl in zip(groups, parts)
+          for h in embed_inputs_tp(group, ps[sl], cfg, batches[sl])]
+    aux = []
     for i, (mixer, ffn) in enumerate(layer_types(cfg)):
-        block = functools.partial(_block_apply_tp, cfg=cfg, mixer=mixer,
-                                  ffn=ffn, group=group,
+        block = functools.partial(_block_apply_mesh, cfg=cfg, mixer=mixer,
+                                  ffn=ffn, groups=groups,
                                   window=cfg.attn_window)
-        hs = checkpoint_tp(block, remat, [p["layers"][i] for p in ps], hs)
+        out = checkpoint_tp(block, remat, [p["layers"][i] for p in ps], hs)
+        hs = out[:len(ps)]
+        if ffn == "moe":
+            aux.append(dict(zip(MOE_METRICS, out[len(ps):])))
     hs = [L.rmsnorm(p["final_norm"], h, cfg.norm_eps)
           for p, h in zip(ps, hs)]
     npfx = hs[0].shape[1] - batches[0]["tokens"].shape[1]
     if npfx > 0:                       # VLM prefix: no LM loss on patches
         hs = [h[:, npfx:] for h in hs]
-    ce = chunked_ce_loss_tp(group, ps, cfg, hs,
-                            [b["labels"] for b in batches],
-                            batches[0].get("mask"))
-    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    ces, mtps = [], []
+    for group, sl in zip(groups, parts):
+        labels = [b["labels"] for b in batches[sl]]
+        ces.append(chunked_ce_loss_tp(group, ps[sl], cfg, hs[sl], labels,
+                                      batches[sl][0].get("mask")))
+        if cfg.mtp_depth > 0:
+            mtps.append(mtp_loss_tp(group, ps[sl], cfg, hs[sl], labels,
+                                    [torch.roll(lab, -1, dims=1)
+                                     for lab in labels]))
+    return ces, mtps or None, moe_aux_loss(cfg, aux, groups[0].devices[0])
+
+
+def lm_train_loss_tp(group, ps, cfg, batches, *, remat=True):
+    """:func:`lm_train_loss` over a group's ranks: ``ps`` their
+    parameter slices, ``batches`` their copies of the batch.  Returns
+    (loss, metrics) on rank 0's device, the values of
+    :func:`lm_train_loss` (an MoE layer routes this group's tokens)."""
+    ces, mtps, aux = lm_train_loss_mesh([group], ps, cfg, batches,
+                                        remat=remat)
+    ce = ces[0]
     loss = ce + aux
-    return loss, {"loss": loss, "ce": ce, "aux": aux}
+    metrics = {"loss": loss, "ce": ce, "aux": aux}
+    if mtps is not None:
+        loss = loss + 0.3 * mtps[0]
+        metrics["mtp"] = mtps[0]
+        metrics["loss"] = loss
+    return loss, metrics
 
 
 def lm_prefill(params, cfg, batch, caches, *, window=None, last_pos=None):

@@ -182,6 +182,25 @@ def sgd(lr, momentum: float = 0.0, nesterov: bool = False):
     return Optimizer(init, update)
 
 
+# elements of a slice of the Adam update: its float32 temporaries (half
+# a dozen at once) stay a few hundred MB where a whole leaf's would not
+# fit beside the state (deepseek-v3's experts at (1, 4): 0.94e9 entries
+# a card, 3.76 GB a temporary)
+_UPDATE_SLICE = 1 << 26
+
+
+def row_slices(*ts):
+    """Matching slices along dim 0 of tensors of one shape, each of at
+    most ``_UPDATE_SLICE`` elements where the rows allow (views: an
+    in-place write lands in the tensor).  An elementwise update applied
+    slice by slice is the whole update, bit for bit."""
+    n = ts[0].numel()
+    if ts[0].dim() == 0 or n <= _UPDATE_SLICE:
+        return [ts]
+    rows = max(1, _UPDATE_SLICE * ts[0].shape[0] // n)
+    return list(zip(*(t.split(rows) for t in ts)))
+
+
 def _adam_core(lr, b1, b2, eps, weight_decay, state_dtype):
     lr_fn = lr if callable(lr) else constant_schedule(lr)
     sdt = getattr(torch, state_dtype) if isinstance(state_dtype, str) \
@@ -198,9 +217,10 @@ def _adam_core(lr, b1, b2, eps, weight_decay, state_dtype):
         s = _f32(step)
         on = _per_device(lr_fn(step), 1 - torch.pow(b1, s + 1),
                          1 - torch.pow(b2, s + 1))
-        for p, g, m, v in zip(_flat_pieces(params), _flat_pieces(grads),
-                              _flat_pieces(state["m"]),
-                              _flat_pieces(state["v"])):
+        for p, g, m, v in (piece for leaf in zip(
+                _flat_pieces(params), _flat_pieces(grads),
+                _flat_pieces(state["m"]), _flat_pieces(state["v"]))
+                for piece in row_slices(*leaf)):
             lr_t, c1, c2 = on(p.device)
             g32 = g.float()
             m_new = b1 * m.float() + (1 - b1) * g32

@@ -900,3 +900,57 @@ def test_tensor_parallel_train_step_on_one_card(cuda_device, arch):
     for x in leaves((params, state)):
         assert all(torch.equal(s, x.shards[x.owner(d)])
                    for d, s in enumerate(x.shards))
+
+
+def _moe_mesh_vs_one(dev, arch, mesh):
+    """Reduced f32 ``arch`` on ``mesh`` against the card's D = 1 step at
+    G 2, kernels on: the first loss and the first ``aux`` (the
+    microbatches' global MoE metrics) within 1e-5, the first grad norm
+    and every loss within 1e-4, relative; every chunk identical to its
+    owner's; no kernel launched."""
+    from repro_torch.kernels import ops
+    from repro_torch.tree import leaves
+
+    cfg = get_config(arch).reduced()
+    _, _, want = _mesh_train(cfg, dev, None, 2)
+    ops.reset_launch_counts()
+    with ops.use_pallas_scoped(True):
+        params, state, got = _mesh_train(cfg, dev, mesh, 2)
+    assert sum(ops.LAUNCH_COUNTS.values()) == 0
+    assert abs(got[0]["loss"] - want[0]["loss"]) <= 1e-5 * want[0]["loss"]
+    assert abs(got[0]["grad_norm"] - want[0]["grad_norm"]) <= \
+        1e-4 * want[0]["grad_norm"]
+    assert abs(got[0]["aux"] - want[0]["aux"]) <= 1e-5 * want[0]["aux"]
+    for g, w in zip(got, want):
+        assert abs(g["loss"] - w["loss"]) <= 1e-4 * w["loss"]
+    assert any(x.expert for x in leaves(params))
+    for x in leaves((params, state)):
+        assert all(torch.equal(s.to(x.shards[x.owner(d)].device),
+                               x.shards[x.owner(d)])
+                   for d, s in enumerate(x.shards))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "jamba-v0.1-52b",
+                                  "llama4-scout-17b-a16e",
+                                  "moonshot-v1-16b-a3b"])
+def test_moe_mesh_train_step_on_one_card(cuda_device, arch):
+    """The MoE families at (2, 2) on (cuda:0,) * 4 (global route, experts
+    over the two replicas, expert ff over two ranks) against D = 1
+    (phase 14a of the smoke run)."""
+    from repro_torch.launch.mesh import make_test_mesh
+
+    _moe_mesh_vs_one(cuda_device, arch,
+                     make_test_mesh(2, 2, devices=(cuda_device,) * 4))
+
+
+@pytest.mark.cuda
+def test_moe_mesh_train_step_over_four_cards(cuda_device):
+    """Reduced moonshot at (4, 1) over cuda:0-3, one expert a card,
+    against D = 1 on cuda:0 (phase 14b of the smoke run)."""
+    from repro_torch.launch.mesh import make_test_mesh
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip(f"needs 4 cards, {torch.cuda.device_count()} visible")
+    _moe_mesh_vs_one(cuda_device, "moonshot-v1-16b-a3b",
+                     make_test_mesh(4, 1, device="cuda:0"))

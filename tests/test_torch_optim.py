@@ -112,6 +112,46 @@ def test_update_writes_in_place():
     assert not torch.equal(params["w"], old_w)
 
 
+@pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
+def test_adam_update_in_row_slices_is_the_whole_update(state_dtype,
+                                                       monkeypatch):
+    """A leaf larger than ``_UPDATE_SLICE`` elements is updated slice by
+    slice along its first dimension (bounding the float32 temporaries):
+    the parameters and moments are those of the whole-leaf update, bit
+    for bit, and stay in their storage."""
+    from repro_torch.optim import optimizers as O
+
+    rng = np.random.default_rng(4)
+    shapes = {"big": (7, 3, 5), "vec": (33,), "one": (1, 40), "s": ()}
+
+    def tree(positive=False):
+        return {k: torch.tensor(np.abs(rng.normal(size=s)) if positive
+                                else rng.normal(size=s), dtype=torch.float32)
+                for k, s in shapes.items()}
+
+    params, grads, m, v = tree(), tree(), tree(), tree(positive=True)
+    runs = []
+    for limit in (O._UPDATE_SLICE, 8):
+        monkeypatch.setattr(O, "_UPDATE_SLICE", limit)
+        opt = P.adamw(1e-2, state_dtype=state_dtype)
+        p = {k: x.clone() for k, x in params.items()}
+        st = {"m": {k: x.clone().to(getattr(torch, state_dtype))
+                    for k, x in m.items()},
+              "v": {k: x.clone().to(getattr(torch, state_dtype))
+                    for k, x in v.items()}}
+        ptrs = [x.data_ptr() for x in p.values()]
+        for step in range(2):
+            opt.update(grads, st, p, step)
+        assert [x.data_ptr() for x in p.values()] == ptrs
+        runs.append((p, st))
+    assert len(O.row_slices(*[params["big"]] * 4)) == 7
+    (p0, s0), (p1, s1) = runs
+    for k in shapes:
+        assert torch.equal(p0[k], p1[k])
+        assert torch.equal(s0["m"][k], s1["m"][k])
+        assert torch.equal(s0["v"][k], s1["v"][k])
+
+
 def test_adam_bf16_state_dtype():
     opt = P.adam(0.1, state_dtype="bfloat16")
     params = {"x": torch.zeros(4)}

@@ -357,3 +357,133 @@ def test_a_tensor_parallel_step_reaches_no_kernel(monkeypatch):
             step(params, opt.init(params), 0,
                  torch_batch(make_batches(cfg, 1)[0]))
             assert calls == {"flash": 0, "ssd": 0}, arch
+
+
+def _ranks_of(tree, mesh):
+    """Each device's detached, differentiable aliases of ``tree`` placed
+    on ``mesh`` (what the train step hands its loss)."""
+    sharded = SH.shard_params(tree, mesh)
+    return [tree_map(lambda x: x.local(d).detach().requires_grad_(True),
+                     sharded) for d in range(mesh.size)]
+
+
+@pytest.mark.parametrize("M", [2, 4])
+@pytest.mark.parametrize("window", [None, 5])
+def test_mla_attention_tp_matches_jax(M, window):
+    """``mla_attention_tp`` at (1, M), whole heads a rank (reduced
+    deepseek-v3: 4 heads), against the JAX ``mla_attention`` forward on
+    the same weights and input, every rank's copy within 1e-5 of the
+    largest entry; its input gradient, summed over the ranks' copies,
+    is the plain ``mla_attention``'s."""
+    from repro.models import mla as JMLA
+    from repro_torch.models import mla as PMLA
+
+    jcfg = jax_config("deepseek-v3-671b").reduced()
+    cfg = get_config("deepseek-v3-671b").reduced()
+    jp = JMLA.mla_init(jax.random.PRNGKey(1), jcfg)
+    p = tree_map(lambda a: torch.from_numpy(np.array(a)),
+                 jax.tree.map(np.asarray, jp))
+    x = np.random.default_rng(4).normal(size=(2, 12, cfg.d_model)).astype(
+        np.float32)
+    want, _ = JMLA.mla_attention(jp, jnp.asarray(x), jcfg,
+                                 positions=jnp.arange(12), window=window)
+    want = np.asarray(want)
+    mesh = make_test_mesh(1, M, device="cpu")
+    ranks = _ranks_of({"mla": p}, mesh)
+    xs = [torch.from_numpy(x).requires_grad_(True) for _ in range(M)]
+    outs = PMLA.mla_attention_tp(PL.Group(mesh.devices),
+                                 [r["mla"] for r in ranks], xs, cfg,
+                                 window=window)
+    scale = np.abs(want).max()
+    for o in outs:
+        assert np.abs(o.detach().numpy() - want).max() <= 1e-5 * scale
+    assert all(r["mla"]["wq_b"]["w"].shape[1] * M ==
+               p["wq_b"]["w"].shape[1] for r in ranks)
+    x1 = torch.from_numpy(x).requires_grad_(True)
+    plain, _ = PMLA.mla_attention(p, x1, cfg, positions=torch.arange(12),
+                                  window=window)
+    w = torch.linspace(-1, 1, plain.numel()).reshape(plain.shape)
+    (g_plain,) = torch.autograd.grad((plain * w).sum(), [x1])
+    g = torch.autograd.grad((outs[0] * w).sum(), xs,
+                            materialize_grads=True)
+    assert torch.allclose(sum(g), g_plain, rtol=0,
+                          atol=1e-5 * float(g_plain.abs().max()))
+
+
+@pytest.mark.parametrize("M", [2, 4])
+def test_mtp_loss_tp_matches_jax(M):
+    """``mtp_loss_tp`` (deepseek-v3's MTP head: per-rank norm, the
+    vocab-parallel embedding, ``mtp/proj`` column-parallel and gathered,
+    the MLA block tensor-parallel, the vocab-parallel CE) at (1, M)
+    against the JAX ``mtp_loss`` on the same weights, hidden state and
+    labels: within 1e-6 relative."""
+    jcfg = jax_config("deepseek-v3-671b").reduced()
+    cfg = get_config("deepseek-v3-671b").reduced()
+    jp = JT.init_lm(jax.random.PRNGKey(2), jcfg)
+    params = lm_params_from_jax(jax.tree.map(np.asarray, jp), cfg)
+    rng = np.random.default_rng(5)
+    h = rng.normal(size=(2, 16, cfg.d_model)).astype(np.float32)
+    labels = rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
+    shifted = np.roll(labels, -1, axis=1)
+    want = float(JT.mtp_loss(jp, jcfg, jnp.asarray(h), jnp.asarray(labels),
+                             jnp.asarray(shifted)))
+    mesh = make_test_mesh(1, M, device="cpu")
+    ranks = _ranks_of(params, mesh)
+    lab = torch.from_numpy(labels.astype(np.int64))
+    got = PT.mtp_loss_tp(PL.Group(mesh.devices), ranks, cfg,
+                         [torch.from_numpy(h)] * M, [lab] * M,
+                         [torch.roll(lab, -1, dims=1)] * M)
+    assert abs(float(got.detach()) - want) <= 1e-6 * abs(want)
+    assert ranks[0]["mtp"]["proj"]["w"].shape[1] * M == cfg.d_model
+
+
+@pytest.mark.parametrize("data, model, pod", [
+    (1, 2, 1), (1, 4, 1), (2, 2, 1), (4, 1, 1), (8, 1, 1), (4, 1, 2)])
+def test_moe_apply_mesh_matches_jax(data, model, pod):
+    """``moe_apply_mesh`` (global route, experts over data, expert ff
+    over model, shared experts tensor-parallel) against the JAX
+    ``moe_apply`` of the whole batch, on reduced moonshot's MoE layer
+    at capacity factor 1.0 with one expert favoured, so that the
+    capacity binds (and 8 x 512 tokens: per replica the route would be
+    lossless from 2 replicas on): outputs within 1e-5 of the largest
+    entry, the metrics within 1e-6, the dropped share exactly.  Its 4
+    experts over 8 replicas: whole on each (data 8, the cut dropped),
+    or over ``data`` alone, each chunk on two replicas (pod 2 x data
+    4: the rule's (pod, data) degrades to ``data``)."""
+    from repro.models import moe as JMOE
+    from repro_torch.models import moe as PMOE
+
+    jcfg = dataclasses.replace(
+        jax_config("moonshot-v1-16b-a3b").reduced(), capacity_factor=1.0)
+    cfg = dataclasses.replace(
+        get_config("moonshot-v1-16b-a3b").reduced(), capacity_factor=1.0)
+    jp = JMOE.moe_init(jax.random.PRNGKey(3), jcfg)
+    w = np.asarray(jp["router"]["w"]).copy()
+    w[:, 0] += 0.05
+    jp = {**jp, "router": {"w": jnp.asarray(w)}}
+    p = tree_map(lambda a: torch.from_numpy(np.array(a)),
+                 jax.tree.map(np.asarray, jp))
+    x = np.random.default_rng(6).normal(size=(8, 512, cfg.d_model)).astype(
+        np.float32)
+    want, wm = JMOE.moe_apply(jp, jnp.asarray(x), jcfg)
+    want = np.asarray(want)
+    assert float(wm["moe_dropped_frac"]) > 0
+    mesh = make_test_mesh(data, model, pod, device="cpu")
+    R = len(mesh.replicas)
+    ranks = _ranks_of({"moe": p}, mesh)
+    xt = torch.from_numpy(x)
+    xs = [SH.batch_rows(xt, R, 1, d // model) for d in range(mesh.size)]
+    outs, gm = PMOE.moe_apply_mesh([PL.Group(g) for g in mesh.replicas],
+                                   [r["moe"] for r in ranks], xs, cfg)
+    got = torch.cat([outs[r * model].detach() for r in range(R)])
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+    for d in range(mesh.size):
+        assert torch.equal(outs[d], outs[(d // model) * model])
+    for k in ("moe_aux_loss", "moe_z_loss"):
+        assert abs(float(gm[k].detach()) - float(wm[k])) <= \
+            1e-6 * float(wm[k])
+    assert float(gm["moe_dropped_frac"]) == float(wm["moe_dropped_frac"])
+    expert = ranks[-1]["moe"]["experts"]["gate"]
+    parts = data if cfg.num_experts % data == 0 else 1
+    assert expert.shape == (cfg.num_experts // parts, cfg.d_model,
+                            cfg.moe_d_ff // model)

@@ -269,13 +269,29 @@ def test_sharded_checkpoint_is_the_unsharded_file(tmp_path, deterministic):
 
 
 def test_moe_over_devices_and_a_model_axis_raise():
+    """An MoE family no longer raises over data or model devices: its
+    step builds and runs one step at (2, 1) and (1, 2) (global route,
+    finite metrics, the same loss as one device); one device trains as
+    without a mesh; a batch that does not split over the replicas
+    raises."""
     shape = ShapeConfig("custom_train", S, B, "train", 1)
     moe = get_config("moonshot-v1-16b-a3b").reduced()
+    batch = torch_batch(make_batches(moe, 1)[0])
+
+    def fresh():
+        return PT.init_lm(torch.Generator().manual_seed(0), moe,
+                          device="cpu")
+
+    _, _, (want,) = _port_run(moe, fresh(), 1, [make_batches(moe, 1)[0]])
     for mesh in (make_test_mesh(2, 1, device="cpu"),
                  make_test_mesh(1, 2, device="cpu")):
-        with pytest.raises(NotImplementedError,
-                           match="MoE layer under a data × model mesh"):
-            PS.make_train_step(moe, shape, PO.adamw(LR), mesh=mesh)
+        opt = PO.adamw(LR)
+        params = SH.shard_params(fresh(), mesh)
+        step = PS.make_train_step(moe, shape, opt, mesh=mesh)
+        _, _, m = step(params, opt.init(params), 0, batch)
+        assert set(m) == set(want)
+        assert all(torch.isfinite(v) for v in m.values())
+        _rel(m["loss"], want["loss"])
     # one device: the MoE family trains as without a mesh
     PS.make_train_step(moe, shape, PO.adamw(LR),
                        mesh=make_test_mesh(1, 1, device="cpu"))
