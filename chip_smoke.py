@@ -214,6 +214,42 @@ Phases (any failure raises and the script exits non-zero):
    under its memory; with fewer cards one line says that (c) was not
    run.
 
+14. MoE training over a data x model mesh (global route, expert
+   parallelism), kernels on and none launched: (a) the four reduced MoE
+   families at (2, 1), (1, 2), (2, 2) on (cuda:0,) * n against the card's
+   D = 1 step; (b) with four cards, reduced moonshot at (2, 2), the
+   launcher over the cards, moonshot cut to 24 layers at (4, 1) and
+   deepseek-v3 cut to 4 at (1, 4) at full width.
+
+15. Serving over a data x model mesh through ``launch/steps.py::
+   build_step`` (caches placed by ``models/sharding.py::shard_cache``;
+   each rank attends its heads and runs its Mamba heads, B9 and B10 per
+   rank in a prefill; a decode step combines the ranks' partial
+   softmaxes over their slices of the cache).  (a) Reduced f32
+   gemma-2b, qwen2-7b, mamba2-2.7b, internvl2-26b (with its prefix),
+   jamba-v0.1 and llama4-scout at (data, model) = (1, 2), (2, 2) and
+   (1, 4) on (cuda:0,) * n: 4 rows of 16 tokens into a 64-row cache and
+   8 greedy decode steps at per-row positions, against the card's
+   one-device ``make_prefill_step`` / ``make_decode_step`` within 1e-4
+   of the largest logit, the same tokens, B9 and B10 launched layers x
+   ranks times a prefill and never in a decode step.  (b) With four
+   cards: llama4-scout-17b-a16e at (1, 4) and jamba-v0.1-52b at (2, 2)
+   at full width and depth in bf16 (neither fits one card; each layer is
+   drawn whole on cuda:0, cut and freed), 4 rows of 2048 tokens into a
+   4096-row cache: prefill ms (median of 3, ending in a synchronize of
+   every card), 32 greedy decode steps' tok/s, a profiled decode step,
+   B9 and B10 launches a prefill, each card's peak under its memory;
+   then each cut to 8 layers, on the same mesh and whole on cuda:0: how
+   far the prefill logits part and how many greedy tokens agree,
+   printed (an MoE router's near-ties make bf16 serving chaotic); then
+   each in f32 cut to SERVE_4_F32_LAYERS layers, the prefill and 8
+   decode steps' logits held within max(1e-4, 10 x the whole model's
+   own parting one ulp away) of one card's.  With
+   fewer cards one line says (b) was not run.
+   Phase 2 holds B9 at those meshes' per-rank prefill shapes (llama4's
+   10 q heads over 2 KV heads, jamba's 16 over 4) and B10 at jamba's 64
+   heads a rank.
+
 It prints the kernel table as one JSON line, then the card's name and
 power limit, then ``{"ok": true, "device": {...}}`` as the last line.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -251,11 +287,27 @@ ENGINE_SEED = 1
 # landmarks)
 SPECTRAL_SEED = 0
 
-# H100 SXM peaks (NVIDIA data sheet): f32 on the CUDA cores, bf16 on the
-# tensor cores (dense), HBM3
-PEAK_F32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES_S = 3.35e12
+
+
+def _h100_table():
+    """The port's H100 table, ``repro_torch/roofline/analysis.py::HW``
+    (a module that imports nothing but ``dataclasses``); None outside a
+    checkout, where ``main`` refuses to run."""
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    try:
+        from repro_torch.roofline.analysis import HW
+    except ImportError:
+        return None
+    return HW
+
+
+# H100 SXM peaks (NVIDIA data sheet, 700 W): f32 on the CUDA cores, bf16
+# on the tensor cores (dense), HBM3
+_HW = _h100_table()
+if _HW is not None:
+    PEAK_F32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES_S = (
+        _HW.peak_flops_f32, _HW.peak_flops, _HW.hbm_bw)
 
 # every kernel: the TPU kernel it replaces (function definition in the
 # JAX package) and its source
@@ -351,6 +403,13 @@ FLASH_INTERNVL = dict(B=1, S=2048, T=LM_MAX_SEQ, H=48, K=8, dh=128)
 SSD_JAMBA = dict(B=1, c=8, Q=256, H=128, P=64, G=1, N=16)
 # B9 at moonshot-v1-16b-a3b's prefill (phase 8b): 16 heads over 16 (MHA)
 FLASH_MOONSHOT = dict(B=1, S=2048, T=LM_MAX_SEQ, H=16, K=16, dh=128)
+# one rank's prefill under phase 15b's serving meshes: llama4-scout at
+# (1, 4) (40/4 q heads over 8/4 KV heads, 4 rows) and jamba-v0.1 at
+# (2, 2) (32/2 over 8/2, 2 rows a replica; B10 at 128/2 heads); each rank
+# attends its heads over the 2048-token prompt
+FLASH_LLAMA4_TP = dict(B=4, S=2048, T=2048, H=10, K=2, dh=128)
+FLASH_JAMBA_TP = dict(B=2, S=2048, T=2048, H=16, K=4, dh=128)
+SSD_JAMBA_TP = dict(B=2, c=8, Q=256, H=64, P=64, G=1, N=16)
 
 # phase 8a: the mesh route at the path shape and at N + 3 rows (padded at
 # every D > 1), on (cuda:0,) * D, and on every visible card when there
@@ -518,6 +577,55 @@ LIMIT_F32_REL = 1e-5     # f32 output: summation order only
 # fraction of the largest entry would not hold it.
 LIMIT_BF16_ELEM = (2.0 ** -7, 1e-3)
 LIMIT_LOGIT_REL = 1e-4   # reduced LM, card vs CPU
+# phase 15: serving over a data x model mesh (launch/steps.py::build_step's
+# prefill and decode, caches placed by shard_cache), kernels on: B9 per
+# rank in every attention layer's prefill, B10 per rank in every Mamba
+# layer's.  (a) Six reduced families in f32 at SERVE_MESHES on
+# (cuda:0,) * n: a prompt of SERVE_REDUCED_PROMPT tokens, then
+# SERVE_REDUCED_STEPS greedy decode steps at per-row positions, against
+# the card's one-device make_prefill_step / make_decode_step within
+# LIMIT_LOGIT_REL, the same tokens.  (b) With four cards: llama4-scout at
+# (1, 4) and jamba-v0.1 at (2, 2) at full width and depth in bf16 (each
+# layer drawn whole on cuda:0, cut and freed: neither model fits a card),
+# SERVE_4_ROWS rows of SERVE_4_PROMPT tokens into a SERVE_4_CACHE-row
+# cache, SERVE_4_STEPS greedy decode steps; then each cut to
+# SERVE_4_CUT_LAYERS layers, on the same mesh and whole on cuda:0.
+SERVE_REDUCED = ("gemma-2b", "qwen2-7b", "mamba2-2.7b", "internvl2-26b",
+                 "jamba-v0.1-52b", "llama4-scout-17b-a16e")
+SERVE_MESHES = ((1, 2), (2, 2), (1, 4))
+SERVE_REDUCED_B, SERVE_REDUCED_CACHE = 4, 64
+SERVE_REDUCED_PROMPT, SERVE_REDUCED_STEPS = 16, 8
+# row 0 decodes in rank 0's slice of the sequence at every M; the others
+# start past unwritten rows
+SERVE_REDUCED_POS = (16, 21, 30, 40)
+SERVE_4 = (("llama4-scout-17b-a16e", (1, 4)), ("jamba-v0.1-52b", (2, 2)))
+SERVE_4_ROWS, SERVE_4_PROMPT, SERVE_4_CACHE, SERVE_4_STEPS = 4, 2048, 4096, 32
+SERVE_4_PREFILLS = 3
+SERVE_4_CUT_LAYERS = 8
+# (b)'s depth cut in bf16, mesh against one card: the prefill logits'
+# parting over the largest |logit| and the greedy tokens that agree are
+# printed, not held.  Tensor parallelism moves where bf16 rounds (a
+# row-parallel projection sums M partials rounded to bf16 where one card
+# rounds once; split GEMMs take other tile orders), and a moved rounding
+# flips an MoE router's near-tie, which moves a token by its whole FFN
+# output: on NVIDIA H100 80GB HBM3 at 700 W one ulp in every weight moved
+# the whole 8-layer cut's logits 1.219 (llama4) and 0.170 (jamba) of
+# their largest, so no bf16 limit would bound the mesh's arithmetic.  It
+# is held at full width in f32, where a rounding moves a route only at a
+# near-tie of ~1e-7: each arch cut to SERVE_4_F32_LAYERS layers (llama4:
+# 2 MoE layers; jamba: 4 Mamba, its first attention layer, 2 MoE) fits
+# cuda:0 whole in f32, and the mesh's prefill and SERVE_REDUCED_STEPS
+# decode steps (fed the one-card run's greedy tokens) are held within
+# LIMIT_LOGIT_REL.  Such near-ties do occur: at jamba's draw one token
+# of 8192 has its 2nd and 3rd router probabilities one f32 ulp apart
+# (1.192e-7), the mesh and a run one ulp away both send it to another
+# expert, and both part 1.1e-4 (scripts/serve_mesh_parting.py).  So, as
+# in phase 11c, the limit is max(LIMIT_LOGIT_REL, SERVE_ULP_FACTOR x the
+# parting of the whole model one ulp away): the floor holds where no
+# route sits at a tie (the mesh then parts 4e-6-6e-6), and a bug in the
+# mesh's arithmetic parts far beyond either.
+SERVE_ULP_FACTOR = TRAIN_ULP_FACTOR
+SERVE_4_F32_LAYERS = {"llama4-scout-17b-a16e": 2, "jamba-v0.1-52b": 5}
 
 
 def card_line() -> str:
@@ -1772,7 +1880,11 @@ def _lm_kernel_cases():
                    ("seamless cross", *flash(**FLASH_SEAMLESS_CROSS,
                                              dtype="bf16", library=True)),
                    ("seamless self", *flash(**FLASH_SEAMLESS_SELF,
-                                            dtype="bf16", library=True))]
+                                            dtype="bf16", library=True)),
+                   ("llama4 tp", *flash(**FLASH_LLAMA4_TP, dtype="bf16",
+                                        library=True)),
+                   ("jamba tp", *flash(**FLASH_JAMBA_TP, dtype="bf16",
+                                       library=True))]
     for dtype in ("f32", "bf16"):
         flash_cases += [
             ("ragged", *flash(2, 33, 33, 4, 4, 32, dtype)),          # G = 1
@@ -1792,7 +1904,8 @@ def _lm_kernel_cases():
                                window=16, scale=0.3)),
         ]
     ssd_cases = [("path", *ssd(**sp, bc_dtype="bf16")),
-                 ("jamba", *ssd(**SSD_JAMBA, bc_dtype="bf16"))]
+                 ("jamba", *ssd(**SSD_JAMBA, bc_dtype="bf16")),
+                 ("jamba tp", *ssd(**SSD_JAMBA_TP, bc_dtype="bf16"))]
     for bc in ("f32", "bf16"):
         ssd_cases += [
             ("Q=8 G=2", *ssd(2, 3, 8, 4, 16, 2, 16, bc)),
@@ -1874,7 +1987,8 @@ def phase2_lm():
             if label not in ("path", "gemma", "gemma f32", "moonshot",
                              "mla", "mla f32", "internvl", "seamless enc",
                              "seamless enc f32", "seamless cross",
-                             "seamless self", *UNSERVED):
+                             "seamless self", "llama4 tp", "jamba tp",
+                             *UNSERVED):
                 continue
             ms, plain_ms = time_ms(kern), time_ms(plain)
             bound_ms, bound_by, f32_bound = bound
@@ -4102,6 +4216,409 @@ def phase14():
     phase14b()
 
 
+# -- phase 15: serving over a data x model mesh --------------------------------
+
+def _serve_prompt(cfg, B, S, seed=LM_SEED):
+    """``B`` rows of ``S`` token ids (and a VLM's prefix embeddings)
+    drawn from ``seed``, on cuda:0."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                                    device="cuda:0")}
+    if cfg.num_prefix_embeds:
+        batch["prefix_embeds"] = torch.tensor(
+            rng.standard_normal((B, cfg.num_prefix_embeds, cfg.d_model)),
+            dtype=getattr(torch, cfg.compute_dtype), device="cuda:0")
+    return batch
+
+
+def _serve(prefill, decode, params, batch, pos, steps_n, sync=None,
+           feed=None):
+    """A prefill and ``steps_n`` greedy decode steps at positions ``pos +
+    i`` (``feed``: the tokens to feed instead, one (B, 1) a step):
+    (every step's logits, every fed token, B9 and B10 launches of the
+    prefill, launches of the decode steps, decode seconds)."""
+    import torch
+    from repro_torch.kernels import ops
+
+    sync = sync or torch.cuda.synchronize
+    ops.reset_launch_counts()
+    logits, caches = prefill(params, batch)
+    sync()
+    pre = dict(ops.LAUNCH_COUNTS)
+    out, toks = [logits], []
+    t0 = time.perf_counter()
+    for i in range(steps_n):
+        tok = logits.argmax(-1, keepdim=True) if feed is None else feed[i]
+        toks.append(tok)
+        logits, caches = decode(params, caches, tok, pos + i)
+        out.append(logits)
+    sync()
+    seconds = time.perf_counter() - t0
+    dec = sum(ops.LAUNCH_COUNTS.values()) - sum(pre.values())
+    del caches
+    return out, toks, pre, dec, seconds
+
+
+def phase15a():
+    """Six reduced families served over SERVE_MESHES on (cuda:0,) * n
+    against the card's one-device steps.  Returns the B9 and B10
+    launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.sharding import shard_params
+
+    B, S = SERVE_REDUCED_B, SERVE_REDUCED_CACHE
+    pre_shape = ShapeConfig("prefill", S, B, "prefill")
+    dec_shape = ShapeConfig("decode", S, B, "decode")
+    launches = {"flash_attention": 0, "ssd_chunk": 0}
+    for arch in SERVE_REDUCED:
+        cfg = get_config(arch).reduced()
+        params = T.init_lm(torch.Generator(device="cuda").manual_seed(
+            LM_SEED), cfg, device="cuda")
+        batch = _serve_prompt(cfg, B, SERVE_REDUCED_PROMPT)
+        pos = torch.tensor(SERVE_REDUCED_POS, device="cuda") \
+            + cfg.num_prefix_embeds
+        n_attn = sum(cfg.is_attn_layer(i) for i in range(cfg.num_layers))
+        n_ssm = cfg.num_layers - n_attn
+        with ops.use_pallas_scoped(True):
+            want, want_toks, pre, _, _ = _serve(
+                steps.make_prefill_step(cfg, pre_shape),
+                steps.make_decode_step(cfg, dec_shape), params, batch, pos,
+                SERVE_REDUCED_STEPS)
+            for name in launches:
+                launches[name] += pre[name]
+            for data, model in SERVE_MESHES:
+                n = data * model
+                mesh = make_test_mesh(data, model, devices=("cuda:0",) * n)
+                got, toks, pre, dec, _ = _serve(
+                    steps.build_step(cfg, pre_shape, mesh).fn,
+                    steps.build_step(cfg, dec_shape, mesh).fn,
+                    shard_params(params, mesh), batch, pos,
+                    SERVE_REDUCED_STEPS)
+                for name in launches:
+                    launches[name] += pre[name]
+                errs = [float((g - w).abs().max() / w.abs().max())
+                        for g, w in zip(got, want)]
+                same = all(torch.equal(a, b) for a, b in zip(toks, want_toks))
+                print(f"phase 15a: reduced {arch} at (data, model) = "
+                      f"({data}, {model}) on (cuda:0,) * {n}: prefill and "
+                      f"{SERVE_REDUCED_STEPS} decode steps, worst logit "
+                      f"error {max(errs):.3e} of the largest (limit "
+                      f"{LIMIT_LOGIT_REL:.0e}); same tokens: {same}; B9 "
+                      f"{pre['flash_attention']} and B10 {pre['ssd_chunk']}"
+                      f" launches a prefill ({n_attn} and {n_ssm} layers x "
+                      f"{n} ranks); {dec} in the decode steps")
+                if not (max(errs) <= LIMIT_LOGIT_REL and same):
+                    raise AssertionError(f"phase 15a: {arch} at ({data}, "
+                                         f"{model}) parts from one device")
+                if (pre["flash_attention"], pre["ssd_chunk"], dec) != (
+                        n_attn * n, n_ssm * n, 0):
+                    raise AssertionError(f"phase 15a: {arch}: launches "
+                                         f"{pre}, {dec} in decode")
+    return launches
+
+
+def _init_on_mesh(cfg, mesh, seed):
+    """Random ``cfg`` parameters (``transformer.init_lm``'s, from
+    ``seed``) placed on ``mesh`` part by part: each drawn whole on the
+    mesh's first device (which holds a shard of every leaf), cut by
+    ``sharding.placer`` and freed, so no device ever holds more than its
+    shards and one part."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.sharding import placer
+
+    dev = mesh.devices[0]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return T.init_lm(gen, cfg, device=dev, place=placer(mesh))
+
+
+def _serve_mesh_full(arch, mesh):
+    """``arch`` at full width and depth in bf16 served over ``mesh``:
+    prefill ms, decode tok/s, launches and each card's peak."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+
+    cfg = get_config(arch)
+    B, P, S = SERVE_4_ROWS, SERVE_4_PROMPT, SERVE_4_CACHE
+    label = (f"(data, model) = {mesh.sizes} on "
+             f"{[str(d) for d in mesh.devices]}")
+    cards = list(dict.fromkeys(mesh.devices))
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = _init_on_mesh(cfg, mesh, LM_SEED)
+    _sync_all(mesh)
+    for dev in cards:
+        torch.cuda.reset_peak_memory_stats(dev)
+    print(f"phase 15b: {arch} {label}: {cfg.param_count() / 1e9:.3f}e9 "
+          f"parameters in {cfg.param_dtype} placed layer by layer; "
+          + ", ".join(f"{dev} {torch.cuda.memory_allocated(dev) / 2**30:.2f}"
+                      f" GiB" for dev in cards) + " allocated")
+    prefill = steps.build_step(cfg, ShapeConfig("serve", S, B, "prefill"),
+                               mesh).fn
+    decode = steps.build_step(cfg, ShapeConfig("serve", S, B, "decode"),
+                              mesh).fn
+    batch = _serve_prompt(cfg, B, P)
+    n_attn = sum(cfg.is_attn_layer(i) for i in range(cfg.num_layers))
+    n_ssm = cfg.num_layers - n_attn
+    launches = {"flash_attention": 0, "ssd_chunk": 0}
+    with ops.use_pallas_scoped(True):
+        times = []
+        for _ in range(SERVE_4_PREFILLS):
+            ops.reset_launch_counts()
+            _sync_all(mesh)
+            t0 = time.perf_counter()
+            logits, caches = prefill(params, batch)
+            _sync_all(mesh)
+            times.append((time.perf_counter() - t0) * 1e3)
+            pre = dict(ops.LAUNCH_COUNTS)
+            for name in launches:
+                launches[name] += pre[name]
+            del logits, caches
+        out, _, pre, dec, seconds = _serve(
+            prefill, decode, params, batch,
+            torch.full((B,), P, device="cuda:0"), SERVE_4_STEPS,
+            sync=lambda: _sync_all(mesh))
+        for name in launches:
+            launches[name] += pre[name]
+        logits, caches = prefill(params, batch)
+        tok = logits.argmax(-1, keepdim=True)
+        profile_device(
+            "15b", f"{arch} decode step", lambda: decode(
+                params, caches, tok, torch.full((B,), P, device="cuda:0")),
+            host_top=3)
+        del logits, caches
+    peaks = {str(d): torch.cuda.max_memory_allocated(d) / 2**30
+             for d in cards}
+    caps = {str(d): torch.cuda.get_device_properties(d).total_memory / 2**30
+            for d in cards}
+    finite = all(bool(torch.isfinite(x).all()) for x in out)
+    print(f"phase 15b: {arch} {label}: {B} rows of {P} tokens, a {S}-row "
+          f"cache: prefill {statistics.median(times):.3f} ms (median of "
+          f"{SERVE_4_PREFILLS}, host clock ending in a synchronize of every "
+          f"card; all {[round(t, 3) for t in times]}); {SERVE_4_STEPS} "
+          f"greedy decode steps {B * SERVE_4_STEPS / seconds:.1f} tok/s "
+          f"({seconds * 1e3 / SERVE_4_STEPS:.3f} ms a step); B9 "
+          f"{pre['flash_attention']} and B10 {pre['ssd_chunk']} launches a "
+          f"prefill ({n_attn} and {n_ssm} layers x {mesh.size} ranks), "
+          f"{dec / SERVE_4_STEPS:.0f} kernel launches of ours a decode step "
+          f"(host launches in the profile above); finite logits: {finite}; "
+          f"peak / memory by card " + ", ".join(
+              f"{k} {v:.2f} / {caps[k]:.2f} GiB" for k, v in peaks.items()))
+    if (pre["flash_attention"], pre["ssd_chunk"]) != (
+            n_attn * mesh.size, n_ssm * mesh.size) or dec or not finite:
+        raise AssertionError(f"phase 15b: {arch}: launches {pre}, {dec} in "
+                             f"decode; finite {finite}")
+    if not all(v < caps[k] for k, v in peaks.items()):
+        raise AssertionError(f"phase 15b: {arch}: a peak exceeds its card: "
+                             f"{peaks}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _serve_mesh_cut(arch, mesh):
+    """``arch`` cut to SERVE_4_CUT_LAYERS layers at full width in bf16 on
+    ``mesh`` and whole on cuda:0: how far the prefill logits part and
+    how many greedy tokens agree, printed (the f32 cut holds the
+    mesh)."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models.sharding import gather_params
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=SERVE_4_CUT_LAYERS)
+    n_attn = sum(cfg.is_attn_layer(i) for i in range(cfg.num_layers))
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
+    print(f"phase 15b: {arch} reduced: " + json.dumps({
+        "num_layers": [full.num_layers, cfg.num_layers],
+        "param_count": [full.param_count(), cfg.param_count()],
+        "why": f"the whole model on cuda:0 is the reference; the cut keeps "
+               f"the first {cfg.num_layers} layers ({n_attn} attention, "
+               f"{cfg.num_layers - n_attn} Mamba, {n_moe} MoE)"}))
+    B, P, S = SERVE_4_ROWS, SERVE_4_PROMPT, SERVE_4_CACHE
+    pre_shape = ShapeConfig("serve", S, B, "prefill")
+    dec_shape = ShapeConfig("serve", S, B, "decode")
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded = _init_on_mesh(cfg, mesh, LM_SEED + 1)
+    whole = gather_params(sharded, "cuda:0")
+    batch = _serve_prompt(cfg, B, P)
+    pos = torch.full((B,), P, device="cuda:0")
+    one = (steps.make_prefill_step(cfg, pre_shape),
+           steps.make_decode_step(cfg, dec_shape))
+    on_mesh = (steps.build_step(cfg, pre_shape, mesh).fn,
+               steps.build_step(cfg, dec_shape, mesh).fn)
+    launches = {"flash_attention": 0, "ssd_chunk": 0}
+    runs = []
+
+    def run(fns, params, sync=None):
+        out, toks, pre, _, _ = _serve(*fns, params, batch, pos, SERVE_4_STEPS,
+                                      sync=sync)
+        for name in launches:
+            launches[name] += pre[name]
+        runs.append((out, toks))
+
+    with ops.use_pallas_scoped(True):
+        run(one, whole)
+        del whole
+        run(on_mesh, sharded, lambda: _sync_all(mesh))
+        del sharded
+
+    (want, want_toks), (got, toks) = runs
+    err = float((got[0] - want[0]).abs().max() / want[0].abs().max())
+    agree = sum(int((x == y).sum()) for x, y in zip(toks, want_toks))
+    first = next((i for i, (x, y) in enumerate(zip(toks, want_toks))
+                  if not torch.equal(x, y)), None)
+    finite = all(bool(torch.isfinite(x).all()) for x in got)
+    print(f"phase 15b: {arch} cut to {cfg.num_layers} layers in "
+          f"{cfg.compute_dtype}, {mesh.sizes} vs whole on cuda:0 (printed, "
+          f"not held): prefill "
+          f"logits {err:.3e} of the largest, greedy tokens agreeing {agree}"
+          f" of {B * SERVE_4_STEPS}"
+          + ("" if first is None else f", first parting at step {first}")
+          + f"; finite logits: {finite}")
+    if not finite:
+        raise AssertionError(f"phase 15b: {arch} cut: logits not finite")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _serve_mesh_f32(arch, mesh):
+    """``arch`` at full width in f32, cut to SERVE_4_F32_LAYERS layers, on
+    ``mesh`` and whole on cuda:0: the prefill and every decode step's
+    logits within max(LIMIT_LOGIT_REL, SERVE_ULP_FACTOR x the whole
+    model's own parting one ulp away), the mesh and the nudged run fed
+    the one-card run's greedy tokens."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models.sharding import gather_params
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=SERVE_4_F32_LAYERS[arch],
+                              param_dtype="float32", compute_dtype="float32")
+    B, P, S = SERVE_4_ROWS, SERVE_4_PROMPT, SERVE_4_CACHE
+    pre_shape = ShapeConfig("serve", S, B, "prefill")
+    dec_shape = ShapeConfig("serve", S, B, "decode")
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded = _init_on_mesh(cfg, mesh, LM_SEED + 2)
+    whole = gather_params(sharded, "cuda:0")
+    batch = _serve_prompt(cfg, B, P)
+    pos = torch.full((B,), P, device="cuda:0")
+    one_card = (steps.make_prefill_step(cfg, pre_shape),
+                steps.make_decode_step(cfg, dec_shape))
+    with ops.use_pallas_scoped(True):
+        want, toks, one, _, _ = _serve(*one_card, whole, batch, pos,
+                                       SERVE_REDUCED_STEPS)
+        _nudge_one_ulp_on_card(whole, LM_SEED)
+        nudged, _, ulp, _, _ = _serve(*one_card, whole, batch, pos,
+                                      SERVE_REDUCED_STEPS, feed=toks)
+        del whole
+        got, _, two, _, _ = _serve(
+            steps.build_step(cfg, pre_shape, mesh).fn,
+            steps.build_step(cfg, dec_shape, mesh).fn, sharded, batch, pos,
+            SERVE_REDUCED_STEPS, sync=lambda: _sync_all(mesh), feed=toks)
+
+    def parting(runs):
+        return [float((g - w).abs().max() / w.abs().max())
+                for g, w in zip(runs, want)]
+
+    errs, ulp_errs = parting(got), parting(nudged)
+    limit = max(LIMIT_LOGIT_REL, SERVE_ULP_FACTOR * max(ulp_errs))
+    print(f"phase 15b: {arch} in f32 at full width cut to {cfg.num_layers} "
+          f"layers ({cfg.param_count() / 1e9:.3f}e9 parameters), "
+          f"{mesh.sizes} vs whole on cuda:0: prefill logits {errs[0]:.3e}, "
+          f"{SERVE_REDUCED_STEPS} decode steps at most {max(errs[1:]):.3e} "
+          f"of the largest; the whole model one ulp away: "
+          f"{ulp_errs[0]:.3e}, at most {max(ulp_errs[1:]):.3e}; limit "
+          f"max({LIMIT_LOGIT_REL:.0e}, {SERVE_ULP_FACTOR} x "
+          f"{max(ulp_errs):.3e}) = {limit:.3e}; B9 "
+          f"{two['flash_attention']} and B10 {two['ssd_chunk']} launches a "
+          f"prefill (one card: {one['flash_attention']} and "
+          f"{one['ssd_chunk']})")
+    if not max(errs) <= limit:
+        raise AssertionError(f"phase 15b: {arch} in f32: the mesh parts from "
+                             f"one card: {errs}")
+    del sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {name: one[name] + ulp[name] + two[name]
+            for name in ("flash_attention", "ssd_chunk")}
+
+
+def _nudge_one_ulp_on_card(params, seed):
+    """:func:`nudge_one_ulp` for an f32 tree on the card, leaf by leaf:
+    each entry moved to its next float up or down (a seeded coin)."""
+    import torch
+    from repro_torch.tree import leaves
+
+    with torch.no_grad():
+        for i, p in enumerate(leaves(params)):
+            g = torch.Generator(device=p.device).manual_seed(seed * 7919 + i)
+            up = torch.rand(p.shape, generator=g, device=p.device) < 0.5
+            p.copy_(torch.nextafter(p, torch.where(up, torch.inf,
+                                                   -torch.inf)))
+            del up
+
+
+def phase15b():
+    """With four cards: SERVE_4 at full width and depth, then cut in
+    depth against the whole cut model on cuda:0.  Returns the B9 and B10
+    launches; with fewer cards one line says (b) was not run."""
+    import torch
+    from repro_torch.launch.mesh import make_test_mesh
+
+    launches = {"flash_attention": 0, "ssd_chunk": 0}
+    visible = torch.cuda.device_count()
+    if visible < MESH_4_CARDS:
+        print(f"phase 15b: not run: it needs {MESH_4_CARDS} cards, "
+              f"{visible} visible")
+        return launches
+    for arch, (data, model) in SERVE_4:
+        mesh = make_test_mesh(data, model, device="cuda:0")
+        for run in (_serve_mesh_full, _serve_mesh_cut, _serve_mesh_f32):
+            for name, n in run(arch, mesh).items():
+                launches[name] += n
+    return launches
+
+
+def phase15():
+    """Serving over a data x model mesh.  Returns the B9 and B10
+    launches."""
+    launches = phase15a()
+    for name, n in phase15b().items():
+        launches[name] += n
+    return launches
+
+
 def path_data():
     """(x, labels, gamma): the cohort server's N=10⁵ blobs on the host and
     the RBF width the server picks for them (on the card)."""
@@ -4154,6 +4671,8 @@ def main() -> int:
     phase12(first_loss[MESH_FULL_ARCH])
     phase13(first_loss[TP_FULL_ARCH])
     phase14()
+    for name, n in phase15().items():
+        launches[name] += n
     for name, rec in records.items():
         rec["launches"] = launches[name]
     keys = ("name", "route", "source", "replaces", "launches",

@@ -21,13 +21,33 @@ data-parallel over its replicas and tensor-parallel over each replica's
 ``model`` ranks, on a tree placed by
 ``models/sharding.py::shard_params``.
 
-Not ported: the input, parameter and cache ``ShapeDtypeStruct``s, their
-shardings, ``build_step`` and ``lower_step`` (the TPU mesh).
+The input specs and the bundles, as the JAX package builds them for its
+dry-run and launchers: :func:`batch_specs`, :func:`params_specs` and
+:func:`cache_specs` return trees of ``device="meta"`` tensors (the
+port's ``ShapeDtypeStruct``: shapes and dtypes, no storage), in the
+port's layout (layers listed, not stacked); :func:`batch_shardings`
+and ``cache_pspecs`` (kept in ``models/sharding.py`` with the parameter
+rules, and importable from here as in the JAX package) are the JAX
+package's batch and cache sharding rules as spec trees (tuples, as
+``models/sharding.py`` writes them), each cache spec the JAX spec
+without its stack entry.
+:func:`build_step` assembles a :class:`StepBundle` for a train, prefill
+or decode shape on a ``launch/mesh.py::NamedMesh``, whose ``fn`` runs
+eagerly on trees placed on that mesh: training through
+``make_train_step(mesh=)``, serving through the tensor-parallel prefill
+and decode of ``models/transformer.py`` (``lm_prefill_mesh``,
+``lm_decode_step_mesh``) over caches placed by
+``models/sharding.py::shard_cache``.
+
+Not ported: ``lower_step`` (AOT lowering for the TPU mesh).  MLA and
+the encoder-decoder serve over a mesh of one device only (ROADMAP
+§A2b), and a cache cut over more than one axis is not placed (§A2c).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import dataclasses
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
@@ -36,9 +56,12 @@ from repro_torch.models import encdec as ED
 from repro_torch.models import parallel as PL
 from repro_torch.models import sharding as SH
 from repro_torch.models import transformer as T
+from repro_torch.models.layers import dtype_of
+from repro_torch.models.sharding import cache_pspecs
 from repro_torch.optim import adamw, clip_by_global_norm, linear_warmup_cosine
 from repro_torch.optim.optimizers import row_slices
 from repro_torch.tree import leaves, tree_map, unflatten
+
 
 # -- microbatch policy (activation memory) ------------------------------------
 
@@ -75,6 +98,50 @@ def decode_window(cfg: ModelConfig, shape: ShapeConfig) -> Optional[int]:
     if shape.name == "long_500k" and cfg.arch_type in ("dense", "moe", "vlm"):
         return cfg.long_context_window
     return None
+
+
+# -- input specs (``device="meta"`` tensors) ----------------------------------
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype_of(dtype), device="meta")
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Meta tensors for one global batch of this workload (token ids
+    int32, as the JAX package's)."""
+    B, S = shape.global_batch, shape.seq_len
+    cdt = cfg.compute_dtype
+    if cfg.is_encoder_decoder:
+        return {"src_embeds": _meta((B, S, cfg.d_model), cdt),
+                "tokens": _meta((B, S), torch.int32),
+                "labels": _meta((B, S), torch.int32)}
+    n_text = S - cfg.num_prefix_embeds
+    out = {"tokens": _meta((B, n_text), torch.int32),
+           "labels": _meta((B, n_text), torch.int32)}
+    if cfg.num_prefix_embeds:
+        out["prefix_embeds"] = _meta(
+            (B, cfg.num_prefix_embeds, cfg.d_model), cdt)
+    return out
+
+
+def params_specs(cfg: ModelConfig):
+    """The parameter tree on the meta device."""
+    init = ED.init_encdec if cfg.is_encoder_decoder else T.init_lm
+    return init(None, cfg, device="meta")
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_seq: int):
+    """The decode cache tree on the meta device."""
+    if cfg.is_encoder_decoder:
+        return ED.init_encdec_cache(cfg, batch, max_seq, device="meta")
+    return T.init_lm_cache(cfg, batch, max_seq, device="meta")
+
+
+def batch_shardings(cfg: ModelConfig, shape: ShapeConfig, mesh) -> dict:
+    """Each batch entry's spec: its rows over the data axes when they
+    divide the batch."""
+    return {k: SH.batch_pspec(mesh, v.dim(), 0, shape.global_batch)
+            for k, v in batch_specs(cfg, shape).items()}
 
 
 def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig) -> Callable:
@@ -355,3 +422,166 @@ def _weighted_sum(values: list, weights: list, device) -> torch.Tensor:
     for v, w in zip(values[1:], weights[1:]):
         total = total + v.to(device) * w
     return total
+
+
+# -- bundles ------------------------------------------------------------------
+
+@dataclasses.dataclass
+class StepBundle:
+    """A step and its stand-ins: ``fn``, its ``args`` as meta-tensor
+    trees, and ``in_shardings``/``out_shardings`` as spec trees (None: a
+    result left where it lands; both None without a mesh)."""
+
+    fn: Callable
+    args: Tuple[Any, ...]
+    in_shardings: Any
+    out_shardings: Any
+
+
+def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
+               total_steps: int = 10_000) -> StepBundle:
+    """The step for ``shape`` on ``mesh`` (a ``launch/mesh.py::
+    NamedMesh``; None: one device and no layout), as the JAX package's
+    ``build_step`` assembles it.
+
+    * train: ``make_train_step(mesh=)`` over trees placed by
+      ``sharding.shard_params`` (the optimizer state ``opt.init`` of
+      such a tree); args (params, opt_state, step, batch).
+    * prefill: ``fn(params, batch) -> (logits (B, V), caches)``: fresh
+      caches of ``shape.seq_len`` rows, placed by
+      ``sharding.shard_cache`` (zeroed on their devices), filled from
+      position 0; ``batch`` a whole batch (``tokens``, and
+      ``prefix_embeds`` for a VLM prompt), cut into the replicas' rows.
+    * decode: ``fn(params, caches, token (B, 1), pos) -> (logits,
+      caches)``: ``pos`` a (B,) tensor, or an int for the encoder-decoder
+      and the windowed long-context decode, as in the JAX bundle; the
+      caches are written in place.
+
+    Serving over a mesh of D > 1 devices runs every replica's ranks
+    layer by layer (``transformer.lm_prefill_mesh``,
+    ``lm_decode_step_mesh``): each device computes with its parameter
+    shards, gathered over ``data`` for the step where a leaf is cut
+    there (``Sharded.local``; an expert leaf never is), and the logits
+    come back (B, V) on the mesh's first device.  A one-device mesh
+    runs the one-device steps on its shards.  Raises
+    ``NotImplementedError`` for MLA and the encoder-decoder served over
+    more than one device (ROADMAP §A2b); the serving ``fn`` raises for
+    a batch that the data axes do not divide (its cache would be cut
+    over more than one axis, §A2c).
+    """
+    p_specs = params_specs(cfg)
+    p_shard = None if mesh is None else SH.params_pspecs(p_specs, mesh)
+    D = 1 if mesh is None else mesh.size
+
+    if shape.kind == "train":
+        opt = make_optimizer(cfg, total_steps)
+        opt_specs = opt.init(p_specs)
+        b_specs = batch_specs(cfg, shape)
+        fn = make_train_step(cfg, shape, opt, mesh=mesh)
+        args = (p_specs, opt_specs, _meta((), torch.int32), b_specs)
+        if mesh is None:
+            return StepBundle(fn, args, None, None)
+        opt_shard = SH.params_pspecs(opt_specs, mesh)
+        in_sh = (p_shard, opt_shard, (),
+                 batch_shardings(cfg, shape, mesh))
+        return StepBundle(fn, args, in_sh, (p_shard, opt_shard, None))
+
+    if D > 1 and (cfg.use_mla or cfg.is_encoder_decoder):
+        raise NotImplementedError(f"{cfg.name}: {T.SERVE_MESH_ITEM}")
+    B, S = shape.global_batch, shape.seq_len
+    c_specs = cache_specs(cfg, B, S)
+    c_shard = None if mesh is None else cache_pspecs(c_specs, mesh, B)
+    if shape.kind == "prefill":
+        b_specs = batch_specs(cfg, shape)
+        b_specs.pop("labels", None)
+        fn = (make_prefill_step(cfg, shape) if mesh is None
+              else _prefill_on_mesh(cfg, shape, mesh))
+        if mesh is None:
+            return StepBundle(fn, (p_specs, b_specs), None, None)
+        b_shard = batch_shardings(cfg, shape, mesh)
+        b_shard.pop("labels", None)
+        return StepBundle(fn, (p_specs, b_specs), (p_shard, b_shard),
+                          (None, c_shard))
+
+    # decode: per-row positions, but a scalar for the encoder-decoder and
+    # the windowed long-context decode (its cache slice wants one start)
+    scalar = cfg.is_encoder_decoder or decode_window(cfg, shape) is not None
+    pos_spec = _meta(() if scalar else (B,), torch.int32)
+    args = (p_specs, c_specs, _meta((B, 1), torch.int32), pos_spec)
+    fn = (make_decode_step(cfg, shape) if mesh is None
+          else _decode_on_mesh(cfg, shape, mesh))
+    if mesh is None:
+        return StepBundle(fn, args, None, None)
+    pos_shard = () if scalar else SH.batch_pspec(mesh, 1, 0, B)
+    in_sh = (p_shard, c_shard, SH.batch_pspec(mesh, 2, 0, B), pos_shard)
+    return StepBundle(fn, args, in_sh, (None, c_shard))
+
+
+def _local_params(params, D):
+    """Each device's parameters for one step (``Sharded.local``)."""
+    flat = leaves(params)
+    return [unflatten(params, [x.local(d) for x in flat]) for d in range(D)]
+
+
+def _check_serving_batch(cfg, shape, mesh):
+    R = len(mesh.replicas)
+    if shape.global_batch % R:
+        raise NotImplementedError(
+            f"{cfg.name}: a batch of {shape.global_batch} rows over {R} "
+            f"replicas: {SH.CACHE_AXES_ITEM} is not ported")
+
+
+def _prefill_on_mesh(cfg, shape, mesh) -> Callable:
+    one = make_prefill_step(cfg, shape)
+    groups = [PL.Group(g) for g in mesh.replicas]
+
+    def prefill_step(params, batch):
+        if mesh.size == 1:
+            logits, caches = one(SH.device_views(params, 0), batch)
+            return logits, tree_map(lambda t: SH.Sharded([t]), caches)
+        _check_serving_batch(cfg, shape, mesh)
+        caches = SH.shard_cache(
+            cache_specs(cfg, shape.global_batch, shape.seq_len), mesh,
+            shape.global_batch)
+        with torch.no_grad():
+            logits = T.lm_prefill_mesh(
+                groups, _local_params(params, mesh.size), cfg,
+                SH.shard_batch(batch, mesh),
+                [SH.device_views(caches, d) for d in range(mesh.size)],
+                max_seq=shape.seq_len)
+        return logits, caches
+
+    return prefill_step
+
+
+def _decode_on_mesh(cfg, shape, mesh) -> Callable:
+    one = make_decode_step(cfg, shape)
+    window = decode_window(cfg, shape)
+    groups = [PL.Group(g) for g in mesh.replicas]
+    R, M = len(mesh.replicas), mesh.ranks
+
+    def serve_step(params, caches, token, pos):
+        if mesh.size == 1:
+            logits, new = one(SH.device_views(params, 0),
+                              SH.device_views(caches, 0), token, pos)
+            # a Mamba layer returns new state tensors: put them in place
+            for x, t in zip(leaves(caches), leaves(new)):
+                if t is not x.shards[0]:
+                    x.shards[0].copy_(t)
+            return logits, caches
+        _check_serving_batch(cfg, shape, mesh)
+        rows = SH.shard_batch({"tokens": token}, mesh)
+        if torch.is_tensor(pos) and pos.dim() == 1:
+            poss = [SH.batch_rows(pos, R, 1, d // M).to(dev)
+                    for d, dev in enumerate(mesh.devices)]
+        else:
+            poss = [int(pos)] * mesh.size
+        with torch.no_grad():
+            logits = T.lm_decode_step_mesh(
+                groups, _local_params(params, mesh.size), cfg,
+                [r["tokens"] for r in rows],
+                [SH.device_views(caches, d) for d in range(mesh.size)],
+                poss, max_seq=shape.seq_len, window=window)
+        return logits, caches
+
+    return serve_step

@@ -38,6 +38,12 @@ path: the einsum below ``BLOCKED_ATTN_THRESHOLD`` and
 :func:`blocked_attention` at or above it, as in the JAX package, whose
 own decode is an einsum too.  A differentiated call (the training loss)
 takes the plain path too: the kernel has no backward.
+
+:func:`attention_tp` is the tensor-parallel form over the ``model`` ranks
+of a :class:`repro_torch.models.parallel.Group`: without a cache the
+training loss's, with one (rank j's shard of a cache laid out by
+``models/sharding.py::cache_pspecs``) the serving mesh's prefill (B9 per
+rank where :func:`_flash_route` sends the call) and flash-decode step.
 """
 
 from __future__ import annotations
@@ -48,7 +54,7 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels._common import differentiated
 from repro_torch.models import layers as L
-from repro_torch.models.parallel import work
+from repro_torch.models.parallel import held, work
 
 NEG_INF = -1e30
 # sequence length at/above which the plain full-attention path switches
@@ -328,22 +334,13 @@ def attention(p, x, cfg, *, positions, causal=True, window=None,
     return out, cache
 
 
-def attention_tp(group, ps, xs, cfg, *, causal=True, window=None,
-                 memory=None):
-    """Attention over a group's ranks, without a cache (the training
-    loss): ``wq``/``wk``/``wv`` column-parallel, ``wo`` row-parallel.
-
-    Rank j computes the heads that its rows of ``wo`` read.  Where its
-    own columns of ``wq``/``wk``/``wv`` are whole heads (every family
-    whose heads split evenly), it projects and attends locally; where a
-    cut splits a head (gemma-2b's one KV head), the activation block is
-    gathered over the group before the head split.  ``q_norm``/``k_norm``,
-    RoPE, the softcap and the window apply per head, as in
-    :func:`attention`.  ``memory``: per-rank copies of the
-    cross-attention memory (K/V through ``wk``/``wv``; no RoPE, not
-    causal).  ``xs``: per-rank copies of the input (B, S, d); returns
-    per-rank copies of the output.
-    """
+def _project_tp(group, ps, xs, cfg, memory, positions):
+    """The ranks' projections for :func:`attention_tp`: (spans, heads,
+    kv_heads, q, k, v).  ``spans[j]`` is the span of ``wo``'s rows rank j
+    holds (None: no work), ``heads[j]``/``kv_heads[j]`` the q and KV
+    heads it computes, and q/k/v its (B, S, h, hd) tensors after the
+    qk-norm and, without ``memory``, RoPE at ``positions[j]`` (None:
+    ``0..S-1``)."""
     M, hd = group.size, cfg.head_dim
     per_kv = cfg.num_heads // cfg.num_kv_heads
     cdt = L.dtype_of(cfg.compute_dtype)
@@ -363,10 +360,12 @@ def attention_tp(group, ps, xs, cfg, *, causal=True, window=None,
                     cols(kv_heads))
     v = L.dense_col(group, [p["wv"] for p in ps], src, cfg.kv_dim,
                     cols(kv_heads))
-    outs = []
+    qs, ks, vs = [], [], []
     for j, p in enumerate(ps):
         if spans[j] is None:
-            outs.append(None)
+            qs.append(None)
+            ks.append(None)
+            vs.append(None)
             continue
         (h0, h1), (g0, g1) = heads[j], kv_heads[j]
         qj = _split_heads(q[j], h1 - h0, hd)
@@ -375,21 +374,227 @@ def attention_tp(group, ps, xs, cfg, *, causal=True, window=None,
         if "q_norm" in p:
             qj = L.rmsnorm(p["q_norm"], qj, cfg.norm_eps)
             kj = L.rmsnorm(p["k_norm"], kj, cfg.norm_eps)
+        if memory is None:
+            pos = (torch.arange(qj.shape[1], device=qj.device)
+                   if positions is None else positions[j])
+            qj = L.apply_rope(qj, pos, cfg.rope_theta)
+            kj = L.apply_rope(kj, pos, cfg.rope_theta)
+        qs.append(qj)
+        ks.append(kj)
+        vs.append(vj)
+    return spans, heads, kv_heads, qs, ks, vs
+
+
+def _local_kv(kj, vj, heads, kv_heads, per_kv):
+    """A rank's K/V for its q heads: as they are where the q heads take
+    whole KV groups, else one KV head per q head."""
+    (h0, h1), (g0, g1) = heads, kv_heads
+    if g1 - g0 == 1 or (h0 % per_kv == 0 and h1 % per_kv == 0):
+        return kj, vj
+    # the local q heads cut a KV group: one KV head per q head
+    idx = torch.arange(h0, h1, device=kj.device) // per_kv - g0
+    return kj[:, :, idx], vj[:, :, idx]
+
+
+def attention_tp(group, ps, xs, cfg, *, causal=True, window=None,
+                 memory=None, caches=None, cache_pos=None, max_seq=None):
+    """Attention over a group's ranks: ``wq``/``wk``/``wv``
+    column-parallel, ``wo`` row-parallel.
+
+    Rank j computes the heads that its rows of ``wo`` read.  Where its
+    own columns of ``wq``/``wk``/``wv`` are whole heads (every family
+    whose heads split evenly), it projects and attends locally; where a
+    cut splits a head (gemma-2b's one KV head), the activation block is
+    gathered over the group before the head split.  ``q_norm``/``k_norm``,
+    RoPE, the softcap and the window apply per head, as in
+    :func:`attention`.  ``memory``: per-rank copies of the
+    cross-attention memory (K/V through ``wk``/``wv``; no RoPE, not
+    causal).  ``xs``: per-rank copies of the input (B, S, d); returns
+    per-rank copies of the output.
+
+    Without ``caches`` this is the training loss's attention (positions
+    ``0..S-1``, the plain path).  With ``caches`` (rank j's shard of the
+    layer's KV cache, laid out by ``models/sharding.py::cache_pspecs`` over
+    a cache of ``max_seq`` rows) it is the serving form,
+    :func:`_attention_tp_cached`.
+    """
+    if caches is not None:
+        if memory is not None:
+            raise ValueError("the cached tensor-parallel attention is "
+                             "self-attention only")
+        return _attention_tp_cached(group, ps, xs, cfg, caches, cache_pos,
+                                    max_seq, window)
+    per_kv = cfg.num_heads // cfg.num_kv_heads
+    spans, heads, kv_heads, qs, ks, vs = _project_tp(group, ps, xs, cfg,
+                                                     memory, None)
+    outs = []
+    for j in range(group.size):
+        if spans[j] is None:
+            outs.append(None)
+            continue
+        qj = qs[j]
+        kj, vj = _local_kv(ks[j], vs[j], heads[j], kv_heads[j], per_kv)
         dev = qj.device
         positions = torch.arange(qj.shape[1], device=dev)
         if memory is None:
-            qj = L.apply_rope(qj, positions, cfg.rope_theta)
-            kj = L.apply_rope(kj, positions, cfg.rope_theta)
-            k_positions = positions
+            k_positions, c = positions, causal
         else:
-            k_positions = torch.arange(kj.shape[1], device=dev)
-            causal = False
-        if not (g1 - g0 == 1 or (h0 % per_kv == 0 and h1 % per_kv == 0)):
-            # the local q heads cut a KV group: one KV head per q head
-            idx = torch.arange(h0, h1, device=dev) // per_kv - g0
-            kj, vj = kj[:, :, idx], vj[:, :, idx]
-        out = _attend(qj, kj, vj, cfg, positions, k_positions, causal, window)
+            k_positions, c = torch.arange(kj.shape[1], device=dev), False
+        out = _attend(qj, kj, vj, cfg, positions, k_positions, c, window)
         out = out.reshape(*out.shape[:2], -1)
-        outs.append(out.narrow(-1, spans[j][0] - h0 * hd,
+        outs.append(out.narrow(-1, spans[j][0] - heads[j][0] * cfg.head_dim,
                                spans[j][1] - spans[j][0]))
     return L.dense_row(group, [p["wo"] for p in ps], outs)
+
+
+def cache_regions(group, caches, cfg, max_seq):
+    """Each rank's cache shard as (held, region): ``held`` the (rows,
+    heads) spans its shard holds, ``region`` the (rows, heads) spans it
+    computes a decode step's partial softmax over, or None.  The regions
+    tile the cache once: its rows where the sequence is cut, its heads
+    where the KV heads are, and the whole cache on rank 0 alone where
+    neither is."""
+    M, K = group.size, cfg.num_kv_heads
+    out = []
+    for j, c in enumerate(caches):
+        rows = held(j, M, c["k"].shape[1], max_seq)
+        hs = held(j, M, c["k"].shape[2], K)
+        if rows != (0, max_seq):
+            region = (rows, (0, K))
+        elif hs != (0, K):
+            region = ((0, max_seq), hs)
+        else:
+            region = ((0, max_seq), (0, K)) if j == 0 else None
+        out.append(((rows, hs), region))
+    return out
+
+
+def _attention_tp_cached(group, ps, xs, cfg, caches, cache_pos, max_seq,
+                         window):
+    """The serving form of :func:`attention_tp`, over a KV cache of
+    ``max_seq`` rows cut as ``models/sharding.py::cache_pspecs`` cuts it:
+    its sequence over the ranks (or, where ``model`` does not divide it,
+    its KV heads; or whole on every rank).  ``caches[j]`` is rank j's
+    shard {k, v: (B, S_j, K_j, hd)}, written in place.
+
+    A prompt (S > 1, ``cache_pos`` 0): each rank attends its own heads
+    over the prompt, through the flash-attention kernel where
+    :func:`_flash_route` sends the call (the route of :func:`attention`
+    with a cache), then the prompt's K/V move to the ranks whose slices
+    hold them (``Group.heads_to_seq``).  A decode step (S = 1,
+    ``cache_pos`` an int or a (B,) tensor per rank): the step's q and
+    K/V are gathered over the group, each rank writes the K/V only where
+    a row's position falls in its slice, computes the partial softmax of
+    every head over its own cache region in f32 (plain PyTorch, as the
+    one-device decode), and the partials are combined in rank order
+    (``Group.lse_combine``).  Each rank keeps its own heads for the
+    row-parallel ``wo``."""
+    M, hd, K, H = group.size, cfg.head_dim, cfg.num_kv_heads, cfg.num_heads
+    per_kv = H // K
+    S = xs[0].shape[1]
+    regions = cache_regions(group, caches, cfg, max_seq)
+    if S > 1:
+        if any(not isinstance(c, int) or c != 0 for c in cache_pos):
+            raise ValueError("a tensor-parallel prefill writes the cache "
+                             "from position 0")
+        spans, heads, kv_heads, qs, ks, vs = _project_tp(group, ps, xs, cfg,
+                                                         None, None)
+        outs = []
+        for j in range(M):
+            if spans[j] is None:
+                outs.append(None)
+                continue
+            qj = qs[j]
+            kj, vj = _local_kv(ks[j], vs[j], heads[j], kv_heads[j], per_kv)
+            positions = torch.arange(S, device=qj.device)
+            if _flash_route(S, cfg, positions, None, None, True,
+                            inputs=(qj, kj, vj)):
+                # per-rank slices of a fused projection: the bf16 body
+                # wants 8-element strides, so lay them out afresh
+                out = ops.flash_attention(qj.contiguous(), kj.contiguous(),
+                                          vj.contiguous(), causal=True,
+                                          window=window)
+            else:
+                out = _attend(qj, kj, vj, cfg, positions, positions, True,
+                              window)
+            out = out.reshape(*out.shape[:2], -1)
+            outs.append(out.narrow(-1, spans[j][0] - heads[j][0] * hd,
+                                   spans[j][1] - spans[j][0]))
+        # each shard's rows of the prompt (from its first row: the
+        # prompt starts at 0) and its heads
+        rows = [(r[0], min(r[1], S)) for (r, _), _ in regions]
+        hs = [h for (_, h), _ in regions]
+        for key, new in (("k", ks), ("v", vs)):
+            blocks = group.heads_to_seq(new, kv_heads, rows, hs)
+            for c, blk in zip(caches, blocks):
+                if blk is not None:
+                    c[key][:, :blk.shape[1]] = blk.to(c[key].dtype)
+        return L.dense_row(group, [p["wo"] for p in ps], outs)
+
+    # -- one decode step: flash-decode over the cache's slices ------------
+    poss = [_row_positions(c, x) for c, x in zip(cache_pos, xs)]
+    spans, heads, kv_heads, qs, ks, vs = _project_tp(
+        group, ps, xs, cfg, None, [p[:, None] for p in poss])
+    q = group.redistribute(qs, heads, [(0, H)] * M, dim=2)
+    k = group.redistribute(ks, kv_heads, [(0, K)] * M, dim=2)
+    v = group.redistribute(vs, kv_heads, [(0, K)] * M, dim=2)
+    ms, ls, os = [], [], []
+    for j, (((r0, r1), (k0, k1)), region) in enumerate(regions):
+        c, pos = caches[j], poss[j]
+        B = pos.shape[0]
+        rows = torch.arange(B, device=pos.device)
+        inside = (pos >= r0) & (pos < r1)
+        at = torch.clamp(pos - r0, 0, r1 - r0 - 1)
+        for key, new in (("k", k[j]), ("v", v[j])):
+            cur = c[key][rows, at]
+            c[key][rows, at] = torch.where(
+                inside[:, None, None], new[:, 0, k0:k1].to(c[key].dtype),
+                cur)
+        if region is None:
+            ms.append(None)
+            ls.append(None)
+            os.append(None)
+            continue
+        (t0, t1), (g0, g1) = region
+        kj = c["k"][:, t0 - r0:t1 - r0, g0 - k0:g1 - k0]
+        vj = c["v"][:, t0 - r0:t1 - r0, g0 - k0:g1 - k0]
+        qj = q[j][:, 0, g0 * per_kv:g1 * per_kv].reshape(B, g1 - g0, per_kv,
+                                                         hd)
+        s = torch.einsum("bkgd,btkd->bkgt", qj.float(),
+                         kj.float()) / np.sqrt(hd)
+        if cfg.logit_softcap:
+            s = torch.tanh(s / cfg.logit_softcap) * cfg.logit_softcap
+        t = torch.arange(t0, t1, device=pos.device)
+        valid = t[None] <= pos[:, None]
+        if window is not None:
+            valid &= t[None] > pos[:, None] - window
+        s = torch.where(valid[:, None, None], s,
+                        torch.full_like(s, -float("inf")))
+        m = s.amax(-1)
+        p_ = torch.exp(s - torch.where(torch.isneginf(m), 0.0, m)[..., None])
+        o = torch.einsum("bkgt,btkd->bkgd", p_, vj.float())
+        m_all = torch.full((B, H), -float("inf"), device=pos.device)
+        l_all = torch.zeros((B, H), device=pos.device)
+        o_all = torch.zeros((B, H, hd), device=pos.device)
+        sl = slice(g0 * per_kv, g1 * per_kv)
+        m_all[:, sl] = m.reshape(B, -1)
+        l_all[:, sl] = p_.sum(-1).reshape(B, -1)
+        o_all[:, sl] = o.reshape(B, -1, hd)
+        ms.append(m_all)
+        ls.append(l_all)
+        os.append(o_all)
+    att = group.lse_combine(ms, ls, os)
+    cdt = L.dtype_of(cfg.compute_dtype)
+    outs = [None if sp is None else
+            a.to(cdt).reshape(a.shape[0], 1, H * hd).narrow(
+                -1, sp[0], sp[1] - sp[0])
+            for a, sp in zip(att, spans)]
+    return L.dense_row(group, [p["wo"] for p in ps], outs)
+
+
+def _row_positions(cache_pos, x):
+    """A decode step's positions as a (B,) tensor on ``x``'s device."""
+    if torch.is_tensor(cache_pos) and cache_pos.dim() == 1:
+        return cache_pos.to(x.device)
+    return torch.full((x.shape[0],), int(cache_pos), dtype=torch.long,
+                      device=x.device)

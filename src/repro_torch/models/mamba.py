@@ -16,8 +16,10 @@ plain PyTorch: the split ``kernels/ssd_pallas.py`` prescribes.  With it
 off, or on a differentiated call (the training loss: the kernel has no
 backward), every chunk runs the JAX package's plain step.
 
-:func:`mamba_apply_tp` is the training mixer over the ``model`` ranks of
-a :class:`repro_torch.models.parallel.Group`.
+:func:`mamba_apply_tp` is the mixer over the ``model`` ranks of a
+:class:`repro_torch.models.parallel.Group`: the training loss's, and,
+with a cache sharded over the ranks, the serving mesh's prompt (B10 per
+rank) and one-token step.
 """
 
 from __future__ import annotations
@@ -182,6 +184,40 @@ def _ssd_chunked(xh, dt, A, Bm, Cm, cfg, h0):
     return y, h.reshape(b, H, P, N)
 
 
+def _conv_continue(tail, xbc, w, b):
+    """The causal conv of a prompt ``xbc`` (B, S, ch) that continues a
+    cached tail (B, W-1, ch) of earlier inputs: the prompt's outputs,
+    after SiLU."""
+    out = _causal_conv(torch.cat([tail, xbc], dim=1), w, b)
+    return F.silu(out)[:, tail.shape[1]:]
+
+
+def _conv_step(tail, xbc, w, b, cdt):
+    """One token's conv (B, ch), after SiLU: the tail (B, W-1, ch) and
+    the token's inputs ``xbc`` (B, 1, ch) against ``w`` (W, ch)."""
+    window = torch.cat([tail, xbc], dim=1)
+    return F.silu(torch.einsum("bwc,wc->bc", window, w.to(cdt)) + b.to(cdt))
+
+
+def _roll_tail(tail, xbc, width: int):
+    """The conv tail after inputs ``xbc`` (B, S, ch): the last W-1 of the
+    tail's and their inputs."""
+    keep, S = width - 1, xbc.shape[1]
+    return xbc[:, -keep:] if S >= keep else torch.cat([tail[:, S:], xbc],
+                                                      dim=1)
+
+
+def _recurrent_step(h, xh, dt, A, Bh, Ch):
+    """One token of the SSM recurrence over heads: state h (B, H, P, N)
+    f32, xh (B, H, P), dt (B, H) post-softplus, A (H,), Bh/Ch (B, H, N)
+    -> (y (B, H, P) f32, the new state)."""
+    decay = torch.exp(dt * A)                                  # (B,H)
+    upd = (dt[..., None] * xh).float()                         # (B,H,P)
+    h = h * decay[..., None, None] + upd[..., None] * Bh[:, :, None,
+                                                         :].float()
+    return torch.einsum("bhpn,bhn->bhp", h, Ch.float()), h
+
+
 def mamba_apply(p, x, cfg, *, cache=None):
     """Mamba2 mixer.  x: (B,S,d) -> (out, new_cache)."""
     s = cfg.ssm
@@ -199,10 +235,8 @@ def mamba_apply(p, x, cfg, *, cache=None):
     if cache is None or S > 1:
         if cache is not None:
             # continuation: the causal conv needs the previous W-1 inputs
-            tail = cache["conv"].to(xbc_pre.dtype)
-            xbc_in = torch.cat([tail, xbc_pre], dim=1)
-            xbc = F.silu(_causal_conv(xbc_in, p["conv_w"],
-                                      p["conv_b"]))[:, tail.shape[1]:]
+            xbc = _conv_continue(cache["conv"].to(xbc_pre.dtype), xbc_pre,
+                                 p["conv_w"], p["conv_b"])
         else:
             xbc = F.silu(_causal_conv(xbc_pre, p["conv_w"], p["conv_b"]))
         xh = xbc[..., :di].reshape(B_, S, H, P)
@@ -215,31 +249,24 @@ def mamba_apply(p, x, cfg, *, cache=None):
         y, h_fin = _ssd_chunked(xh, dt, A, Bm, Cm, cfg, h0)
         new_cache = None
         if cache is not None:
-            tail = s.conv_width - 1
-            conv_tail = xbc_pre[:, -tail:] if S >= tail else torch.cat(
-                [cache["conv"][:, S:], xbc_pre], dim=1)
+            conv_tail = _roll_tail(cache["conv"], xbc_pre, s.conv_width)
             new_cache = {"conv": conv_tail.to(cache["conv"].dtype),
                          "ssm": h_fin}
         xh_full = xh
     else:
         # -- single-token recurrent decode --------------------------------
-        window = torch.cat([cache["conv"].to(cdt), xbc_pre], dim=1)  # (B,W,ch)
-        xbc = torch.einsum("bwc,wc->bc", window, p["conv_w"].to(cdt))
-        xbc = F.silu(xbc + p["conv_b"].to(cdt))
+        tail = cache["conv"].to(cdt)
+        xbc = _conv_step(tail, xbc_pre, p["conv_w"], p["conv_b"], cdt)
         xh = xbc[:, :di].reshape(B_, H, P)
         Bm = xbc[:, di: di + G * N].reshape(B_, G, N)
         Cm = xbc[:, di + G * N:].reshape(B_, G, N)
         dt = F.softplus(dt_raw[:, 0].float() + p["dt_bias"])  # (B,H)
-        h = cache["ssm"]                                       # (B,H,P,N)
-        decay = torch.exp(dt * A)                              # (B,H)
         Bh = torch.repeat_interleave(Bm, H // G, dim=1)        # (B,H,N)
         Ch = torch.repeat_interleave(Cm, H // G, dim=1)
-        upd = (dt[..., None] * xh).float()                     # (B,H,P)
-        h = h * decay[..., None, None] + upd[..., None] * Bh[:, :, None,
-                                                             :].float()
-        y = torch.einsum("bhpn,bhn->bhp", h, Ch.float()).reshape(B_, 1, H, P)
-        new_cache = {"conv": window[:, 1:].to(cache["conv"].dtype),
-                     "ssm": h}
+        y, h = _recurrent_step(cache["ssm"], xh, dt, A, Bh, Ch)
+        y = y.reshape(B_, 1, H, P)
+        new_cache = {"conv": _roll_tail(tail, xbc_pre, s.conv_width).to(
+            cache["conv"].dtype), "ssm": h}
         xh_full = xh.reshape(B_, 1, H, P)
 
     y = y + p["D"][None, None, :, None] * xh_full.to(y.dtype)
@@ -248,10 +275,9 @@ def mamba_apply(p, x, cfg, *, cache=None):
     return L.dense(p["out_proj"], y), new_cache
 
 
-def mamba_apply_tp(group, ps, xs, cfg):
-    """The Mamba-2 mixer over a group's ranks, without a cache (the
-    training loss): ``in_proj`` column-parallel, ``out_proj``
-    row-parallel over d_inner.
+def mamba_apply_tp(group, ps, xs, cfg, *, caches=None):
+    """The Mamba-2 mixer over a group's ranks: ``in_proj``
+    column-parallel, ``out_proj`` row-parallel over d_inner.
 
     Rank j computes the heads that its rows of ``out_proj`` read.  The
     cut of ``in_proj`` crosses the z | xBC | dt boundaries, so its
@@ -260,6 +286,16 @@ def mamba_apply_tp(group, ps, xs, cfg):
     their gradients go back to their shards.  ``gated_norm``'s RMS runs
     over all of d_inner: the ranks' sums of squares are summed over the
     group.  Per-rank copies of the input (B, S, d) and of the output.
+
+    ``caches``: rank j's shard of the layer's cache, laid out by
+    ``models/sharding.py::cache_pspecs`` (``ssm`` (B, H_j, P, N) cut by
+    heads, ``conv`` (B, W-1, ch_j) cut contiguously over the channels
+    x | B | C, or whole), as :func:`mamba_apply`'s cache path: a prompt
+    (S > 1) runs the chunked SSD (the kernel, per rank, where
+    :func:`_ssd_chunked` takes it) from the cached state, a token the
+    recurrence.  Each rank reads the conv tail whole (B x (W-1) x ch is
+    small) and its heads' states, and writes back the slices its shards
+    hold, in place.
     """
     s = cfg.ssm
     di, H, P = s.d_inner(cfg.d_model), s.num_heads(cfg.d_model), s.head_dim
@@ -281,41 +317,93 @@ def mamba_apply_tp(group, ps, xs, cfg):
 
     conv_w, conv_b = whole("conv_w", conv_ch, 1), whole("conv_b", conv_ch)
     A_log, D, dt_bias = whole("A_log", H), whole("D", H), whole("dt_bias", H)
-    ys, sums = [], []
+    hspans = [sp and (sp[0] // P, -(-sp[1] // P)) for sp in spans]
+    if caches is not None:
+        conv_have = [held(j, M, c["conv"].shape[2], conv_ch)
+                     for j, c in enumerate(caches)]
+        ssm_have = [held(j, M, c["ssm"].shape[1], H)
+                    for j, c in enumerate(caches)]
+        tails = group.redistribute([c["conv"] for c in caches], conv_have,
+                                   [sp and (0, conv_ch) for sp in spans])
+        states = group.redistribute([c["ssm"] for c in caches], ssm_have,
+                                    hspans, dim=1)
+    ys, sums, new_tails, new_states = [], [], [], []
     for j, sp in enumerate(spans):
         if sp is None:
-            ys.append(None)
-            sums.append(None)
+            for out in (ys, sums, new_tails, new_states):
+                out.append(None)
             continue
         zx = zxbcdt[j]
         B_, S = zx.shape[:2]
-        h0, h1 = sp[0] // P, -(-sp[1] // P)
+        h0, h1 = hspans[j]
         nh, c0, c1 = h1 - h0, h0 * P, h1 * P
-        xbc = torch.cat([zx[..., di + c0: di + c1],
-                         zx[..., 2 * di: 2 * di + 2 * gn]], dim=-1)
         w = torch.cat([conv_w[j][:, c0:c1], conv_w[j][:, di:]], dim=1)
         b = torch.cat([conv_b[j][c0:c1], conv_b[j][di:]])
-        xbc = F.silu(_causal_conv(xbc, w, b))
-        xh = xbc[..., :nh * P].reshape(B_, S, nh, P)
-        Bm = xbc[..., nh * P: nh * P + gn].reshape(B_, S, s.num_groups,
-                                                   s.d_state)
-        Cm = xbc[..., nh * P + gn:].reshape(B_, S, s.num_groups, s.d_state)
+        pre = zx[..., di: 2 * di + 2 * gn]
+        xbc = torch.cat([pre[..., c0:c1], pre[..., di:]], dim=-1)
         g0, g1 = h0 // R, (h1 - 1) // R + 1
         if g1 - g0 == 1 or (h0 % R == 0 and h1 % R == 0):
-            Bm, Cm = Bm[:, :, g0:g1], Cm[:, :, g0:g1]
+            gidx = None
+            ng = g1 - g0
         else:
             # the local heads cut a group: one group per head
-            idx = torch.arange(h0, h1, device=zx.device) // R
-            Bm, Cm = Bm[:, :, idx], Cm[:, :, idx]
+            gidx = torch.arange(h0, h1, device=zx.device) // R
+            ng = nh
         dt = F.softplus(zx[..., 2 * di + 2 * gn + h0: 2 * di + 2 * gn + h1]
                         .float() + dt_bias[j][h0:h1])
-        y, _ = _ssd_chunked(xh, dt, -torch.exp(A_log[j][h0:h1]), Bm, Cm,
-                            cfg, None)
+        A = -torch.exp(A_log[j][h0:h1])
+        h_in = None
+        if caches is not None:
+            tail = tails[j].to(cdt)
+            tail_loc = torch.cat([tail[..., c0:c1], tail[..., di:]], dim=-1)
+            h_in = states[j]
+        if caches is not None and S == 1:
+            # -- the single-token recurrence --------------------------------
+            u = _conv_step(tail_loc, xbc, w, b, cdt)          # (B,ch_j)
+            xh = u[:, :nh * P].reshape(B_, nh, P)
+            Bm = u[:, nh * P: nh * P + gn].reshape(B_, s.num_groups,
+                                                   s.d_state)
+            Cm = u[:, nh * P + gn:].reshape(B_, s.num_groups, s.d_state)
+            Bh = Bm[:, torch.arange(h0, h1, device=zx.device) // R]
+            Ch = Cm[:, torch.arange(h0, h1, device=zx.device) // R]
+            y, h = _recurrent_step(h_in, xh, dt[:, 0], A, Bh, Ch)
+            y = y.reshape(B_, 1, nh, P)
+            xh = xh.reshape(B_, 1, nh, P)
+            new_tails.append(_roll_tail(tail, pre, s.conv_width))
+            new_states.append(h)
+        else:
+            if caches is not None:
+                u = _conv_continue(tail_loc, xbc, w, b)
+            else:
+                u = F.silu(_causal_conv(xbc, w, b))
+            xh = u[..., :nh * P].reshape(B_, S, nh, P)
+            Bm = u[..., nh * P: nh * P + gn].reshape(B_, S, s.num_groups,
+                                                     s.d_state)
+            Cm = u[..., nh * P + gn:].reshape(B_, S, s.num_groups,
+                                              s.d_state)
+            if gidx is None:
+                Bm, Cm = Bm[:, :, g0:g1], Cm[:, :, g0:g1]
+            else:
+                Bm, Cm = Bm[:, :, gidx], Cm[:, :, gidx]
+            h0_ = None if h_in is None else h_in.reshape(
+                B_, ng, nh // ng, P, s.d_state)
+            y, h_fin = _ssd_chunked(xh, dt, A, Bm, Cm, cfg, h0_)
+            if caches is not None:
+                new_tails.append(_roll_tail(tail, pre, s.conv_width))
+                new_states.append(h_fin)
         y = y + D[j][h0:h1][None, None, :, None] * xh.to(y.dtype)
         y = y.reshape(B_, S, nh * P).to(cdt) * F.silu(zx[..., c0:c1])
         y = y.narrow(-1, sp[0] - c0, sp[1] - sp[0]).float()
         ys.append(y)
         sums.append((y * y).sum(-1, keepdim=True))
+    if caches is not None:
+        # each rank's shard takes its slice of the new tail and states
+        conv_new = group.redistribute(
+            new_tails, [sp and (0, conv_ch) for sp in spans], conv_have)
+        ssm_new = group.redistribute(new_states, hspans, ssm_have, dim=1)
+        for c, t, h in zip(caches, conv_new, ssm_new):
+            c["conv"].copy_(t)
+            c["ssm"].copy_(h)
     var = group.all_reduce(sums)
     hs = [None if y is None else
           (y * torch.rsqrt(v / di + cfg.norm_eps)

@@ -16,7 +16,11 @@ too: a run is deterministic and needs no float atomics and no
 tests run ``("cpu",) * M``).  :func:`reduce_to` and :func:`broadcast_to`
 are the same two moves between any devices of a mesh: the MoE layer's
 expert-parallel exchange over the data axis is built of them
-(``models/moe.py::moe_apply_mesh``).
+(``models/moe.py::moe_apply_mesh``).  Serving adds two more:
+:meth:`Group.heads_to_seq` moves a prompt's K/V from the ranks that
+projected their heads to the ranks whose slices of the cache's sequence
+hold them, and :meth:`Group.lse_combine` combines the ranks' partial
+softmaxes of a decode step (flash-decode) in rank order.
 
 A dimension is held in column spans ``(lo, hi)``: a leaf cut over
 ``model`` holds block j on rank j (:func:`held`); a leaf whose cut the
@@ -199,3 +203,44 @@ class Group:
         outs = iter(_Redistribute.apply(plan, list(have), dim,
                                         self.devices, *srcs))
         return [next(outs) if pieces else None for pieces in plan]
+
+    def heads_to_seq(self, xs: Sequence, have: Sequence[Span],
+                     seq: Sequence[Span], heads: Sequence[Span]) -> list:
+        """Rank j's block of a (B, S, K, dh) tensor held split by heads:
+        rows ``seq[j]`` of the sequence and heads ``heads[j]``, where rank
+        k holds heads ``have[k]`` of every row in ``xs[k]``.  A pure copy,
+        the pieces taken in rank order (a rank's own first); ``None``
+        where ``seq[j]`` or ``heads[j]`` is None or the rows are empty.
+        The serving prefill moves a prompt's K/V this way from the ranks
+        that projected them to the ranks whose cache slices hold them."""
+        out = []
+        for j, (rows, want) in enumerate(zip(seq, heads)):
+            if rows is None or want is None or rows[0] >= rows[1]:
+                out.append(None)
+                continue
+            parts = [None if x is None else x.narrow(1, rows[0],
+                                                     rows[1] - rows[0])
+                     for x in xs]
+            wants: List[Span] = [None] * self.size
+            wants[j] = want
+            out.append(self.redistribute(parts, have, wants, dim=2)[j])
+        return out
+
+    def lse_combine(self, ms: Sequence, ls: Sequence, os: Sequence) -> list:
+        """The ranks' partial softmaxes combined in rank order: rank j
+        gives, over its own keys, the running max ``ms[j]`` (-inf where
+        it saw no key), the sum ``ls[j]`` of ``exp(s - max)`` and the
+        unnormalized output ``os[j]`` (one more trailing dimension), or
+        ``None`` throughout.  Returns Σ w_j o_j / Σ w_j l_j with w_j =
+        exp(m_j - max_k m_k), a weight that is exactly 0 for a rank that
+        saw no key, copied to every rank; not differentiated."""
+        with torch.no_grad():
+            top = self.all_max(ms)
+            ws = [None if m is None else torch.where(
+                torch.isneginf(m), torch.zeros_like(m), torch.exp(m - t))
+                for m, t in zip(ms, top)]
+            den = self.reduce([None if w is None else w * lj
+                               for w, lj in zip(ws, ls)])
+            num = self.reduce([None if w is None else w[..., None] * oj
+                               for w, oj in zip(ws, os)])
+            return self.broadcast(num / den[..., None])

@@ -39,6 +39,11 @@ layer's expert leaves (``experts/gate``, ``up``, ``down``) are the
 exception: expert parallelism cuts them over the data axes, and a
 device computes with its own chunk of experts, never gathered (the
 rows travel to their experts instead, ``models/moe.py``).
+:func:`cache_pspecs` is the JAX package's cache rule (there in
+``launch/steps.py``; the port's ``launch/steps.py`` imports it from
+here);
+:func:`shard_cache` places a decode cache as it lays it out, and
+:func:`gather_cache` brings it back.
 ``use_mesh``, ``constrain`` and ``constrain_batch`` are GSPMD hints
 inside a jitted function; eager PyTorch has no counterpart, so they are
 not ported, nor is ``params_shardings`` (JAX ``NamedSharding``
@@ -161,10 +166,12 @@ def _spec_for(path: str, ndim: int, shape, mesh) -> tuple:
     return ()
 
 
-def params_pspecs(params, mesh):
+def params_pspecs(params, mesh, path: str = ""):
     """Spec tree mirroring ``params`` (tensors, or anything with ``shape``
     and ``ndim``).  A leaf under a list is one layer of a stack: its spec
-    is the JAX spec of the stacked leaf without the leading entry."""
+    is the JAX spec of the stacked leaf without the leading entry.
+    ``path``: where ``params`` sits in a whole tree (``layers/3``: an
+    entry of the layer list, so a stack), for a part of one."""
 
     def walk(node, path, stacked):
         if isinstance(node, dict):
@@ -178,7 +185,12 @@ def params_pspecs(params, mesh):
         spec = _spec_for(path, node.ndim + 1, (1, *node.shape), mesh)
         return spec[1:]
 
-    return walk(params, "", False)
+    return walk(params, path, _in_list(path))
+
+
+def _in_list(path: str) -> bool:
+    """Whether ``path`` passes through a list entry (a numeric part)."""
+    return any(part.isdigit() for part in path.split("/"))
 
 
 def _entry(axes: tuple):
@@ -209,6 +221,62 @@ def kv_cache_pspec(mesh, *, batch: int, ndim: int, batch_dim: int,
     else:
         spec[seq_dim] = "data" if "data" in mesh.axis_names else None
     return tuple(spec)
+
+
+# the cache leaves whose sequence a KV (or MLA latent) cache cuts
+_CACHE_SEQ = ("k", "v", "ckv", "krope")
+
+
+def cache_pspecs(cache, mesh, batch: int):
+    """The JAX package's cache sharding rule, a spec per leaf (the JAX
+    spec of the stacked leaf without its stack entry): the batch over
+    the data axes when they divide it; a KV (or MLA latent) cache's
+    sequence over ``model`` (flash-decode's partial softmaxes), or, for
+    a batch the data axes do not divide, over every axis it divides
+    (else ``data``); a KV cache whose sequence is not cut has its KV
+    heads over ``model`` where they divide; an SSM state's heads and a
+    conv tail's channels over ``model``."""
+    daxes = data_axes(mesh)
+    dsize = math.prod(mesh.shape[a] for a in daxes)
+    msize = mesh.shape.get("model", 1)
+
+    def spec_for(name, leaf):
+        spec = [None] * leaf.ndim
+        batch_ok = batch % dsize == 0
+        if batch_ok:
+            spec[0] = _entry(daxes)
+        if name in _CACHE_SEQ:
+            seq = leaf.shape[1]
+            if batch_ok:
+                if seq % msize == 0:
+                    spec[1] = "model"
+            else:
+                # batch=1 long context: the sequence over every axis
+                full = (*daxes, "model")
+                if seq % math.prod(mesh.shape[a] for a in full) == 0:
+                    spec[1] = full
+                elif "data" in mesh.axis_names and \
+                        seq % mesh.shape["data"] == 0:
+                    spec[1] = "data"
+            if name in ("k", "v") and spec[1] is None \
+                    and leaf.shape[2] % msize == 0:
+                spec[2] = "model"
+        elif name == "ssm":
+            if leaf.shape[1] % msize == 0:
+                spec[1] = "model"
+        elif name == "conv":
+            if leaf.shape[2] % msize == 0:
+                spec[2] = "model"
+        return tuple(spec)
+
+    def walk(node, name):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)([walk(v, str(i)) for i, v in enumerate(node)])
+        return spec_for(name, node)
+
+    return walk(cache, "")
 
 
 # ---------------------------------------------------------------------------
@@ -350,7 +418,7 @@ def _placement(spec: tuple, mesh, expert: bool = False) -> tuple:
     return dim, parts, mdim, mparts, ranks, expert
 
 
-def shard_params(tree, mesh):
+def shard_params(tree, mesh, path: str = ""):
     """``tree`` placed on ``mesh``'s devices by :func:`params_pspecs`.
 
     Each leaf becomes a :class:`Sharded`, cut along the dimension its
@@ -359,14 +427,25 @@ def shard_params(tree, mesh):
     (or whose cut the divisibility check dropped) gets whole copies.
     The shards are fresh tensors (the caller's leaves are not aliased),
     so a mesh may repeat a device.  An MoE layer's expert leaves are
-    marked ``expert`` (:meth:`Sharded.local`).
+    marked ``expert`` (:meth:`Sharded.local`).  ``path``: where
+    ``tree`` sits in a whole parameter tree, for a part of one
+    (:func:`placer`).
     """
-    specs = _spec_leaves(params_pspecs(tree, mesh))
+    specs = _spec_leaves(params_pspecs(tree, mesh, path))
     return unflatten(tree, [
         _split(x, _placement(spec, mesh, bool(re.search(_EXPERT_LEAF,
-                                                        path))),
+                                                        at))),
                mesh.devices)
-        for x, spec, path in zip(leaves(tree), specs, _leaf_paths(tree))])
+        for x, spec, at in zip(leaves(tree), specs,
+                               _leaf_paths(tree, path))])
+
+
+def placer(mesh):
+    """``transformer.init_lm``'s ``place`` for ``mesh``: each part of the
+    tree cut by :func:`shard_params` at its path as soon as it is drawn
+    (the whole part is then freed), so no device holds more than its
+    shards and one part."""
+    return lambda path, part: shard_params(part, mesh, path)
 
 
 def gather_params(sharded, device):
@@ -376,8 +455,8 @@ def gather_params(sharded, device):
                     else x.to(device), sharded)
 
 
-def _leaf_paths(tree) -> list:
-    """The ``/``-joined path of each leaf of ``tree``, in
+def _leaf_paths(tree, root: str = "") -> list:
+    """The ``/``-joined path of each leaf of ``tree`` (under ``root``), in
     :func:`repro_torch.tree.leaves` order."""
     out = []
 
@@ -391,7 +470,7 @@ def _leaf_paths(tree) -> list:
         elif node is not None:
             out.append(path)
 
-    walk(tree, "")
+    walk(tree, f"/{root}" if root else "")
     return out
 
 
@@ -440,3 +519,71 @@ def shard_batch(batch: dict, mesh, microbatches: int = 1) -> list:
     R, M = len(mesh.replicas), mesh.ranks
     return [{k: batch_rows(v, R, microbatches, d // M).to(dev)
              for k, v in batch.items()} for d, dev in enumerate(mesh.devices)]
+
+
+# ---------------------------------------------------------------------------
+# Placement of decode caches
+# ---------------------------------------------------------------------------
+
+# the cache layouts the port does not place, as ROADMAP names them
+CACHE_AXES_ITEM = ("a cache dimension cut over more than one mesh axis "
+                   "(ROADMAP §A2c: the batch-1 long_500k layout)")
+
+
+def _cache_layout(spec: tuple, mesh, path: str) -> tuple:
+    """A cache spec's layout on ``mesh`` (as :func:`_placement`); raises
+    for a dimension put on ``model`` and a data axis at once (the data
+    axes together, ``(pod, data)``, are one cut)."""
+    for ax in spec:
+        if isinstance(ax, tuple) and "model" in ax and len(ax) > 1 and \
+                math.prod(mesh.shape[a] for a in ax) > 1:
+            raise ValueError(f"cache leaf {path}: spec {spec} puts one "
+                             f"dimension on {ax}; {CACHE_AXES_ITEM} is not "
+                             f"ported")
+    return _placement(spec, mesh)
+
+
+def _cache_placements(caches, mesh, batch: int) -> list:
+    specs = _spec_leaves(cache_pspecs(caches, mesh, batch))
+    return [_cache_layout(spec, mesh, path)
+            for spec, path in zip(specs, _leaf_paths(caches))]
+
+
+def shard_cache(caches, mesh, batch: int):
+    """``caches`` (a decode cache tree of whole leaves, any device)
+    placed on ``mesh`` as :func:`cache_pspecs` lays it out
+    for ``batch`` rows: each leaf a :class:`Sharded` cut along the
+    dimension its spec puts on the data axes (the batch) and the one it
+    puts on ``model`` (a KV cache's sequence, else its KV heads; an SSM
+    state's heads; a conv tail's channels), copied whole over an axis
+    its spec leaves out.  A leaf on the ``meta`` device gives zeroed
+    shards, made on their devices.  Raises ``ValueError`` for a spec
+    that puts one dimension on two axes (:data:`CACHE_AXES_ITEM`)."""
+    out = []
+    for x, layout in zip(leaves(caches),
+                         _cache_placements(caches, mesh, batch)):
+        if x.device.type != "meta":
+            out.append(_split(x, layout, mesh.devices))
+            continue
+        dim, parts, mdim, mparts = layout[:4]
+        shape = list(x.shape)
+        if dim is not None:
+            shape[dim] //= parts
+        if mdim is not None:
+            shape[mdim] //= mparts
+        out.append(Sharded([torch.zeros(shape, dtype=x.dtype, device=dev)
+                            for dev in mesh.devices], *layout))
+    return unflatten(caches, out)
+
+
+def gather_cache(sharded, device):
+    """The whole decode cache on ``device`` from :func:`shard_cache`'s
+    tree."""
+    return gather_params(sharded, device)
+
+
+def device_views(tree, d: int):
+    """Device d's shards of a tree of :class:`Sharded` leaves, as a tree
+    of plain tensors (a view of the same storage: an in-place write
+    lands in the shard)."""
+    return tree_map(lambda x: x.shards[d], tree)

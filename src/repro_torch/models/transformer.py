@@ -41,7 +41,9 @@ the loss over every replica of a data x model mesh at once, layer by
 layer, because an MoE layer routes the whole microbatch's tokens
 (``models/moe.py::moe_apply_mesh``).  With ``remat`` each layer,
 collectives included, is recomputed in the backward pass by
-:func:`checkpoint_tp`.
+:func:`checkpoint_tp`.  :func:`lm_prefill_mesh` and
+:func:`lm_decode_step_mesh` serve over such a mesh the same way, with
+each device's shards of the caches threaded through the blocks.
 """
 
 from __future__ import annotations
@@ -175,28 +177,38 @@ def _block_apply_tp(ps, hs, *, cfg, mixer, ffn, group, window):
                              groups=[group], window=window)[:len(ps)]
 
 
-def _block_apply_mesh(ps, hs, *, cfg, mixer, ffn, groups, window):
-    """One block over a mesh's devices (no cache): ``ps`` and ``hs`` are
-    every device's parameters and copy of its replica's hidden state,
-    replica after replica (``groups``: the replicas' groups of ranks).
-    The mixer and a dense FFN run replica by replica in their
+def _block_apply_mesh(ps, hs, *, cfg, mixer, ffn, groups, window,
+                      caches=None, cache_pos=None, max_seq=None):
+    """One block over a mesh's devices: ``ps`` and ``hs`` are every
+    device's parameters and copy of its replica's hidden state, replica
+    after replica (``groups``: the replicas' groups of ranks).  The
+    mixer and a dense FFN run replica by replica in their
     tensor-parallel forms; an MoE FFN routes the replicas' tokens
     together (``moe_apply_mesh``), and its metrics (``MOE_METRICS``)
-    follow the D hidden states in the returned list."""
+    follow the D hidden states in the returned list.  ``caches`` (each
+    device's shard of the layer's cache), ``cache_pos`` (each device's
+    position: 0 for a prompt, its rows' positions for a decode step) and
+    ``max_seq`` (the cache's rows) make it the serving block."""
     ranks = groups[0].size
     out = []
     for r, group in enumerate(groups):
-        rp, rh = ps[r * ranks:(r + 1) * ranks], hs[r * ranks:(r + 1) * ranks]
+        sl = slice(r * ranks, (r + 1) * ranks)
+        rp, rh = ps[sl], hs[sl]
         hn = [L.rmsnorm(p["mixer_norm"], h, cfg.norm_eps)
               for p, h in zip(rp, rh)]
+        cached = {} if caches is None else dict(
+            caches=caches[sl], cache_pos=cache_pos[sl], max_seq=max_seq)
         if mixer == "attn":
             o = A.attention_tp(group, [p["attn"] for p in rp], hn, cfg,
-                               window=window)
+                               window=window, **cached)
         elif mixer == "mla":
+            if caches is not None:
+                raise NotImplementedError(SERVE_MESH_ITEM)
             o = MLA.mla_attention_tp(group, [p["mla"] for p in rp], hn, cfg,
                                      window=window)
         else:
-            o = M.mamba_apply_tp(group, [p["ssm"] for p in rp], hn, cfg)
+            o = M.mamba_apply_tp(group, [p["ssm"] for p in rp], hn, cfg,
+                                 caches=cached.get("caches"))
         rh = [h + x.to(h.dtype) for h, x in zip(rh, o)]
         if ffn == "dense":
             hn = [L.rmsnorm(p["ffn_norm"], h, cfg.norm_eps)
@@ -211,6 +223,12 @@ def _block_apply_mesh(ps, hs, *, cfg, mixer, ffn, groups, window):
     o, metrics = MOE.moe_apply_mesh(groups, [p["moe"] for p in ps], hn, cfg)
     return [h + x.to(h.dtype) for h, x in zip(out, o)] + \
         [metrics[k] for k in MOE_METRICS]
+
+
+# the serving mesh's missing mixer, as ROADMAP names it
+SERVE_MESH_ITEM = ("MLA and the encoder-decoder under a serving mesh "
+                       "(ROADMAP §A2b) are not ported: serve deepseek-v3 "
+                       "and seamless-m4t-medium on one device")
 
 
 def maybe_checkpoint(fn, remat: bool):
@@ -297,36 +315,46 @@ def moe_aux_loss(cfg, aux, device=None):
 
 # -- model init / forward -----------------------------------------------------
 
-def init_lm(gen, cfg, *, device=None):
+def init_lm(gen, cfg, *, device=None, place=None):
     """Random LM parameters drawn from ``gen`` (a generator on ``device``).
 
     bf16 configs are drawn in f32 one tensor at a time and cast (an MoE
     layer's experts one (E, ·, ·) tensor at a time), so the peak is the
     parameters plus the largest tensor in f32: at moonshot-v1-16b-a3b the
     (163840, 2048) embedding, 1.34 GB.
+
+    ``place(path, part)``, if given, takes each part of the tree as soon
+    as it is drawn (``embed``, ``final_norm``, ``lm_head``, each
+    ``layers/<i>``, ``mtp``) and returns what the tree holds in its
+    place; ``sharding.placer(mesh)`` cuts it onto a mesh, so a model
+    that fits no device is made with one part whole at a time.  The
+    draws do not depend on it.
     """
-    params = {"embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model,
-                                    dtype=cfg.param_dtype, device=device),
-              "final_norm": L.rmsnorm_init(cfg.d_model,
-                                           dtype=cfg.param_dtype,
-                                           device=device)}
+    place = place or (lambda path, part: part)
+    params = {}
+    params["embed"] = place("embed", L.embed_init(
+        gen, cfg.vocab_size, cfg.d_model, dtype=cfg.param_dtype,
+        device=device))
+    params["final_norm"] = place("final_norm", L.rmsnorm_init(
+        cfg.d_model, dtype=cfg.param_dtype, device=device))
     if not cfg.tie_embeddings:
-        params["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size,
-                                         dtype=cfg.param_dtype,
-                                         device=device)
-    params["layers"] = [_block_init(gen, cfg, mixer, ffn, device)
-                        for mixer, ffn in layer_types(cfg)]
+        params["lm_head"] = place("lm_head", L.dense_init(
+            gen, cfg.d_model, cfg.vocab_size, dtype=cfg.param_dtype,
+            device=device))
+    params["layers"] = [
+        place(f"layers/{i}", _block_init(gen, cfg, mixer, ffn, device))
+        for i, (mixer, ffn) in enumerate(layer_types(cfg))]
     if cfg.mtp_depth > 0:
         # deepseek-v3's depth-1 multi-token-prediction head, as the JAX
         # package builds it; serving never reads it
-        params["mtp"] = {
+        params["mtp"] = place("mtp", {
             "proj": L.dense_init(gen, 2 * cfg.d_model, cfg.d_model,
                                  dtype=cfg.param_dtype, device=device),
             "norm": L.rmsnorm_init(cfg.d_model, dtype=cfg.param_dtype,
                                    device=device),
             "block": _block_init(gen, cfg, "mla" if cfg.use_mla else "attn",
                                  "dense" if cfg.d_ff else "none", device),
-        }
+        })
     return params
 
 
@@ -695,3 +723,81 @@ def lm_decode_step(params, cfg, token, caches, pos, *, window=None):
     h, caches, _ = lm_hidden(params, cfg, h, positions=positions,
                              window=window, caches=caches, cache_pos=pos)
     return lm_logits(params, cfg, h)[:, 0], caches
+
+
+# -- prefill and decode over a data x model mesh ------------------------------
+
+def _logits_mesh(groups, ps, cfg, hs, device):
+    """Vocab-parallel logits of each replica's (B_r, 1, d) hidden
+    states: rank j's block of ``lm_head`` (or of the tied embedding)
+    gives its block of the vocab (a vocab ``model`` does not divide is
+    rank 0's alone), and the blocks and the replicas' rows are gathered
+    to (B, V) float32 on ``device``."""
+    key = "embed" if cfg.tie_embeddings else "lm_head"
+    dim = 0 if cfg.tie_embeddings else 1
+    ranks = groups[0].size
+    rows = []
+    for r in range(len(groups)):
+        blocks = []
+        for j in range(ranks):
+            p, h = ps[r * ranks + j], hs[r * ranks + j]
+            if work(j, ranks, p[key]["w"].shape[dim], cfg.vocab_size):
+                blocks.append(lm_logits(p, cfg, h).to(device))
+        rows.append(torch.cat(blocks, dim=-1))
+    return torch.cat(rows)[:, 0]
+
+
+def _hidden_mesh(groups, ps, cfg, hs, caches, cache_pos, max_seq, window):
+    """Every block over the mesh with its cache, then the final norm."""
+    for i, (mixer, ffn) in enumerate(layer_types(cfg)):
+        out = _block_apply_mesh(
+            [p["layers"][i] for p in ps], hs, cfg=cfg, mixer=mixer, ffn=ffn,
+            groups=groups, window=window, caches=[c[i] for c in caches],
+            cache_pos=cache_pos, max_seq=max_seq)
+        hs = out[:len(ps)]
+    return [L.rmsnorm(p["final_norm"], h, cfg.norm_eps)
+            for p, h in zip(ps, hs)]
+
+
+def lm_prefill_mesh(groups, ps, cfg, batches, caches, *, max_seq,
+                    window=None):
+    """:func:`lm_prefill` over a data x model mesh, from position 0.
+
+    ``groups``: the replicas' groups of ranks; ``ps``, ``batches`` and
+    ``caches``: every device's parameters (its shards, gathered over
+    ``data`` where a leaf is cut there: ``sharding.Sharded.local``), its
+    replica's rows of the batch (``tokens``, ``prefix_embeds``
+    optional) and its shards of the caches (one dict per layer, laid out
+    by ``models/sharding.py::cache_pspecs`` over ``max_seq`` rows, written
+    in place), replica after replica.  Layer by layer across every
+    replica, as :func:`lm_train_loss_mesh`: the embedding and logits
+    vocab-parallel, attention and Mamba-2 tensor-parallel with their
+    caches (B9 and B10 per rank), an MoE layer routing the whole
+    batch's tokens.  Returns the last position's logits (B, V) float32
+    on the first device."""
+    ranks = groups[0].size
+    parts = [slice(r * ranks, (r + 1) * ranks) for r in range(len(groups))]
+    hs = [h for group, sl in zip(groups, parts)
+          for h in embed_inputs_tp(group, ps[sl], cfg, batches[sl])]
+    hs = _hidden_mesh(groups, ps, cfg, hs, caches, [0] * len(ps), max_seq,
+                      window)
+    return _logits_mesh(groups, ps, cfg, [h[:, -1:] for h in hs],
+                        groups[0].devices[0])
+
+
+def lm_decode_step_mesh(groups, ps, cfg, tokens, caches, pos, *, max_seq,
+                        window=None):
+    """:func:`lm_decode_step` over a data x model mesh: ``tokens`` and
+    ``pos`` are each device's copy of its replica's rows of the (B, 1)
+    token and of the positions (a (B_r,) tensor, or one int for every
+    row); the rest as :func:`lm_prefill_mesh`.  The attention is
+    flash-decode over the cache's slices (``attention.attention_tp``).
+    Returns the logits (B, V) float32 on the first device."""
+    ranks = groups[0].size
+    parts = [slice(r * ranks, (r + 1) * ranks) for r in range(len(groups))]
+    hs = [h for group, sl in zip(groups, parts)
+          for h in embed_inputs_tp(group, ps[sl], cfg,
+                                   [{"tokens": t} for t in tokens[sl]])]
+    hs = _hidden_mesh(groups, ps, cfg, hs, caches, list(pos), max_seq,
+                      window)
+    return _logits_mesh(groups, ps, cfg, hs, groups[0].devices[0])

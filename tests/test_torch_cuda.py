@@ -348,6 +348,10 @@ def test_flash_attention_noncausal_cross_shapes(cuda_device, B, S, T_len, H,
     (2, 70, 70, 8, 1, 256, False, None),     # dh 256, non-causal
     (1, 97, 130, 8, 1, 256, True, 8),        # dh 256, window 8
     (1, 2048, 2112, 8, 1, 256, True, None),  # gemma-2b's prefill
+    # one rank's prompt under a serving mesh: llama4-scout at (1, 4)
+    # (40/4 q heads over 8/4 KV heads, G = 5) and jamba-v0.1 at (2, 2)
+    (4, 2048, 2048, 10, 2, 128, True, None),
+    (2, 2048, 2048, 16, 4, 128, True, None),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_matches_plain_version(cuda_device, B, S, T_len, H,
@@ -500,6 +504,7 @@ def test_flash_attention_bf16_refuses_misaligned_rows(cuda_device):
     (1, 1, 256, 6, 1, 64, 128),      # the last head set is partial
     (1, 2, 256, 8, 2, 64, 128),      # two groups
     (1, 2, 256, 128, 1, 64, 16),     # jamba-v0.1's Mamba layer
+    (2, 8, 256, 64, 1, 64, 16),      # one rank's half of it at (2, 2)
 ])
 @pytest.mark.parametrize("bc_dtype", [torch.float32, torch.bfloat16])
 def test_ssd_chunk_matches_plain_version(cuda_device, B, c, Q, H, G, P, N,
@@ -954,3 +959,59 @@ def test_moe_mesh_train_step_over_four_cards(cuda_device):
         pytest.skip(f"needs 4 cards, {torch.cuda.device_count()} visible")
     _moe_mesh_vs_one(cuda_device, "moonshot-v1-16b-a3b",
                      make_test_mesh(4, 1, device="cuda:0"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "llama4-scout-17b-a16e"])
+def test_mesh_serving_on_one_card(cuda_device, arch):
+    """``build_step``'s prefill and decode over a (1, 2) mesh on
+    (cuda:0,) * 2, reduced f32, against the one-device steps on the
+    card: the logits within 1e-4 of their largest entry, the same greedy
+    tokens, and B9 (and B10) launched by each rank of every attention
+    (and Mamba) layer's prefill, none in a decode step."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.sharding import shard_params
+
+    cfg = get_config(arch).reduced()
+    params = T.init_lm(torch.Generator(device=cuda_device).manual_seed(0),
+                       cfg, device=cuda_device)
+    B, S = 2, 64
+    prefill_shape = ShapeConfig("prefill", S, B, "prefill")
+    decode_shape = ShapeConfig("decode", S, B, "decode")
+    tokens = torch.randint(0, cfg.vocab_size, (B, 16),
+                           generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": tokens.to(cuda_device)}
+    pos = torch.tensor([16, 40], device=cuda_device)
+    n_attn = sum(cfg.is_attn_layer(i) for i in range(cfg.num_layers))
+    n_ssm = cfg.num_layers - n_attn
+    mesh = make_test_mesh(1, 2, devices=(cuda_device,) * 2)
+    sharded = shard_params(params, mesh)
+    runs = []
+    with ops.use_pallas_scoped(True):
+        for prefill, decode, p in (
+                (steps.make_prefill_step(cfg, prefill_shape),
+                 steps.make_decode_step(cfg, decode_shape), params),
+                (steps.build_step(cfg, prefill_shape, mesh).fn,
+                 steps.build_step(cfg, decode_shape, mesh).fn, sharded)):
+            ops.reset_launch_counts()
+            logits, caches = prefill(p, batch)
+            torch.cuda.synchronize()
+            counts = dict(ops.LAUNCH_COUNTS)
+            out = [logits]
+            for i in range(3):
+                logits, caches = decode(p, caches,
+                                        logits.argmax(-1, keepdim=True),
+                                        pos + i)
+                out.append(logits)
+            torch.cuda.synchronize()
+            assert ops.LAUNCH_COUNTS == counts, "a decode step launched"
+            runs.append((out, counts))
+    (want, one), (got, two) = runs
+    assert one["flash_attention"] == n_attn
+    assert two["flash_attention"] == 2 * n_attn
+    assert (one["ssd_chunk"], two["ssd_chunk"]) == (n_ssm, 2 * n_ssm)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+        assert torch.equal(g.argmax(-1), w.argmax(-1))
