@@ -227,12 +227,16 @@ Phases (any failure raises and the script exits non-zero):
    rank in a prefill; a decode step combines the ranks' partial
    softmaxes over their slices of the cache).  (a) Reduced f32
    gemma-2b, qwen2-7b, mamba2-2.7b, internvl2-26b (with its prefix),
-   jamba-v0.1 and llama4-scout at (data, model) = (1, 2), (2, 2) and
-   (1, 4) on (cuda:0,) * n: 4 rows of 16 tokens into a 64-row cache and
-   8 greedy decode steps at per-row positions, against the card's
-   one-device ``make_prefill_step`` / ``make_decode_step`` within 1e-4
-   of the largest logit, the same tokens, B9 and B10 launched layers x
-   ranks times a prefill and never in a decode step.  (b) With four
+   jamba-v0.1, llama4-scout, deepseek-v3 (MLA) and seamless-m4t-medium
+   (the encoder-decoder, rows in lockstep) at (data, model) = (1, 2),
+   (2, 2) and (1, 4) on (cuda:0,) * n: 4 rows of 16 tokens into a
+   64-row cache and 8 greedy decode steps at per-row positions, against
+   the card's one-device ``make_prefill_step`` / ``make_decode_step``
+   within 1e-4 of the largest logit, the same tokens, B9 and B10
+   launched layers x ranks times a prefill and never in a decode step;
+   then qwen2-7b, jamba-v0.1 and deepseek-v3 at batch 1 over (2, 2) at
+   a long_500k-named shape of 64 rows, window 8: every replica runs the
+   row, the caches' sequence cut over (data, model).  (b) With four
    cards: llama4-scout-17b-a16e at (1, 4) and jamba-v0.1-52b at (2, 2)
    at full width and depth in bf16 (neither fits one card; each layer is
    drawn whole on cuda:0, cut and freed), 4 rows of 2048 tokens into a
@@ -244,11 +248,24 @@ Phases (any failure raises and the script exits non-zero):
    printed (an MoE router's near-ties make bf16 serving chaotic); then
    each in f32 cut to SERVE_4_F32_LAYERS layers, the prefill and 8
    decode steps' logits held within max(1e-4, 10 x the whole model's
-   own parting one ulp away) of one card's.  With
-   fewer cards one line says (b) was not run.
+   own parting one ulp away) of one card's.  (c) With four cards:
+   deepseek-v3 cut to 8 layers (61.14e9 parameters) at (1, 4) and
+   seamless-m4t-medium at (2, 2), full width in bf16: the draw's and
+   the serving peaks, prefill ms, decode steps, 32 and 144 B9 launches
+   a prefill; then deepseek-v3 cut to its 3 dense MLA layers and
+   seamless whole in f32, held against one card by (b)'s rule.  (d)
+   With four cards: qwen2-7b's batch-1 long_500k decode over (2, 2),
+   the 524288-row cache cut over (data, model), its entries drawn from
+   the seed: 8 steps from position 266144 (the window spans devices 1
+   and 2) and 8 from 524279, fed one card's tokens; bf16 against one
+   card printed, an f32 cut of 2 layers held within 1e-4; one bf16
+   decode step from 266144 profiled on one card and on the mesh (host
+   launches, device busy time, idle share).  With fewer
+   cards (b), (c) and (d) each print one line saying they were not run.
    Phase 2 holds B9 at those meshes' per-rank prefill shapes (llama4's
-   10 q heads over 2 KV heads, jamba's 16 over 4) and B10 at jamba's 64
-   heads a rank.
+   10 q heads over 2 KV heads, jamba's 16 over 4, deepseek-v3's 32 MLA
+   heads, seamless's 8 in its three roles) and B10 at jamba's 64 heads
+   a rank.
 
 It prints the kernel table as one JSON line, then the card's name and
 power limit, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -410,6 +427,19 @@ FLASH_MOONSHOT = dict(B=1, S=2048, T=LM_MAX_SEQ, H=16, K=16, dh=128)
 FLASH_LLAMA4_TP = dict(B=4, S=2048, T=2048, H=10, K=2, dh=128)
 FLASH_JAMBA_TP = dict(B=2, S=2048, T=2048, H=16, K=4, dh=128)
 SSD_JAMBA_TP = dict(B=2, c=8, Q=256, H=64, P=64, G=1, N=16)
+# one rank's prefill under phase 15c's serving meshes.  B9m: deepseek-v3's
+# MLA at (1, 4), 128/4 heads expanded over the 4 rows' own keys, q/k 192
+# wide, v 128, scale 1/sqrt(192).  B9s: seamless-m4t-medium at (2, 2),
+# 16/2 heads and 2 rows a replica, in its three roles: the encoder over
+# the 1024 frames (non-causal), the decoder's self-attention over the
+# 128-token prompt's own K/V (causal), cross-attention of the prompt
+# against the frames (non-causal, Sq != T)
+FLASH_MLA_TP = dict(B=4, S=2048, T=2048, H=32, K=32, dh=192, dv=128)
+FLASH_SEAMLESS_ENC_TP = dict(B=2, S=1024, T=1024, H=8, K=8, dh=64,
+                             causal=False)
+FLASH_SEAMLESS_SELF_TP = dict(B=2, S=128, T=128, H=8, K=8, dh=64)
+FLASH_SEAMLESS_CROSS_TP = dict(B=2, S=128, T=1024, H=8, K=8, dh=64,
+                               causal=False)
 
 # phase 8a: the mesh route at the path shape and at N + 3 rows (padded at
 # every D > 1), on (cuda:0,) * D, and on every visible card when there
@@ -591,13 +621,26 @@ LIMIT_LOGIT_REL = 1e-4   # reduced LM, card vs CPU
 # cache, SERVE_4_STEPS greedy decode steps; then each cut to
 # SERVE_4_CUT_LAYERS layers, on the same mesh and whole on cuda:0.
 SERVE_REDUCED = ("gemma-2b", "qwen2-7b", "mamba2-2.7b", "internvl2-26b",
-                 "jamba-v0.1-52b", "llama4-scout-17b-a16e")
+                 "jamba-v0.1-52b", "llama4-scout-17b-a16e",
+                 "deepseek-v3-671b", "seamless-m4t-medium")
 SERVE_MESHES = ((1, 2), (2, 2), (1, 4))
 SERVE_REDUCED_B, SERVE_REDUCED_CACHE = 4, 64
 SERVE_REDUCED_PROMPT, SERVE_REDUCED_STEPS = 16, 8
 # row 0 decodes in rank 0's slice of the sequence at every M; the others
-# start past unwritten rows
+# start past unwritten rows (seamless's 4 rows step in lockstep from the
+# prompt's end)
 SERVE_REDUCED_POS = (16, 21, 30, 40)
+# (a) also serves batch 1 at a long_500k-named shape over (2, 2) on
+# (cuda:0,) * 4: every replica runs the row, a KV or latent cache's 64
+# rows cut over (data, model) into four slices, a window of 8 for
+# qwen2-7b and deepseek-v3 (jamba, a hybrid, decodes unwindowed and
+# runs B10 at batch 1); 7 decode steps from position 33, whose window
+# (25, 33] spans devices 1 and 2, to 39, whose window lies in device 2's
+# slice alone
+SERVE_LONG_REDUCED = ("qwen2-7b", "jamba-v0.1-52b", "deepseek-v3-671b")
+SERVE_LONG_REDUCED_CACHE, SERVE_LONG_WINDOW = 64, 8
+SERVE_LONG_REDUCED_PROMPT, SERVE_LONG_REDUCED_POS = 20, 33
+SERVE_LONG_REDUCED_STEPS = 7
 SERVE_4 = (("llama4-scout-17b-a16e", (1, 4)), ("jamba-v0.1-52b", (2, 2)))
 SERVE_4_ROWS, SERVE_4_PROMPT, SERVE_4_CACHE, SERVE_4_STEPS = 4, 2048, 4096, 32
 SERVE_4_PREFILLS = 3
@@ -625,7 +668,31 @@ SERVE_4_CUT_LAYERS = 8
 # route sits at a tie (the mesh then parts 4e-6-6e-6), and a bug in the
 # mesh's arithmetic parts far beyond either.
 SERVE_ULP_FACTOR = TRAIN_ULP_FACTOR
-SERVE_4_F32_LAYERS = {"llama4-scout-17b-a16e": 2, "jamba-v0.1-52b": 5}
+SERVE_4_F32_LAYERS = {"llama4-scout-17b-a16e": 2, "jamba-v0.1-52b": 5,
+                      "deepseek-v3-671b": 3}
+# (c) With four cards: MLA and the encoder-decoder.  deepseek-v3 at
+# (1, 4), full width in bf16, depth cut to its 3 dense MLA layers and 5
+# MoE layers with the MTP head (each MoE layer drawn whole on cuda:0:
+# 23 GB in bf16 beside its largest expert tensor in f32, 15 GB), phase
+# (b)'s 4 rows of 2048 tokens; seamless-m4t-medium at (2, 2) at full
+# width and depth in bf16, phase 10's batch (4 rows, 1024 frames, a
+# 128-token prompt, 32 steps).  Then each in f32 against one card by
+# (b)'s rule: deepseek-v3 cut to its 3 dense MLA layers
+# (SERVE_4_F32_LAYERS), seamless whole.
+SERVE_4C = (("deepseek-v3-671b", (1, 4), 8),
+            ("seamless-m4t-medium", (2, 2), None))
+# (d) With four cards: qwen2-7b's long_500k decode, batch 1 over (2, 2):
+# the 524288-row cache (30.1 GB in bf16) cut over (data, model) into
+# four slices of 131072 rows, its entries drawn from the seed (a
+# prefill of 524288 tokens is not run); LONG_STEPS decode steps from
+# each of LONG_STARTS: from 266144, whose 8192-row window spans devices
+# 1 and 2, and from 524279, the cache's last rows.  bf16 at full width
+# and depth against the same decode whole on cuda:0 (45 GB), printed;
+# an f32 cut of LONG_F32_LAYERS layers held within LIMIT_LOGIT_REL; the
+# mesh is fed one card's greedy tokens.  The bf16 run profiles one step
+# from LONG_STARTS[0] on one card and on the mesh, after the timed steps
+LONG_ARCH, LONG_SHAPE = "qwen2-7b", "long_500k"
+LONG_STARTS, LONG_STEPS, LONG_F32_LAYERS = (266_144, 524_279), 8, 2
 
 
 def card_line() -> str:
@@ -1884,7 +1951,16 @@ def _lm_kernel_cases():
                    ("llama4 tp", *flash(**FLASH_LLAMA4_TP, dtype="bf16",
                                         library=True)),
                    ("jamba tp", *flash(**FLASH_JAMBA_TP, dtype="bf16",
-                                       library=True))]
+                                       library=True)),
+                   ("mla tp", *flash(**FLASH_MLA_TP, dtype="bf16",
+                                     library=True,
+                                     scale=192 ** -0.5)),
+                   ("enc tp", *flash(**FLASH_SEAMLESS_ENC_TP, dtype="bf16",
+                                     library=True)),
+                   ("self tp", *flash(**FLASH_SEAMLESS_SELF_TP,
+                                      dtype="bf16", library=True)),
+                   ("cross tp", *flash(**FLASH_SEAMLESS_CROSS_TP,
+                                       dtype="bf16", library=True))]
     for dtype in ("f32", "bf16"):
         flash_cases += [
             ("ragged", *flash(2, 33, 33, 4, 4, 32, dtype)),          # G = 1
@@ -1988,6 +2064,7 @@ def phase2_lm():
                              "mla", "mla f32", "internvl", "seamless enc",
                              "seamless enc f32", "seamless cross",
                              "seamless self", "llama4 tp", "jamba tp",
+                             "mla tp", "enc tp", "self tp", "cross tp",
                              *UNSERVED):
                 continue
             ms, plain_ms = time_ms(kern), time_ms(plain)
@@ -4219,19 +4296,61 @@ def phase14():
 # -- phase 15: serving over a data x model mesh --------------------------------
 
 def _serve_prompt(cfg, B, S, seed=LM_SEED):
-    """``B`` rows of ``S`` token ids (and a VLM's prefix embeddings)
-    drawn from ``seed``, on cuda:0."""
+    """``B`` rows of ``S`` token ids (and a VLM's prefix embeddings, an
+    encoder-decoder's ``encoder_seq_len`` source frames) drawn from
+    ``seed``, on cuda:0."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
     batch = {"tokens": torch.tensor(rng.integers(0, cfg.vocab_size, (B, S)),
                                     device="cuda:0")}
+    dt = getattr(torch, cfg.compute_dtype)
     if cfg.num_prefix_embeds:
         batch["prefix_embeds"] = torch.tensor(
             rng.standard_normal((B, cfg.num_prefix_embeds, cfg.d_model)),
-            dtype=getattr(torch, cfg.compute_dtype), device="cuda:0")
+            dtype=dt, device="cuda:0")
+    if cfg.is_encoder_decoder:
+        batch["src_embeds"] = torch.tensor(
+            rng.standard_normal((B, cfg.encoder_seq_len, cfg.d_model)),
+            dtype=dt, device="cuda:0")
     return batch
+
+
+def _b9_per_rank(cfg):
+    """B9 launches of a prefill on one rank (or one device): an
+    attention layer's (MLA's too), or the encoder-decoder's three
+    roles (encoder, decoder self, cross)."""
+    if cfg.is_encoder_decoder:
+        return cfg.num_encoder_layers + 2 * cfg.num_layers
+    return sum(cfg.is_attn_layer(i) for i in range(cfg.num_layers))
+
+
+def _b10_per_rank(cfg):
+    if cfg.is_encoder_decoder:
+        return 0
+    return cfg.num_layers - _b9_per_rank(cfg)
+
+
+def _init_whole(cfg, seed, device="cuda"):
+    """Random ``cfg`` parameters drawn from ``seed`` on ``device``."""
+    import torch
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import transformer as T
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    init = ED.init_encdec if cfg.is_encoder_decoder else T.init_lm
+    return init(gen, cfg, device=device)
+
+
+def _serve_pos(cfg, B, at, device="cuda:0"):
+    """A decode's first position: one int for the encoder-decoder (its
+    rows step in lockstep), else a (B,) tensor."""
+    import torch
+
+    if cfg.is_encoder_decoder:
+        return at
+    return torch.full((B,), at, device=device)
 
 
 def _serve(prefill, decode, params, batch, pos, steps_n, sync=None,
@@ -4262,68 +4381,98 @@ def _serve(prefill, decode, params, batch, pos, steps_n, sync=None,
     return out, toks, pre, dec, seconds
 
 
-def phase15a():
-    """Six reduced families served over SERVE_MESHES on (cuda:0,) * n
-    against the card's one-device steps.  Returns the B9 and B10
-    launches."""
+def _serve_reduced_case(phase, cfg, label, params, batch, pos, steps_n,
+                        pre_shape, dec_shape, mesh, launches):
+    """The bundles over ``mesh`` against the card's one-device steps on
+    a reduced ``cfg``: logits within LIMIT_LOGIT_REL, the same tokens,
+    B9 and B10 layers x devices times a prefill and never in a decode
+    step."""
     import torch
+    from repro_torch.launch import steps
+    from repro_torch.models.sharding import shard_params
+
+    want, want_toks, pre, _, _ = _serve(
+        steps.make_prefill_step(cfg, pre_shape),
+        steps.make_decode_step(cfg, dec_shape), params, batch, pos, steps_n)
+    for name in launches:
+        launches[name] += pre[name]
+    got, toks, pre, dec, _ = _serve(
+        steps.build_step(cfg, pre_shape, mesh).fn,
+        steps.build_step(cfg, dec_shape, mesh).fn,
+        shard_params(params, mesh), batch, pos, steps_n)
+    for name in launches:
+        launches[name] += pre[name]
+    errs = [float((g - w).abs().max() / w.abs().max())
+            for g, w in zip(got, want)]
+    same = all(torch.equal(a, b) for a, b in zip(toks, want_toks))
+    n = mesh.size
+    b9, b10 = _b9_per_rank(cfg), _b10_per_rank(cfg)
+    print(f"phase {phase}: reduced {label} at (data, model) = "
+          f"{mesh.sizes} on (cuda:0,) * {n}: prefill and {steps_n} decode "
+          f"steps, worst logit error {max(errs):.3e} of the largest (limit "
+          f"{LIMIT_LOGIT_REL:.0e}); same tokens: {same}; B9 "
+          f"{pre['flash_attention']} and B10 {pre['ssd_chunk']} launches a "
+          f"prefill ({b9} and {b10} a rank x {n} ranks); {dec} in the "
+          f"decode steps")
+    if not (max(errs) <= LIMIT_LOGIT_REL and same):
+        raise AssertionError(f"phase {phase}: {label} at {mesh.sizes} parts "
+                             f"from one device")
+    if (pre["flash_attention"], pre["ssd_chunk"], dec) != (b9 * n, b10 * n,
+                                                           0):
+        raise AssertionError(f"phase {phase}: {label}: launches {pre}, "
+                             f"{dec} in decode")
+
+
+def phase15a():
+    """SERVE_REDUCED served over SERVE_MESHES on (cuda:0,) * n, and
+    SERVE_LONG_REDUCED at batch 1 over (2, 2), against the card's
+    one-device steps.  Returns the B9 and B10 launches."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels import ops
-    from repro_torch.launch import steps
     from repro_torch.launch.mesh import make_test_mesh
-    from repro_torch.models import transformer as T
-    from repro_torch.models.sharding import shard_params
 
     B, S = SERVE_REDUCED_B, SERVE_REDUCED_CACHE
     pre_shape = ShapeConfig("prefill", S, B, "prefill")
     dec_shape = ShapeConfig("decode", S, B, "decode")
     launches = {"flash_attention": 0, "ssd_chunk": 0}
-    for arch in SERVE_REDUCED:
-        cfg = get_config(arch).reduced()
-        params = T.init_lm(torch.Generator(device="cuda").manual_seed(
-            LM_SEED), cfg, device="cuda")
-        batch = _serve_prompt(cfg, B, SERVE_REDUCED_PROMPT)
-        pos = torch.tensor(SERVE_REDUCED_POS, device="cuda") \
-            + cfg.num_prefix_embeds
-        n_attn = sum(cfg.is_attn_layer(i) for i in range(cfg.num_layers))
-        n_ssm = cfg.num_layers - n_attn
-        with ops.use_pallas_scoped(True):
-            want, want_toks, pre, _, _ = _serve(
-                steps.make_prefill_step(cfg, pre_shape),
-                steps.make_decode_step(cfg, dec_shape), params, batch, pos,
-                SERVE_REDUCED_STEPS)
-            for name in launches:
-                launches[name] += pre[name]
+    with ops.use_pallas_scoped(True):
+        for arch in SERVE_REDUCED:
+            cfg = get_config(arch).reduced()
+            params = _init_whole(cfg, LM_SEED)
+            batch = _serve_prompt(cfg, B, SERVE_REDUCED_PROMPT)
+            # the encoder-decoder's rows step in lockstep
+            pos = SERVE_REDUCED_PROMPT if cfg.is_encoder_decoder else \
+                _tensor_cuda(SERVE_REDUCED_POS) + cfg.num_prefix_embeds
             for data, model in SERVE_MESHES:
-                n = data * model
-                mesh = make_test_mesh(data, model, devices=("cuda:0",) * n)
-                got, toks, pre, dec, _ = _serve(
-                    steps.build_step(cfg, pre_shape, mesh).fn,
-                    steps.build_step(cfg, dec_shape, mesh).fn,
-                    shard_params(params, mesh), batch, pos,
-                    SERVE_REDUCED_STEPS)
-                for name in launches:
-                    launches[name] += pre[name]
-                errs = [float((g - w).abs().max() / w.abs().max())
-                        for g, w in zip(got, want)]
-                same = all(torch.equal(a, b) for a, b in zip(toks, want_toks))
-                print(f"phase 15a: reduced {arch} at (data, model) = "
-                      f"({data}, {model}) on (cuda:0,) * {n}: prefill and "
-                      f"{SERVE_REDUCED_STEPS} decode steps, worst logit "
-                      f"error {max(errs):.3e} of the largest (limit "
-                      f"{LIMIT_LOGIT_REL:.0e}); same tokens: {same}; B9 "
-                      f"{pre['flash_attention']} and B10 {pre['ssd_chunk']}"
-                      f" launches a prefill ({n_attn} and {n_ssm} layers x "
-                      f"{n} ranks); {dec} in the decode steps")
-                if not (max(errs) <= LIMIT_LOGIT_REL and same):
-                    raise AssertionError(f"phase 15a: {arch} at ({data}, "
-                                         f"{model}) parts from one device")
-                if (pre["flash_attention"], pre["ssd_chunk"], dec) != (
-                        n_attn * n, n_ssm * n, 0):
-                    raise AssertionError(f"phase 15a: {arch}: launches "
-                                         f"{pre}, {dec} in decode")
+                mesh = make_test_mesh(data, model,
+                                      devices=("cuda:0",) * (data * model))
+                _serve_reduced_case("15a", cfg, arch, params, batch, pos,
+                                    SERVE_REDUCED_STEPS, pre_shape,
+                                    dec_shape, mesh, launches)
+        # batch 1 at a long_500k-named shape: every replica runs the
+        # row, the caches' sequence cut over (data, model)
+        rows = SERVE_LONG_REDUCED_CACHE
+        pre_shape = ShapeConfig("prefill", rows, 1, "prefill")
+        dec_shape = ShapeConfig("long_500k", rows, 1, "decode")
+        mesh = make_test_mesh(2, 2, devices=("cuda:0",) * 4)
+        for arch in SERVE_LONG_REDUCED:
+            cfg = dataclasses.replace(get_config(arch).reduced(),
+                                      long_context_window=SERVE_LONG_WINDOW)
+            _serve_reduced_case(
+                "15a", cfg, f"{arch} at batch 1, {rows} rows, window "
+                f"{SERVE_LONG_WINDOW}", _init_whole(cfg, LM_SEED),
+                _serve_prompt(cfg, 1, SERVE_LONG_REDUCED_PROMPT),
+                SERVE_LONG_REDUCED_POS, SERVE_LONG_REDUCED_STEPS, pre_shape,
+                dec_shape, mesh, launches)
     return launches
+
+
+def _tensor_cuda(values):
+    import torch
+    return torch.tensor(values, device="cuda:0")
 
 
 def _init_on_mesh(cfg, mesh, seed):
@@ -4331,19 +4480,35 @@ def _init_on_mesh(cfg, mesh, seed):
     ``seed``) placed on ``mesh`` part by part: each drawn whole on the
     mesh's first device (which holds a shard of every leaf), cut by
     ``sharding.placer`` and freed, so no device ever holds more than its
-    shards and one part."""
+    shards and one part.  The encoder-decoder (0.877e9 parameters) is
+    drawn whole and cut."""
     import torch
     from repro_torch.models import transformer as T
-    from repro_torch.models.sharding import placer
+    from repro_torch.models.sharding import placer, shard_params
 
     dev = mesh.devices[0]
+    if cfg.is_encoder_decoder:
+        whole = _init_whole(cfg, seed, dev)
+        placed = shard_params(whole, mesh)
+        del whole
+        return placed
     gen = torch.Generator(device=dev).manual_seed(seed)
     return T.init_lm(gen, cfg, device=dev, place=placer(mesh))
 
 
-def _serve_mesh_full(arch, mesh):
-    """``arch`` at full width and depth in bf16 served over ``mesh``:
-    prefill ms, decode tok/s, launches and each card's peak."""
+def _serve_sizes(cfg):
+    """(rows, prompt, cache rows, decode steps) of a full-width serve:
+    the encoder-decoder's phase 10 batch, else SERVE_4's."""
+    if cfg.is_encoder_decoder:
+        return ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_SEQ, ENCDEC_NEW_TOKENS
+    return SERVE_4_ROWS, SERVE_4_PROMPT, SERVE_4_CACHE, SERVE_4_STEPS
+
+
+def _serve_mesh_full(arch, mesh, phase="15b", layers=None):
+    """``arch`` at full width in bf16 (depth cut to ``layers`` where
+    given) served over ``mesh``: prefill ms, decode tok/s, launches and
+    each card's peak."""
+    import dataclasses
     import gc
 
     import torch
@@ -4352,28 +4517,44 @@ def _serve_mesh_full(arch, mesh):
     from repro_torch.kernels import ops
     from repro_torch.launch import steps
 
-    cfg = get_config(arch)
-    B, P, S = SERVE_4_ROWS, SERVE_4_PROMPT, SERVE_4_CACHE
+    full = get_config(arch)
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          num_layers=layers)
+    if layers is not None:
+        print(f"phase {phase}: {arch} reduced: " + json.dumps({
+            "num_layers": [full.num_layers, cfg.num_layers],
+            "param_count": [full.param_count(), cfg.param_count()],
+            "why": f"the first {layers} layers ({cfg.first_dense_layers} "
+                   f"dense, {layers - cfg.first_dense_layers} MoE) and the "
+                   f"MTP head: the {full.num_layers} layers do not fit four "
+                   f"cards, and each MoE layer is drawn whole on cuda:0"}))
+    B, P, S, steps_n = _serve_sizes(cfg)
     label = (f"(data, model) = {mesh.sizes} on "
              f"{[str(d) for d in mesh.devices]}")
     cards = list(dict.fromkeys(mesh.devices))
     gc.collect()
     torch.cuda.empty_cache()
+    for dev in cards:
+        # a card's allocator takes a reset only once it has allocated
+        torch.zeros(1, device=dev)
+        torch.cuda.reset_peak_memory_stats(dev)
     params = _init_on_mesh(cfg, mesh, LM_SEED)
     _sync_all(mesh)
-    for dev in cards:
-        torch.cuda.reset_peak_memory_stats(dev)
-    print(f"phase 15b: {arch} {label}: {cfg.param_count() / 1e9:.3f}e9 "
-          f"parameters in {cfg.param_dtype} placed layer by layer; "
+    draw_peak = torch.cuda.max_memory_allocated(cards[0]) / 2**30
+    print(f"phase {phase}: {arch} {label}: {cfg.param_count() / 1e9:.3f}e9 "
+          f"parameters in {cfg.param_dtype} placed layer by layer "
+          f"({cards[0]} peaked at {draw_peak:.2f} GiB while drawing); "
           + ", ".join(f"{dev} {torch.cuda.memory_allocated(dev) / 2**30:.2f}"
                       f" GiB" for dev in cards) + " allocated")
+    for dev in cards:
+        torch.cuda.reset_peak_memory_stats(dev)
     prefill = steps.build_step(cfg, ShapeConfig("serve", S, B, "prefill"),
                                mesh).fn
     decode = steps.build_step(cfg, ShapeConfig("serve", S, B, "decode"),
                               mesh).fn
     batch = _serve_prompt(cfg, B, P)
-    n_attn = sum(cfg.is_attn_layer(i) for i in range(cfg.num_layers))
-    n_ssm = cfg.num_layers - n_attn
+    pos = _serve_pos(cfg, B, P)
+    b9, b10 = _b9_per_rank(cfg), _b10_per_rank(cfg)
     launches = {"flash_attention": 0, "ssd_chunk": 0}
     with ops.use_pallas_scoped(True):
         times = []
@@ -4389,42 +4570,41 @@ def _serve_mesh_full(arch, mesh):
                 launches[name] += pre[name]
             del logits, caches
         out, _, pre, dec, seconds = _serve(
-            prefill, decode, params, batch,
-            torch.full((B,), P, device="cuda:0"), SERVE_4_STEPS,
+            prefill, decode, params, batch, pos, steps_n,
             sync=lambda: _sync_all(mesh))
         for name in launches:
             launches[name] += pre[name]
         logits, caches = prefill(params, batch)
         tok = logits.argmax(-1, keepdim=True)
         profile_device(
-            "15b", f"{arch} decode step", lambda: decode(
-                params, caches, tok, torch.full((B,), P, device="cuda:0")),
-            host_top=3)
+            phase, f"{arch} decode step", lambda: decode(
+                params, caches, tok, pos), host_top=3)
         del logits, caches
     peaks = {str(d): torch.cuda.max_memory_allocated(d) / 2**30
              for d in cards}
     caps = {str(d): torch.cuda.get_device_properties(d).total_memory / 2**30
             for d in cards}
     finite = all(bool(torch.isfinite(x).all()) for x in out)
-    print(f"phase 15b: {arch} {label}: {B} rows of {P} tokens, a {S}-row "
-          f"cache: prefill {statistics.median(times):.3f} ms (median of "
-          f"{SERVE_4_PREFILLS}, host clock ending in a synchronize of every "
-          f"card; all {[round(t, 3) for t in times]}); {SERVE_4_STEPS} "
-          f"greedy decode steps {B * SERVE_4_STEPS / seconds:.1f} tok/s "
-          f"({seconds * 1e3 / SERVE_4_STEPS:.3f} ms a step); B9 "
+    print(f"phase {phase}: {arch} {label}: {B} rows of {P} tokens, a "
+          f"{S}-row cache: prefill {statistics.median(times):.3f} ms (median "
+          f"of {SERVE_4_PREFILLS}, host clock ending in a synchronize of "
+          f"every card; all {[round(t, 3) for t in times]}); {steps_n} "
+          f"greedy decode steps {B * steps_n / seconds:.1f} tok/s "
+          f"({seconds * 1e3 / steps_n:.3f} ms a step); B9 "
           f"{pre['flash_attention']} and B10 {pre['ssd_chunk']} launches a "
-          f"prefill ({n_attn} and {n_ssm} layers x {mesh.size} ranks), "
-          f"{dec / SERVE_4_STEPS:.0f} kernel launches of ours a decode step "
+          f"prefill ({b9} and {b10} a rank x {mesh.size} ranks), "
+          f"{dec / steps_n:.0f} kernel launches of ours a decode step "
           f"(host launches in the profile above); finite logits: {finite}; "
-          f"peak / memory by card " + ", ".join(
+          f"serving peak / memory by card " + ", ".join(
               f"{k} {v:.2f} / {caps[k]:.2f} GiB" for k, v in peaks.items()))
     if (pre["flash_attention"], pre["ssd_chunk"]) != (
-            n_attn * mesh.size, n_ssm * mesh.size) or dec or not finite:
-        raise AssertionError(f"phase 15b: {arch}: launches {pre}, {dec} in "
-                             f"decode; finite {finite}")
-    if not all(v < caps[k] for k, v in peaks.items()):
-        raise AssertionError(f"phase 15b: {arch}: a peak exceeds its card: "
-                             f"{peaks}")
+            b9 * mesh.size, b10 * mesh.size) or dec or not finite:
+        raise AssertionError(f"phase {phase}: {arch}: launches {pre}, {dec} "
+                             f"in decode; finite {finite}")
+    if not all(v < caps[k] for k, v in peaks.items()) or \
+            draw_peak >= caps[str(cards[0])]:
+        raise AssertionError(f"phase {phase}: {arch}: a peak exceeds its "
+                             f"card: {peaks}, drawing {draw_peak}")
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4505,12 +4685,12 @@ def _serve_mesh_cut(arch, mesh):
     return launches
 
 
-def _serve_mesh_f32(arch, mesh):
-    """``arch`` at full width in f32, cut to SERVE_4_F32_LAYERS layers, on
-    ``mesh`` and whole on cuda:0: the prefill and every decode step's
-    logits within max(LIMIT_LOGIT_REL, SERVE_ULP_FACTOR x the whole
-    model's own parting one ulp away), the mesh and the nudged run fed
-    the one-card run's greedy tokens."""
+def _serve_mesh_f32(arch, mesh, phase="15b"):
+    """``arch`` at full width in f32, cut to SERVE_4_F32_LAYERS layers (the
+    encoder-decoder whole), on ``mesh`` and whole on cuda:0: the prefill
+    and every decode step's logits within max(LIMIT_LOGIT_REL,
+    SERVE_ULP_FACTOR x the whole model's own parting one ulp away), the
+    mesh and the nudged run fed the one-card run's greedy tokens."""
     import dataclasses
     import gc
 
@@ -4522,9 +4702,10 @@ def _serve_mesh_f32(arch, mesh):
     from repro_torch.models.sharding import gather_params
 
     full = get_config(arch)
-    cfg = dataclasses.replace(full, num_layers=SERVE_4_F32_LAYERS[arch],
-                              param_dtype="float32", compute_dtype="float32")
-    B, P, S = SERVE_4_ROWS, SERVE_4_PROMPT, SERVE_4_CACHE
+    cfg = dataclasses.replace(
+        full, num_layers=SERVE_4_F32_LAYERS.get(arch, full.num_layers),
+        param_dtype="float32", compute_dtype="float32")
+    B, P, S, _ = _serve_sizes(cfg)
     pre_shape = ShapeConfig("serve", S, B, "prefill")
     dec_shape = ShapeConfig("serve", S, B, "decode")
     gc.collect()
@@ -4532,7 +4713,7 @@ def _serve_mesh_f32(arch, mesh):
     sharded = _init_on_mesh(cfg, mesh, LM_SEED + 2)
     whole = gather_params(sharded, "cuda:0")
     batch = _serve_prompt(cfg, B, P)
-    pos = torch.full((B,), P, device="cuda:0")
+    pos = _serve_pos(cfg, B, P)
     one_card = (steps.make_prefill_step(cfg, pre_shape),
                 steps.make_decode_step(cfg, dec_shape))
     with ops.use_pallas_scoped(True):
@@ -4553,8 +4734,10 @@ def _serve_mesh_f32(arch, mesh):
 
     errs, ulp_errs = parting(got), parting(nudged)
     limit = max(LIMIT_LOGIT_REL, SERVE_ULP_FACTOR * max(ulp_errs))
-    print(f"phase 15b: {arch} in f32 at full width cut to {cfg.num_layers} "
-          f"layers ({cfg.param_count() / 1e9:.3f}e9 parameters), "
+    depth = (f"{cfg.num_encoder_layers} + {cfg.num_layers}"
+             if cfg.is_encoder_decoder else f"{cfg.num_layers}")
+    print(f"phase {phase}: {arch} in f32 at full width, {depth} layers "
+          f"({cfg.param_count() / 1e9:.3f}e9 parameters), "
           f"{mesh.sizes} vs whole on cuda:0: prefill logits {errs[0]:.3e}, "
           f"{SERVE_REDUCED_STEPS} decode steps at most {max(errs[1:]):.3e} "
           f"of the largest; the whole model one ulp away: "
@@ -4565,8 +4748,8 @@ def _serve_mesh_f32(arch, mesh):
           f"prefill (one card: {one['flash_attention']} and "
           f"{one['ssd_chunk']})")
     if not max(errs) <= limit:
-        raise AssertionError(f"phase 15b: {arch} in f32: the mesh parts from "
-                             f"one card: {errs}")
+        raise AssertionError(f"phase {phase}: {arch} in f32: the mesh parts "
+                             f"from one card: {errs}")
     del sharded
     gc.collect()
     torch.cuda.empty_cache()
@@ -4589,18 +4772,25 @@ def _nudge_one_ulp_on_card(params, seed):
             del up
 
 
+def _four_cards(phase):
+    """Whether MESH_4_CARDS cards are visible; prints why not."""
+    import torch
+
+    visible = torch.cuda.device_count()
+    if visible < MESH_4_CARDS:
+        print(f"phase {phase}: not run: it needs {MESH_4_CARDS} cards, "
+              f"{visible} visible")
+    return visible >= MESH_4_CARDS
+
+
 def phase15b():
     """With four cards: SERVE_4 at full width and depth, then cut in
     depth against the whole cut model on cuda:0.  Returns the B9 and B10
     launches; with fewer cards one line says (b) was not run."""
-    import torch
     from repro_torch.launch.mesh import make_test_mesh
 
     launches = {"flash_attention": 0, "ssd_chunk": 0}
-    visible = torch.cuda.device_count()
-    if visible < MESH_4_CARDS:
-        print(f"phase 15b: not run: it needs {MESH_4_CARDS} cards, "
-              f"{visible} visible")
+    if not _four_cards("15b"):
         return launches
     for arch, (data, model) in SERVE_4:
         mesh = make_test_mesh(data, model, device="cuda:0")
@@ -4610,12 +4800,176 @@ def phase15b():
     return launches
 
 
+def phase15c():
+    """With four cards: SERVE_4C (MLA and the encoder-decoder) at full
+    width in bf16, then in f32 against one card.  Returns the B9 and B10
+    launches; with fewer cards one line says (c) was not run."""
+    from repro_torch.launch.mesh import make_test_mesh
+
+    launches = {"flash_attention": 0, "ssd_chunk": 0}
+    if not _four_cards("15c"):
+        return launches
+    for arch, (data, model), layers in SERVE_4C:
+        mesh = make_test_mesh(data, model, device="cuda:0")
+        runs = (_serve_mesh_full(arch, mesh, "15c", layers),
+                _serve_mesh_f32(arch, mesh, "15c"))
+        for got in runs:
+            for name, n in got.items():
+                launches[name] += n
+    return launches
+
+
+def _long_caches(cfg, rows, seed):
+    """A batch-1 decode cache of ``rows`` rows on cuda:0, every KV entry
+    drawn from ``seed`` (the rows a prompt of ``rows`` tokens would have
+    written)."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves
+
+    caches = T.init_lm_cache(cfg, 1, rows, device="cuda:0")
+    gen = torch.Generator(device="cuda:0").manual_seed(seed)
+    for t in leaves(caches):
+        t.normal_(generator=gen)
+    return caches
+
+
+def _long_decode(decode, params, caches, token, sync):
+    """LONG_STEPS greedy decode steps from each of LONG_STARTS: (every
+    step's logits, the tokens fed, ms a step at each start)."""
+    out, toks, ms = [], [], []
+    for start in LONG_STARTS:
+        sync()
+        t0 = time.perf_counter()
+        tok = token
+        for i in range(LONG_STEPS):
+            toks.append(tok)
+            logits, caches = decode(params, caches, tok, start + i)
+            out.append(logits)
+            tok = logits.argmax(-1, keepdim=True)
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3 / LONG_STEPS)
+    return out, toks, ms
+
+
+def _serve_long(mesh, dtype, layers=None, profile=False):
+    """LONG_ARCH at ``dtype`` (depth cut to ``layers`` where given),
+    batch 1 at LONG_SHAPE: a cache whose rows are drawn from the seed,
+    decoded whole on cuda:0 from a seeded token, then on ``mesh`` (its
+    sequence cut over (data, model)) from the same entries, fed one
+    card's tokens; with ``profile``, one more step from LONG_STARTS[0]
+    under the profiler on each (``profile_device``: host launches and
+    idle share).  Returns (the mesh's logits, one card's, the steps
+    whose greedy tokens agree)."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import sharding as SH
+    from repro_torch.models.sharding import gather_params
+
+    full = get_config(LONG_ARCH)
+    cfg = dataclasses.replace(full, param_dtype=dtype, compute_dtype=dtype,
+                              num_layers=layers or full.num_layers)
+    shape = SHAPES[LONG_SHAPE]
+    rows = shape.seq_len
+    cards = list(dict.fromkeys(mesh.devices))
+    gc.collect()
+    torch.cuda.empty_cache()
+    for dev in cards:
+        torch.zeros(1, device=dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    sharded = _init_on_mesh(cfg, mesh, LM_SEED + 3)
+    whole = gather_params(sharded, "cuda:0")
+    caches = _long_caches(cfg, rows, LM_SEED + 4)
+    placed = SH.shard_cache(caches, mesh, 1)
+    spec = SH.cache_pspecs(caches, mesh, 1)[0]["k"]
+    token = _tensor_cuda([[7]])
+    one_step = steps.make_decode_step(cfg, shape)
+    one, one_toks, one_ms = _long_decode(one_step, whole, caches, token,
+                                         torch.cuda.synchronize)
+    if profile:
+        profile_device("15d", f"{LONG_ARCH} decode step from "
+                       f"{LONG_STARTS[0]}, one card", lambda: one_step(
+                           whole, caches, one_toks[0], LONG_STARTS[0]),
+                       host_top=3)
+    del whole, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    feed = iter(one_toks)
+    decode = steps.build_step(cfg, shape, mesh).fn
+    got, _, ms = _long_decode(
+        lambda p, c, tok, pos: decode(p, c, next(feed), pos),
+        sharded, placed, token, lambda: _sync_all(mesh))
+    if profile:
+        profile_device("15d", f"{LONG_ARCH} decode step from "
+                       f"{LONG_STARTS[0]}, {mesh.sizes}", lambda: decode(
+                           sharded, placed, one_toks[0], LONG_STARTS[0]),
+                       host_top=3)
+    agree = sum(int(torch.equal(a.argmax(-1), b.argmax(-1)))
+                for a, b in zip(got, one))
+    window = steps.decode_window(cfg, shape)
+    peaks = ", ".join(f"{d} {torch.cuda.max_memory_allocated(d) / 2**30:.2f}"
+                      for d in cards)
+    cache_gb = (2 * cfg.num_layers * rows * cfg.num_kv_heads * cfg.head_dim
+                * (2 if dtype == "bfloat16" else 4) / 1e9)
+    print(f"phase 15d: {LONG_ARCH} in {dtype}, {cfg.num_layers} layers, "
+          f"batch 1, a {rows}-row cache ({cache_gb:.2f} GB, drawn from the "
+          f"seed; the k spec {spec}, "
+          f"window {window}) on {mesh.sizes}: {LONG_STEPS} decode steps "
+          f"from each of {LONG_STARTS}: the mesh {[round(t, 3) for t in ms]}"
+          f" ms a step, one card {[round(t, 3) for t in one_ms]} (host "
+          f"clock ending in a synchronize of every card); peak GiB by card "
+          f"(one card's copy on cuda:0 included): {peaks}")
+    del sharded, placed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got, one, agree
+
+
+def phase15d():
+    """With four cards: LONG_ARCH's batch-1 LONG_SHAPE decode over (2, 2),
+    its cache's sequence cut over (data, model), fed one card's tokens:
+    bf16 at full width and depth against one card, printed; an f32 cut
+    of LONG_F32_LAYERS layers held within LIMIT_LOGIT_REL.  With fewer
+    cards one line says (d) was not run."""
+    import torch
+    from repro_torch.launch.mesh import make_test_mesh
+
+    if not _four_cards("15d"):
+        return
+    mesh = make_test_mesh(2, 2, device="cuda:0")
+    got, want, agree = _serve_long(mesh, "bfloat16", profile=True)
+    errs = [float((g - w).abs().max() / w.abs().max())
+            for g, w in zip(got, want)]
+    finite = all(bool(torch.isfinite(x).all()) for x in got)
+    print(f"phase 15d: {LONG_ARCH} bf16 at full width, (2, 2) vs one card "
+          f"fed its tokens (printed, not held): logits at most "
+          f"{max(errs):.3e} of the largest (first step of each start "
+          f"{errs[0]:.3e}, {errs[LONG_STEPS]:.3e}), greedy tokens agreeing "
+          f"at {agree} of {len(got)} steps; finite logits: {finite}")
+    if not finite:
+        raise AssertionError("phase 15d: bf16 logits not finite")
+    got, want, _ = _serve_long(mesh, "float32", LONG_F32_LAYERS)
+    errs = [float((g - w).abs().max() / w.abs().max())
+            for g, w in zip(got, want)]
+    print(f"phase 15d: {LONG_ARCH} in f32 cut to {LONG_F32_LAYERS} layers, "
+          f"(2, 2) vs one card fed its tokens: logits at most "
+          f"{max(errs):.3e} of the largest (limit {LIMIT_LOGIT_REL:.0e})")
+    if not max(errs) <= LIMIT_LOGIT_REL:
+        raise AssertionError(f"phase 15d: f32 parts from one card: {errs}")
+
+
 def phase15():
     """Serving over a data x model mesh.  Returns the B9 and B10
     launches."""
     launches = phase15a()
-    for name, n in phase15b().items():
-        launches[name] += n
+    for part in (phase15b, phase15c):
+        for name, n in part().items():
+            launches[name] += n
+    phase15d()
     return launches
 
 

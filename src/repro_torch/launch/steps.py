@@ -36,12 +36,10 @@ or decode shape on a ``launch/mesh.py::NamedMesh``, whose ``fn`` runs
 eagerly on trees placed on that mesh: training through
 ``make_train_step(mesh=)``, serving through the tensor-parallel prefill
 and decode of ``models/transformer.py`` (``lm_prefill_mesh``,
-``lm_decode_step_mesh``) over caches placed by
+``lm_decode_step_mesh``) and ``models/encdec.py`` over caches placed by
 ``models/sharding.py::shard_cache``.
 
-Not ported: ``lower_step`` (AOT lowering for the TPU mesh).  MLA and
-the encoder-decoder serve over a mesh of one device only (ROADMAP
-§A2b), and a cache cut over more than one axis is not placed (§A2c).
+Not ported: ``lower_step`` (AOT lowering for the TPU mesh).
 """
 
 from __future__ import annotations
@@ -459,19 +457,19 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
 
     Serving over a mesh of D > 1 devices runs every replica's ranks
     layer by layer (``transformer.lm_prefill_mesh``,
-    ``lm_decode_step_mesh``): each device computes with its parameter
-    shards, gathered over ``data`` for the step where a leaf is cut
-    there (``Sharded.local``; an expert leaf never is), and the logits
-    come back (B, V) on the mesh's first device.  A one-device mesh
-    runs the one-device steps on its shards.  Raises
-    ``NotImplementedError`` for MLA and the encoder-decoder served over
-    more than one device (ROADMAP §A2b); the serving ``fn`` raises for
-    a batch that the data axes do not divide (its cache would be cut
-    over more than one axis, §A2c).
+    ``lm_decode_step_mesh``; the encoder-decoder's
+    ``encdec.encdec_prefill_mesh``, ``encdec_decode_step_mesh``): each
+    device computes with its parameter shards, gathered over ``data``
+    for the step where a leaf is cut there (``Sharded.local``; an
+    expert leaf never is), and the logits come back (B, V) on the mesh's
+    first device.  A batch that the data axes do not divide is run
+    whole by every replica, as the JAX GSPMD program replicates it: its
+    cache's sequence is cut over ``(data, model)`` (or ``data``), and a
+    decode step's partial softmaxes are combined over the whole mesh.
+    A one-device mesh runs the one-device steps on its shards.
     """
     p_specs = params_specs(cfg)
     p_shard = None if mesh is None else SH.params_pspecs(p_specs, mesh)
-    D = 1 if mesh is None else mesh.size
 
     if shape.kind == "train":
         opt = make_optimizer(cfg, total_steps)
@@ -486,8 +484,6 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
                  batch_shardings(cfg, shape, mesh))
         return StepBundle(fn, args, in_sh, (p_shard, opt_shard, None))
 
-    if D > 1 and (cfg.use_mla or cfg.is_encoder_decoder):
-        raise NotImplementedError(f"{cfg.name}: {T.SERVE_MESH_ITEM}")
     B, S = shape.global_batch, shape.seq_len
     c_specs = cache_specs(cfg, B, S)
     c_shard = None if mesh is None else cache_pspecs(c_specs, mesh, B)
@@ -523,32 +519,34 @@ def _local_params(params, D):
     return [unflatten(params, [x.local(d) for x in flat]) for d in range(D)]
 
 
-def _check_serving_batch(cfg, shape, mesh):
-    R = len(mesh.replicas)
-    if shape.global_batch % R:
-        raise NotImplementedError(
-            f"{cfg.name}: a batch of {shape.global_batch} rows over {R} "
-            f"replicas: {SH.CACHE_AXES_ITEM} is not ported")
+def _serving_rows(batch, mesh, caches):
+    """Each device's rows of a serving batch (a dict of (B, ...)
+    tensors): its replica's (``sharding.shard_batch``), or the whole
+    batch on every device where the cache tree's layout says every
+    replica holds it (``sharding.replicated``)."""
+    if SH.replicated(caches):
+        return [{k: v.to(dev) for k, v in batch.items()}
+                for dev in mesh.devices]
+    return SH.shard_batch(batch, mesh)
 
 
 def _prefill_on_mesh(cfg, shape, mesh) -> Callable:
     one = make_prefill_step(cfg, shape)
     groups = [PL.Group(g) for g in mesh.replicas]
+    prefill = ED.encdec_prefill_mesh if cfg.is_encoder_decoder \
+        else T.lm_prefill_mesh
 
     def prefill_step(params, batch):
         if mesh.size == 1:
             logits, caches = one(SH.device_views(params, 0), batch)
             return logits, tree_map(lambda t: SH.Sharded([t]), caches)
-        _check_serving_batch(cfg, shape, mesh)
         caches = SH.shard_cache(
             cache_specs(cfg, shape.global_batch, shape.seq_len), mesh,
             shape.global_batch)
         with torch.no_grad():
-            logits = T.lm_prefill_mesh(
+            logits = prefill(
                 groups, _local_params(params, mesh.size), cfg,
-                SH.shard_batch(batch, mesh),
-                [SH.device_views(caches, d) for d in range(mesh.size)],
-                max_seq=shape.seq_len)
+                _serving_rows(batch, mesh, caches), caches)
         return logits, caches
 
     return prefill_step
@@ -558,7 +556,8 @@ def _decode_on_mesh(cfg, shape, mesh) -> Callable:
     one = make_decode_step(cfg, shape)
     window = decode_window(cfg, shape)
     groups = [PL.Group(g) for g in mesh.replicas]
-    R, M = len(mesh.replicas), mesh.ranks
+    decode = ED.encdec_decode_step_mesh if cfg.is_encoder_decoder \
+        else T.lm_decode_step_mesh
 
     def serve_step(params, caches, token, pos):
         if mesh.size == 1:
@@ -569,19 +568,15 @@ def _decode_on_mesh(cfg, shape, mesh) -> Callable:
                 if t is not x.shards[0]:
                     x.shards[0].copy_(t)
             return logits, caches
-        _check_serving_batch(cfg, shape, mesh)
-        rows = SH.shard_batch({"tokens": token}, mesh)
-        if torch.is_tensor(pos) and pos.dim() == 1:
-            poss = [SH.batch_rows(pos, R, 1, d // M).to(dev)
-                    for d, dev in enumerate(mesh.devices)]
-        else:
-            poss = [int(pos)] * mesh.size
+        per_row = torch.is_tensor(pos) and pos.dim() == 1
+        rows = _serving_rows(dict(tokens=token, **(
+            {"pos": pos} if per_row else {})), mesh, caches)
+        poss = ([r["pos"] for r in rows] if per_row
+                else [int(pos)] * mesh.size)
         with torch.no_grad():
-            logits = T.lm_decode_step_mesh(
+            logits = decode(
                 groups, _local_params(params, mesh.size), cfg,
-                [r["tokens"] for r in rows],
-                [SH.device_views(caches, d) for d in range(mesh.size)],
-                poss, max_seq=shape.seq_len, window=window)
+                [r["tokens"] for r in rows], caches, poss, window=window)
         return logits, caches
 
     return serve_step

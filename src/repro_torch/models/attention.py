@@ -40,10 +40,16 @@ own decode is an einsum too.  A differentiated call (the training loss)
 takes the plain path too: the kernel has no backward.
 
 :func:`attention_tp` is the tensor-parallel form over the ``model`` ranks
-of a :class:`repro_torch.models.parallel.Group`: without a cache the
-training loss's, with one (rank j's shard of a cache laid out by
-``models/sharding.py::cache_pspecs``) the serving mesh's prefill (B9 per
-rank where :func:`_flash_route` sends the call) and flash-decode step.
+of a :class:`repro_torch.models.parallel.Group`: the training loss's,
+the serving encoder's and, with a cache (rank j's shard of a cache laid
+out by ``models/sharding.py::cache_pspecs``), the serving mesh's prefill
+of a self or cross cache, B9 per rank where :func:`_flash_route` sends
+the call.  :func:`attention_decode_mesh` is the serving mesh's decode
+step over every replica at once: flash-decode, each device's partial
+softmax over its slice of the cache combined over a replica's ranks, or
+over the whole mesh where every replica holds the whole batch (a batch
+the data axes do not divide: its cache's sequence is cut over data
+too).
 """
 
 from __future__ import annotations
@@ -54,7 +60,9 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels._common import differentiated
 from repro_torch.models import layers as L
-from repro_torch.models.parallel import held, work
+from repro_torch.models import parallel as PL
+from repro_torch.models import sharding as SH
+from repro_torch.models.parallel import work
 
 NEG_INF = -1e30
 # sequence length at/above which the plain full-attention path switches
@@ -334,13 +342,16 @@ def attention(p, x, cfg, *, positions, causal=True, window=None,
     return out, cache
 
 
-def _project_tp(group, ps, xs, cfg, memory, positions):
+def _project_tp(group, ps, xs, cfg, kv_src, positions, *, rope=True,
+                k_norm=True):
     """The ranks' projections for :func:`attention_tp`: (spans, heads,
     kv_heads, q, k, v).  ``spans[j]`` is the span of ``wo``'s rows rank j
     holds (None: no work), ``heads[j]``/``kv_heads[j]`` the q and KV
     heads it computes, and q/k/v its (B, S, h, hd) tensors after the
-    qk-norm and, without ``memory``, RoPE at ``positions[j]`` (None:
-    ``0..S-1``)."""
+    qk-norm (``k_norm=False``: on q only, as a cross cache holds K) and,
+    with ``rope``, RoPE at ``positions[j]`` (None: ``0..S-1``).  K/V
+    are projected from ``kv_src`` (per-rank copies of the input or of
+    the cross-attention memory); ``kv_src`` None: no K/V (None)."""
     M, hd = group.size, cfg.head_dim
     per_kv = cfg.num_heads // cfg.num_kv_heads
     cdt = L.dtype_of(cfg.compute_dtype)
@@ -355,11 +366,13 @@ def _project_tp(group, ps, xs, cfg, memory, positions):
         return [h and (h[0] * hd, h[1] * hd) for h in hs]
 
     q = L.dense_col(group, [p["wq"] for p in ps], xs, cfg.q_dim, cols(heads))
-    src = xs if memory is None else [m.to(cdt) for m in memory]
-    k = L.dense_col(group, [p["wk"] for p in ps], src, cfg.kv_dim,
-                    cols(kv_heads))
-    v = L.dense_col(group, [p["wv"] for p in ps], src, cfg.kv_dim,
-                    cols(kv_heads))
+    k = v = [None] * M
+    if kv_src is not None:
+        src = [m.to(cdt) for m in kv_src]
+        k = L.dense_col(group, [p["wk"] for p in ps], src, cfg.kv_dim,
+                        cols(kv_heads))
+        v = L.dense_col(group, [p["wv"] for p in ps], src, cfg.kv_dim,
+                        cols(kv_heads))
     qs, ks, vs = [], [], []
     for j, p in enumerate(ps):
         if spans[j] is None:
@@ -369,16 +382,20 @@ def _project_tp(group, ps, xs, cfg, memory, positions):
             continue
         (h0, h1), (g0, g1) = heads[j], kv_heads[j]
         qj = _split_heads(q[j], h1 - h0, hd)
-        kj = _split_heads(k[j], g1 - g0, hd)
-        vj = _split_heads(v[j], g1 - g0, hd)
+        kj = vj = None
+        if kv_src is not None:
+            kj = _split_heads(k[j], g1 - g0, hd)
+            vj = _split_heads(v[j], g1 - g0, hd)
         if "q_norm" in p:
             qj = L.rmsnorm(p["q_norm"], qj, cfg.norm_eps)
-            kj = L.rmsnorm(p["k_norm"], kj, cfg.norm_eps)
-        if memory is None:
+            if kj is not None and k_norm:
+                kj = L.rmsnorm(p["k_norm"], kj, cfg.norm_eps)
+        if rope:
             pos = (torch.arange(qj.shape[1], device=qj.device)
                    if positions is None else positions[j])
             qj = L.apply_rope(qj, pos, cfg.rope_theta)
-            kj = L.apply_rope(kj, pos, cfg.rope_theta)
+            if kj is not None:
+                kj = L.apply_rope(kj, pos, cfg.rope_theta)
         qs.append(qj)
         ks.append(kj)
         vs.append(vj)
@@ -397,7 +414,7 @@ def _local_kv(kj, vj, heads, kv_heads, per_kv):
 
 
 def attention_tp(group, ps, xs, cfg, *, causal=True, window=None,
-                 memory=None, caches=None, cache_pos=None, max_seq=None):
+                 memory=None, caches=None, spans=None):
     """Attention over a group's ranks: ``wq``/``wk``/``wv``
     column-parallel, ``wo`` row-parallel.
 
@@ -409,187 +426,262 @@ def attention_tp(group, ps, xs, cfg, *, causal=True, window=None,
     RoPE, the softcap and the window apply per head, as in
     :func:`attention`.  ``memory``: per-rank copies of the
     cross-attention memory (K/V through ``wk``/``wv``; no RoPE, not
-    causal).  ``xs``: per-rank copies of the input (B, S, d); returns
-    per-rank copies of the output.
+    causal).  ``xs``: per-rank copies of the input (B, S, d), positions
+    ``0..S-1``; returns per-rank copies of the output.  Each rank
+    attends through the flash-attention kernel where
+    :func:`_flash_route` sends the call (the route of :func:`attention`:
+    a prompt, causal or not; never the training loss, whose call is
+    differentiated), else through :func:`_attend`.
 
-    Without ``caches`` this is the training loss's attention (positions
-    ``0..S-1``, the plain path).  With ``caches`` (rank j's shard of the
-    layer's KV cache, laid out by ``models/sharding.py::cache_pspecs`` over
-    a cache of ``max_seq`` rows) it is the serving form,
-    :func:`_attention_tp_cached`.
+    ``caches`` (rank j's shard of the layer's cache, laid out by
+    ``models/sharding.py::cache_pspecs``, and ``spans[j]`` the spans of
+    the whole cache it holds, ``Sharded.spans``) make it a serving
+    prefill from position 0: the K/V this call attends to (the prompt's,
+    or with ``memory`` the memory's, which a cross cache holds without
+    ``k_norm`` as ``encdec.build_cross_cache`` builds it) move to the
+    ranks whose slices of the cache hold them (``Group.heads_to_seq``)
+    and are written there in place.  A decode step is
+    :func:`attention_decode_mesh`.
     """
-    if caches is not None:
-        if memory is not None:
-            raise ValueError("the cached tensor-parallel attention is "
-                             "self-attention only")
-        return _attention_tp_cached(group, ps, xs, cfg, caches, cache_pos,
-                                    max_seq, window)
     per_kv = cfg.num_heads // cfg.num_kv_heads
-    spans, heads, kv_heads, qs, ks, vs = _project_tp(group, ps, xs, cfg,
-                                                     memory, None)
+    cross = memory is not None
+    spans_wo, heads, kv_heads, qs, ks, vs = _project_tp(
+        group, ps, xs, cfg, memory if cross else xs, None, rope=not cross,
+        k_norm=not (cross and caches is not None))
     outs = []
     for j in range(group.size):
-        if spans[j] is None:
+        if spans_wo[j] is None:
             outs.append(None)
             continue
         qj = qs[j]
         kj, vj = _local_kv(ks[j], vs[j], heads[j], kv_heads[j], per_kv)
-        dev = qj.device
-        positions = torch.arange(qj.shape[1], device=dev)
-        if memory is None:
+        S = qj.shape[1]
+        positions = torch.arange(S, device=qj.device)
+        if cross:
+            k_positions, c = torch.arange(kj.shape[1], device=qj.device), \
+                False
+        else:
             k_positions, c = positions, causal
+        if _flash_route(S, cfg, positions, None, None, c,
+                        inputs=(qj, kj, vj)):
+            if window is not None and not c:
+                raise ValueError("a non-causal attention with a window has "
+                                 "no flash route")
+            # per-rank slices of a fused projection: the bf16 body wants
+            # 8-element strides, so lay them out afresh
+            out = ops.flash_attention(qj.contiguous(), kj.contiguous(),
+                                      vj.contiguous(), causal=c,
+                                      window=window)
         else:
-            k_positions, c = torch.arange(kj.shape[1], device=dev), False
-        out = _attend(qj, kj, vj, cfg, positions, k_positions, c, window)
+            out = _attend(qj, kj, vj, cfg, positions, k_positions, c, window)
         out = out.reshape(*out.shape[:2], -1)
-        outs.append(out.narrow(-1, spans[j][0] - heads[j][0] * cfg.head_dim,
-                               spans[j][1] - spans[j][0]))
-    return L.dense_row(group, [p["wo"] for p in ps], outs)
-
-
-def cache_regions(group, caches, cfg, max_seq):
-    """Each rank's cache shard as (held, region): ``held`` the (rows,
-    heads) spans its shard holds, ``region`` the (rows, heads) spans it
-    computes a decode step's partial softmax over, or None.  The regions
-    tile the cache once: its rows where the sequence is cut, its heads
-    where the KV heads are, and the whole cache on rank 0 alone where
-    neither is."""
-    M, K = group.size, cfg.num_kv_heads
-    out = []
-    for j, c in enumerate(caches):
-        rows = held(j, M, c["k"].shape[1], max_seq)
-        hs = held(j, M, c["k"].shape[2], K)
-        if rows != (0, max_seq):
-            region = (rows, (0, K))
-        elif hs != (0, K):
-            region = ((0, max_seq), hs)
-        else:
-            region = ((0, max_seq), (0, K)) if j == 0 else None
-        out.append(((rows, hs), region))
-    return out
-
-
-def _attention_tp_cached(group, ps, xs, cfg, caches, cache_pos, max_seq,
-                         window):
-    """The serving form of :func:`attention_tp`, over a KV cache of
-    ``max_seq`` rows cut as ``models/sharding.py::cache_pspecs`` cuts it:
-    its sequence over the ranks (or, where ``model`` does not divide it,
-    its KV heads; or whole on every rank).  ``caches[j]`` is rank j's
-    shard {k, v: (B, S_j, K_j, hd)}, written in place.
-
-    A prompt (S > 1, ``cache_pos`` 0): each rank attends its own heads
-    over the prompt, through the flash-attention kernel where
-    :func:`_flash_route` sends the call (the route of :func:`attention`
-    with a cache), then the prompt's K/V move to the ranks whose slices
-    hold them (``Group.heads_to_seq``).  A decode step (S = 1,
-    ``cache_pos`` an int or a (B,) tensor per rank): the step's q and
-    K/V are gathered over the group, each rank writes the K/V only where
-    a row's position falls in its slice, computes the partial softmax of
-    every head over its own cache region in f32 (plain PyTorch, as the
-    one-device decode), and the partials are combined in rank order
-    (``Group.lse_combine``).  Each rank keeps its own heads for the
-    row-parallel ``wo``."""
-    M, hd, K, H = group.size, cfg.head_dim, cfg.num_kv_heads, cfg.num_heads
-    per_kv = H // K
-    S = xs[0].shape[1]
-    regions = cache_regions(group, caches, cfg, max_seq)
-    if S > 1:
-        if any(not isinstance(c, int) or c != 0 for c in cache_pos):
-            raise ValueError("a tensor-parallel prefill writes the cache "
-                             "from position 0")
-        spans, heads, kv_heads, qs, ks, vs = _project_tp(group, ps, xs, cfg,
-                                                         None, None)
-        outs = []
-        for j in range(M):
-            if spans[j] is None:
-                outs.append(None)
-                continue
-            qj = qs[j]
-            kj, vj = _local_kv(ks[j], vs[j], heads[j], kv_heads[j], per_kv)
-            positions = torch.arange(S, device=qj.device)
-            if _flash_route(S, cfg, positions, None, None, True,
-                            inputs=(qj, kj, vj)):
-                # per-rank slices of a fused projection: the bf16 body
-                # wants 8-element strides, so lay them out afresh
-                out = ops.flash_attention(qj.contiguous(), kj.contiguous(),
-                                          vj.contiguous(), causal=True,
-                                          window=window)
-            else:
-                out = _attend(qj, kj, vj, cfg, positions, positions, True,
-                              window)
-            out = out.reshape(*out.shape[:2], -1)
-            outs.append(out.narrow(-1, spans[j][0] - heads[j][0] * hd,
-                                   spans[j][1] - spans[j][0]))
-        # each shard's rows of the prompt (from its first row: the
-        # prompt starts at 0) and its heads
-        rows = [(r[0], min(r[1], S)) for (r, _), _ in regions]
-        hs = [h for (_, h), _ in regions]
+        outs.append(out.narrow(-1, spans_wo[j][0] - heads[j][0]
+                               * cfg.head_dim,
+                               spans_wo[j][1] - spans_wo[j][0]))
+    if caches is not None:
+        n = next(k.shape[1] for k in ks if k is not None)
+        # each shard's rows of this call's K/V (from its first row: a
+        # prefill starts at 0) and its heads
+        rows = [(sp["k"][1][0], min(sp["k"][1][1], n)) for sp in spans]
+        hs = [sp["k"][2] for sp in spans]
         for key, new in (("k", ks), ("v", vs)):
             blocks = group.heads_to_seq(new, kv_heads, rows, hs)
             for c, blk in zip(caches, blocks):
                 if blk is not None:
                     c[key][:, :blk.shape[1]] = blk.to(c[key].dtype)
-        return L.dense_row(group, [p["wo"] for p in ps], outs)
+    return L.dense_row(group, [p["wo"] for p in ps], outs)
 
-    # -- one decode step: flash-decode over the cache's slices ------------
+
+def cache_regions(blocks):
+    """Which block of a cache each device computes a decode step's
+    partial softmax over: ``blocks[d]`` is the block device d holds (a
+    tuple of spans, say its rows and its KV heads), and its region is
+    that block where no earlier device holds the same one, else None.
+    The blocks of a layout tile the cache (its sequence cut over the
+    devices, its heads, or neither: whole copies), so the regions tile
+    it once, each computed by the block's first holder."""
+    seen = set()
+    out = []
+    for b in blocks:
+        out.append(None if b in seen else b)
+        seen.add(b)
+    return out
+
+
+def live_rows(cache_pos, window, rows, cross=False):
+    """The rows of a cache slice ``rows`` (lo, hi) that a decode step
+    reads, ``(lo, hi)`` with ``hi >= lo``: for a scalar ``cache_pos`` p,
+    those in ``[0, p]``, or within a window ``[p - window + 1, p]`` (the
+    keys of the one-device path's slice ``[start, start + window)``,
+    ``start`` clamped to ``[0, T - window]``, that its mask keeps); all
+    of them for per-row positions (the mask then keeps each row's own)
+    and for cross-attention (no mask)."""
+    if cross or torch.is_tensor(cache_pos):
+        return rows
+    p = int(cache_pos)
+    lo = max(rows[0], 0 if window is None else p - window + 1)
+    return lo, max(lo, min(rows[1], p + 1))
+
+
+def decode_scopes(groups, replicated):
+    """The sets of devices whose partial softmaxes a decode step
+    combines, each a list of device indices: a replica's ranks where the
+    batch is cut over the replicas (each replica's rows are its own);
+    every device of the mesh where each replica holds the whole batch
+    (``replicated``: the cache's sequence may then be cut over data
+    too, and the replicas' copies are equal)."""
+    M = groups[0].size
+    if replicated:
+        return [list(range(len(groups) * M))]
+    return [list(range(r * M, (r + 1) * M)) for r in range(len(groups))]
+
+
+def write_row(c, key, new, pos, rows):
+    """Write a decode step's (B, ...) ``new`` into the shard ``c[key]``
+    that holds rows ``rows`` of the cache: row b at its position
+    ``pos[b]`` where that falls in the shard, nothing elsewhere."""
+    r0, r1 = rows
+    B = new.shape[0]
+    if not torch.is_tensor(pos):
+        if r0 <= pos < r1:
+            c[key][:, pos - r0] = new.to(c[key].dtype)
+        return
+    rows_b = torch.arange(B, device=pos.device)
+    inside = (pos >= r0) & (pos < r1)
+    at = torch.clamp(pos - r0, 0, r1 - r0 - 1)
+    cur = c[key][rows_b, at]
+    shape = (B,) + (1,) * (new.dim() - 1)
+    c[key][rows_b, at] = torch.where(inside.reshape(shape),
+                                     new.to(c[key].dtype), cur)
+
+
+def combine_partials(groups, replicated, blocks, partial):
+    """Flash-decode's combine: for each scope (:func:`decode_scopes`),
+    ``partial(d, region)`` of each device d with a region (the block
+    ``blocks[d]`` it holds, where no earlier device of the scope holds
+    the same, :func:`cache_regions`) gives (max, sum, unnormalized output)
+    over it, and :meth:`Group.lse_combine` combines them in device
+    order.  Returns each device's copy of the combined output."""
+    devices = [dev for g in groups for dev in g.devices]
+    out = [None] * len(devices)
+    for scope in decode_scopes(groups, replicated):
+        regions = cache_regions([blocks[d] for d in scope])
+        parts = [partial(d, reg) if reg is not None
+                 else (None, None, None) for d, reg in zip(scope, regions)]
+        att = PL.Group([devices[d] for d in scope]).lse_combine(
+            *map(list, zip(*parts)))
+        for d, a in zip(scope, att):
+            out[d] = a
+    return out
+
+
+def dense_row_mesh(groups, ws, outs):
+    """:func:`layers.dense_row` over each replica's ranks: ``ws`` and
+    ``outs`` are every device's weight and input, replica after
+    replica."""
+    M = groups[0].size
+    out = []
+    for r, group in enumerate(groups):
+        sl = slice(r * M, (r + 1) * M)
+        out += L.dense_row(group, ws[sl], outs[sl])
+    return out
+
+
+def softmax_partial(s, valid):
+    """(max, sum, weights) of scores ``s`` (..., t) in f32 over the keys
+    ``valid`` keeps; a row that keeps none gives max -inf, sum 0 and
+    weights 0."""
+    s = torch.where(valid, s, torch.full_like(s, -float("inf")))
+    if s.shape[-1] == 0:
+        m = torch.full(s.shape[:-1], -float("inf"), device=s.device)
+        return m, torch.zeros_like(m), s
+    m = s.amax(-1)
+    p = torch.exp(s - torch.where(torch.isneginf(m), 0.0, m)[..., None])
+    return m, p.sum(-1), p
+
+
+def attention_decode_mesh(groups, ps, xs, cfg, caches, cache_pos, *,
+                          window=None, cross=False):
+    """One decode step (S = 1) of the cached attention over every
+    replica of a mesh: flash-decode over the cache's slices.
+
+    ``groups``: the replicas' groups of ranks; ``ps``, ``xs`` and
+    ``cache_pos``: each device's parameters, copy of its replica's input
+    (B, 1, d) and position(s) (an int for every row, or a (B,) tensor),
+    replica after replica; ``caches``: the layer's cache {k, v} of
+    ``sharding.Sharded`` leaves (device d writes and reads its shard).  Each replica projects its ranks' heads and gathers the
+    step's q (and K/V) over its group; each device writes the K/V where
+    a row's position falls in its slice (not for ``cross``: a cross
+    cache, written at the prefill, is only read), computes the partial
+    softmax of every head over its region of the cache (its first
+    holder's block, :func:`cache_regions`) in f32, plain PyTorch as the
+    one-device decode, and the partials are combined in device order
+    over each replica, or over the whole mesh where every replica holds
+    the whole batch (``sharding.replicated``, :func:`decode_scopes`).  A device
+    reads only :func:`live_rows` of its slice; one that sees no key
+    weighs exactly 0.  Cross-attention (no RoPE, q-norm only) reads
+    every key.  Returns per-device copies of the output (the
+    row-parallel ``wo`` of each replica)."""
+    M, hd, K, H = groups[0].size, cfg.head_dim, cfg.num_kv_heads, \
+        cfg.num_heads
+    per_kv = H // K
     poss = [_row_positions(c, x) for c, x in zip(cache_pos, xs)]
-    spans, heads, kv_heads, qs, ks, vs = _project_tp(
-        group, ps, xs, cfg, None, [p[:, None] for p in poss])
-    q = group.redistribute(qs, heads, [(0, H)] * M, dim=2)
-    k = group.redistribute(ks, kv_heads, [(0, K)] * M, dim=2)
-    v = group.redistribute(vs, kv_heads, [(0, K)] * M, dim=2)
-    ms, ls, os = [], [], []
-    for j, (((r0, r1), (k0, k1)), region) in enumerate(regions):
-        c, pos = caches[j], poss[j]
+    wo_spans, q, k, v = [], [], [], []
+    for r, group in enumerate(groups):
+        sl = slice(r * M, (r + 1) * M)
+        sp, heads, kv_heads, qs, ks, vs = _project_tp(
+            group, ps[sl], xs[sl], cfg, None if cross else xs[sl],
+            [p[:, None] for p in poss[sl]], rope=not cross)
+        wo_spans += sp
+        q += group.redistribute(qs, heads, [(0, H)] * M, dim=2)
+        if not cross:
+            k += group.redistribute(ks, kv_heads, [(0, K)] * M, dim=2)
+            v += group.redistribute(vs, kv_heads, [(0, K)] * M, dim=2)
+    views = [SH.device_views(caches, d) for d in range(len(xs))]
+    blocks = [caches["k"].spans(d)[1:3] for d in range(len(xs))]
+    if not cross:
+        for d, (c, ((r0, r1), (k0, k1))) in enumerate(zip(views, blocks)):
+            for key, new in (("k", k[d]), ("v", v[d])):
+                write_row(c, key, new[:, 0, k0:k1], cache_pos[d], (r0, r1))
+
+    def partial(d, region):
+        ((t0, t1), (g0, g1)), ((r0, _), (k0, _)) = region, blocks[d]
+        pos = poss[d]
         B = pos.shape[0]
-        rows = torch.arange(B, device=pos.device)
-        inside = (pos >= r0) & (pos < r1)
-        at = torch.clamp(pos - r0, 0, r1 - r0 - 1)
-        for key, new in (("k", k[j]), ("v", v[j])):
-            cur = c[key][rows, at]
-            c[key][rows, at] = torch.where(
-                inside[:, None, None], new[:, 0, k0:k1].to(c[key].dtype),
-                cur)
-        if region is None:
-            ms.append(None)
-            ls.append(None)
-            os.append(None)
-            continue
-        (t0, t1), (g0, g1) = region
-        kj = c["k"][:, t0 - r0:t1 - r0, g0 - k0:g1 - k0]
-        vj = c["v"][:, t0 - r0:t1 - r0, g0 - k0:g1 - k0]
-        qj = q[j][:, 0, g0 * per_kv:g1 * per_kv].reshape(B, g1 - g0, per_kv,
+        lo, hi = live_rows(cache_pos[d], window, (t0, t1), cross)
+        kj = views[d]["k"][:, lo - r0:hi - r0, g0 - k0:g1 - k0]
+        vj = views[d]["v"][:, lo - r0:hi - r0, g0 - k0:g1 - k0]
+        qj = q[d][:, 0, g0 * per_kv:g1 * per_kv].reshape(B, g1 - g0, per_kv,
                                                          hd)
         s = torch.einsum("bkgd,btkd->bkgt", qj.float(),
                          kj.float()) / np.sqrt(hd)
         if cfg.logit_softcap:
             s = torch.tanh(s / cfg.logit_softcap) * cfg.logit_softcap
-        t = torch.arange(t0, t1, device=pos.device)
-        valid = t[None] <= pos[:, None]
-        if window is not None:
-            valid &= t[None] > pos[:, None] - window
-        s = torch.where(valid[:, None, None], s,
-                        torch.full_like(s, -float("inf")))
-        m = s.amax(-1)
-        p_ = torch.exp(s - torch.where(torch.isneginf(m), 0.0, m)[..., None])
+        t = torch.arange(lo, hi, device=pos.device)
+        valid = torch.ones((B, hi - lo), dtype=torch.bool,
+                           device=pos.device)
+        if not cross:
+            valid &= t[None] <= pos[:, None]
+            if window is not None:
+                valid &= t[None] > pos[:, None] - window
+        m, l_, p_ = softmax_partial(s, valid[:, None, None])
         o = torch.einsum("bkgt,btkd->bkgd", p_, vj.float())
         m_all = torch.full((B, H), -float("inf"), device=pos.device)
         l_all = torch.zeros((B, H), device=pos.device)
         o_all = torch.zeros((B, H, hd), device=pos.device)
         sl = slice(g0 * per_kv, g1 * per_kv)
         m_all[:, sl] = m.reshape(B, -1)
-        l_all[:, sl] = p_.sum(-1).reshape(B, -1)
+        l_all[:, sl] = l_.reshape(B, -1)
         o_all[:, sl] = o.reshape(B, -1, hd)
-        ms.append(m_all)
-        ls.append(l_all)
-        os.append(o_all)
-    att = group.lse_combine(ms, ls, os)
+        return m_all, l_all, o_all
+
+    att = combine_partials(groups, SH.replicated(caches), blocks, partial)
     cdt = L.dtype_of(cfg.compute_dtype)
     outs = [None if sp is None else
             a.to(cdt).reshape(a.shape[0], 1, H * hd).narrow(
                 -1, sp[0], sp[1] - sp[0])
-            for a, sp in zip(att, spans)]
-    return L.dense_row(group, [p["wo"] for p in ps], outs)
+            for a, sp in zip(att, wo_spans)]
+    return dense_row_mesh(groups, [p["wo"] for p in ps], outs)
 
 
 def _row_positions(cache_pos, x):

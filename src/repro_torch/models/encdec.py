@@ -27,7 +27,10 @@ its scan bodies in ``jax.checkpoint``.  :func:`encdec_train_loss_tp` is
 that loss over the ``model`` ranks of a
 :class:`repro_torch.models.parallel.Group` (``models/transformer.py``'s
 tensor-parallel layers; cross-attention applies ``wk``/``wv`` to each
-rank's copy of the memory).
+rank's copy of the memory).  :func:`encdec_prefill_mesh` and
+:func:`encdec_decode_step_mesh` serve over a data x model mesh, the
+self and cross caches cut as ``models/sharding.py::cache_pspecs`` lays
+them out.
 """
 
 from __future__ import annotations
@@ -38,9 +41,10 @@ import torch
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import (checkpoint_tp, chunked_ce_loss,
+from repro_torch.models.transformer import (cache_views, checkpoint_tp,
+                                            chunked_ce_loss,
                                             chunked_ce_loss_tp, lm_logits,
-                                            maybe_checkpoint)
+                                            logits_mesh, maybe_checkpoint)
 
 
 # -- init ---------------------------------------------------------------------
@@ -259,3 +263,109 @@ def encdec_decode_step(params, cfg, token, caches, pos: int, *,
     h, caches = _decoder(params, cfg, h, None, positions=positions,
                          caches=caches, cache_pos=pos, window=window)
     return lm_logits(params, cfg, h)[:, 0], caches
+
+
+# -- prefill and decode over a data x model mesh ------------------------------
+
+def _replicas(groups):
+    M = groups[0].size
+    return [(group, slice(r * M, (r + 1) * M))
+            for r, group in enumerate(groups)]
+
+
+def _embed_mesh(groups, ps, cfg, tokens):
+    cdt = L.dtype_of(cfg.compute_dtype)
+    return [h.to(cdt) for group, sl in _replicas(groups)
+            for h in L.embed_tp(group, [p["embed"] for p in ps[sl]],
+                                tokens[sl], cfg.vocab_size)]
+
+
+def _mlp_mesh(groups, ps, hs, cfg):
+    out = []
+    for group, sl in _replicas(groups):
+        out += L.mlp_tp(group, [p["ffn"] for p in ps[sl]],
+                        _norms(ps[sl], "ffn_norm", hs[sl], cfg), cfg.d_ff,
+                        cfg.mlp_act)
+    return _residual(hs, out)
+
+
+def encdec_prefill_mesh(groups, ps, cfg, batches, caches):
+    """:func:`encdec_prefill` over a data x model mesh, layer by layer
+    across every replica (as ``transformer.lm_prefill_mesh``).
+
+    ``groups``: the replicas' groups of ranks; ``ps`` and ``batches``:
+    every device's parameters and its replica's rows of ``src_embeds``
+    (B_r, T_src, d) and ``tokens`` (B_r, S), replica after replica
+    (every replica's the whole batch where the caches' layout says so,
+    ``sharding.replicated``); ``caches``: ``{"self": [...], "cross":
+    [...]}`` of ``sharding.Sharded`` leaves laid out by
+    ``cache_pspecs``, written in place.  The encoder is tensor-parallel, its self-attention
+    non-causal (B9 per rank); the decoder's self-attention writes its
+    cache from position 0 (B9 causal per rank), and its cross-attention
+    projects each rank's heads' K/V from its copy of the memory, attends
+    the prompt to them (B9 non-causal) and moves them to the cross
+    cache's slices.  T_src must be the cross cache's length.  Returns
+    the last position's logits (B, V) float32 on the first device, from
+    the vocab-parallel head."""
+    cdt = L.dtype_of(cfg.compute_dtype)
+    T_src = caches["cross"][0]["k"].shape[1]
+    if batches[0]["src_embeds"].shape[1] != T_src:
+        raise ValueError(f"a source of {batches[0]['src_embeds'].shape[1]} "
+                         f"frames for a cross cache of {T_src} rows")
+    hs = [b["src_embeds"].to(cdt) for b in batches]
+    for i in range(cfg.num_encoder_layers):
+        hs = [h for group, sl in _replicas(groups)
+              for h in _enc_block_tp([p["encoder"]["blocks"][i]
+                                      for p in ps[sl]], hs[sl], cfg=cfg,
+                                     group=group)]
+    memory = _norms([p["encoder"] for p in ps], "norm", hs, cfg)
+    hs = _embed_mesh(groups, ps, cfg, [b["tokens"] for b in batches])
+    D = len(ps)
+    for i in range(cfg.num_layers):
+        blks = [p["decoder"]["blocks"][i] for p in ps]
+        self_c, self_s = cache_views(caches["self"][i], D)
+        cross_c, cross_s = cache_views(caches["cross"][i], D)
+        out = []
+        for group, sl in _replicas(groups):
+            out += A.attention_tp(
+                group, [b["self_attn"] for b in blks[sl]],
+                _norms(blks[sl], "self_norm", hs[sl], cfg), cfg,
+                caches=self_c[sl], spans=self_s[sl])
+        hs = _residual(hs, out)
+        out = []
+        for group, sl in _replicas(groups):
+            out += A.attention_tp(
+                group, [b["cross_attn"] for b in blks[sl]],
+                _norms(blks[sl], "cross_norm", hs[sl], cfg), cfg,
+                memory=memory[sl], caches=cross_c[sl], spans=cross_s[sl])
+        hs = _residual(hs, out)
+        hs = _mlp_mesh(groups, blks, hs, cfg)
+    hs = _norms(ps, "final_norm", hs, cfg)
+    return logits_mesh(groups, ps, cfg, [h[:, -1:] for h in hs], caches)
+
+
+def encdec_decode_step_mesh(groups, ps, cfg, tokens, caches, pos, *,
+                            window=None):
+    """:func:`encdec_decode_step` over a data x model mesh: ``tokens``
+    each device's copy of its replica's rows of the (B, 1) token,
+    ``pos`` each device's position (one int for every row: the batch
+    steps in lockstep); the rest as :func:`encdec_prefill_mesh`.  The
+    self-attention writes the step's K/V and attends by flash-decode
+    over its cache's slices; cross-attention is a flash-decode over the
+    cross cache's slices, which it only reads
+    (``attention.attention_decode_mesh``).  Returns the logits (B, V)
+    float32 on the first device."""
+    hs = _embed_mesh(groups, ps, cfg, tokens)
+    for i in range(cfg.num_layers):
+        blks = [p["decoder"]["blocks"][i] for p in ps]
+        hs = _residual(hs, A.attention_decode_mesh(
+            groups, [b["self_attn"] for b in blks],
+            _norms(blks, "self_norm", hs, cfg), cfg, caches["self"][i],
+            list(pos), window=window))
+        hs = _residual(hs, A.attention_decode_mesh(
+            groups, [b["cross_attn"] for b in blks],
+            _norms(blks, "cross_norm", hs, cfg), cfg, caches["cross"][i],
+            list(pos), cross=True))
+        hs = _mlp_mesh(groups, blks, hs, cfg)
+    hs = _norms(ps, "final_norm", hs, cfg)
+    return logits_mesh(groups, ps, cfg, hs, caches)

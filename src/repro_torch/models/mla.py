@@ -26,12 +26,15 @@ Two execution paths, as in the JAX package:
 Cache writes are in place, as in ``models/attention.py``: the returned
 cache is the dict that was given.
 
-:func:`mla_attention_tp` is the training form (the expanded path, no
-cache) over the ``model`` ranks of a
-:class:`repro_torch.models.parallel.Group`, by ``models/sharding.py``'s
-rules: the latent projections ``wq_a`` and ``wkv_a`` (and their norms)
-whole on every rank, ``wq_b`` and ``wkv_b`` column-parallel with whole
-heads a rank, ``wo_mla`` row-parallel.
+:func:`mla_attention_tp` is the expanded path over the ``model`` ranks
+of a :class:`repro_torch.models.parallel.Group`, by
+``models/sharding.py``'s rules: the latent projections ``wq_a`` and
+``wkv_a`` (and their norms) whole on every rank, ``wq_b`` and ``wkv_b``
+column-parallel with whole heads a rank, ``wo_mla`` row-parallel.  It
+is the training loss's, and with a cache the serving mesh's prefill
+(B9 per rank).  :func:`mla_decode_mesh` is the serving mesh's decode
+step: the absorbed path as a flash-decode over the latent cache's
+slices.
 """
 
 from __future__ import annotations
@@ -42,7 +45,9 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
-from repro_torch.models.parallel import work
+from repro_torch.models import sharding as SH
+from repro_torch.models.attention import write_row
+from repro_torch.models.parallel import held, work
 
 NEG_INF = -1e30
 
@@ -168,8 +173,10 @@ def _attend_expanded(q_nope, q_rope, kv, k_rope, cfg, *, scale, positions,
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope_h], dim=-1)
     if flash:
-        return ops.flash_attention(q, k, v, causal=True, window=window,
-                                   scale=scale)
+        # v is a slice of the up-projection: the bf16 body wants
+        # 8-element strides, so lay it out afresh
+        return ops.flash_attention(q, k, v.contiguous(), causal=True,
+                                   window=window, scale=scale)
     qpos = positions if positions.dim() == 1 else positions[0]
     if S >= A.BLOCKED_ATTN_THRESHOLD:
         return A.blocked_attention(q, k, v, causal=True, window=window,
@@ -228,9 +235,36 @@ def mla_attention(p, x, cfg, *, positions, window=None, cache=None,
     return L.dense(p["wo_mla"], out), cache
 
 
-def mla_attention_tp(group, ps, xs, cfg, *, window=None):
-    """MLA over a group's ranks, without a cache (the training loss): the
-    expanded path of :func:`mla_attention`.
+def _heads_tp(ps, cfg, M):
+    """Each rank's span of ``wo_mla``'s rows (None: no work) and the
+    heads they read."""
+    m = cfg.mla
+    spans = [work(j, M, p["wo_mla"]["w"].shape[0],
+                  cfg.num_heads * m.v_head_dim) for j, p in enumerate(ps)]
+    heads = [s and (s[0] // m.v_head_dim, -(-s[1] // m.v_head_dim))
+             for s in spans]
+    return spans, heads
+
+
+def _q_tp(group, ps, xs, cfg, heads):
+    """Each rank's (B, S, h, qk) queries of its heads, before RoPE:
+    ``wq_b``'s columns of those heads (gathered where a cut splits a
+    head) over its whole query latent."""
+    m = cfg.mla
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    cq = [L.rmsnorm(p["q_norm"], L.dense(p["wq_a"], x), cfg.norm_eps)
+          for p, x in zip(ps, xs)]
+    q = L.dense_col(group, [p["wq_b"] for p in ps], cq, cfg.num_heads * qk,
+                    [h and (h[0] * qk, h[1] * qk) for h in heads])
+    return [None if h is None else
+            qj.reshape(*qj.shape[:2], h[1] - h[0], qk)
+            for qj, h in zip(q, heads)]
+
+
+def mla_attention_tp(group, ps, xs, cfg, *, window=None, caches=None,
+                     spans=None):
+    """MLA over a group's ranks: the expanded path of
+    :func:`mla_attention`, positions ``0..S-1``.
 
     Each rank computes the query and KV latents from its whole copies of
     ``wq_a``/``q_norm`` and ``wkv_a``/``kv_norm`` (and the shared RoPE
@@ -238,9 +272,16 @@ def mla_attention_tp(group, ps, xs, cfg, *, window=None):
     ``wq_b`` and ``wkv_b`` where they are those heads (whole heads a
     rank wherever the heads split evenly), else the columns gathered
     over the group.  RoPE, ``scale`` and the window as in
-    :func:`mla_attention`; ``wo_mla`` row-parallel, one sum over the
-    group.  ``xs``: per-rank copies of the input (B, S, d); returns
-    per-rank copies of the output.
+    :func:`mla_attention`; the attention of its heads through the
+    flash-attention kernel where ``attention._flash_route`` sends the
+    call (a serving prefill, not the training loss); ``wo_mla``
+    row-parallel, one sum over the group.  ``xs``: per-rank copies of
+    the input (B, S, d); returns per-rank copies of the output.
+
+    ``caches`` (rank j's shard {ckv, krope} of the layer's latent cache,
+    ``spans[j]`` the spans of it that it holds) make it a serving
+    prefill from position 0: each rank writes its rows of the latent
+    from its own (whole) copy.  A decode step is :func:`mla_decode_mesh`.
     """
     m = cfg.mla
     M, H = group.size, cfg.num_heads
@@ -250,35 +291,135 @@ def mla_attention_tp(group, ps, xs, cfg, *, window=None):
     xs = [x.to(cdt) for x in xs]
     scale = 1.0 / np.sqrt(qk)
     B, S = xs[0].shape[:2]
-    spans = [work(j, M, p["wo_mla"]["w"].shape[0], H * m.v_head_dim)
-             for j, p in enumerate(ps)]
-    heads = [s and (s[0] // m.v_head_dim, -(-s[1] // m.v_head_dim))
-             for s in spans]
+    spans_wo, heads = _heads_tp(ps, cfg, M)
     positions = torch.arange(S, device=xs[0].device)
-    cq = [L.rmsnorm(p["q_norm"], L.dense(p["wq_a"], x), cfg.norm_eps)
-          for p, x in zip(ps, xs)]
     latents = [_project_kv_latent(p, x, cfg, positions.to(x.device))
                for p, x in zip(ps, xs)]
-    q = L.dense_col(group, [p["wq_b"] for p in ps], cq, H * qk,
-                    [h and (h[0] * qk, h[1] * qk) for h in heads])
+    if caches is not None:
+        for c, sp, (ckv, k_rope) in zip(caches, spans, latents):
+            r0, r1 = sp["ckv"][1]
+            n = min(r1, S) - r0
+            if n > 0:
+                c["ckv"][:, :n] = ckv[:, r0:r0 + n].to(c["ckv"].dtype)
+                c["krope"][:, :n] = k_rope[:, r0:r0 + n].to(
+                    c["krope"].dtype)
+    q = _q_tp(group, ps, xs, cfg, heads)
     kv = L.dense_col(group, [p["wkv_b"] for p in ps],
                      [ckv for ckv, _ in latents], H * kvw,
                      [h and (h[0] * kvw, h[1] * kvw) for h in heads])
     outs = []
     for j in range(M):
-        if spans[j] is None:
+        if spans_wo[j] is None:
             outs.append(None)
             continue
         h0, h1 = heads[j]
         pos = positions.to(q[j].device)
-        qj = q[j].reshape(B, S, h1 - h0, qk)
-        q_rope = L.apply_rope(qj[..., m.qk_nope_head_dim:], pos,
+        q_nope = q[j][..., : m.qk_nope_head_dim]
+        q_rope = L.apply_rope(q[j][..., m.qk_nope_head_dim:], pos,
                               cfg.rope_theta)
-        out = _attend_expanded(
-            qj[..., : m.qk_nope_head_dim], q_rope,
-            kv[j].reshape(B, S, h1 - h0, kvw), latents[j][1], cfg,
-            scale=scale, positions=pos, window=window, flash=False)
+        kvj = kv[j].reshape(B, S, h1 - h0, kvw)
+        flash = A._flash_route(S, cfg, pos, None, None, True,
+                               inputs=(q_nope, q_rope, kvj))
+        out = _attend_expanded(q_nope, q_rope, kvj, latents[j][1], cfg,
+                               scale=scale, positions=pos, window=window,
+                               flash=flash)
         out = out.reshape(B, S, -1)
-        outs.append(out.narrow(-1, spans[j][0] - h0 * m.v_head_dim,
-                               spans[j][1] - spans[j][0]))
+        outs.append(out.narrow(-1, spans_wo[j][0] - h0 * m.v_head_dim,
+                               spans_wo[j][1] - spans_wo[j][0]))
     return L.dense_row(group, [p["wo_mla"] for p in ps], outs)
+
+
+def mla_decode_mesh(groups, ps, xs, cfg, caches, cache_pos, *, window=None):
+    """One decode step (S = 1) of MLA over every replica of a mesh: the
+    absorbed path of :func:`mla_attention` as a flash-decode over the
+    latent cache's slices.
+
+    Arguments as ``attention.attention_decode_mesh``'s, ``caches`` the
+    layer's latent cache {ckv, krope} (no head dimension: cut by
+    sequence, or whole).  Each rank forms ``q_abs``
+    for its own heads through its columns of ``wkv_b`` (W_uk; the
+    columns gathered where a cut splits a head), and the group gathers
+    ``q_abs`` (B, 1, H, r) and the RoPE query (B, 1, H, dr); every rank
+    projects the step's latent from its whole copy of ``wkv_a``, and the
+    devices whose slices hold a row's position write it.  Each device
+    computes, in f32, the partial (max, sum, unnormalized ``o_lat`` (B,
+    H, r)) over its region of the cache (causal, and the window where
+    one is given), the partials are combined in device order
+    (``attention.combine_partials``), and each rank applies its own
+    W_uv columns to its heads (``o_lat`` rounded to the compute dtype
+    first, as the one-device path rounds the softmax weights), then the
+    row-parallel ``wo_mla``.  Returns per-device copies of the output.
+    """
+    m = cfg.mla
+    M, H = groups[0].size, cfg.num_heads
+    dn, dr, dv, r = (m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim,
+                     m.kv_lora_rank)
+    kvw = dn + dv
+    cdt = L.dtype_of(cfg.compute_dtype)
+    scale = 1.0 / np.sqrt(dn + dr)
+    xs = [x.to(cdt) for x in xs]
+    poss = [A._row_positions(c, x) for c, x in zip(cache_pos, xs)]
+    wo_spans, q_abs, q_rope, w_uv, latents = [], [], [], [], []
+    for g, group in enumerate(groups):
+        sl = slice(g * M, (g + 1) * M)
+        rp, rx, rpos = ps[sl], xs[sl], poss[sl]
+        sp, heads = _heads_tp(rp, cfg, M)
+        wo_spans += sp
+        q = _q_tp(group, rp, rx, cfg, heads)
+        w = group.redistribute(
+            [p["wkv_b"]["w"] for p in rp],
+            [held(j, M, p["wkv_b"]["w"].shape[1], H * kvw)
+             for j, p in enumerate(rp)],
+            [h and (h[0] * kvw, h[1] * kvw) for h in heads], dim=1)
+        qa, qr = [], []
+        for j in range(M):
+            if heads[j] is None:
+                qa.append(None)
+                qr.append(None)
+                w_uv.append(None)
+                continue
+            wj = w[j].reshape(r, heads[j][1] - heads[j][0], kvw)
+            qa.append(torch.einsum("bshd,rhd->bshr", q[j][..., :dn],
+                                   wj[..., :dn].to(cdt)))
+            qr.append(L.apply_rope(q[j][..., dn:], rpos[j][:, None],
+                                   cfg.rope_theta))
+            w_uv.append(wj[..., dn:])
+        q_abs += group.redistribute(qa, heads, [(0, H)] * M, dim=2)
+        q_rope += group.redistribute(qr, heads, [(0, H)] * M, dim=2)
+        latents += [_project_kv_latent(p, x, cfg, pos[:, None])
+                    for p, x, pos in zip(rp, rx, rpos)]
+    views = [SH.device_views(caches, d) for d in range(len(xs))]
+    blocks = [caches["ckv"].spans(d)[1:2] for d in range(len(xs))]
+    for d, (c, (ckv, k_rope)) in enumerate(zip(views, latents)):
+        write_row(c, "ckv", ckv[:, 0], cache_pos[d], blocks[d][0])
+        write_row(c, "krope", k_rope[:, 0], cache_pos[d], blocks[d][0])
+
+    def partial(d, region):
+        ((t0, t1),), r0 = region, blocks[d][0][0]
+        pos = poss[d]
+        lo, hi = A.live_rows(cache_pos[d], window, (t0, t1))
+        ckv = views[d]["ckv"][:, lo - r0:hi - r0].to(cdt).float()
+        krope = views[d]["krope"][:, lo - r0:hi - r0].to(cdt).float()
+        s = (torch.einsum("bhr,btr->bht", q_abs[d][:, 0].float(), ckv)
+             + torch.einsum("bhd,btd->bht", q_rope[d][:, 0].float(), krope)
+             ) * scale
+        t = torch.arange(lo, hi, device=pos.device)
+        valid = t[None] <= pos[:, None]
+        if window is not None:
+            valid &= t[None] > pos[:, None] - window
+        mx, total, p_ = A.softmax_partial(s, valid[:, None])
+        return mx, total, torch.einsum("bht,btr->bhr", p_, ckv)
+
+    o_lat = A.combine_partials(groups, SH.replicated(caches), blocks,
+                               partial)
+    outs = []
+    for d, (o, sp) in enumerate(zip(o_lat, wo_spans)):
+        if sp is None:
+            outs.append(None)
+            continue
+        h0, h1 = sp[0] // dv, -(-sp[1] // dv)
+        out = torch.einsum("bhr,rhd->bhd", o[:, h0:h1].to(cdt),
+                           w_uv[d].to(cdt))
+        outs.append(out.reshape(out.shape[0], 1, -1).narrow(
+            -1, sp[0] - h0 * dv, sp[1] - sp[0]))
+    return A.dense_row_mesh(groups, [p["wo_mla"] for p in ps], outs)

@@ -70,7 +70,8 @@ def moe_init(gen, cfg, *, device=None):
     dt = L.dtype_of(cfg.param_dtype)
 
     def expert_weights(a, b):
-        return (L._normal(gen, (E, a, b), device) / math.sqrt(a)).to(dt)
+        # scaled in place: one float32 copy of the tensor at a time
+        return L._normal(gen, (E, a, b), device).div_(math.sqrt(a)).to(dt)
 
     p = {"router": {"w": L._normal(gen, (d, E), device) * 0.02},
          "experts": {"gate": expert_weights(d, ff),
@@ -352,7 +353,10 @@ def moe_apply_mesh(groups, ps, xs, cfg):
         for d, o in rows.items():
             outs[d].append(o)
         ms.append(m)
-    out = [o[0] if len(o) == 1 else torch.cat(o) for o in outs]
+    # a replica with no rows (a batch every replica holds whole routes
+    # from replica 0 alone) gets none back
+    out = [o[0] if len(o) == 1 else torch.cat(o) if o else x[:0]
+           for o, x in zip(outs, xf)]
     metrics = ms[0] if len(ms) == 1 else {
         name: torch.stack([m[name] for m in ms]).mean() for name in ms[0]}
     if "shared" in ps[0]:

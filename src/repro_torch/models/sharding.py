@@ -296,7 +296,12 @@ class Sharded:
     ``model_dim`` None).  ``shards[d]`` lives on device d and holds data
     chunk ``(d // ranks) % parts`` and model chunk ``(d % ranks) %
     model_parts``: a leaf uncut along an axis is copied whole to every
-    device of that axis.  A chunk's first holder (:meth:`owner`) owns
+    device of that axis.  Where ``dim`` and ``model_dim`` are one
+    dimension (a spec entry ``(data, model)`` or ``(pod, data, model)``:
+    the batch-1 long-context cache's sequence) it is cut into ``parts x
+    model_parts`` slices, slice ``c · model_parts + k`` on the device of
+    data chunk c and model chunk k: device d holds slice d, in the
+    mesh's device order.  A chunk's first holder (:meth:`owner`) owns
     it: gradient sums and norms read the owners' shards only.  An
     ``expert`` leaf (an MoE layer's expert weights) is computed with
     where it lies: :meth:`local` gives device d its own shard.
@@ -353,6 +358,22 @@ class Sharded:
                              f"take the place of a {tuple(self.shape)} leaf")
         return _split(full, self._layout(), [s.device for s in self.shards])
 
+    def spans(self, d: int) -> tuple:
+        """The span ``(lo, hi)`` of each dimension of the whole leaf that
+        device d's shard holds."""
+        shape = self.shards[d].shape
+        starts = [0] * len(shape)
+        c, k = (d // self.ranks) % self.parts, (d % self.ranks) % \
+            self.model_parts
+        if self.dim is not None and self.dim == self.model_dim:
+            starts[self.dim] = (c * self.model_parts + k) * shape[self.dim]
+        else:
+            if self.dim is not None:
+                starts[self.dim] = c * shape[self.dim]
+            if self.model_dim is not None:
+                starts[self.model_dim] = k * shape[self.model_dim]
+        return tuple((lo, lo + n) for lo, n in zip(starts, shape))
+
     def block(self, k: int, device) -> torch.Tensor:
         """Model chunk ``k``, whole along the data dimension, on
         ``device``: the data chunks' owners' shards concatenated (the
@@ -374,6 +395,10 @@ class Sharded:
 
     def gather(self, device) -> torch.Tensor:
         """The whole leaf on ``device``."""
+        if self.dim is not None and self.dim == self.model_dim:
+            return torch.cat([self.shards[c * self.ranks + k].to(device)
+                              for c in range(self.parts)
+                              for k in range(self.model_parts)], self.dim)
         blocks = [self.block(k, device) for k in range(self.model_parts)]
         return blocks[0] if len(blocks) == 1 else torch.cat(
             blocks, self.model_dim)
@@ -396,7 +421,9 @@ def _split(x: torch.Tensor, layout: tuple, devices) -> Sharded:
         if dim is not None:
             chunk = chunk.narrow(dim, ((d // ranks) % parts) * size, size)
         if mdim is not None:
-            chunk = chunk.narrow(mdim, ((d % ranks) % mparts) * msize, msize)
+            # one dimension on both: the model cut of the data chunk
+            n = msize // parts if mdim == dim else msize
+            chunk = chunk.narrow(mdim, ((d % ranks) % mparts) * n, n)
         shards.append(chunk.detach().to(
             dev, memory_format=torch.contiguous_format, copy=True))
     return Sharded(shards, *layout)
@@ -525,40 +552,23 @@ def shard_batch(batch: dict, mesh, microbatches: int = 1) -> list:
 # Placement of decode caches
 # ---------------------------------------------------------------------------
 
-# the cache layouts the port does not place, as ROADMAP names them
-CACHE_AXES_ITEM = ("a cache dimension cut over more than one mesh axis "
-                   "(ROADMAP §A2c: the batch-1 long_500k layout)")
-
-
-def _cache_layout(spec: tuple, mesh, path: str) -> tuple:
-    """A cache spec's layout on ``mesh`` (as :func:`_placement`); raises
-    for a dimension put on ``model`` and a data axis at once (the data
-    axes together, ``(pod, data)``, are one cut)."""
-    for ax in spec:
-        if isinstance(ax, tuple) and "model" in ax and len(ax) > 1 and \
-                math.prod(mesh.shape[a] for a in ax) > 1:
-            raise ValueError(f"cache leaf {path}: spec {spec} puts one "
-                             f"dimension on {ax}; {CACHE_AXES_ITEM} is not "
-                             f"ported")
-    return _placement(spec, mesh)
-
-
 def _cache_placements(caches, mesh, batch: int) -> list:
     specs = _spec_leaves(cache_pspecs(caches, mesh, batch))
-    return [_cache_layout(spec, mesh, path)
-            for spec, path in zip(specs, _leaf_paths(caches))]
+    return [_placement(spec, mesh) for spec in specs]
 
 
 def shard_cache(caches, mesh, batch: int):
     """``caches`` (a decode cache tree of whole leaves, any device)
     placed on ``mesh`` as :func:`cache_pspecs` lays it out
     for ``batch`` rows: each leaf a :class:`Sharded` cut along the
-    dimension its spec puts on the data axes (the batch) and the one it
+    dimension its spec puts on the data axes (the batch; for a batch
+    they do not divide, a KV or latent cache's sequence) and the one it
     puts on ``model`` (a KV cache's sequence, else its KV heads; an SSM
     state's heads; a conv tail's channels), copied whole over an axis
-    its spec leaves out.  A leaf on the ``meta`` device gives zeroed
-    shards, made on their devices.  Raises ``ValueError`` for a spec
-    that puts one dimension on two axes (:data:`CACHE_AXES_ITEM`)."""
+    its spec leaves out.  A sequence on ``(data, model)`` or ``(pod,
+    data, model)`` is cut into ``mesh.size`` slices in device order.  A
+    leaf on the ``meta`` device gives zeroed shards, made on their
+    devices."""
     out = []
     for x, layout in zip(leaves(caches),
                          _cache_placements(caches, mesh, batch)):
@@ -587,3 +597,18 @@ def device_views(tree, d: int):
     of plain tensors (a view of the same storage: an in-place write
     lands in the shard)."""
     return tree_map(lambda x: x.shards[d], tree)
+
+
+def device_spans(tree, d: int):
+    """What device d's shards of a tree of :class:`Sharded` leaves hold:
+    a tree of the same shape whose leaves are :meth:`Sharded.spans`."""
+    return unflatten(tree, [x.spans(d) for x in leaves(tree)])
+
+
+def replicated(caches) -> bool:
+    """Whether each replica of a serving mesh holds the whole batch, read
+    from a cache tree of :class:`Sharded` leaves: more than one replica,
+    and no leaf cut along its batch (:func:`cache_pspecs` cuts the batch
+    over the data axes wherever they divide it)."""
+    xs = leaves(caches)
+    return len(xs[0].shards) > xs[0].ranks and all(x.dim != 0 for x in xs)

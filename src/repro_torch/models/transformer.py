@@ -58,6 +58,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
+from repro_torch.models import sharding as SH
 from repro_torch.models.parallel import work
 from repro_torch.tree import leaves, unflatten
 
@@ -178,57 +179,68 @@ def _block_apply_tp(ps, hs, *, cfg, mixer, ffn, group, window):
 
 
 def _block_apply_mesh(ps, hs, *, cfg, mixer, ffn, groups, window,
-                      caches=None, cache_pos=None, max_seq=None):
+                      caches=None, cache_pos=None):
     """One block over a mesh's devices: ``ps`` and ``hs`` are every
     device's parameters and copy of its replica's hidden state, replica
     after replica (``groups``: the replicas' groups of ranks).  The
     mixer and a dense FFN run replica by replica in their
     tensor-parallel forms; an MoE FFN routes the replicas' tokens
     together (``moe_apply_mesh``), and its metrics (``MOE_METRICS``)
-    follow the D hidden states in the returned list.  ``caches`` (each
-    device's shard of the layer's cache), ``cache_pos`` (each device's
-    position: 0 for a prompt, its rows' positions for a decode step) and
-    ``max_seq`` (the cache's rows) make it the serving block."""
+    follow the D hidden states in the returned list.
+
+    ``caches`` (the layer's cache of ``sharding.Sharded`` leaves) and
+    ``cache_pos`` (each device's position: 0 for a prompt, its rows'
+    positions for a decode step) make it the serving block.  A decode
+    step's attention or MLA runs over every replica at once
+    (``attention_decode_mesh``, ``mla_decode_mesh``).  Where every
+    replica holds the whole batch (``sharding.replicated``: one the data
+    axes do not divide) an MoE layer routes replica 0's tokens once and
+    copies its output to the other replicas."""
     ranks = groups[0].size
-    out = []
-    for r, group in enumerate(groups):
-        sl = slice(r * ranks, (r + 1) * ranks)
-        rp, rh = ps[sl], hs[sl]
-        hn = [L.rmsnorm(p["mixer_norm"], h, cfg.norm_eps)
-              for p, h in zip(rp, rh)]
-        cached = {} if caches is None else dict(
-            caches=caches[sl], cache_pos=cache_pos[sl], max_seq=max_seq)
-        if mixer == "attn":
-            o = A.attention_tp(group, [p["attn"] for p in rp], hn, cfg,
-                               window=window, **cached)
-        elif mixer == "mla":
-            if caches is not None:
-                raise NotImplementedError(SERVE_MESH_ITEM)
-            o = MLA.mla_attention_tp(group, [p["mla"] for p in rp], hn, cfg,
-                                     window=window)
-        else:
-            o = M.mamba_apply_tp(group, [p["ssm"] for p in rp], hn, cfg,
-                                 caches=cached.get("caches"))
-        rh = [h + x.to(h.dtype) for h, x in zip(rh, o)]
-        if ffn == "dense":
-            hn = [L.rmsnorm(p["ffn_norm"], h, cfg.norm_eps)
-                  for p, h in zip(rp, rh)]
-            o = L.mlp_tp(group, [p["ffn"] for p in rp], hn, cfg.d_ff,
-                         cfg.mlp_act)
-            rh = [h + x.to(h.dtype) for h, x in zip(rh, o)]
-        out += rh
+    parts = [slice(r * ranks, (r + 1) * ranks) for r in range(len(groups))]
+    replicated = caches is not None and SH.replicated(caches)
+    hn = [L.rmsnorm(p["mixer_norm"], h, cfg.norm_eps)
+          for p, h in zip(ps, hs)]
+    mp = [p[mixer] for p in ps]
+    if caches is not None and mixer != "ssm" and hs[0].shape[1] == 1:
+        decode = A.attention_decode_mesh if mixer == "attn" \
+            else MLA.mla_decode_mesh
+        o = decode(groups, mp, hn, cfg, caches, cache_pos, window=window)
+    else:
+        views, spans = ([None] * len(ps),) * 2 if caches is None \
+            else cache_views(caches, len(ps))
+        o = []
+        for group, sl in zip(groups, parts):
+            cached = {} if caches is None else dict(caches=views[sl],
+                                                    spans=spans[sl])
+            if mixer == "attn":
+                o += A.attention_tp(group, mp[sl], hn[sl], cfg,
+                                    window=window, **cached)
+            elif mixer == "mla":
+                o += MLA.mla_attention_tp(group, mp[sl], hn[sl], cfg,
+                                          window=window, **cached)
+            else:
+                o += M.mamba_apply_tp(group, mp[sl], hn[sl], cfg,
+                                      caches=cached.get("caches"))
+    out = [h + x.to(h.dtype) for h, x in zip(hs, o)]
+    if ffn == "dense":
+        hn = [L.rmsnorm(p["ffn_norm"], h, cfg.norm_eps)
+              for p, h in zip(ps, out)]
+        o = []
+        for group, sl in zip(groups, parts):
+            o += L.mlp_tp(group, [p["ffn"] for p in ps[sl]], hn[sl],
+                          cfg.d_ff, cfg.mlp_act)
+        out = [h + x.to(h.dtype) for h, x in zip(out, o)]
     if ffn != "moe":
         return out
     hn = [L.rmsnorm(p["ffn_norm"], h, cfg.norm_eps) for p, h in zip(ps, out)]
+    if replicated:
+        hn = [h if d < ranks else h[:0] for d, h in enumerate(hn)]
     o, metrics = MOE.moe_apply_mesh(groups, [p["moe"] for p in ps], hn, cfg)
+    if replicated:
+        o = [o[d % ranks].to(h.device) for d, h in enumerate(out)]
     return [h + x.to(h.dtype) for h, x in zip(out, o)] + \
         [metrics[k] for k in MOE_METRICS]
-
-
-# the serving mesh's missing mixer, as ROADMAP names it
-SERVE_MESH_ITEM = ("MLA and the encoder-decoder under a serving mesh "
-                       "(ROADMAP §A2b) are not ported: serve deepseek-v3 "
-                       "and seamless-m4t-medium on one device")
 
 
 def maybe_checkpoint(fn, remat: bool):
@@ -727,17 +739,20 @@ def lm_decode_step(params, cfg, token, caches, pos, *, window=None):
 
 # -- prefill and decode over a data x model mesh ------------------------------
 
-def _logits_mesh(groups, ps, cfg, hs, device):
+def logits_mesh(groups, ps, cfg, hs, caches):
     """Vocab-parallel logits of each replica's (B_r, 1, d) hidden
     states: rank j's block of ``lm_head`` (or of the tied embedding)
     gives its block of the vocab (a vocab ``model`` does not divide is
     rank 0's alone), and the blocks and the replicas' rows are gathered
-    to (B, V) float32 on ``device``."""
+    to (B, V) float32 on the mesh's first device; replica 0's rows alone
+    where every replica holds the whole batch (the serving cache tree
+    ``caches`` says so, ``sharding.replicated``)."""
     key = "embed" if cfg.tie_embeddings else "lm_head"
     dim = 0 if cfg.tie_embeddings else 1
     ranks = groups[0].size
+    device = groups[0].devices[0]
     rows = []
-    for r in range(len(groups)):
+    for r in range(1 if SH.replicated(caches) else len(groups)):
         blocks = []
         for j in range(ranks):
             p, h = ps[r * ranks + j], hs[r * ranks + j]
@@ -747,57 +762,65 @@ def _logits_mesh(groups, ps, cfg, hs, device):
     return torch.cat(rows)[:, 0]
 
 
-def _hidden_mesh(groups, ps, cfg, hs, caches, cache_pos, max_seq, window):
+def cache_views(caches, D):
+    """Each device's shards of a cache tree of ``Sharded`` leaves and
+    what they hold: (views, spans), one entry a device
+    (``sharding.device_views``, ``sharding.device_spans``)."""
+    return ([SH.device_views(caches, d) for d in range(D)],
+            [SH.device_spans(caches, d) for d in range(D)])
+
+
+def _hidden_mesh(groups, ps, cfg, hs, caches, cache_pos, window=None):
     """Every block over the mesh with its cache, then the final norm."""
     for i, (mixer, ffn) in enumerate(layer_types(cfg)):
         out = _block_apply_mesh(
             [p["layers"][i] for p in ps], hs, cfg=cfg, mixer=mixer, ffn=ffn,
-            groups=groups, window=window, caches=[c[i] for c in caches],
-            cache_pos=cache_pos, max_seq=max_seq)
+            groups=groups, window=window, caches=caches[i],
+            cache_pos=cache_pos)
         hs = out[:len(ps)]
     return [L.rmsnorm(p["final_norm"], h, cfg.norm_eps)
             for p, h in zip(ps, hs)]
 
 
-def lm_prefill_mesh(groups, ps, cfg, batches, caches, *, max_seq,
-                    window=None):
+def lm_prefill_mesh(groups, ps, cfg, batches, caches):
     """:func:`lm_prefill` over a data x model mesh, from position 0.
 
-    ``groups``: the replicas' groups of ranks; ``ps``, ``batches`` and
-    ``caches``: every device's parameters (its shards, gathered over
-    ``data`` where a leaf is cut there: ``sharding.Sharded.local``), its
-    replica's rows of the batch (``tokens``, ``prefix_embeds``
-    optional) and its shards of the caches (one dict per layer, laid out
-    by ``models/sharding.py::cache_pspecs`` over ``max_seq`` rows, written
-    in place), replica after replica.  Layer by layer across every
-    replica, as :func:`lm_train_loss_mesh`: the embedding and logits
-    vocab-parallel, attention and Mamba-2 tensor-parallel with their
-    caches (B9 and B10 per rank), an MoE layer routing the whole
-    batch's tokens.  Returns the last position's logits (B, V) float32
-    on the first device."""
+    ``groups``: the replicas' groups of ranks; ``ps`` and ``batches``:
+    every device's parameters (its shards, gathered over ``data`` where
+    a leaf is cut there: ``sharding.Sharded.local``) and its replica's
+    rows of the batch (``tokens``, ``prefix_embeds`` optional), replica
+    after replica; ``caches``: the cache tree (one dict per layer) of
+    ``sharding.Sharded`` leaves laid out by
+    ``models/sharding.py::cache_pspecs``, written in place.  Layer by
+    layer across every replica, as :func:`lm_train_loss_mesh`: the
+    embedding and logits vocab-parallel, attention, MLA and Mamba-2
+    tensor-parallel with their caches (B9 and B10 per rank), an MoE
+    layer routing the whole batch's tokens.  Where the cache's layout
+    says every replica holds the whole batch (one the data axes do not
+    divide, ``sharding.replicated``), each replica's rows are the whole
+    batch and each runs the prompt.  Returns the last position's logits
+    (B, V) float32 on the first device."""
     ranks = groups[0].size
     parts = [slice(r * ranks, (r + 1) * ranks) for r in range(len(groups))]
     hs = [h for group, sl in zip(groups, parts)
           for h in embed_inputs_tp(group, ps[sl], cfg, batches[sl])]
-    hs = _hidden_mesh(groups, ps, cfg, hs, caches, [0] * len(ps), max_seq,
-                      window)
-    return _logits_mesh(groups, ps, cfg, [h[:, -1:] for h in hs],
-                        groups[0].devices[0])
+    hs = _hidden_mesh(groups, ps, cfg, hs, caches, [0] * len(ps))
+    return logits_mesh(groups, ps, cfg, [h[:, -1:] for h in hs], caches)
 
 
-def lm_decode_step_mesh(groups, ps, cfg, tokens, caches, pos, *, max_seq,
+def lm_decode_step_mesh(groups, ps, cfg, tokens, caches, pos, *,
                         window=None):
     """:func:`lm_decode_step` over a data x model mesh: ``tokens`` and
     ``pos`` are each device's copy of its replica's rows of the (B, 1)
     token and of the positions (a (B_r,) tensor, or one int for every
     row); the rest as :func:`lm_prefill_mesh`.  The attention is
-    flash-decode over the cache's slices (``attention.attention_tp``).
+    flash-decode over the cache's slices
+    (``attention.attention_decode_mesh``, ``mla.mla_decode_mesh``).
     Returns the logits (B, V) float32 on the first device."""
     ranks = groups[0].size
     parts = [slice(r * ranks, (r + 1) * ranks) for r in range(len(groups))]
     hs = [h for group, sl in zip(groups, parts)
           for h in embed_inputs_tp(group, ps[sl], cfg,
                                    [{"tokens": t} for t in tokens[sl]])]
-    hs = _hidden_mesh(groups, ps, cfg, hs, caches, list(pos), max_seq,
-                      window)
-    return _logits_mesh(groups, ps, cfg, hs, groups[0].devices[0])
+    hs = _hidden_mesh(groups, ps, cfg, hs, caches, list(pos), window)
+    return logits_mesh(groups, ps, cfg, hs, caches)

@@ -14,39 +14,44 @@ _MISSING = object()
 def leaves(tree) -> list:
     """The leaves of ``tree`` in traversal order."""
     out = []
-
-    def walk(node):
-        if isinstance(node, dict):
-            for k in sorted(node):
-                walk(node[k])
-        elif isinstance(node, (list, tuple)):
-            for v in node:
-                walk(v)
-        elif node is not None:
-            out.append(node)
-
-    walk(tree)
+    _collect(tree, out)
     return out
+
+
+# The walks recurse through module-level functions: a nested function
+# that calls itself is a reference cycle, and its cell would keep the
+# leaves alive until the cyclic collector ran (a whole layer of weights,
+# drawn to be cut onto a mesh and freed).
+
+def _collect(node, out) -> None:
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _collect(node[k], out)
+    elif isinstance(node, (list, tuple)):
+        for v in node:
+            _collect(v, out)
+    elif node is not None:
+        out.append(node)
+
+
+def _build(node, it):
+    if isinstance(node, dict):
+        return {k: _build(node[k], it) for k in sorted(node)}
+    if isinstance(node, (list, tuple)):
+        return type(node)([_build(v, it) for v in node])
+    if node is None:
+        return None
+    leaf = next(it, _MISSING)
+    if leaf is _MISSING:
+        raise ValueError("fewer leaves than the template holds")
+    return leaf
 
 
 def unflatten(template, new_leaves):
     """A tree shaped like ``template`` whose leaves are ``new_leaves``,
     in :func:`leaves` order."""
     it = iter(new_leaves)
-
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        if isinstance(node, (list, tuple)):
-            return type(node)([build(v) for v in node])
-        if node is None:
-            return None
-        leaf = next(it, _MISSING)
-        if leaf is _MISSING:
-            raise ValueError("fewer leaves than the template holds")
-        return leaf
-
-    out = build(template)
+    out = _build(template, it)
     if next(it, _MISSING) is not _MISSING:
         raise ValueError("more leaves than the template holds")
     return out

@@ -308,6 +308,9 @@ def test_dense_spectral_cluster_on_the_card_launches_b7(cuda_device):
     (4, 128, 1024, 16, 16, 64),   # seamless's cross-attention, full width
     (2, 24, 24, 4, 4, 32),        # reduced seamless's encoder
     (1, 1024, 1024, 16, 16, 64),  # seamless's encoder, full width
+    # one rank of seamless served at (2, 2): 16/2 heads, 2 rows a replica
+    (2, 1024, 1024, 8, 8, 64),    # the encoder
+    (2, 128, 1024, 8, 8, 64),     # cross-attention against the frames
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_noncausal_cross_shapes(cuda_device, B, S, T_len, H,
@@ -352,6 +355,8 @@ def test_flash_attention_noncausal_cross_shapes(cuda_device, B, S, T_len, H,
     # (40/4 q heads over 8/4 KV heads, G = 5) and jamba-v0.1 at (2, 2)
     (4, 2048, 2048, 10, 2, 128, True, None),
     (2, 2048, 2048, 16, 4, 128, True, None),
+    # seamless's decoder self-attention at (2, 2): the prompt's own K/V
+    (2, 128, 128, 8, 8, 64, True, None),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_matches_plain_version(cuda_device, B, S, T_len, H,
@@ -426,6 +431,8 @@ def test_flash_attention_mla_widths(cuda_device, B, S, T_len, H, K, dh, dv,
     (1, 2048, 2048, 128, 128, 192, 128, 1 / np.sqrt(192)),
     # internvl2-26b's prefill: 48 heads over 8, dh 128, a 2112-row cache
     (1, 2048, 2112, 48, 8, 128, 128, None),
+    # one rank of deepseek-v3's MLA prefill served at (1, 4): 128/4 heads
+    (4, 2048, 2048, 32, 32, 192, 128, 1 / np.sqrt(192)),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_at_mla_and_vlm_prefill_shapes(
@@ -1014,4 +1021,65 @@ def test_mesh_serving_on_one_card(cuda_device, arch):
     assert (one["ssd_chunk"], two["ssd_chunk"]) == (n_ssm, 2 * n_ssm)
     for g, w in zip(got, want):
         assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+        assert torch.equal(g.argmax(-1), w.argmax(-1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "seamless-m4t-medium"])
+def test_mla_and_encdec_serve_over_a_mesh_on_one_card(cuda_device, arch):
+    """Reduced f32 deepseek-v3 (MLA) and seamless-m4t-medium (the
+    encoder-decoder) served by ``build_step`` over (1, 2) on (cuda:0,)
+    * 2, kernels on, against the card's one-device steps: the logits
+    within 1e-4 of the largest, the same greedy tokens, B9 launched per
+    rank in every attention of the prefill and never in a decode
+    step."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import encdec as ED
+    from repro_torch.models.sharding import shard_params
+
+    cfg = get_config(arch).reduced()
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    init = ED.init_encdec if cfg.is_encoder_decoder else T.init_lm
+    params = init(gen, cfg, device=cuda_device)
+    B, S, MAX = 2, 8, 32
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                     device=cuda_device, generator=gen)}
+    if cfg.is_encoder_decoder:
+        batch["src_embeds"] = torch.randn(B, cfg.encoder_seq_len,
+                                          cfg.d_model, device=cuda_device,
+                                          generator=gen)
+        per_rank = cfg.num_encoder_layers + 2 * cfg.num_layers
+        pos = [S + i for i in range(3)]
+    else:
+        per_rank = cfg.num_layers
+        pos = [torch.tensor([S + i, 13 + i], device=cuda_device)
+               for i in range(3)]
+    pre_shape = ShapeConfig("prefill", MAX, B, "prefill")
+    dec_shape = ShapeConfig("decode", MAX, B, "decode")
+    mesh = make_test_mesh(1, 2, devices=(cuda_device,) * 2)
+    runs = []
+    with ops.use_pallas_scoped(True):
+        for prefill, decode, p in (
+                (steps.make_prefill_step(cfg, pre_shape),
+                 steps.make_decode_step(cfg, dec_shape), params),
+                (steps.build_step(cfg, pre_shape, mesh).fn,
+                 steps.build_step(cfg, dec_shape, mesh).fn,
+                 shard_params(params, mesh))):
+            ops.reset_launch_counts()
+            logits, caches = prefill(p, batch)
+            launches = ops.LAUNCH_COUNTS["flash_attention"]
+            out = [logits]
+            for at in pos:
+                logits, caches = decode(p, caches,
+                                        out[-1].argmax(-1, keepdim=True), at)
+                out.append(logits)
+            torch.cuda.synchronize()
+            assert ops.LAUNCH_COUNTS["flash_attention"] == launches
+            runs.append((out, launches))
+    (want, one), (got, two) = runs
+    assert (one, two) == (per_rank, 2 * per_rank)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max() / w.abs().max()) <= 1e-4
         assert torch.equal(g.argmax(-1), w.argmax(-1))

@@ -291,19 +291,33 @@ def test_a_rank_that_sees_no_key_weighs_nothing():
 
 
 def test_cache_regions_tile_the_cache():
-    """Each KV layout's decode regions cover every (row, head) once: the
-    sequence cut, the KV-head cut and the whole cache (rank 0 alone)."""
+    """Each KV layout's decode regions cover every (row, head) once in
+    each combine: a replica's ranks for a batch the data axes divide
+    (the sequence cut over model, the KV-head cut, the whole cache on
+    rank 0 alone), the whole mesh for one they do not (the sequence
+    over (data, model), over data alone, the KV heads, or whole)."""
     cfg = get_config("qwen2-7b").reduced()
-    group = Group(("cpu",) * 2)
-    K, hd = cfg.num_kv_heads, cfg.head_dim
-    for S_j, K_j in ((8, K), (16, K // 2), (16, K)):
-        caches = [{"k": torch.zeros(1, S_j, K_j, hd)} for _ in range(2)]
-        cover = torch.zeros(16, K, dtype=torch.long)
-        for _, region in PA.cache_regions(group, caches, cfg, 16):
-            if region is not None:
-                (r0, r1), (h0, h1) = region
-                cover[r0:r1, h0:h1] += 1
-        assert bool((cover == 1).all()), (S_j, K_j)
+    K = cfg.num_kv_heads
+    for (data, model), B, T in (((1, 2), 2, 16), ((1, 2), 2, 15),
+                                ((1, 3), 3, 16), ((2, 2), 2, 16),
+                                ((2, 2), 1, 16), ((2, 2), 1, 18),
+                                ((2, 2), 1, 15), ((2, 3), 1, 15)):
+        mesh = make_test_mesh(data, model, device="cpu")
+        placed = SH.shard_cache(PS.cache_specs(cfg, B, T), mesh, B)
+        k = placed[0]["k"]
+        # every replica holds the whole batch where data does not divide it
+        assert SH.replicated(placed) == bool(B % data)
+        groups = [Group(g) for g in mesh.replicas]
+        blocks = [k.spans(d)[1:3] for d in range(mesh.size)]
+        assert all(tuple(s.shape[1:3]) == tuple(hi - lo for lo, hi in b)
+                   for s, b in zip(k.shards, blocks))
+        for scope in PA.decode_scopes(groups, SH.replicated(placed)):
+            cover = torch.zeros(T, K, dtype=torch.long)
+            for region in PA.cache_regions([blocks[d] for d in scope]):
+                if region is not None:
+                    (r0, r1), (h0, h1) = region
+                    cover[r0:r1, h0:h1] += 1
+            assert bool((cover == 1).all()), (data, model, B, T)
 
 
 @pytest.mark.parametrize("arch", ("jamba-v0.1-52b", "deepseek-v3-671b"))
@@ -323,3 +337,35 @@ def test_init_lm_placed_part_by_part_is_shard_params(arch):
     for g, w in zip(leaves(got), leaves(want)):
         assert g._layout() == w._layout()
         assert all(torch.equal(a, b) for a, b in zip(g.shards, w.shards))
+
+
+def test_a_placed_part_is_freed_at_once():
+    """``init_lm(place=sharding.placer(mesh))`` frees each whole part as
+    soon as it is cut, with the cyclic garbage collector off: no
+    reference cycle (``tree.leaves``'s walk once was one) keeps a drawn
+    layer alive beside the next, which at full width is what fits a
+    model's draw on one card."""
+    import gc
+    import weakref
+
+    cfg = get_config("deepseek-v3-671b").reduced()
+    mesh = make_test_mesh(1, 2, device="cpu")
+    cut = SH.placer(mesh)
+    drawn = []
+
+    def place(path, part):
+        out = cut(path, part)
+        assert all(r() is None for r in drawn), path
+        drawn[:] = [weakref.ref(t) for t in leaves(part)]
+        return out
+
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        PT.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu",
+                   place=place)
+    finally:
+        if enabled:
+            gc.enable()
+    assert drawn and all(r() is None for r in drawn)
+

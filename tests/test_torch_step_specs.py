@@ -29,8 +29,10 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import SHAPES
 from repro_torch.launch import steps as PS
 from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.models import encdec as ED
 from repro_torch.models import sharding as SH
 from repro_torch.models import transformer as PT
+from repro_torch.tree import leaves
 from test_torch_sharding import MESHES, _flat, _mesh, _port_layout
 
 SHAPE_NAMES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
@@ -38,7 +40,9 @@ SHAPE_NAMES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 # divides 3; model 4 divides 4096 and not 4098
 CACHE_CASES = {"divides": ((8, 4096), (8, 4098)),
                "does_not_divide": ((3, 4096), (3, 4098))}
-SERVING_RAISES = ("deepseek-v3-671b", "seamless-m4t-medium")
+# the two families served over a mesh since the serving mesh took MLA
+# and the encoder-decoder
+MESH_SERVED = ("deepseek-v3-671b", "seamless-m4t-medium")
 
 
 def _is_leaf(x):
@@ -190,10 +194,6 @@ def test_bundle_specs_match_jax(arch, shape_name):
     # tests, and each bundle builds the whole parameter tree
     cfg, mesh = get_config(arch), _mesh("pod2_data2_model2")
     shape = SHAPES[shape_name]
-    if arch in SERVING_RAISES and shape.kind != "train":
-        with pytest.raises(NotImplementedError, match="§A2b"):
-            PS.build_step(cfg, shape, mesh)
-        return
     bundle = PS.build_step(cfg, shape, mesh)
     want_in, want_out = _jax_bundle_specs(arch, shape_name, mesh)
     if shape.kind == "train":
@@ -221,30 +221,82 @@ def test_bundle_specs_match_jax(arch, shape_name):
             assert t.device.type == "meta"
 
 
-@pytest.mark.parametrize("arch", SERVING_RAISES)
+@pytest.mark.parametrize("arch", MESH_SERVED)
 def test_mla_and_encdec_serve_on_one_device(arch):
-    """Without a mesh, and on a one-device mesh, every arch builds; over
-    more than one device MLA and the encoder-decoder raise by name."""
+    """MLA and the encoder-decoder build on one device (no mesh, and a
+    one-device mesh) and over a mesh of more than one: the (1, 2) and
+    (2, 2) bundles carry the JAX cache specs, and each serves its
+    reduced config, a prefill and a decode step, with finite logits."""
     cfg = get_config(arch)
     for shape_name in ("prefill_32k", "decode_32k"):
         shape = SHAPES[shape_name]
         assert PS.build_step(cfg, shape).in_shardings is None
         PS.build_step(cfg, shape, make_test_mesh(1, 1, device="cpu"))
-        with pytest.raises(NotImplementedError, match="§A2b"):
-            PS.build_step(cfg, shape, make_test_mesh(1, 2, device="cpu"))
+        for data, model in ((1, 2), (2, 2)):
+            mesh = make_test_mesh(data, model, device="cpu")
+            bundle = PS.build_step(cfg, shape, mesh)
+            want = _flat(_unstack_cache(JS.cache_pspecs(
+                _jax_cache(arch, shape.global_batch, shape.seq_len), mesh,
+                shape.global_batch), cfg, lambda p: tuple(p)[1:]))
+            assert _flat(bundle.out_shardings[1]) == want
+    small = get_config(arch).reduced()
+    mesh = make_test_mesh(1, 2, device="cpu")
+    B, S = 2, 4
+    gen = torch.Generator().manual_seed(0)
+    init = ED.init_encdec if small.is_encoder_decoder else PT.init_lm
+    params = SH.shard_params(init(gen, small, device="cpu"), mesh)
+    batch = {"tokens": torch.randint(0, small.vocab_size, (B, S),
+                                     generator=gen)}
+    if small.is_encoder_decoder:
+        batch["src_embeds"] = torch.randn(B, small.encoder_seq_len,
+                                          small.d_model, generator=gen)
+    pre = PS.build_step(small, SHAPES["prefill_32k"].__class__(
+        "prefill", 16, B, "prefill"), mesh)
+    dec = PS.build_step(small, SHAPES["decode_32k"].__class__(
+        "decode", 16, B, "decode"), mesh)
+    logits, caches = pre.fn(params, batch)
+    pos = S if small.is_encoder_decoder else torch.full((B,), S)
+    logits, _ = dec.fn(params, caches, logits.argmax(-1, keepdim=True), pos)
+    assert logits.shape == (B, small.vocab_size)
+    assert torch.isfinite(logits).all()
 
 
-def test_shard_cache_refuses_a_dimension_on_two_axes():
+def test_shard_cache_places_a_dimension_on_two_axes():
     """The batch-1 long-context layout cuts a cache's sequence over
-    (data, model): ``shard_cache`` raises, naming the spec and the
-    ROADMAP item, instead of laying it out otherwise."""
-    cfg = get_config("qwen2-7b").reduced()
+    (data, model): ``shard_cache`` places it in ``mesh.size`` slices in
+    the mesh's device order (``model`` innermost) instead of refusing
+    it, the other leaves whole over data; with a length only ``data``
+    divides, the sequence goes over ``data`` alone, whole over
+    ``model``.  Placing a whole cache and gathering it back is the
+    identity; a batch the data axes divide is placed as before."""
+    cfg = get_config("jamba-v0.1-52b").reduced()
     mesh = make_test_mesh(2, 2, device="cpu")
     cache = PS.cache_specs(cfg, 1, 64)
-    assert PS.cache_pspecs(cache, mesh, 1)[0]["k"][1] == ("data", "model")
-    with pytest.raises(ValueError, match="§A2c"):
-        SH.shard_cache(cache, mesh, 1)
+    attn = next(i for i, layer in enumerate(cache) if "k" in layer)
+    ssm = next(i for i, layer in enumerate(cache) if "ssm" in layer)
+    assert PS.cache_pspecs(cache, mesh, 1)[attn]["k"][1] == ("data", "model")
+    placed = SH.shard_cache(cache, mesh, 1)
+    assert SH.replicated(placed)
+    k = placed[attn]["k"]
+    assert (k.dim, k.parts, k.model_dim, k.model_parts) == (1, 2, 1, 2)
+    assert [k.spans(d)[1] for d in range(4)] == [
+        (0, 16), (16, 32), (32, 48), (48, 64)]
+    assert tuple(k.shards[0].shape) == (1, 16, cfg.num_kv_heads,
+                                        cfg.head_dim)
+    assert all(not s.any() for s in k.shards)
+    state = placed[ssm]["ssm"]
+    assert state.dim is None and state.parts == 1
+    gen = torch.Generator().manual_seed(0)
+    whole = [{name: torch.randn(t.shape, generator=gen)
+              for name, t in layer.items()} for layer in cache]
+    back = SH.gather_cache(SH.shard_cache(whole, mesh, 1), "cpu")
+    assert all(torch.equal(a, b) for a, b in zip(leaves(back), leaves(whole)))
+    # a length only data divides: the sequence over data, whole over model
+    k66 = SH.shard_cache(PS.cache_specs(cfg, 1, 66), mesh, 1)[attn]["k"]
+    assert [k66.spans(d)[1] for d in range(4)] == [
+        (0, 33), (0, 33), (33, 66), (33, 66)]
     # a batch the data axes divide is placed: zeroed shards on the mesh
+    cfg = get_config("qwen2-7b").reduced()
     placed = SH.shard_cache(PS.cache_specs(cfg, 4, 64), mesh, 4)
     k = placed[0]["k"]
     assert k.dim == 0 and k.parts == 2 and k.model_dim == 1
