@@ -267,6 +267,23 @@ Phases (any failure raises and the script exits non-zero):
    heads, seamless's 8 in its three roles) and B10 at jamba's 64 heads
    a rank.
 
+16. The dry run (``launch/steps.py::lower_step``: the step run once on
+   fake tensors on fake devices, counted by ``roofline/counting.py``)
+   against the cards, for configurations phases 11-15 run: (a)
+   gemma-2b's full-width training step on one card (phase 11a's batch,
+   microbatches and optimizer); (b) with four cards, qwen2-7b's
+   full-width training step at (data, model) = (2, 2) (phase 13c's), run
+   under the dry run's own counter; (c) with four cards,
+   llama4-scout-17b-a16e's full-width decode step at (1, 4) over phase
+   15b's 4-row, 4096-row cache.  Each card's bytes after placement
+   (``torch.cuda.memory_allocated``, less what it held before) held
+   within 1 % of the dry run's argument bytes; each training step's peak
+   (``max_memory_allocated`` over the one step) within 10 % of the dry
+   run's; the bytes (b)'s step copied between cards, by (source,
+   destination, kind), equal to the dry run's count; the serving peak
+   printed beside its prediction.  No step runs twice.  With one card
+   (b) and (c) print one line each saying they were not run.
+
 It prints the kernel table as one JSON line, then the card's name and
 power limit, then ``{"ok": true, "device": {...}}`` as the last line.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -1832,24 +1849,18 @@ def phase5(x, labels):
 def _flash_bound(B, S, T, H, K, dh, causal, window, dtype, dv=None):
     """(bound_ms, bound_by, f32 CUDA-core bound ms) of one B9 call.
 
-    Operations over the score entries the masks leave (this call's data):
-    q.k is 2·dh, p.v 2·dv, the softmax ~5 (scale, max, subtract, exp,
-    sum).  bf16 inputs take the tensor cores' peak, f32 ones the CUDA
-    cores'; the f32 figure is also returned, the bound of this kernel's
-    f32 arithmetic.  Bytes: q, k, v read once, out written once.
+    The work is ``kernels/flash_attention.py::flash_work``'s, which the
+    dry run counts too: over the score entries the masks leave (this
+    call's data), q.k is 2·dh, p.v 2·dv, the softmax ~5 (scale, max,
+    subtract, exp, sum); q, k, v read once, out written once.  bf16
+    inputs take the tensor cores' peak, f32 ones the CUDA cores'; the
+    f32 figure is also returned, the bound of this kernel's f32
+    arithmetic.
     """
-    import numpy as np
-    dv = dh if dv is None else dv
-    s = np.arange(S)[:, None]
-    t = np.arange(T)[None, :]
-    live = np.ones((S, T), bool)
-    if causal:
-        live &= t <= s
-    if window is not None:
-        live &= t > s - window
-    ops = B * H * int(live.sum()) * (2 * dh + 2 * dv + 5)
-    size = 2 if dtype == "bf16" else 4
-    nbytes = size * (B * S * H * (dh + dv) + B * T * K * (dh + dv))
+    from repro_torch.kernels.flash_attention import flash_work
+    ops, nbytes = flash_work(B, S, T, H, K, dh, dh if dv is None else dv,
+                             causal=causal, window=window,
+                             itemsize=2 if dtype == "bf16" else 4)
     peak = PEAK_BF16_FLOPS if dtype == "bf16" else PEAK_F32_FLOPS
     t_ops = ops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
@@ -1858,22 +1869,17 @@ def _flash_bound(B, S, T, H, K, dh, causal, window, dtype, dv=None):
 
 
 def _ssd_bound(B, c, Q, H, P, G, N, bc_dtype):
-    """(bound_ms, bound_by) of one B10 call: the lower triangle the mask
-    keeps.  C.B^T (2N a kept entry) runs at the peak of B and C's type,
-    once per (batch, chunk, group): every head of a group shares it, so
-    it is not counted per head; the decay (2), M.x (2P), the state (2PN a
-    row, plus the B scale) at f32, per head.  Bytes: xdt, cs, B, C read
-    once, y and the states written once.
+    """(bound_ms, bound_by) of one B10 call, over
+    ``kernels/ssd.py::ssd_work`` (the dry run's count too): C.B^T at the
+    peak of B and C's type, once per (batch, chunk, group); the decay,
+    M.x and the state at f32, per head; xdt, cs, B, C read once, y and
+    the states written once.
     """
-    tri = Q * (Q + 1) // 2
-    cells = B * c * H
-    ops_bc = B * c * G * tri * 2 * N
-    ops_f32 = cells * (tri * (2 + 2 * P) + Q * (2 * P * N + N + 1))
+    from repro_torch.kernels.ssd import ssd_work
+    ops_bc, ops_f32, nbytes = ssd_work(
+        B, c, Q, H, P, G, N, bc_itemsize=2 if bc_dtype == "bf16" else 4)
     peak_bc = PEAK_BF16_FLOPS if bc_dtype == "bf16" else PEAK_F32_FLOPS
     t_ops = (ops_bc / peak_bc + ops_f32 / PEAK_F32_FLOPS) * 1e3
-    size_bc = 2 if bc_dtype == "bf16" else 4
-    nbytes = (4 * (2 * B * c * Q * H * P + B * c * Q * H + B * c * H * P * N)
-              + size_bc * 2 * B * c * Q * G * N)
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -4973,6 +4979,226 @@ def phase15():
     return launches
 
 
+# -- phase 16, the dry run against the cards -------------------------------
+
+DRY_TRAIN_1 = "gemma-2b"                        # phase 11a's step
+DRY_TRAIN_4 = ("qwen2-7b", (2, 2))              # phase 13c's
+DRY_SERVE_4 = ("llama4-scout-17b-a16e", (1, 4))   # phase 15b's
+LIMIT_DRY_ARGS_REL = 0.01      # bytes after placement, by card
+LIMIT_DRY_PEAK_REL = 0.10      # a training step's peak, by card
+
+
+def _dry_count(cfg, shape, sizes):
+    """The dry run of ``cfg``'s step at ``shape`` on a fake (data,
+    model) mesh of ``sizes``: a ``StepCount``, one entry a device, and
+    the host seconds it took (placement and run)."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_test_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_test_mesh(*sizes, device="meta")
+    lowered = steps.lower_step(steps.build_step(cfg, shape, mesh), mesh)
+    return lowered.run(), time.perf_counter() - t0
+
+
+def _train_shape():
+    from repro_torch.configs.base import ShapeConfig
+    return ShapeConfig("custom_train", TRAIN_SEQ, TRAIN_BATCH, "train",
+                       TRAIN_MICRO)
+
+
+def _serve_shape(cfg):
+    from repro_torch.configs.base import ShapeConfig
+    B, _, S, _ = _serve_sizes(cfg)
+    return ShapeConfig("serve", S, B, "decode")
+
+
+def _dry_job(arch, kind, sizes):
+    """A dry run in a worker process: phase 16's train or serve step of
+    ``arch`` at full width."""
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    shape = _train_shape() if kind == "train" else _serve_shape(cfg)
+    return _dry_count(cfg, shape, sizes)
+
+
+def _held(phase, label, card, dry, limit):
+    """Each card's bytes against the dry run's, GiB, printed; raises past
+    ``limit`` (relative) where ``limit`` is given."""
+    errs = [abs(c - d) / d for c, d in zip(card, dry)]
+    print(f"phase {phase}: {label} by card: card " + ", ".join(
+        f"{c / 2**30:.3f}" for c in card) + " GiB; dry run " + ", ".join(
+        f"{d / 2**30:.3f}" for d in dry) + f" GiB; worst {max(errs):.4%}"
+        + ("" if limit is None else f" (limit {limit:.0%})"))
+    if limit is not None and not max(errs) <= limit:
+        raise AssertionError(f"phase {phase}: {label}: the dry run is "
+                             f"{max(errs):.4%} off the card")
+
+
+def _train_batch_on(cfg, B, S, device):
+    """A (B, S) int32 token batch from the seed, as ``batch_specs``."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(LM_SEED)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g,
+                         device=device, dtype=torch.int32)
+    return {"tokens": toks[:, :-1].contiguous(),
+            "labels": toks[:, 1:].contiguous()}
+
+
+def _dry_train(phase, arch, sizes, dry_run, copies):
+    """``arch``'s full-width training step (phase 11a's batch) placed by
+    its bundle and run once on (data, model) = ``sizes`` cards, against
+    ``dry_run()`` (its ``StepCount`` and host seconds); ``copies``: run
+    under the dry run's counter and hold the cross-card bytes it counts
+    equal to the dry run's."""
+    import gc
+    import math
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.roofline.analysis import collective_bytes
+    from repro_torch.roofline.counting import StepCounter
+
+    cfg = get_config(arch)
+    shape = _train_shape()
+    mesh = make_test_mesh(*sizes, device="cuda:0")
+    cards = mesh.devices
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = [torch.cuda.memory_allocated(d) for d in cards]
+    bundle = steps.build_step(cfg, shape, mesh)
+    whole = T.init_lm(torch.Generator(device=cards[0]).manual_seed(LM_SEED),
+                      cfg, device=cards[0])
+    args = bundle.place((whole, None, None, _train_batch_on(
+        cfg, TRAIN_BATCH, TRAIN_SEQ, cards[0])))
+    del whole
+    gc.collect()
+    _sync_all(mesh)
+    placed = [torch.cuda.memory_allocated(d) - b for d, b in zip(cards, base)]
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
+    counter = StepCounter(cards)
+    t0 = time.perf_counter()
+    with counter if copies else contextlib.nullcontext():
+        out = bundle.fn(*args)
+    _sync_all(mesh)
+    step_s = time.perf_counter() - t0
+    peaks = [torch.cuda.max_memory_allocated(d) - b
+             for d, b in zip(cards, base)]
+    loss = float(out[2]["loss"])
+    dry, dry_s = dry_run()
+    label = f"{arch} train step at {sizes}"
+    print(f"phase {phase}: {label}: {cfg.param_count() / 1e9:.3f}e9 "
+          f"parameters, batch {TRAIN_BATCH} x {TRAIN_SEQ} in "
+          f"{steps.num_microbatches(cfg, shape, len(mesh.replicas))} "
+          f"microbatches; loss {loss!r}; the card's step {step_s:.3f} s"
+          f"{' under the counter' if copies else ''}; the dry run "
+          f"{dry_s:.1f} s on the host")
+    _held(phase, f"{label}: bytes after placement", placed,
+          dry.argument_bytes, LIMIT_DRY_ARGS_REL)
+    _held(phase, f"{label}: peak over the step", peaks, dry.peak_bytes,
+          LIMIT_DRY_PEAK_REL)
+    if not math.isfinite(loss):
+        raise AssertionError(f"phase {phase}: {label}: loss {loss}")
+    if copies:
+        got = counter.result()
+        card, fake = collective_bytes(got), collective_bytes(dry)
+        kinds = sorted(set(card["counts"]) | set(fake["counts"]))
+        print(f"phase {phase}: {label}: cross-card bytes (copies) by kind, "
+              f"card / dry run: " + ", ".join(
+                  f"{k} {card.get(k, 0):.0f} ({card['counts'].get(k, 0)}) / "
+                  f"{fake.get(k, 0):.0f} ({fake['counts'].get(k, 0)})"
+                  for k in kinds))
+        if got.copies != dry.copies:
+            raise AssertionError(f"phase {phase}: {label}: the cross-card "
+                                 f"copies differ: card {card['pairs']}, dry "
+                                 f"run {fake['pairs']}")
+    del args, out, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _dry_serve(phase, arch, sizes, dry_run):
+    """``arch``'s full-width decode step over phase 15b's cache on
+    (data, model) = ``sizes`` cards, parameters drawn layer by layer
+    onto the mesh: bytes after placement held against ``dry_run()``'s,
+    the step's peak printed beside it."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import sharding as SH
+
+    cfg = get_config(arch)
+    B, P, S, _ = _serve_sizes(cfg)
+    shape = _serve_shape(cfg)
+    mesh = make_test_mesh(*sizes, device="cuda:0")
+    cards = mesh.devices
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = [torch.cuda.memory_allocated(d) for d in cards]
+    params = _init_on_mesh(cfg, mesh, LM_SEED)
+    caches = SH.shard_cache(steps.cache_specs(cfg, B, S), mesh, B)
+    token = torch.zeros((B, 1), dtype=torch.int32, device=cards[0])
+    pos = _serve_pos(cfg, B, P)
+    _sync_all(mesh)
+    placed = [torch.cuda.memory_allocated(d) - b for d, b in zip(cards, base)]
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
+    decode = steps.build_step(cfg, shape, mesh).fn
+    logits, caches = decode(params, caches, token, pos)
+    _sync_all(mesh)
+    peaks = [torch.cuda.max_memory_allocated(d) - b
+             for d, b in zip(cards, base)]
+    dry, dry_s = dry_run()
+    label = f"{arch} decode step at {sizes} ({B} rows, {S}-row cache)"
+    print(f"phase {phase}: {label}: finite logits "
+          f"{bool(torch.isfinite(logits).all())}; the dry run {dry_s:.1f} s "
+          f"on the host")
+    _held(phase, f"{label}: bytes after placement", placed,
+          dry.argument_bytes, LIMIT_DRY_ARGS_REL)
+    _held(phase, f"{label}: serving peak (not held)", peaks,
+          dry.peak_bytes, None)
+    del params, caches, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase16():
+    """The dry run against the cards (see the module docstring, 16).  The
+    dry runs go on in worker processes (spawned, one each) while the
+    cards run the same steps."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    t0 = time.perf_counter()
+    print(f"phase 16: {card_line()}")
+    four = all([_four_cards("16b"), _four_cards("16c")])
+    jobs = {"16a": (DRY_TRAIN_1, "train", (1, 1))}
+    if four:
+        jobs["16b"] = (DRY_TRAIN_4[0], "train", DRY_TRAIN_4[1])
+        jobs["16c"] = (DRY_SERVE_4[0], "serve", DRY_SERVE_4[1])
+    with ProcessPoolExecutor(
+            len(jobs), mp_context=multiprocessing.get_context("spawn")) \
+            as pool:
+        runs = {k: pool.submit(_dry_job, *job) for k, job in jobs.items()}
+        _dry_train("16a", DRY_TRAIN_1, (1, 1), runs["16a"].result,
+                   copies=False)
+        if four:
+            _dry_train("16b", *DRY_TRAIN_4, runs["16b"].result, copies=True)
+            _dry_serve("16c", *DRY_SERVE_4, runs["16c"].result)
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s on the host")
+
+
 def path_data():
     """(x, labels, gamma): the cohort server's N=10⁵ blobs on the host and
     the RBF width the server picks for them (on the card)."""
@@ -5027,6 +5253,7 @@ def main() -> int:
     phase14()
     for name, n in phase15().items():
         launches[name] += n
+    phase16()
     for name, rec in records.items():
         rec["launches"] = launches[name]
     keys = ("name", "route", "source", "replaces", "launches",

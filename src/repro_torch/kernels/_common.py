@@ -43,12 +43,25 @@ def launched(name: str) -> None:
         counts[name] += 1
 
 
+def is_fake(t) -> bool:
+    """Whether ``t`` is a fake tensor (``FakeTensorMode``'s: a shape, a
+    dtype and a device, no data), as the dry run runs a step on."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(t, FakeTensor)
+
+
 def check_tensors(name, *, dtypes=(torch.float32,), contiguous=True,
-                  **tensors) -> torch.device:
+                  fake=False, **tensors) -> torch.device:
     """Tensors of one of ``dtypes`` on one CPU or CUDA device, contiguous
     on CUDA unless ``contiguous=False``; returns that device.  ``None``
-    entries are skipped."""
+    entries are skipped.  A fake tensor raises (no wrapper hands one to
+    a kernel), unless ``fake``: then fake tensors on one device of any
+    kind pass, for a wrapper's shape-only route."""
     given = {k: t for k, t in tensors.items() if t is not None}
+    fakes = [k for k, t in given.items() if is_fake(t)]
+    if fakes and not (fake and len(fakes) == len(given)):
+        raise ValueError(f"{name}: {fakes} are fake tensors, which the "
+                         f"kernel cannot read")
     for k, t in given.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name}: {k} must be a torch.Tensor, got "
@@ -62,7 +75,7 @@ def check_tensors(name, *, dtypes=(torch.float32,), contiguous=True,
         raise ValueError(f"{name}: inputs lie on different devices "
                          f"{sorted(map(str, devices))}")
     dev = devices.pop()
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in ("cpu", "cuda") and not fakes:
         raise ValueError(f"{name}: unsupported device {dev}")
     if dev.type == "cuda" and contiguous:
         for k, t in given.items():

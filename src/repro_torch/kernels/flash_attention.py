@@ -5,7 +5,11 @@ The PyTorch counterpart of the JAX package's
 tile sizes.  CPU tensors run the plain version
 (:func:`repro_torch.kernels.ref.flash_attention_ref`); CUDA tensors launch
 the kernel, or raise: a differentiated call (the kernel has no backward)
-raises too.  The kernel reads q, k and v in the JAX layout
+raises too.  Fake tensors (the dry run's, ``launch/steps.py::
+lower_step``) take a shape-only route: an empty output of the kernel's
+shape on their device, and the kernel's work (:func:`flash_work`) handed
+to the step's counters (``roofline/counting.py``); neither the kernel
+nor the plain version runs.  The kernel reads q, k and v in the JAX layout
 through their strides (the head dimension must be unit-stride), so the
 TPU wrapper's pads and transposes have no counterpart.  bf16 inputs go
 to the tensor-core body, which copies rows in 16-byte pieces: their
@@ -23,7 +27,8 @@ import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels._common import (check_no_grad, check_tensors,
-                                         launched, stream)
+                                         is_fake, launched, stream)
+from repro_torch.roofline.counting import kernel_work
 
 #: (dh, dv) = (q and k width, v width) pairs the kernel is instantiated
 #: for: the square widths, and deepseek-v3's MLA prefill (q/k 128 + 64
@@ -31,6 +36,34 @@ from repro_torch.kernels._common import (check_no_grad, check_tensors,
 HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (256, 256), (192, 128),
              (48, 32))
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def live_entries(S: int, T: int, causal: bool, window=None) -> int:
+    """The score entries (s, t), 0 <= s < S, 0 <= t < T, that the masks
+    leave: causal ``t <= s``, window ``t > s - window`` (the kernel's q
+    and k positions 0..S-1 and 0..T-1)."""
+
+    def below(n):
+        # sum over s in [0, n) of min(s + 1, T): the entries t <= s
+        if n <= 0:
+            return 0
+        m = min(n, T)
+        return m * (m + 1) // 2 + (n - m) * T
+
+    cut = 0 if window is None else below(S - int(window))
+    return (below(S) if causal else S * T) - cut
+
+
+def flash_work(B, S, T, H, K, dh, dv, *, causal=True, window=None,
+               itemsize=2) -> tuple:
+    """(operations, bytes) of one call: over the score entries the masks
+    leave (:func:`live_entries`), q.k is 2·dh, p.v 2·dv and the softmax
+    ~5 (scale, max, subtract, exp, sum) per entry and head; q, k and v
+    read once and the output written once, at ``itemsize`` bytes an
+    element.  ``chip_smoke.py``'s bound and the dry run count this."""
+    ops = B * H * live_entries(S, T, causal, window) * (2 * dh + 2 * dv + 5)
+    nbytes = itemsize * (B * S * H * (dh + dv) + B * T * K * (dh + dv))
+    return ops, nbytes
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
@@ -44,8 +77,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     v's dtype.
     """
     name = "flash_attention"
-    dev = check_tensors(name, dtypes=_DTYPES, contiguous=False, q=q, k=k,
-                        v=v)
+    dev = check_tensors(name, dtypes=_DTYPES, contiguous=False, fake=True,
+                        q=q, k=k, v=v)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"{name}: q, k and v must be 4-D (B, S, H, d)")
     B, S, H, dh = q.shape
@@ -57,7 +90,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
         raise ValueError(f"{name}: {H} query heads over {K} KV heads")
     if window is not None and int(window) < 1:
         raise ValueError(f"{name}: window={window} must be >= 1")
-    if dev.type == "cpu":
+    fake = is_fake(q)
+    if dev.type == "cpu" and not fake:
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        scale=scale)
     check_no_grad(name, q, k, v)
@@ -74,11 +108,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
                              f"its head dimension")
         if t.dtype == torch.bfloat16 and (
                 any(t.stride(i) % 8 for i in range(3) if t.shape[i] > 1)
-                or t.data_ptr() % 16):
+                or (not fake and t.data_ptr() % 16)):
             raise ValueError(
                 f"{name}: bf16 {label} needs batch, sequence and head "
                 f"strides that are multiples of 8 elements and 16-byte "
                 f"aligned data, got strides {t.stride()[:3]}")
+    if fake:
+        kernel_work(name, dev, *flash_work(
+            B, S, T, H, K, dh, dv, causal=causal, window=window,
+            itemsize=v.element_size()))
+        return torch.empty((B, S, H, dv), dtype=v.dtype, device=dev)
     scale = 1.0 / np.sqrt(dh) if scale is None else float(scale)
     strides = (ctypes.c_longlong * 9)(*(t.stride(i) for t in (q, k, v)
                                         for i in range(3)))

@@ -3,7 +3,10 @@
 The PyTorch counterpart of the JAX package's ``kernels/ssd_pallas.py``.
 CPU tensors run the plain version (:func:`repro_torch.kernels.ref.
 ssd_chunk_ref`); CUDA tensors launch the kernel, or raise (a
-differentiated call too: the kernel has no backward).  One launch
+differentiated call too: the kernel has no backward).  Fake tensors (the
+dry run's) take a shape-only route: empty outputs of the kernel's shapes
+on their device, and the kernel's work (:func:`ssd_work`) handed to the
+step's counters (``roofline/counting.py``).  One launch
 computes every (batch, chunk, head) cell: the diagonal-block outputs and
 the per-chunk states.  :func:`ssd_plan` and :func:`ssd_blocks` mirror how
 the kernel splits that work into blocks.
@@ -17,7 +20,8 @@ import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels._common import (check_no_grad, check_tensors,
-                                         launched, stream)
+                                         is_fake, launched, stream)
+from repro_torch.roofline.counting import kernel_work
 
 #: (P, N) = (head_dim, d_state) the kernel is instantiated for: the
 #: reduced configs', mamba2's and jamba-v0.1's
@@ -73,6 +77,23 @@ def ssd_blocks(B: int, c: int, Q: int, H: int, G: int, N: int):
         yield kind, first, bc // c, bc % c, heads
 
 
+def ssd_work(B, c, Q, H, P, G, N, *, bc_itemsize=4) -> tuple:
+    """(operations at B and C's type, float32 operations, bytes) of one
+    call, over the lower triangle the mask keeps: C.B^T (2N a kept
+    entry) once per (batch, chunk, group), since every head of a group
+    shares it; the decay (2), M.x (2P) and the state (2PN a row, plus
+    the B scale) per head, in float32.  xdt, cs, B and C read once (B
+    and C at ``bc_itemsize`` bytes), y and the states written once.
+    ``chip_smoke.py``'s bound and the dry run count this."""
+    tri = Q * (Q + 1) // 2
+    cells = B * c * H
+    ops_bc = B * c * G * tri * 2 * N
+    ops_f32 = cells * (tri * (2 + 2 * P) + Q * (2 * P * N + N + 1))
+    nbytes = (4 * (2 * B * c * Q * H * P + B * c * Q * H + B * c * H * P * N)
+              + bc_itemsize * 2 * B * c * Q * G * N)
+    return ops_bc, ops_f32, nbytes
+
+
 def ssd_chunk(xdt, cs, Bm, Cm):
     """Intra-chunk SSD: shapes as in :func:`ref.ssd_chunk_ref`.
 
@@ -80,7 +101,8 @@ def ssd_chunk(xdt, cs, Bm, Cm):
     Returns (y_diag (B,c,Q,H,P), states (B,c,H,P,N)), float32.
     """
     name = "ssd_chunk"
-    dev = check_tensors(name, dtypes=_DTYPES, xdt=xdt, cs=cs, Bm=Bm, Cm=Cm)
+    dev = check_tensors(name, dtypes=_DTYPES, fake=True, xdt=xdt, cs=cs,
+                        Bm=Bm, Cm=Cm)
     if xdt.dim() != 5 or cs.dim() != 4 or Bm.dim() != 5:
         raise ValueError(f"{name}: xdt, cs, Bm must be 5-, 4-, 5-D")
     B, c, Q, H, P = xdt.shape
@@ -90,7 +112,8 @@ def ssd_chunk(xdt, cs, Bm, Cm):
         raise ValueError(f"{name}: xdt {tuple(xdt.shape)}, cs "
                          f"{tuple(cs.shape)}, Bm {tuple(Bm.shape)} and Cm "
                          f"{tuple(Cm.shape)} do not match")
-    if dev.type == "cpu":
+    fake = is_fake(xdt)
+    if dev.type == "cpu" and not fake:
         return ref.ssd_chunk_ref(xdt, cs, Bm, Cm)
     check_no_grad(name, xdt, cs, Bm, Cm)
     if xdt.dtype != torch.float32 or cs.dtype != torch.float32:
@@ -105,6 +128,12 @@ def ssd_chunk(xdt, cs, Bm, Cm):
     if ssd_plan(B, c, Q, H, G, N)["blocks"] > _MAX_GRID_X:
         raise ValueError(f"{name}: {B}x{c} chunks of {H} heads need more "
                          f"than {_MAX_GRID_X} blocks")
+    if fake:
+        ops_bc, ops_f32, nbytes = ssd_work(B, c, Q, H, P, G, N,
+                                           bc_itemsize=Bm.element_size())
+        kernel_work(name, dev, ops_bc + ops_f32, nbytes)
+        return (torch.empty((B, c, Q, H, P), dtype=torch.float32, device=dev),
+                torch.empty((B, c, H, P, N), dtype=torch.float32, device=dev))
     if any(t.data_ptr() % 16 for t in (xdt, Bm, Cm)):
         raise ValueError(f"{name}: the CUDA kernel copies xdt, Bm and Cm "
                          f"in 16-byte pieces; their data must be 16-byte "

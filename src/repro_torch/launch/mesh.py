@@ -17,8 +17,17 @@ and cross-device sum on one device.
   coordinate a replica (:attr:`NamedMesh.replicas`), its ``model``
   devices the ranks of tensor parallelism.
 
-``make_production_mesh`` (the TPU v5e 16x16 pod, 2 pods multi-pod) is
-not ported: the port targets the cards of one host.
+* ``make_production_mesh``: the port's counterpart of the JAX package's
+  TPU v5e 16x16 pod (2 pods multi-pod): one HGX host of 8 H100s as
+  ``("data", "model")`` = (2, 4), or two such hosts as ``("pod",
+  "data", "model")`` = (2, 2, 4).  The port drives one host's cards; the
+  two-host mesh is laid out only by the dry run (``launch/dryrun.py``).
+
+A mesh of fake devices (``device="meta"``): ``meta:0 ... meta:D-1``,
+which the dry run places fake tensors on (``launch/steps.py::
+lower_step``).  A fake tensor keeps a ``meta`` index through slicing,
+matmuls and ``.to()``; device indices are 8-bit, so at most
+:data:`MAX_FAKE_DEVICES`.
 
 Functions only: importing this module touches no device.
 """
@@ -35,25 +44,34 @@ from repro_torch.device import resolve_device
 
 Mesh = Tuple[torch.device, ...]
 
+#: the most fake devices a mesh may name (``meta:0`` ... ``meta:127``)
+MAX_FAKE_DEVICES = 128
+
 
 def as_mesh(devices: Iterable) -> Mesh:
     """``devices`` as a mesh, checked.
 
     Every entry must be the CPU, or every entry a visible CUDA device
-    (an index-less ``"cuda"`` takes the current one).  Raises, naming the
-    devices, on an empty tuple, on a mix of CPU and CUDA and on a CUDA
-    index the process cannot see.
+    (an index-less ``"cuda"`` takes the current one), or every entry a
+    fake device ``meta:i`` (0 <= i < :data:`MAX_FAKE_DEVICES`).  Raises,
+    naming the devices, on an empty tuple, on a mix of kinds, on a CUDA
+    index the process cannot see and on an index-less or out-of-range
+    ``meta``.
     """
     mesh = tuple(torch.device(d) for d in devices)
     names = [str(d) for d in mesh]
     if not mesh:
         raise ValueError("a mesh needs at least one device")
     kinds = {d.type for d in mesh}
-    if kinds - {"cpu", "cuda"}:
-        raise ValueError(f"a mesh holds CPU or CUDA devices, got "
-                         f"{names}")
+    if kinds - {"cpu", "cuda", "meta"} or any(
+            d.type == "meta" and (d.index is None or not
+                                  0 <= d.index < MAX_FAKE_DEVICES)
+            for d in mesh):
+        raise ValueError(f"a mesh holds CPU or CUDA devices, or fake "
+                         f"devices meta:0 ... meta:{MAX_FAKE_DEVICES - 1}, "
+                         f"got {names}")
     if len(kinds) != 1:
-        raise ValueError(f"a mesh cannot mix the CPU and CUDA "
+        raise ValueError(f"a mesh cannot mix the CPU, CUDA and fake "
                          f"devices: {names}")
     if kinds == {"cuda"}:
         mesh = tuple(resolve_device(d) for d in mesh)
@@ -71,13 +89,18 @@ def make_cohort_mesh(num_devices: int | None = None, *, device=None) -> Mesh:
     On the card (``device`` None or CUDA): ``num_devices`` of the visible
     CUDA devices (default all), ``device`` first and the others in index
     order.  ``device="cpu"``: ``num_devices`` copies of the CPU (default
-    one).  Raises when more CUDA devices are asked for than are visible.
+    one).  ``device="meta"``: ``num_devices`` fake devices ``meta:0``
+    ... (default one).  Raises when more CUDA devices are asked for than
+    are visible.
     """
     first = resolve_device(device)
     if num_devices is not None and num_devices < 1:
         raise ValueError(f"num_devices={num_devices} must be >= 1")
     if first.type == "cpu":
         return (first,) * (num_devices or 1)
+    if first.type == "meta":
+        return as_mesh(torch.device("meta", i)
+                       for i in range(num_devices or 1))
     visible = torch.cuda.device_count()
     n = num_devices or visible
     if n > visible:
@@ -148,7 +171,8 @@ def make_test_mesh(data: int = 2, model: int = 2, pod: int = 1, *,
     ``(cuda:0,) * 4`` runs a 4-way mesh on one card).  Otherwise, on the
     card (``device`` None or CUDA): that many visible CUDA devices,
     ``device`` first and the others in index order, raising when fewer
-    are visible; ``device="cpu"``: that many copies of the CPU.
+    are visible; ``device="cpu"``: that many copies of the CPU;
+    ``device="meta"``: that many fake devices.
     """
     names = ("pod", "data", "model") if pod > 1 else ("data", "model")
     sizes = (pod, data, model) if pod > 1 else (data, model)
@@ -160,3 +184,20 @@ def make_test_mesh(data: int = 2, model: int = 2, pod: int = 1, *,
             raise ValueError("pass device or devices, not both")
         return NamedMesh(names, sizes, as_mesh(devices))
     return NamedMesh(names, sizes, make_cohort_mesh(n, device=device))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device=None) -> NamedMesh:
+    """One HGX host of 8 H100s as ``("data", "model")`` = (2, 4), or with
+    ``multi_pod`` two hosts as ``("pod", "data", "model")`` = (2, 2, 4):
+    every axis above 1, so every layout rule of ``models/sharding.py``
+    is exercised, as the JAX package's 16x16 and 2x16x16 meshes
+    exercise them.  ``device`` as in :func:`make_test_mesh`: on the card
+    it raises unless 8 (16) CUDA devices are visible; ``device="meta"``
+    lays the mesh out on fake devices for the dry run."""
+    return make_test_mesh(2, 4, 2 if multi_pod else 1, device=device)
+
+
+def mesh_name(mesh: NamedMesh) -> str:
+    """``2x4``, ``2x2x4``: a mesh's sizes as the dry run names them."""
+    return "x".join(str(n) for n in mesh.sizes)

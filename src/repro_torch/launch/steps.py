@@ -39,12 +39,20 @@ and decode of ``models/transformer.py`` (``lm_prefill_mesh``,
 ``lm_decode_step_mesh``) and ``models/encdec.py`` over caches placed by
 ``models/sharding.py::shard_cache``.
 
-Not ported: ``lower_step`` (AOT lowering for the TPU mesh).
+:func:`lower_step` is the dry run's counterpart of the JAX AOT
+lowering: it places a bundle's arguments on a mesh of fake devices
+(``launch/mesh.py``, ``device="meta"``) as fake tensors, with the
+placement a real run uses (:attr:`StepBundle.place`), and returns a
+:class:`LoweredStep` whose :meth:`~LoweredStep.run` runs ``fn`` once
+under ``roofline/counting.py``'s counter: per-device memory, FLOPs,
+bytes and cross-device copies, with nothing allocated
+(``launch/dryrun.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable, Optional, Tuple
 
 import torch
@@ -285,7 +293,8 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig, opt,
         # device d's gradients into the owners' shards, leaf by leaf
         for i, (x, g) in enumerate(zip(sharded, grads)):
             for o, chunk in pieces(x, g, d):
-                chunk = chunk.to(devs[o])
+                with PL.collective("reduce_scatter"):
+                    chunk = chunk.to(devs[o])
                 if acc[i][o] is None and G == 1:
                     acc[i][o] = chunk.float()
                     continue
@@ -384,9 +393,11 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig, opt,
         metrics = ms[0] if G == 1 else {
             k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
         # a chunk held by several devices: the owner's sum on each
-        grads = [x.like([a[d] if x.owner(d) == d else
-                         a[x.owner(d)].to(devs[d], copy=True)
-                         for d in range(D)]) for x, a in zip(sharded, acc)]
+        with PL.collective("broadcast"):
+            grads = [x.like([a[d] if x.owner(d) == d else
+                             a[x.owner(d)].to(devs[d], copy=True)
+                             for d in range(D)])
+                     for x, a in zip(sharded, acc)]
         grads, gnorm = clip_by_global_norm(unflatten(tree, grads), 1.0)
         opt.update(grads, state, tree, step)
         return params, opt_state, dict(metrics, grad_norm=gnorm)
@@ -428,12 +439,20 @@ def _weighted_sum(values: list, weights: list, device) -> torch.Tensor:
 class StepBundle:
     """A step and its stand-ins: ``fn``, its ``args`` as meta-tensor
     trees, and ``in_shardings``/``out_shardings`` as spec trees (None: a
-    result left where it lands; both None without a mesh)."""
+    result left where it lands; both None without a mesh).  ``place``
+    (with a mesh) turns trees shaped like ``args`` into the arguments
+    ``fn`` takes on the mesh, placed as a run places them: parameters by
+    ``sharding.shard_params`` and the optimizer state ``opt.init`` of
+    them, caches by ``shard_cache``, a batch by ``shard_batch`` (or
+    copied whole to every device where the data axes do not divide it);
+    a scalar step becomes 0 and a scalar decode position the cache's
+    last row."""
 
     fn: Callable
     args: Tuple[Any, ...]
     in_shardings: Any
     out_shardings: Any
+    place: Optional[Callable] = None
 
 
 def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
@@ -482,7 +501,15 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
         opt_shard = SH.params_pspecs(opt_specs, mesh)
         in_sh = (p_shard, opt_shard, (),
                  batch_shardings(cfg, shape, mesh))
-        return StepBundle(fn, args, in_sh, (p_shard, opt_shard, None))
+        G = num_microbatches(cfg, shape, len(mesh.replicas))
+
+        def place_train(args):
+            params = SH.shard_params(args[0], mesh)
+            return (params, opt.init(params), 0,
+                    SH.shard_batch(args[3], mesh, G))
+
+        return StepBundle(fn, args, in_sh, (p_shard, opt_shard, None),
+                          place_train)
 
     B, S = shape.global_batch, shape.seq_len
     c_specs = cache_specs(cfg, B, S)
@@ -496,8 +523,13 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
             return StepBundle(fn, (p_specs, b_specs), None, None)
         b_shard = batch_shardings(cfg, shape, mesh)
         b_shard.pop("labels", None)
+
+        def place_prefill(args):
+            return (SH.shard_params(args[0], mesh),
+                    _place_rows(args[1], mesh, B))
+
         return StepBundle(fn, (p_specs, b_specs), (p_shard, b_shard),
-                          (None, c_shard))
+                          (None, c_shard), place_prefill)
 
     # decode: per-row positions, but a scalar for the encoder-decoder and
     # the windowed long-context decode (its cache slice wants one start)
@@ -510,7 +542,28 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
         return StepBundle(fn, args, None, None)
     pos_shard = () if scalar else SH.batch_pspec(mesh, 1, 0, B)
     in_sh = (p_shard, c_shard, SH.batch_pspec(mesh, 2, 0, B), pos_shard)
-    return StepBundle(fn, args, in_sh, (None, c_shard))
+
+    def place_decode(args):
+        params, caches, token, pos = args
+        rows = _place_rows(dict(tokens=token, **({} if scalar else
+                                                 {"pos": pos})), mesh, B)
+        return (SH.shard_params(params, mesh),
+                SH.shard_cache(caches, mesh, B),
+                [r["tokens"] for r in rows],
+                S - 1 if scalar else [r["pos"] for r in rows])
+
+    return StepBundle(fn, args, in_sh, (None, c_shard), place_decode)
+
+
+def _place_rows(batch: dict, mesh, B: int) -> list:
+    """A whole serving batch as one dict per device: its replica's rows
+    (``sharding.shard_batch``) where the data axes divide ``B``, else
+    the whole batch copied to every device (as ``cache_pspecs`` then
+    lays the cache out, ``sharding.replicated``)."""
+    if SH.batch_pspec(mesh, 1, 0, B)[0] is not None:
+        return SH.shard_batch(batch, mesh)
+    return [{k: v.to(dev, copy=True) for k, v in batch.items()}
+            for dev in mesh.devices]
 
 
 def _local_params(params, D):
@@ -523,7 +576,10 @@ def _serving_rows(batch, mesh, caches):
     """Each device's rows of a serving batch (a dict of (B, ...)
     tensors): its replica's (``sharding.shard_batch``), or the whole
     batch on every device where the cache tree's layout says every
-    replica holds it (``sharding.replicated``)."""
+    replica holds it (``sharding.replicated``).  A list is one dict per
+    device already (:attr:`StepBundle.place`'s)."""
+    if isinstance(batch, list):
+        return batch
     if SH.replicated(caches):
         return [{k: v.to(dev) for k, v in batch.items()}
                 for dev in mesh.devices]
@@ -538,10 +594,19 @@ def _prefill_on_mesh(cfg, shape, mesh) -> Callable:
 
     def prefill_step(params, batch):
         if mesh.size == 1:
-            logits, caches = one(SH.device_views(params, 0), batch)
+            logits, caches = one(SH.device_views(params, 0),
+                                 batch[0] if isinstance(batch, list)
+                                 else batch)
             return logits, tree_map(lambda t: SH.Sharded([t]), caches)
+        frames = cfg
+        if cfg.is_encoder_decoder:
+            # cross caches of the source's length, as the one-device
+            # prefill (and the JAX one) builds them
+            src = batch[0] if isinstance(batch, list) else batch
+            frames = dataclasses.replace(
+                cfg, encoder_seq_len=src["src_embeds"].shape[1])
         caches = SH.shard_cache(
-            cache_specs(cfg, shape.global_batch, shape.seq_len), mesh,
+            cache_specs(frames, shape.global_batch, shape.seq_len), mesh,
             shape.global_batch)
         with torch.no_grad():
             logits = prefill(
@@ -560,23 +625,84 @@ def _decode_on_mesh(cfg, shape, mesh) -> Callable:
         else T.lm_decode_step_mesh
 
     def serve_step(params, caches, token, pos):
+        if isinstance(token, list):
+            # one (B_r, 1) token tensor a device (StepBundle.place)
+            toks = token
+            poss = pos if isinstance(pos, list) else [int(pos)] * mesh.size
+        else:
+            per_row = torch.is_tensor(pos) and pos.dim() == 1
+            rows = _serving_rows(dict(tokens=token, **(
+                {"pos": pos} if per_row else {})), mesh, caches)
+            toks = [r["tokens"] for r in rows]
+            poss = ([r["pos"] for r in rows] if per_row
+                    else [int(pos)] * mesh.size)
         if mesh.size == 1:
             logits, new = one(SH.device_views(params, 0),
-                              SH.device_views(caches, 0), token, pos)
+                              SH.device_views(caches, 0), toks[0], poss[0])
             # a Mamba layer returns new state tensors: put them in place
             for x, t in zip(leaves(caches), leaves(new)):
                 if t is not x.shards[0]:
                     x.shards[0].copy_(t)
             return logits, caches
-        per_row = torch.is_tensor(pos) and pos.dim() == 1
-        rows = _serving_rows(dict(tokens=token, **(
-            {"pos": pos} if per_row else {})), mesh, caches)
-        poss = ([r["pos"] for r in rows] if per_row
-                else [int(pos)] * mesh.size)
         with torch.no_grad():
             logits = decode(
-                groups, _local_params(params, mesh.size), cfg,
-                [r["tokens"] for r in rows], caches, poss, window=window)
+                groups, _local_params(params, mesh.size), cfg, toks, caches,
+                poss, window=window)
         return logits, caches
 
     return serve_step
+
+
+# -- the dry run --------------------------------------------------------------
+
+@dataclasses.dataclass
+class LoweredStep:
+    """A bundle's arguments placed as fake tensors on a mesh of fake
+    devices (:func:`lower_step`), ready to run once."""
+
+    bundle: StepBundle
+    mesh: Any
+    fake_mode: Any
+    args: Tuple[Any, ...]
+    place_seconds: float
+
+    def run(self):
+        """``bundle.fn`` once on the placed arguments, under
+        ``roofline/counting.py::StepCounter`` inside the fake mode:
+        nothing is allocated and no kernel or plain version of one runs
+        where a wrapper has a shape-only route (with ``use_pallas`` on,
+        B9 and B10).  Returns the counter's
+        :class:`~repro_torch.roofline.counting.StepCount`; ``seconds`` is
+        the host time of the fake run."""
+        from repro_torch.roofline.counting import StepCounter
+
+        counter = StepCounter(self.mesh.devices)
+        t0 = time.perf_counter()
+        with self.fake_mode, counter:
+            counter.track_arguments(self.args)
+            out = self.bundle.fn(*self.args)
+            counter.track_outputs(out)
+            del out
+        return counter.result(time.perf_counter() - t0)
+
+
+def lower_step(bundle: StepBundle, mesh) -> LoweredStep:
+    """The dry run's counterpart of the JAX package's AOT lowering:
+    ``bundle``'s meta-tensor args made fake and placed by
+    :attr:`StepBundle.place` on ``mesh``, a ``launch/mesh.py::NamedMesh``
+    of fake devices (``device="meta"``, ``meta:0`` ...).  Nothing is
+    allocated."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    if any(d.type != "meta" for d in mesh.devices) or bundle.place is None:
+        raise ValueError(f"lower_step runs a bundle built for a mesh, on "
+                         f"fake devices (launch.mesh device='meta'), got "
+                         f"{[str(d) for d in mesh.devices]}")
+    mode = FakeTensorMode()
+    t0 = time.perf_counter()
+    fake = tree_map(lambda t: mode.from_tensor(t) if torch.is_tensor(t)
+                    else t, bundle.args)
+    with mode:
+        args = bundle.place(fake)
+    del fake
+    return LoweredStep(bundle, mesh, mode, args, time.perf_counter() - t0)

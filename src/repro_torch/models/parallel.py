@@ -22,6 +22,12 @@ projected their heads to the ranks whose slices of the cache's sequence
 hold them, and :meth:`Group.lse_combine` combines the ranks' partial
 softmaxes of a decode step (flash-decode) in rank order.
 
+Each of these moves runs under :func:`collective`, which names its kind
+(``reduce``, ``broadcast``, ``redistribute``, ``all_max``) to whatever
+counts the copies between devices (``roofline/counting.py``); the
+sharded leaves' gathers over ``data`` (``models/sharding.py::
+Sharded.local``) are ``gather``.
+
 A dimension is held in column spans ``(lo, hi)``: a leaf cut over
 ``model`` holds block j on rank j (:func:`held`); a leaf whose cut the
 divisibility check dropped holds the whole dimension on every rank, and
@@ -31,11 +37,42 @@ gives ``None`` in a list.
 
 from __future__ import annotations
 
+import threading
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 Span = Optional[Tuple[int, int]]
+
+
+class _Kind(threading.local):
+    name: Optional[str] = None
+
+
+_KIND = _Kind()
+
+
+class collective:
+    """``with collective("reduce"):`` labels the copies between devices
+    made inside as that kind of collective (the innermost label holds);
+    :func:`collective_kind` reads it.  Per thread: an autograd backward
+    sets its own label where it runs."""
+
+    __slots__ = ("kind", "prev")
+
+    def __init__(self, kind: str):
+        self.kind = kind
+
+    def __enter__(self):
+        self.prev, _KIND.name = _KIND.name, self.kind
+
+    def __exit__(self, *exc):
+        _KIND.name = self.prev
+
+
+def collective_kind() -> Optional[str]:
+    """The kind of collective the calling thread is inside, or None."""
+    return _KIND.name
 
 
 def held(j: int, ranks: int, n_local: int, n: int) -> Tuple[int, int]:
@@ -67,15 +104,17 @@ class _Broadcast(torch.autograd.Function):
     def forward(ctx, x, devices):
         ctx.set_materialize_grads(False)
         ctx.device = x.device
-        return tuple(x.to(dev, copy=True) for dev in devices)
+        with collective("broadcast"):
+            return tuple(x.to(dev, copy=True) for dev in devices)
 
     @staticmethod
     def backward(ctx, *grads):
         total = None
-        for g in grads:
-            if g is not None:
-                g = g.to(ctx.device)
-                total = g if total is None else total + g
+        with collective("reduce"):
+            for g in grads:
+                if g is not None:
+                    g = g.to(ctx.device)
+                    total = g if total is None else total + g
         return total, None
 
 
@@ -84,10 +123,11 @@ def reduce_to(xs: Sequence, device) -> Optional[torch.Tensor]:
     skipped; None if every entry is).  The backward pass copies the
     sum's gradient to each term's device: no sum."""
     total = None
-    for x in xs:
-        if x is not None:
-            x = x.to(device)
-            total = x if total is None else total + x
+    with collective("reduce"):
+        for x in xs:
+            if x is not None:
+                x = x.to(device)
+                total = x if total is None else total + x
     return total
 
 
@@ -109,27 +149,30 @@ class _Redistribute(torch.autograd.Function):
         ctx.set_materialize_grads(False)
         ctx.plan, ctx.have, ctx.dim = plan, have, dim
         ctx.shapes = [(x.shape, x.dtype, x.device) for x in xs]
-        return tuple(torch.cat([
-            xs[k].narrow(dim, lo - have[k][0], hi - lo).to(devices[j])
-            for k, lo, hi in pieces], dim)
-            for j, pieces in enumerate(plan) if pieces)
+        with collective("redistribute"):
+            return tuple(torch.cat([
+                xs[k].narrow(dim, lo - have[k][0], hi - lo).to(devices[j])
+                for k, lo, hi in pieces], dim)
+                for j, pieces in enumerate(plan) if pieces)
 
     @staticmethod
     def backward(ctx, *grads):
         plan, have, dim = ctx.plan, ctx.have, ctx.dim
         out: List[Optional[torch.Tensor]] = [None] * len(ctx.shapes)
         wanted = [pieces for pieces in plan if pieces]
-        for pieces, g in zip(wanted, grads):
-            if g is None:
-                continue
-            at = 0
-            for k, lo, hi in pieces:
-                shape, dtype, device = ctx.shapes[k]
-                if out[k] is None:
-                    out[k] = torch.zeros(shape, dtype=dtype, device=device)
-                out[k].narrow(dim, lo - have[k][0], hi - lo).add_(
-                    g.narrow(dim, at, hi - lo).to(device))
-                at += hi - lo
+        with collective("redistribute"):
+            for pieces, g in zip(wanted, grads):
+                if g is None:
+                    continue
+                at = 0
+                for k, lo, hi in pieces:
+                    shape, dtype, device = ctx.shapes[k]
+                    if out[k] is None:
+                        out[k] = torch.zeros(shape, dtype=dtype,
+                                             device=device)
+                    out[k].narrow(dim, lo - have[k][0], hi - lo).add_(
+                        g.narrow(dim, at, hi - lo).to(device))
+                    at += hi - lo
         return (None, None, None, None, *out)
 
 
@@ -161,7 +204,7 @@ class Group:
         """The elementwise max of the ranks' tensors, on each rank that
         gave one (``None`` elsewhere); not differentiated (a shift that
         keeps ``exp`` in range)."""
-        with torch.no_grad():
+        with torch.no_grad(), collective("all_max"):
             top = None
             for x in xs:
                 if x is not None:

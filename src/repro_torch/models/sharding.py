@@ -58,6 +58,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch.models.parallel import collective
 from repro_torch.tree import leaves, tree_map, unflatten
 
 # expert-stacked leaves: cut over the data axes by expert parallelism and
@@ -379,10 +380,11 @@ class Sharded:
         ``device``: the data chunks' owners' shards concatenated (the
         chunk's own shard itself when the leaf is uncut over data and it
         is already there)."""
-        if self.parts == 1:
-            return self.shards[k].to(device)
-        return torch.cat([self.shards[c * self.ranks + k].to(device)
-                          for c in range(self.parts)], self.dim)
+        with collective("gather"):
+            if self.parts == 1:
+                return self.shards[k].to(device)
+            return torch.cat([self.shards[c * self.ranks + k].to(device)
+                              for c in range(self.parts)], self.dim)
 
     def local(self, d: int) -> torch.Tensor:
         """What device d computes with: its own shard where the leaf is
@@ -396,9 +398,10 @@ class Sharded:
     def gather(self, device) -> torch.Tensor:
         """The whole leaf on ``device``."""
         if self.dim is not None and self.dim == self.model_dim:
-            return torch.cat([self.shards[c * self.ranks + k].to(device)
-                              for c in range(self.parts)
-                              for k in range(self.model_parts)], self.dim)
+            with collective("gather"):
+                return torch.cat([self.shards[c * self.ranks + k].to(device)
+                                  for c in range(self.parts)
+                                  for k in range(self.model_parts)], self.dim)
         blocks = [self.block(k, device) for k in range(self.model_parts)]
         return blocks[0] if len(blocks) == 1 else torch.cat(
             blocks, self.model_dim)

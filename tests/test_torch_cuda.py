@@ -1083,3 +1083,46 @@ def test_mla_and_encdec_serve_over_a_mesh_on_one_card(cuda_device, arch):
     for g, w in zip(got, want):
         assert float((g - w).abs().max() / w.abs().max()) <= 1e-4
         assert torch.equal(g.argmax(-1), w.argmax(-1))
+
+
+@pytest.mark.cuda
+def test_fake_cuda_tensors_take_only_the_shape_routes(cuda_device):
+    """Fake tensors on the card (the dry run's, ``FakeTensorMode``): B9
+    and B10 answer with empty outputs of their shapes and count their
+    closed-form work, launching nothing; every other wrapper raises
+    before it could hand a fake pointer to a kernel.  A real CUDA call
+    after them still launches its kernel."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels.flash_attention import flash_work
+    from repro_torch.roofline.counting import StepCounter
+
+    ops.reset_launch_counts()
+    card = torch.device("cuda", torch.cuda.current_device())
+    counter = StepCounter([card])
+    with FakeTensorMode(), counter:
+        q = torch.empty(1, 64, 4, 128, dtype=torch.bfloat16,
+                        device=cuda_device)
+        k = torch.empty(1, 64, 2, 128, dtype=torch.bfloat16,
+                        device=cuda_device)
+        out = ops.flash_attention(q, k, k)
+        _, st = ops.ssd_chunk(torch.empty(1, 2, 16, 4, 64, device=cuda_device),
+                              torch.empty(1, 2, 16, 4, device=cuda_device),
+                              torch.empty(1, 2, 16, 1, 16, device=cuda_device),
+                              torch.empty(1, 2, 16, 1, 16, device=cuda_device))
+        x = torch.empty(8, 4, device=cuda_device)
+        for call in (lambda: ops.pairwise_sq_dists(x, x),
+                     lambda: ops.rbf_cross_affinity(x, x, 0.5),
+                     lambda: ops.panel_matmul(x, x)):
+            with pytest.raises(ValueError, match="fake"):
+                call()
+    assert tuple(out.shape) == (1, 64, 4, 128) and tuple(st.shape) == (
+        1, 2, 4, 64, 16)
+    assert counter.kernels == {"flash_attention": 1, "ssd_chunk": 1}
+    assert counter.flops[0] >= flash_work(1, 64, 64, 4, 2, 128, 128)[0]
+    assert sum(ops.LAUNCH_COUNTS.values()) == 0
+    q = torch.randn(1, 64, 4, 128, device=cuda_device, dtype=torch.bfloat16)
+    k = torch.randn(1, 64, 2, 128, device=cuda_device, dtype=torch.bfloat16)
+    ops.flash_attention(q, k, k)
+    torch.cuda.synchronize()
+    assert ops.LAUNCH_COUNTS["flash_attention"] == 1

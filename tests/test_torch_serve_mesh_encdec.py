@@ -15,18 +15,19 @@ the JAX cache its spec names, and the cross cache's shards unchanged by
 the decode steps (it is written once, at the prefill).
 """
 
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs.base import ShapeConfig
 from repro_torch.kernels import ref
-from repro_torch.launch import steps as PS
 from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models import encdec as PE
-from repro_torch.models import sharding as SH
 from repro_torch.tree import leaves
-from test_torch_serve_mesh_mla import (assert_serves_like_jax, cfgs,
-                                       jax_serve, mesh_serve, prompt,
+from test_torch_serve_mesh_mla import (LOGIT_REL, assert_serves_like_jax,
+                                       cfgs, check_shards, jax_serve,
+                                       mesh_serve, port_params, prompt, rel,
                                        torch_batch)
 from test_torch_train_mesh import one_thread  # noqa: F401
 
@@ -94,15 +95,23 @@ def test_encdec_prefill_launches_per_rank_in_three_roles(monkeypatch):
 
 
 def test_encdec_source_must_fill_the_cross_cache():
-    """The mesh's cross cache holds the config's ``encoder_seq_len``
-    rows, as ``cache_specs`` lays it out: a source of another length is
-    refused by name."""
-    _, cfg = cfgs(ARCH)
-    mesh = make_test_mesh(1, 2, device="cpu")
-    params = PE.init_encdec(torch.Generator().manual_seed(0), cfg,
-                            device="cpu")
-    batch = torch_batch(prompt(cfg, B, PROMPT))
+    """The mesh's cross caches hold the source's frames, as the JAX
+    prefill and the port's one-device prefill build them: a source one
+    frame short of ``encoder_seq_len`` fills cross caches of its own
+    length, laid out by ``cache_pspecs`` for that length, and the mesh
+    serves it as the JAX package does."""
+    jcfg, cfg = cfgs(ARCH)
+    batch = prompt(jcfg, B, PROMPT)
     batch["src_embeds"] = batch["src_embeds"][:, :-1]
-    pre = PS.build_step(cfg, ShapeConfig("prefill", MAX, B, "prefill"), mesh)
-    with pytest.raises(ValueError, match="cross cache"):
-        pre.fn(SH.shard_params(params, mesh), batch)
+    jparams, jlogits, jtoks, jcaches = jax_serve(jcfg, batch, MAX,
+                                                 POSITIONS)
+    mesh = make_test_mesh(1, 2, device="cpu")
+    logits, toks, caches = mesh_serve(cfg, port_params(jparams, cfg), mesh,
+                                      torch_batch(batch), MAX, POSITIONS)
+    for i, (got, want) in enumerate(zip(logits, jlogits)):
+        assert rel(got, want) <= LOGIT_REL, i
+    for got, want in zip(toks, jtoks):
+        assert np.array_equal(got.numpy(), want)
+    frames = dataclasses.replace(cfg, encoder_seq_len=cfg.encoder_seq_len - 1)
+    assert caches["cross"][0]["k"].shape[1] == frames.encoder_seq_len
+    check_shards(frames, mesh, caches, jcaches[-1], B, MAX)
