@@ -284,6 +284,23 @@ Phases (any failure raises and the script exits non-zero):
    printed beside its prediction.  No step runs twice.  With one card
    (b) and (c) print one line each saying they were not run.
 
+17. The port's own checks on the card.  (a) ``repro_torch.analysis``
+   (the port's lint) over this checkout's ``src/repro_torch`` and
+   ``chip_smoke.py``, its ``kernel-abi`` rule holding ``_build.py``'s
+   ctypes table against the very ``csrc/`` phase 1 built: the files
+   scanned, the findings by rule (any finding fails) and the host
+   seconds.  (b) The streaming herd of ``tests/test_torch_streaming.py``
+   at the cohort server's path size (N = 100 000, d = 8, m = 512, k =
+   8): 2 tenants behind ``CohortFrontend`` with the background solver,
+   the deduper and admission, 8 threads that select, observe and drift
+   their cohorts' rows, 2 of them under a ``StepCounter``; every lock of
+   the port's ``SERVING_LOCK_ORDER`` swapped for the watchdog's, the
+   four kernel locks included.  Printed: the selects served, the solves
+   published, the lock-order violations (must be 0), the launches by
+   thread (B1-B4 must launch from the solver's thread and the callers'),
+   each lock's acquisitions.  A thread alive after 120 s fails the
+   phase.
+
 It prints the kernel table as one JSON line, then the card's name and
 power limit, then ``{"ok": true, "device": {...}}`` as the last line.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -1813,6 +1830,9 @@ def phase5(x, labels):
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         card, _, _ = spectral.spectral_cluster(
+            # each solve of this phase draws SPECTRAL_SEED's stream, as
+            # the CPU solve below does
+            # repro-lint: ignore[torch-seed-reuse]
             torch.Generator().manual_seed(SPECTRAL_SEED), dense, K,
             use_pallas=True)
         torch.cuda.synchronize()
@@ -1832,6 +1852,9 @@ def phase5(x, labels):
         raise AssertionError("rbf_affinity disagrees with its plain version")
     t0 = time.perf_counter()
     cpu, _, _ = spectral.spectral_cluster(
+        # the CPU solve draws the card's stream, so the two partitions
+        # compare
+        # repro-lint: ignore[torch-seed-reuse]
         torch.Generator().manual_seed(SPECTRAL_SEED), dense.cpu(), K,
         use_pallas=True)
     print(f"phase 5: dense spectral_cluster at n={N_DENSE}: card "
@@ -5199,6 +5222,272 @@ def phase16():
     print(f"phase 16: {time.perf_counter() - t0:.1f} s on the host")
 
 
+# -- phase 17 ---------------------------------------------------------------
+
+# (b) the watchdogged herd: two tenants behind the frontend with the
+# background solver, the deduper and admission (phase 7b's tables), 8
+# threads each making HERD_ROUNDS rounds of select -> observe -> drift
+# update of the cohort's rows -> stats; threads HERD_COUNTED run under a
+# StepCounter (roofline/counting.py), so its lock is taken at every op
+# inside the serving locks.  A thread still alive at HERD_DEADLINE_S
+# fails the phase.
+HERD_TENANTS, HERD_THREADS, HERD_ROUNDS = 2, 8, 4
+HERD_COUNTED = (0, 1)
+HERD_DEADLINE_S = 120.0
+HERD_DRIFT = 0.05          # the updated rows move this far, in std units
+
+
+def _instrument_kernel_locks():
+    """The port's four kernel locks swapped for the watchdog's, on the
+    live objects; returns (the swapped locks by name, a function that
+    puts the originals back)."""
+    from repro_torch.analysis import instrument
+    from repro_torch.kernels import _build, _common, ops
+
+    owners = {"_PallasToggle._lock": ops._TOGGLE,
+              "_Library._lock": _build.LIBRARY,
+              "_common._COUNT_LOCK": _common}
+    saved = {name: (obj, name.split(".")[1],
+                    getattr(obj, name.split(".")[1]))
+             for name, obj in owners.items()}
+    for name, obj in owners.items():
+        if instrument(obj) != [name.split(".")[1]]:
+            raise AssertionError(f"{name} was not instrumented")
+
+    def restore():
+        for obj, attr, lock in saved.values():
+            setattr(obj, attr, lock)
+
+    return {name: getattr(obj, attr) for name, (obj, attr, _)
+            in saved.items()}, restore
+
+
+def _instrument_frontend(fe):
+    """Every serving lock of ``fe`` under the watchdog; returns them."""
+    from repro_torch.analysis import instrument
+
+    got = []
+    for obj, prefix, want in (
+            [(fe, "", ["_registry_lock"]), (fe._solver, "", ["_queue_lock"]),
+             (fe._deduper, "", ["_dedupe_lock"])]
+            + [(part, f"{name}:", attrs) for name in fe.tenant_names
+               for part, attrs in (
+                   (fe._tenants[name], ["lock"]),
+                   (fe.tenant(name), ["_publish_lock", "_select_lock",
+                                      "_solve_lock", "_stats_lock",
+                                      "_write_lock"]),
+                   (fe.tenant(name).admission, ["_admission_lock"]))]):
+        done = sorted(instrument(obj, prefix=prefix))
+        if done != want:
+            raise AssertionError(f"instrumented {done}, want {want}")
+        got += [getattr(obj, attr) for attr in done]
+    return got
+
+
+def watchdog_herd(tables, *, k=K, m=M, device="cuda",
+                  threads=HERD_THREADS, rounds=HERD_ROUNDS,
+                  cohort=STREAM_COHORT, counted=HERD_COUNTED,
+                  deadline=HERD_DEADLINE_S, seed=ENGINE_SEED):
+    """The port's serving stack and kernel locks under the lock-order
+    watchdog (``repro_torch.analysis.watchdog``), hammered by ``threads``
+    threads over ``len(tables)`` tenants: each round a thread selects a
+    cohort, observes the round and drifts the cohort's rows.  Launch
+    counts are set to 0 just before the herd and read just after.
+    Returns a summary; raises if a thread is still alive at ``deadline``
+    seconds or the solver failed.  Lock-order violations are counted,
+    not raised: the caller holds them to 0."""
+    import threading
+
+    import numpy as np
+    import torch
+    from repro_torch.analysis import LockOrderError, instrument
+    from repro_torch.cohort import CohortConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.frontend import CohortFrontend, TenantSpec
+    from repro_torch.roofline.counting import StepCounter
+    from repro_torch.streaming import StreamingSpec
+
+    n, d = tables[0].shape
+    config = CohortConfig(num_clusters=k, use_pallas=True, num_landmarks=m)
+    fe = CohortFrontend(
+        [TenantSpec(f"tenant-{i}", n, d, config=config, seed=seed + i,
+                    policy="dqn") for i in range(len(tables))],
+        streaming=StreamingSpec(max_stale_versions=2), device=device)
+    kernel_locks, restore = _instrument_kernel_locks()
+    try:
+        serving = _instrument_frontend(fe)
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        counters = {i: StepCounter((dev,)) for i in counted}
+        for c in counters.values():
+            if instrument(c) != ["_lock"]:
+                raise AssertionError("StepCounter._lock not instrumented")
+        errors, done = [], []
+        start = threading.Barrier(threads)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        for name, table in zip(fe.tenant_names, tables):
+            fe.update_embeddings(name, np.arange(n), table)
+
+        def hammer(i):
+            name = fe.tenant_names[i % len(tables)]
+            server, table = fe.tenant(name), tables[i % len(tables)]
+            rng = np.random.default_rng(seed * 1000 + i)
+            try:
+                start.wait(timeout=deadline)
+                with counters.get(i) or contextlib.nullcontext():
+                    for _ in range(rounds):
+                        ids, _ = fe.select_cohort(name, cohort)
+                        server.observe_round(0.5 + 0.001 * len(ids))
+                        drift = rng.normal(size=(len(ids), d)).astype(
+                            np.float32)
+                        server.update_embeddings(
+                            ids, table[ids] + np.float32(HERD_DRIFT) * drift)
+                        fe.stats()
+                done.append(i)
+            except Exception as exc:
+                errors.append(exc)
+
+        workers = [threading.Thread(target=hammer, args=(i,),
+                                    name=f"herd-{i}", daemon=True)
+                   for i in range(threads)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=max(0.0, t0 + deadline - time.perf_counter()))
+        if any(w.is_alive() for w in workers):
+            raise AssertionError(
+                f"the herd hung: {sum(w.is_alive() for w in workers)} of "
+                f"{threads} threads alive after {deadline} s")
+        if not fe._solver.drain(timeout=deadline):
+            raise AssertionError("the shared solver did not drain")
+        if device != "cpu":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        by_thread = {t: dict(c) for t, c in ops.THREAD_LAUNCHES.items()}
+        launches = dict(ops.LAUNCH_COUNTS)
+        agg = fe.stats()["frontend"]
+        solver_errors = fe._solver.stats["errors"]
+        last_error = fe._solver.last_error
+    finally:
+        restore()
+        solver = fe._solver
+        fe.close(timeout=JOIN_S)
+    if any(t.is_alive() for t in solver._threads):
+        raise AssertionError("the shared solver outlived close()")
+    # the frontend fans a leader's failure out to its batch as a
+    # RuntimeError raised from it: look down each error's causes
+    violations = [e for e in errors if _cause_of(e, LockOrderError)]
+    others = [e for e in errors if not _cause_of(e, LockOrderError)]
+    if others or solver_errors:
+        import traceback
+        raise AssertionError(
+            f"herd errors {others!r}, {solver_errors} failed solves ("
+            f"the last: {last_error}); the first error:\n"
+            + "".join(traceback.format_exception(others[0]) if others
+                      else []))
+    return dict(
+        seconds=seconds, selects=len(done) * rounds, threads_done=len(done),
+        stats=agg, violations=len(violations),
+        violation_text=[str(_cause_of(e, LockOrderError))
+                        for e in violations], launches=launches,
+        by_thread=by_thread,
+        acquisitions={lk.name: lk.acquisitions for lk in
+                      list(kernel_locks.values()) + serving},
+        counter_acquisitions=[c._lock.acquisitions
+                              for c in counters.values()])
+
+
+def _cause_of(exc, kind):
+    """``exc`` or the first exception of its cause chain that is a
+    ``kind``, else None."""
+    while exc is not None:
+        if isinstance(exc, kind):
+            return exc
+        exc = exc.__cause__ or exc.__context__
+    return None
+
+
+def _launch_split(by_thread):
+    """B1-B4 launches of the solver's threads and of the callers'."""
+    solver = {name: sum(c.get(name, 0) for t, c in by_thread.items()
+                        if t.startswith(SOLVER_THREAD)) for name in FUSED}
+    callers = {name: sum(c.get(name, 0) for t, c in by_thread.items()
+                         if t.startswith("herd-")) for name in FUSED}
+    return solver, callers
+
+
+def phase17a():
+    """The port's lint over this checkout (see the module docstring,
+    17a)."""
+    from collections import Counter
+
+    from repro_torch.analysis import analyze_paths
+    from repro_torch.analysis.runner import DEFAULT_PATHS, _collect_files
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    findings = analyze_paths(list(DEFAULT_PATHS), root=REPO)
+    host = time.perf_counter() - t0
+    files = len(_collect_files(DEFAULT_PATHS, REPO))
+    entries = sum(len(v) for v in _build._SIGNATURES.values())
+    by_rule = dict(Counter(f.rule for f in findings))
+    print(f"phase 17a: repro-torch-lint over {' and '.join(DEFAULT_PATHS)}: "
+          f"{files} files, {len(findings)} findings {json.dumps(by_rule)}, "
+          f"{host:.4f} s on the host; kernel-abi held {entries} "
+          f"_SIGNATURES entries against {_build.CSRC.relative_to(REPO)} "
+          f"(sources hash {_build.source_hash()}, phase 1's build)")
+    if findings:
+        raise AssertionError("the port's lint found:\n" + "\n".join(
+            f.render() for f in findings))
+
+
+def phase17b(x):
+    """The watchdogged streaming herd at the path size (see the module
+    docstring, 17b); returns its B1-B4 launches."""
+    import numpy as np
+
+    tables = [x, blobs(np.random.default_rng(SEED + 11))[0]][:HERD_TENANTS]
+    with plain_on_card_forbidden():
+        got = watchdog_herd(tables)
+    agg = got["stats"]
+    solver, callers = _launch_split(got["by_thread"])
+    print(f"phase 17b: {card_line()}: {len(tables)} tenants of {N} "
+          f"clients (d={D}, m={M}, k={K}), {HERD_THREADS} threads x "
+          f"{HERD_ROUNDS} rounds in {got['seconds']:.3f} s: "
+          f"{got['selects']} selects served ({agg['requests']} requests, "
+          f"{agg['batches']} batches), solves {agg['solves']} "
+          f"(published ahead {agg['warm_ahead']}, served warm "
+          f"{agg['served_warm']}, forced inline {agg['forced_inline']}, "
+          f"dedupe hits {agg['dedupe_hit']}, shed {agg['shed']}); "
+          f"lock-order violations {got['violations']}")
+    print(f"phase 17b: THREAD_LAUNCHES {json.dumps(got['by_thread'])}")
+    print(f"phase 17b: B1-B4 launches: solver threads {json.dumps(solver)}, "
+          f"callers' threads {json.dumps(callers)}")
+    print(f"phase 17b: watchdogged acquisitions "
+          f"{json.dumps(got['acquisitions'])}; StepCounter._lock "
+          f"{got['counter_acquisitions']}")
+    if got["violations"]:
+        raise AssertionError("lock-order violations:\n" + "\n".join(
+            got["violation_text"]))
+    if got["threads_done"] != HERD_THREADS:
+        raise AssertionError(f"{got['threads_done']} threads finished")
+    if any(solver[name] < 1 or callers[name] < 1 for name in FUSED):
+        raise AssertionError("B1-B4 must launch from the solver's and "
+                             "the callers' threads")
+    if not all(got["counter_acquisitions"]):
+        raise AssertionError("a StepCounter thread took no lock")
+    return {name: got["launches"][name] for name in FUSED}
+
+
+def phase17(x):
+    """The port's lint and the watchdogged herd on the card; returns
+    {kernel: launches}."""
+    phase17a()
+    return phase17b(x)
+
+
 def path_data():
     """(x, labels, gamma): the cohort server's N=10⁵ blobs on the host and
     the RBF width the server picks for them (on the card)."""
@@ -5254,6 +5543,8 @@ def main() -> int:
     for name, n in phase15().items():
         launches[name] += n
     phase16()
+    for name, n in phase17(x).items():
+        launches[name] += n
     for name, rec in records.items():
         rec["launches"] = launches[name]
     keys = ("name", "route", "source", "replaces", "launches",

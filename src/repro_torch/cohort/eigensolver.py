@@ -21,6 +21,26 @@ import torch
 from repro_torch.kernels import ops as kernel_ops
 
 _EPS = 1e-12
+_LINALG_LOADED = False
+
+
+def load_linalg(device) -> None:
+    """Load PyTorch's CUDA linear-algebra library on the calling thread,
+    once a process (a no-op off CUDA).
+
+    PyTorch loads that library lazily, at the first CUDA ``torch.linalg``
+    call, and the load is not thread-safe: two threads whose first
+    ``eigh`` race raise "lazy wrapper should be called at most once".  In
+    a fresh process a streaming server's background solve and another
+    tenant's inline one do race so.  :class:`~repro_torch.cohort.engine.
+    CohortEngine` calls this at construction, before any serving thread
+    runs.
+    """
+    global _LINALG_LOADED
+    if _LINALG_LOADED or torch.device(device).type != "cuda":
+        return
+    torch.linalg.eigh(torch.eye(2, device=device))
+    _LINALG_LOADED = True
 
 
 def _blocked_matmul(w, q, block_rows: int, use_pallas: bool = False):
@@ -58,6 +78,10 @@ def subspace_topk(w, r: int, *, iters: int = 30, q0=None, generator=None,
     m = w.shape[0]
     if q0 is None:
         if generator is None:
+            # no caller generator: fall back to a fixed, reproducible range
+            # start — the converged Ritz basis is start-agnostic, the
+            # constant stream is the point, not a bug
+            # repro-lint: ignore[torch-constant-seed]
             generator = torch.Generator().manual_seed(0)
         q0 = torch.randn((m, r), generator=generator, dtype=w.dtype)
     q = _panel_qr(q0.to(device=w.device, dtype=w.dtype))

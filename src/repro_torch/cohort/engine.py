@@ -37,6 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.cohort.eigensolver import load_linalg
 from repro_torch.cohort.landmarks import LANDMARK_STRATEGIES, select_landmarks
 from repro_torch.cohort.nystrom import nystrom_from_landmarks
 from repro_torch.cohort.sharded import sharded_nystrom_from_landmarks
@@ -207,6 +208,8 @@ class CohortEngine:
                  seed: int = 0, device=None, mesh=None):
         self.config = config or CohortConfig()
         self.device = resolve_device(device)
+        # before any serving thread: the first CUDA eigh is not thread-safe
+        load_linalg(self.device)
         self._mesh = None if mesh is None else as_mesh(mesh)
         self.seed = int(seed)
         self._sketch_sign: Optional[np.ndarray] = None

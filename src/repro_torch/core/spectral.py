@@ -110,7 +110,9 @@ def _subspace_smallest_k(a, k: int, *, iters: int = 60):
     inv_sqrt = torch.rsqrt(torch.clamp_min(d, _EPS))
     a_norm = a * inv_sqrt[:, None] * inv_sqrt[None, :]
     # fixed range start: subspace iteration converges from any full-rank
-    # start, and a fixed seed keeps the solver reproducible
+    # start, and a fixed seed keeps the solver reproducible without
+    # plumbing a generator through the public API
+    # repro-lint: ignore[torch-constant-seed]
     gen = torch.Generator().manual_seed(0)
     q0 = torch.randn((n, k), generator=gen, dtype=a.dtype).to(a.device)
     q, _ = torch.linalg.qr(q0)

@@ -119,8 +119,10 @@ class DecodeScheduler:
 
     Thread-safe: ``submit`` may race ``step``/``drain`` from another
     thread.  ``_sched_lock`` (slot table + queue) ranks before
-    ``_stats_lock`` (counters, innermost), as in the JAX package's
-    serving lock order.
+    ``_stats_lock`` (counters), as in the JAX package's serving lock
+    order; a prefill under ``_sched_lock`` reads the ``use_pallas``
+    toggle, whose lock ranks after both
+    (``repro_torch.analysis.watchdog.SERVING_LOCK_ORDER``).
     """
 
     def __init__(self, cfg, params, batch: int, max_seq: int, *,
@@ -390,8 +392,10 @@ class CohortServer:
     state is single-writer); ``update_embeddings`` appends O(delta) rows
     under ``_write_lock`` and :meth:`snapshot` materializes them lazily
     into a fresh immutable table.  Dashboard counters live under the
-    innermost ``_stats_lock``.  The lock names and ranks are those of the
-    JAX package's ``SERVING_LOCK_ORDER``.
+    innermost serving lock, ``_stats_lock``.  The lock names and ranks
+    are the JAX package's, in the port's
+    ``repro_torch.analysis.watchdog.SERVING_LOCK_ORDER`` (where only the
+    kernel locks rank after ``_stats_lock``).
 
     Streaming (``streaming=StreamingSpec(...)``): every
     ``update_embeddings`` marks the table dirty on a

@@ -31,11 +31,11 @@ makes re-clustering asynchronous and double-buffered:
 
 Wiring lives in ``launch/serve.py`` (swap protocol + streaming counters)
 and ``launch/frontend.py`` (per-tenant :class:`StreamingSpec`, graceful
-``close()``).  Every lock introduced here keeps its name and rank in the
-JAX package's ``repro.analysis.watchdog.SERVING_LOCK_ORDER``, so that
-watchdog can instrument the port's serving stack too; see the JAX
-package's docs/ARCHITECTURE.md ("Streaming re-clustering") for the swap
-diagram.
+``close()``).  Every lock introduced here keeps the JAX package's name
+and rank in the port's ``repro_torch.analysis.watchdog.
+SERVING_LOCK_ORDER``, so that watchdog instruments the port's serving
+stack; see the JAX package's docs/ARCHITECTURE.md ("Streaming
+re-clustering") for the swap diagram.
 """
 
 from repro_torch.streaming.admission import (AdmissionController,

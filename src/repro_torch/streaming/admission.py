@@ -17,8 +17,10 @@ tests pin down.  Both error types derive from :class:`ShedError` so
 callers can catch one type and read ``.tenant`` for attribution.
 
 Threading: all mutable state is guarded by ``_admission_lock``, ranked
-innermost-but-one in ``SERVING_LOCK_ORDER`` (only ``_stats_lock`` ranks
-later); ``try_admit``/``release`` are safe from any frontend worker.
+innermost-but-one among the serving locks of ``repro_torch.analysis.
+watchdog.SERVING_LOCK_ORDER`` (only ``_stats_lock`` and the kernel
+locks rank later); ``try_admit``/``release`` are safe from any frontend
+worker.
 """
 
 from __future__ import annotations

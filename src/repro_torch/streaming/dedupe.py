@@ -18,7 +18,7 @@ the engine cache replays defensive copies), and the engine state arrays
 it installs (landmarks, eigenbases) are only ever read by later solves.
 
 Threading: registry + done-cache are guarded by ``_dedupe_lock`` (ranked
-in ``SERVING_LOCK_ORDER``).  Waiters block on a per-ticket Event with no
+in ``repro_torch.analysis.watchdog.SERVING_LOCK_ORDER``).  Waiters block on a per-ticket Event with no
 lock held.  A failed solve aborts its ticket so waiters fall back to
 solving solo rather than hanging.
 """

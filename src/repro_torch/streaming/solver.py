@@ -13,11 +13,12 @@ snapshots, ``CohortEngine.prepare``-s, and parks the result in the
 server's publish mailbox for the next select to swap in.
 
 Threading: ``_dirty``/``_inflight``/``_closed``/``stats`` are guarded by
-``_queue_lock`` (ranked in ``SERVING_LOCK_ORDER``); workers run tasks
-with no solver lock held, so a slow solve never blocks ``submit``.  The
-wake signal is a plain :class:`threading.Event` rather than a Condition
-so the runtime lock-order watchdog can instrument ``_queue_lock`` like
-any other lock.
+``_queue_lock`` (ranked in ``repro_torch.analysis.watchdog.
+SERVING_LOCK_ORDER``); workers run tasks with no solver lock held, so a
+slow solve never blocks ``submit``.  The wake signal is a plain
+:class:`threading.Event` rather than a Condition so the port's runtime
+lock-order watchdog (:mod:`repro_torch.analysis.watchdog`) can
+instrument ``_queue_lock`` like any other lock.
 """
 
 from __future__ import annotations

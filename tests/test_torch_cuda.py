@@ -704,6 +704,30 @@ def test_background_warm_equals_inline_select_on_the_card(cuda_device):
 
 
 @pytest.mark.cuda
+def test_watchdog_herd_on_the_card(cuda_device):
+    """``chip_smoke.py`` phase 17b's herd at a small N: every serving
+    lock and the four kernel locks under the port's watchdog, 8 threads
+    over 2 tenants; no lock-order violation, and B1-B4 launch from the
+    background solver's thread and from the callers' threads."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_herd", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    tables = [cs.blobs(np.random.default_rng(seed), n=20000, k=5)[0]
+              for seed in (3, 4)]
+    got = cs.watchdog_herd(tables, k=5, m=128, rounds=3, deadline=120.0)
+    assert got["violations"] == 0, got["violation_text"]
+    assert got["threads_done"] == cs.HERD_THREADS
+    solver, callers = cs._launch_split(got["by_thread"])
+    assert all(solver[name] > 0 and callers[name] > 0 for name in FUSED), \
+        (solver, callers)
+    assert all(got["counter_acquisitions"])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_sharded_four_way_on_one_card_matches_one_way(cuda_device, dtype):
     """The mesh route on (cuda:0,) * 4 at a row count that pads: B1 once,

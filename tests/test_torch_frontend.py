@@ -278,13 +278,21 @@ def test_cluster_policy_wrong_length_transition_clear_error():
 
 # -- lock order ---------------------------------------------------------------
 
-def test_watchdog_instrumented_stack_obeys_declared_lock_order():
-    """The port's serving stack under the JAX package's rank-asserting
-    locks, hammered by selector / updater / observer / stats threads;
-    covers select_cohorts (holding _select_lock) calling back into the
-    frontend's seal, which takes the tenant lock."""
-    from repro.analysis import instrument
+def test_watchdog_instrumented_stack_obeys_declared_lock_order(monkeypatch):
+    """The port's serving stack, its kernel locks included, under the
+    port's rank-asserting locks, hammered by selector / updater /
+    observer / stats threads; covers select_cohorts (holding
+    _select_lock) calling back into the frontend's seal, which takes the
+    tenant lock."""
+    from repro_torch.analysis import instrument
+    from repro_torch.kernels import _build, _common, ops
 
+    monkeypatch.setattr(ops, "_TOGGLE", ops._PallasToggle())
+    monkeypatch.setattr(_build, "LIBRARY", _build._Library())
+    monkeypatch.setattr(_common, "_COUNT_LOCK", _common._COUNT_LOCK)
+    assert instrument(ops._TOGGLE) == ["_lock"]
+    assert instrument(_build.LIBRARY) == ["_lock"]
+    assert instrument(_common) == ["_COUNT_LOCK"]
     fe = mk_frontend(tenants=2, n=120, k=3, policy="dqn")
     assert instrument(fe) == ["_registry_lock"]
     for name in fe.tenant_names:

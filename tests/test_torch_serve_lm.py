@@ -142,6 +142,56 @@ def test_mixed_length_greedy_matches_batch1_oracle(arch, lens):
         assert r.generated == _oracle(cfg, r, 48)
 
 
+def test_watchdog_scheduler_under_concurrent_submits(monkeypatch):
+    """``DecodeScheduler``'s ``_sched_lock`` and ``_stats_lock``, and the
+    ``use_pallas`` toggle's lock, under the port's watchdog while 4
+    threads submit and read the stats during the decode loop of a
+    reduced attn config with the kernels on: a prefill reads the toggle
+    under ``_sched_lock``, so its lock must rank after the scheduler's
+    (``repro_torch.analysis.watchdog``)."""
+    import threading
+
+    from repro_torch.analysis import instrument
+
+    monkeypatch.setattr(ops, "_TOGGLE", ops._PallasToggle())
+    assert instrument(ops._TOGGLE) == ["_lock"]
+    srv = _make_server(batch=2, max_seq=32)
+    sched = srv.scheduler
+    assert sorted(instrument(sched)) == ["_sched_lock", "_stats_lock"]
+    reqs = _reqs(srv.cfg.vocab_size, [(4, 3), (6, 2), (3, 4)] * 4)
+    errors = []
+
+    def submitter(part):
+        try:
+            for r in part:
+                sched.submit(r)
+                sched.stats()
+        except Exception as exc:        # pragma: no cover - failure path
+            errors.append(exc)
+
+    threads = [threading.Thread(target=submitter, args=(reqs[i::4],))
+               for i in range(4)]
+    done = []
+    with ops.use_pallas_scoped(True):
+        for t in threads:
+            t.start()
+        while len(done) < len(reqs):
+            if not sched.step():
+                if not any(t.is_alive() for t in threads) and \
+                        not sched.stats()["queue_depth"]:
+                    break
+            done.extend(sched.completed())
+        for t in threads:
+            t.join(timeout=30)
+            assert not t.is_alive()
+        done.extend(sched.drain())
+    assert errors == []
+    assert sorted(r.uid for r in done) == sorted(r.uid for r in reqs)
+    assert all(len(r.generated) == r.max_new_tokens for r in done)
+    assert sched._sched_lock.acquisitions > len(reqs)
+    assert ops._TOGGLE._lock.acquisitions > 0
+
+
 def test_admit_retire_ordering_more_requests_than_slots():
     srv = _make_server(batch=2, max_seq=32)
     done = srv.serve_batch(_reqs(srv.cfg.vocab_size, [(4, 3)] * 7))

@@ -14,10 +14,12 @@ server's double buffer) on the CPU: the cases of the JAX package's
   snapshot gives, bit for bit.
 
 Every join, drain and close here has a timeout, and a test fails when it
-runs out.  The lock-order case instruments the port's objects with the
-JAX package's watchdog.
+runs out.  The lock-order cases instrument the port's objects, its
+kernel locks included, with the port's watchdog
+(``repro_torch.analysis``).
 """
 
+import contextlib
 import sys
 import threading
 import time
@@ -25,6 +27,8 @@ import time
 import numpy as np
 import pytest
 
+from repro_torch.analysis import instrument
+from repro_torch.analysis.watchdog import OrderedLock
 from repro_torch.cohort import CohortConfig, CohortEngine
 from repro_torch.launch.frontend import CohortFrontend, TenantSpec
 from repro_torch.launch.serve import CohortServer
@@ -564,20 +568,60 @@ def test_churn_trace_drives_streaming_updates_while_selects_run():
 
 # -- lock order ---------------------------------------------------------------
 
-def test_watchdog_instrumented_streaming_herd_obeys_lock_order():
-    """Every lock of the port's streaming stack swapped for the JAX
-    package's rank-asserting OrderedLock; selects, updates and observes
-    race the background warms, with thread switches every 10 µs."""
-    from repro.analysis import instrument
+def instrument_kernel_locks(monkeypatch):
+    """Swap the port's kernel locks (the ``use_pallas`` toggle, the
+    loaded libraries, the launch counts) for the watchdog's, on fresh
+    objects the test's end puts back."""
+    from repro_torch.kernels import _build, _common, ops
 
-    n, d = 96, 8
-    fast_dqn = {"hidden": (32,), "eps_decay_steps": 30,
-                "buffer_size": 512, "batch_size": 64}
-    fe = CohortFrontend(
-        [TenantSpec(f"family-{i}", n, d, config=CFG, seed=i,
-                    policy="dqn", dqn_overrides=fast_dqn)
-         for i in range(2)],
-        streaming=StreamingSpec(max_stale_versions=2), device="cpu")
+    monkeypatch.setattr(ops, "_TOGGLE", ops._PallasToggle())
+    monkeypatch.setattr(_build, "LIBRARY", _build._Library())
+    monkeypatch.setattr(_common, "_COUNT_LOCK", _common._COUNT_LOCK)
+    assert instrument(ops._TOGGLE) == ["_lock"]
+    assert instrument(_build.LIBRARY) == ["_lock"]
+    assert instrument(_common) == ["_COUNT_LOCK"]
+    return ops._TOGGLE._lock, _build.LIBRARY._lock, _common._COUNT_LOCK
+
+
+def launching_refs(monkeypatch):
+    """Make each kernel's plain version do what its wrapper does around
+    a launch on the card: load the libraries first, count the launch
+    after (the outermost call only: the fused versions call the
+    cross-affinity's).  The libraries are a stand-in: nothing builds."""
+    from repro_torch.kernels import _build, _common, ref
+
+    monkeypatch.setattr(_build.LIBRARY, "_kernels", object())
+    depth = threading.local()
+    for kernel in _common.LAUNCH_COUNTS:
+        plain = getattr(ref, f"{kernel}_ref")
+
+        def counted(*args, _plain=plain, _kernel=kernel, **kw):
+            outer = not getattr(depth, "n", 0)
+            depth.n = getattr(depth, "n", 0) + 1
+            try:
+                if outer:
+                    _build.library()
+                out = _plain(*args, **kw)
+            finally:
+                depth.n -= 1
+            if outer:
+                _common.launched(_kernel)
+            return out
+
+        monkeypatch.setattr(ref, f"{kernel}_ref", counted)
+
+
+def _instrumented_herd(fe, n, d, rounds=4, threads=8, counted=()):
+    """Every serving lock of ``fe`` under the watchdog; ``threads``
+    threads select, observe, update and read the stats of the tenants in
+    turn, those of ``counted`` under a (watchdogged) ``StepCounter``, so
+    its lock is taken inside the serving locks at every op.  Returns the
+    threads' errors and the counters."""
+    from repro_torch.roofline.counting import StepCounter
+
+    counters = {i: StepCounter(("cpu",)) for i in counted}
+    for counter in counters.values():
+        assert instrument(counter) == ["_lock"]
     assert instrument(fe) == ["_registry_lock"]
     assert instrument(fe._solver) == ["_queue_lock"]
     assert instrument(fe._deduper) == ["_dedupe_lock"]
@@ -600,30 +644,93 @@ def test_watchdog_instrumented_streaming_herd_obeys_lock_order():
         server = fe.tenant(name)
         local = np.random.default_rng(i)
         try:
-            for _ in range(4):
-                ids, _ = fe.select_cohort(name, 6)
-                server.observe_round(0.5 + 0.01 * len(ids))
-                server.update_embeddings(
-                    ids, local.normal(size=(len(ids), d)).astype(np.float32))
-                fe.stats()
+            with counters.get(i) or contextlib.nullcontext():
+                for _ in range(rounds):
+                    ids, _ = fe.select_cohort(name, 6)
+                    server.observe_round(0.5 + 0.01 * len(ids))
+                    server.update_embeddings(ids, local.normal(
+                        size=(len(ids), d)).astype(np.float32))
+                    fe.stats()
             done.append(i)
         except Exception as exc:        # pragma: no cover - failure path
             errors.append(exc)
 
-    threads = [threading.Thread(target=hammer, args=(i,)) for i in range(8)]
+    workers = [threading.Thread(target=hammer, args=(i,), name=f"herd-{i}")
+               for i in range(threads)]
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-5)
     try:
-        for t in threads:
+        for t in workers:
             t.start()
-        for t in threads:
+        for t in workers:
             join(t)
     finally:
         sys.setswitchinterval(interval)
-    assert errors == []
-    assert len(done) == 8
+    assert len(done) + len(errors) == threads
+    return errors, counters
+
+
+def test_watchdog_instrumented_streaming_herd_obeys_lock_order(monkeypatch):
+    """Every lock of the port's streaming stack, and its kernel locks,
+    swapped for the port's rank-asserting OrderedLock; selects, updates
+    and observes race the background warms, with thread switches every
+    10 µs."""
+    instrument_kernel_locks(monkeypatch)
+    n, d = 96, 8
+    fast_dqn = {"hidden": (32,), "eps_decay_steps": 30,
+                "buffer_size": 512, "batch_size": 64}
+    fe = CohortFrontend(
+        [TenantSpec(f"family-{i}", n, d, config=CFG, seed=i,
+                    policy="dqn", dqn_overrides=fast_dqn)
+         for i in range(2)],
+        streaming=StreamingSpec(max_stale_versions=2), device="cpu")
+    assert _instrumented_herd(fe, n, d)[0] == []
     assert fe._solver.stats["errors"] == 0, fe._solver.last_error
     close_frontend(fe)
+
+
+def test_watchdog_herd_takes_the_kernel_locks_where_the_card_does(
+        monkeypatch):
+    """The herd on the fused path, each plain version loading the
+    libraries and counting its launch as its wrapper does on the card:
+    the kernel locks are taken inside the serving locks, from the
+    callers' threads (inline solves) and the solver's (warms), two
+    callers also count every op under a ``StepCounter`` (the innermost
+    lock), and the declared ranks hold.  ``chip_smoke.py`` phase 17b runs this herd on
+    the card at the path size."""
+    from repro_torch.kernels import _common, ops
+
+    toggle, library, counts = instrument_kernel_locks(monkeypatch)
+    launching_refs(monkeypatch)
+    config = CohortConfig(num_clusters=3, method="nystrom",
+                          num_landmarks=32, use_pallas=True)
+    n, d = 96, 8
+    fe = CohortFrontend(
+        [TenantSpec(f"family-{i}", n, d, config=config, seed=i,
+                    policy="dqn", dqn_overrides={"hidden": (32,)})
+         for i in range(2)],
+        streaming=StreamingSpec(max_stale_versions=2), device="cpu")
+    ops.reset_launch_counts()
+    errors, counters = _instrumented_herd(fe, n, d, counted=(0, 1))
+    assert errors == []
+    assert fe._solver.stats["errors"] == 0, fe._solver.last_error
+    close_frontend(fe)
+    fused = ("quantized_cross_affinity", "nystrom_colsum", "nystrom_gram",
+             "nystrom_extension")
+    by_thread = {t: c for t, c in ops.THREAD_LAUNCHES.items()
+                 if any(c[k] for k in fused)}
+    solver = [t for t in by_thread if t.startswith("repro-solver")]
+    callers = [t for t in by_thread if t.startswith("herd-")]
+    assert solver and callers, by_thread
+    for kernel in fused:
+        assert sum(by_thread[t][kernel] for t in solver) > 0
+        assert sum(by_thread[t][kernel] for t in callers) > 0
+    assert isinstance(_common._COUNT_LOCK, OrderedLock)
+    assert counts.acquisitions >= sum(_common.LAUNCH_COUNTS.values()) > 0
+    assert library.acquisitions >= sum(_common.LAUNCH_COUNTS.values())
+    assert toggle.acquisitions == 0      # the cohort path reads no toggle
+    assert all(c._lock.acquisitions > 0 and c.flops[0] > 0
+               for c in counters.values())
 
 
 def test_launch_counts_are_split_by_thread():
