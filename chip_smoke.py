@@ -81,7 +81,8 @@ Phases (any failure raises and the script exits non-zero):
    ``spectral_cluster(method="nystrom", use_pallas=True)`` at N=100 000
    (purity), ``spectral_cluster(method="dense", use_pallas=True)`` at
    n=2048 (one pairwise-distance launch, the CPU's partition) and
-   ``kernels.ops.rbf_affinity`` at n=2048 (no path calls it).
+   ``kernels.ops.rbf_affinity`` at n=2048 (the quickstart's step 3, phase
+   18a, calls it on a path).
 6. The LM server: ``Server`` with the kernels on, at full width and
    depth in bf16 for qwen2-7b and mamba2-2.7b, 4 slots and 6 requests of
    256-2048 prompt tokens, and for gemma-2b (head_dim 256) 2 requests of
@@ -300,6 +301,25 @@ Phases (any failure raises and the script exits non-zero):
    thread (B1-B4 must launch from the solver's thread and the callers'),
    each lock's acquisitions.  A thread alive after 120 s fails the
    phase.
+
+18. The examples on the card: each ``examples/torch_*.py``'s ``main``
+   called in this process with every plain kernel version forbidden on
+   the card.  (a) ``torch_quickstart.py``: one B8 launch (step 3), held
+   against its plain version within 1e-4 of the largest entry, three
+   equal clusters, three finite rounds.  (b) ``torch_fl_mnist.py
+   --use-pallas`` at its defaults (20 clients, cohort 5, up to 20
+   rounds, mnist, sigma 0.8): each policy's rounds to target, final
+   accuracy and seconds; B7 launches equal to the dqre_sc engine's
+   solves, at least one.  (c) ``torch_ablation_clusters.py --use-pallas
+   --rounds 4``: the eigengap variant's k_hat; B7 once a solve.  (d)
+   ``torch_serve_lm.py --use-pallas --requests 10`` for qwen2-7b and
+   mamba2-2.7b (prompts rounded up to the bucket), reduced: B9 and B10
+   launches equal to prefills x attention and Mamba layers, every request
+   answered in full.  (e) ``torch_train_lm.py --preset 100m --steps 120``
+   with a checkpoint directory: the mean loss of the last 10 steps below
+   that of the first 10, the step-100 checkpoint restored to leaves of
+   the model's shapes, all finite; step ms, tok/s and peak memory; no
+   kernel launch.
 
 It prints the kernel table as one JSON line, then the card's name and
 power limit, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -5488,6 +5508,220 @@ def phase17(x):
     return phase17b(x)
 
 
+# -- phase 18: the examples ------------------------------------------------
+
+# phase 18: the port's examples (examples/torch_*.py), each one's main
+# called in this process with its flags.  (b) and (c) run at the
+# examples' own defaults (20 clients, cohort 5, mnist, sigma 0.8), (d)
+# serves each arch reduced, (e) trains the 100m preset.
+EXAMPLE_ABLATION_ROUNDS = 4
+# (arch, prompt multiple): mamba2's prompts are multiples of the prefill
+# bucket, whose padding runs through the recurrence (ROADMAP §C)
+EXAMPLE_SERVE = (("qwen2-7b", 1), ("mamba2-2.7b", LM_BUCKET))
+EXAMPLE_SERVE_REQUESTS = 10
+EXAMPLE_TRAIN_STEPS, EXAMPLE_TRAIN_WINDOW = 120, 10
+EXAMPLE_CKPT_STEP = 100
+
+
+def example(name):
+    """``examples/torch_<name>.py`` of this checkout, as a module."""
+    import importlib.util
+
+    path = REPO / "examples" / f"torch_{name}.py"
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _run_example(phase, name, argv):
+    """``main(argv)`` of an example with every plain kernel version
+    forbidden on the card; returns (its result, {kernel: launches})."""
+    import torch
+    from repro_torch.kernels import ops
+
+    module = example(name)
+    print(f"phase {phase}: examples/torch_{name}.py {' '.join(argv)}")
+    with plain_on_card_forbidden():
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = module.main(list(argv))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(ops.LAUNCH_COUNTS)
+    print(f"phase {phase}: {name} took {seconds:.3f} s; launches "
+          f"{json.dumps({k: n for k, n in launches.items() if n})}")
+    return out, launches
+
+
+def _only(phase, launches, allowed):
+    """No kernel outside ``allowed`` launched."""
+    stray = {k: n for k, n in launches.items() if n and k not in allowed}
+    if stray:
+        raise AssertionError(f"phase {phase}: unexpected launches {stray}")
+
+
+def phase18a():
+    """The quickstart: B8 once (step 3), held against its plain version."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ref
+
+    out, launches = _run_example("18a", "quickstart", [])
+    _only("18a", launches, ("rbf_affinity",))
+    if launches["rbf_affinity"] != 1:
+        raise AssertionError(f"phase 18a: {launches['rbf_affinity']} B8 "
+                             f"launches, expected 1")
+    got = out["affinity"]
+    if not got.is_cuda:
+        raise AssertionError("phase 18a: the affinity was not computed on "
+                             "the card")
+    want = ref.rbf_affinity_ref(out["x"], 0.5)
+    err = float((got.cpu() - want).abs().max() / want.abs().max())
+    print(f"phase 18a: B8 at (64, 8): max |err| / max {err:.3e} (limit "
+          f"{LIMIT_MAX_REL:g}); eigengap k {out['k_hat']}")
+    if err > LIMIT_MAX_REL or not torch.all(got.diagonal() == 0):
+        raise AssertionError("phase 18a: B8 disagrees with its plain version")
+    if sorted(np.bincount(out["assign"]).tolist()) != [20, 20, 20]:
+        raise AssertionError(f"phase 18a: cluster sizes "
+                             f"{np.bincount(out['assign'])}")
+    for res in out["rounds"]:
+        if not np.isfinite(res.loss) or len(set(res.selected.tolist())) != 4:
+            raise AssertionError(f"phase 18a: round {res.round_idx}")
+    return launches
+
+
+def phase18b(out_dir):
+    """fl_mnist at its defaults with the kernels: B7 once a dqre_sc
+    solve."""
+    import numpy as np
+
+    out, launches = _run_example("18b", "fl_mnist",
+                                    ["--use-pallas", "--out", out_dir])
+    _only("18b", launches, ("pairwise_sq_dists",))
+    solves = out["runs"]["dqre_sc"]["solves"]
+    n = launches["pairwise_sq_dists"]
+    for policy, res in out["results"].items():
+        run = out["runs"][policy]
+        print(f"phase 18b: {policy:8s} rounds to target "
+              f"{res['rounds_to_target']}, final accuracy "
+              f"{res['final_accuracy']:.4f}, {run['seconds']:.3f} s, median "
+              f"round {run['median_round_seconds']:.4f} s")
+        if not np.isfinite(res["curve"]).all():
+            raise AssertionError(f"phase 18b: {policy} accuracy curve")
+    print(f"phase 18b: pairwise_sq_dists launches {n}, dqre_sc solves "
+          f"{solves}")
+    if n != solves or n == 0:
+        raise AssertionError(f"phase 18b: {n} B7 launches for {solves} "
+                             f"solves")
+    return launches
+
+
+def phase18c():
+    """The cluster-count ablation with the kernels: B7 once a solve."""
+    out, launches = _run_example(
+        "18c", "ablation_clusters",
+        ["--use-pallas", "--rounds", str(EXAMPLE_ABLATION_ROUNDS)])
+    _only("18c", launches, ("pairwise_sq_dists",))
+    solves = sum(v["solves"] for v in out.values())
+    n = launches["pairwise_sq_dists"]
+    print(f"phase 18c: eigengap variant's k_hat "
+          f"{out['eigengap(<=8)']['k_hat']}; pairwise_sq_dists launches {n}, "
+          f"solves {solves}")
+    if n != solves or n == 0:
+        raise AssertionError(f"phase 18c: {n} B7 launches for {solves} "
+                             f"solves")
+    return launches
+
+
+def phase18d():
+    """serve_lm reduced with the kernels: B9 and B10 once a prefill and
+    mixer layer."""
+    total = {}
+    for arch, multiple in EXAMPLE_SERVE:
+        out, launches = _run_example(
+            "18d", "serve_lm",
+            ["--arch", arch, "--use-pallas", "--requests",
+             str(EXAMPLE_SERVE_REQUESTS), "--prompt-multiple", str(multiple)])
+        cfg, stats, done = out["cfg"], out["stats"], out["done"]
+        prefills = stats["prefills"]
+        want = {"flash_attention": _b9_per_rank(cfg) * prefills,
+                "ssd_chunk": _b10_per_rank(cfg) * prefills}
+        got = {k: launches[k] for k in want}
+        _only("18d", launches, want)
+        print(f"phase 18d: {arch}: {prefills} prefills, launches {got}; "
+              f"{stats['decode_steps']} decode steps, "
+              f"{stats['last_decode_tok_s']:.1f} decode tok/s")
+        if got != want or prefills != EXAMPLE_SERVE_REQUESTS:
+            raise AssertionError(f"phase 18d: {arch}: launches {got}, "
+                                 f"expected {want}")
+        if len(done) != EXAMPLE_SERVE_REQUESTS or stats["truncated"] or any(
+                len(r.generated) != r.max_new_tokens
+                or not all(0 <= t < cfg.vocab_size for t in r.generated)
+                for r in done):
+            raise AssertionError(f"phase 18d: {arch}: malformed answers")
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def phase18e(ckpt_dir):
+    """The 100m preset trained EXAMPLE_TRAIN_STEPS steps: a falling loss,
+    the step-100 checkpoint restored; no kernel launch."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.tree import leaves
+
+    out, launches = _run_example(
+        "18e", "train_lm",
+        ["--preset", "100m", "--steps", str(EXAMPLE_TRAIN_STEPS),
+         "--ckpt-dir", ckpt_dir])
+    _only("18e", launches, ())
+    losses, w = out["losses"], EXAMPLE_TRAIN_WINDOW
+    first, last = float(np.mean(losses[:w])), float(np.mean(losses[-w:]))
+    print(f"phase 18e: {out['num_params'] / 1e6:.3f}M parameters; loss "
+          f"{losses[0]:.4f} at step 0, {losses[-1]:.4f} at step "
+          f"{len(losses) - 1}; mean of the first {w} {first:.4f}, of the "
+          f"last {w} {last:.4f}; median step "
+          f"{statistics.median(out['step_seconds']) * 1e3:.3f} ms, "
+          f"{out['tok_s']:.1f} tok/s, peak "
+          f"{out['peak_bytes'] / 2**30:.3f} GiB")
+    if not np.isfinite(losses).all() or not last < first:
+        raise AssertionError("phase 18e: the loss did not fall")
+    tree, step, _ = Checkpointer(ckpt_dir).restore(step=EXAMPLE_CKPT_STEP)
+    got = leaves(tree["params"])
+    want = leaves(out["params"])
+    if step != EXAMPLE_CKPT_STEP or len(got) != len(want) or any(
+            tuple(np.shape(g)) != tuple(x.shape)
+            or not np.isfinite(np.asarray(g, np.float32)).all()
+            for g, x in zip(got, want)):
+        raise AssertionError("phase 18e: the step-100 checkpoint does not "
+                             "restore to the model's leaves")
+    print(f"phase 18e: step-{step} checkpoint restored: {len(got)} leaves "
+          f"of the model's shapes, all finite")
+    del out
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase18():
+    """The five examples on the card; returns {kernel: launches}."""
+    import tempfile
+
+    total = dict.fromkeys(KERNELS, 0)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        parts = (phase18a(), phase18b(tmp), phase18c(), phase18d(),
+                 phase18e(str(pathlib.Path(tmp) / "ckpt")))
+    for launches in parts:
+        for name, n in launches.items():
+            total[name] += n
+    print(f"phase 18: the examples took {time.perf_counter() - t0:.3f} s; "
+          f"launches {json.dumps(total)}")
+    return total
+
+
 def path_data():
     """(x, labels, gamma): the cohort server's N=10⁵ blobs on the host and
     the RBF width the server picks for them (on the card)."""
@@ -5544,6 +5778,8 @@ def main() -> int:
         launches[name] += n
     phase16()
     for name, n in phase17(x).items():
+        launches[name] += n
+    for name, n in phase18().items():
         launches[name] += n
     for name, rec in records.items():
         rec["launches"] = launches[name]

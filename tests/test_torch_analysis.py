@@ -335,7 +335,9 @@ def test_analysis_imports_only_the_standard_library():
 
 
 def test_the_port_imports_neither_jax_nor_the_reference():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    examples = sorted((REPO / "examples").glob("torch_*.py"))
+    assert examples
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + examples
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             names = ([a.name for a in node.names]
