@@ -276,7 +276,17 @@ Phases (any failure raises and the script exits non-zero):
    full-width training step at (data, model) = (2, 2) (phase 13c's), run
    under the dry run's own counter; (c) with four cards,
    llama4-scout-17b-a16e's full-width decode step at (1, 4) over phase
-   15b's 4-row, 4096-row cache.  Each card's bytes after placement
+   15b's 4-row, 4096-row cache; (d) train_4k on one card: gemma-2b at
+   full width cut to 2 layers, f32, 8 rows of 4096 tokens in the JAX
+   table's 2 microbatches, at (data, model) = (1, 1) and at (1, 2) over
+   ``(cuda:0,) * 2`` (a fake mesh of ``(meta:0,) * 2`` in the dry run,
+   so the count sees the card's one memory), each counted twice in
+   spawned workers, once with the plain calls' shape-only route
+   (``counting.counted_call``: at (1, 1) the blocked attention's op-by-op
+   count replayed, at (1, 2) each tensor-parallel layer's,
+   ``transformer.checkpoint_tp``) and once op by op, each count's host
+   seconds printed, the two held within 1 % of each other (FLOPs
+   equal).  Each card's bytes after placement
    (``torch.cuda.memory_allocated``, less what it held before) held
    within 1 % of the dry run's argument bytes; each training step's peak
    (``max_memory_allocated`` over the one step) within 10 % of the dry
@@ -5029,17 +5039,29 @@ DRY_TRAIN_4 = ("qwen2-7b", (2, 2))              # phase 13c's
 DRY_SERVE_4 = ("llama4-scout-17b-a16e", (1, 4))   # phase 15b's
 LIMIT_DRY_ARGS_REL = 0.01      # bytes after placement, by card
 LIMIT_DRY_PEAK_REL = 0.10      # a training step's peak, by card
+# (d) train_4k on one card: gemma-2b at full width cut to 2 layers, f32,
+# 4096 tokens a row, the JAX table's 2 microbatches of 4 rows (a 35 GiB
+# peak on the host's count); the shape-only routes
+# (roofline/counting.py::counted_call: the blocked attention at (1, 1),
+# each tensor-parallel layer at (1, 2)) against their op-by-op count
+DRY_4K_ARCH, DRY_4K_LAYERS, DRY_4K_ROWS = "gemma-2b", 2, 8
+DRY_4K_MESHES = {(1, 1): "blocked_attention", (1, 2): "block"}
+LIMIT_DRY_ROUTE_REL = 0.01     # the route's counts against op by op
 
 
-def _dry_count(cfg, shape, sizes):
+def _dry_count(cfg, shape, sizes, one_card=False):
     """The dry run of ``cfg``'s step at ``shape`` on a fake (data,
-    model) mesh of ``sizes``: a ``StepCount``, one entry a device, and
-    the host seconds it took (placement and run)."""
+    model) mesh of ``sizes`` (``one_card``: every rank on ``meta:0``): a
+    ``StepCount``, one entry a distinct device, and the host seconds it
+    took (placement and run)."""
+    import math
+
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import make_test_mesh
 
     t0 = time.perf_counter()
-    mesh = make_test_mesh(*sizes, device="meta")
+    mesh = make_test_mesh(*sizes, devices=("meta:0",) * math.prod(sizes)) \
+        if one_card else make_test_mesh(*sizes, device="meta")
     lowered = steps.lower_step(steps.build_step(cfg, shape, mesh), mesh)
     return lowered.run(), time.perf_counter() - t0
 
@@ -5056,16 +5078,38 @@ def _serve_shape(cfg):
     return ShapeConfig("serve", S, B, "decode")
 
 
-def _dry_job(arch, kind, sizes):
+def _train_4k():
+    """Phase 16d's config and shape: ``DRY_4K_ARCH`` at full width, f32,
+    cut to ``DRY_4K_LAYERS`` layers, train_4k's 4096 tokens a row."""
+    import dataclasses
+
+    from repro_torch.configs import SHAPES, get_config
+
+    cfg = dataclasses.replace(get_config(DRY_4K_ARCH),
+                              num_layers=DRY_4K_LAYERS,
+                              param_dtype="float32",
+                              compute_dtype="float32")
+    return cfg, dataclasses.replace(SHAPES["train_4k"],
+                                    global_batch=DRY_4K_ROWS)
+
+
+def _dry_job(arch, kind, sizes, op_by_op=False):
     """A dry run in a worker process: phase 16's train or serve step of
-    ``arch`` at full width."""
+    ``arch`` at full width, or (``kind`` "train_4k") phase 16d's on one
+    card; with ``op_by_op`` the counted calls run op by op
+    (``roofline/counting.py::op_by_op``)."""
     if str(SRC) not in sys.path:
         sys.path.insert(0, str(SRC))
     from repro_torch.configs import get_config
+    from repro_torch.roofline.counting import op_by_op as plain
 
-    cfg = get_config(arch)
-    shape = _train_shape() if kind == "train" else _serve_shape(cfg)
-    return _dry_count(cfg, shape, sizes)
+    if kind == "train_4k":
+        cfg, shape = _train_4k()
+    else:
+        cfg = get_config(arch)
+        shape = _train_shape() if kind == "train" else _serve_shape(cfg)
+    with plain() if op_by_op else contextlib.nullcontext():
+        return _dry_count(cfg, shape, sizes, one_card=kind == "train_4k")
 
 
 def _held(phase, label, card, dry, limit):
@@ -5092,12 +5136,15 @@ def _train_batch_on(cfg, B, S, device):
             "labels": toks[:, 1:].contiguous()}
 
 
-def _dry_train(phase, arch, sizes, dry_run, copies):
+def _dry_train(phase, arch, sizes, dry_run, copies, cut=None,
+               one_card=False):
     """``arch``'s full-width training step (phase 11a's batch) placed by
     its bundle and run once on (data, model) = ``sizes`` cards, against
     ``dry_run()`` (its ``StepCount`` and host seconds); ``copies``: run
     under the dry run's counter and hold the cross-card bytes it counts
-    equal to the dry run's."""
+    equal to the dry run's.  ``cut``: (config, shape) in place of the
+    full config and phase 11a's shape; ``one_card``: every rank on
+    cuda:0.  Returns the peaks by distinct card."""
     import gc
     import math
 
@@ -5109,10 +5156,10 @@ def _dry_train(phase, arch, sizes, dry_run, copies):
     from repro_torch.roofline.analysis import collective_bytes
     from repro_torch.roofline.counting import StepCounter
 
-    cfg = get_config(arch)
-    shape = _train_shape()
-    mesh = make_test_mesh(*sizes, device="cuda:0")
-    cards = mesh.devices
+    cfg, shape = cut or (get_config(arch), _train_shape())
+    mesh = make_test_mesh(*sizes, devices=("cuda:0",) * math.prod(sizes)) \
+        if one_card else make_test_mesh(*sizes, device="cuda:0")
+    cards = tuple(dict.fromkeys(mesh.devices))
     gc.collect()
     torch.cuda.empty_cache()
     base = [torch.cuda.memory_allocated(d) for d in cards]
@@ -5120,7 +5167,7 @@ def _dry_train(phase, arch, sizes, dry_run, copies):
     whole = T.init_lm(torch.Generator(device=cards[0]).manual_seed(LM_SEED),
                       cfg, device=cards[0])
     args = bundle.place((whole, None, None, _train_batch_on(
-        cfg, TRAIN_BATCH, TRAIN_SEQ, cards[0])))
+        cfg, shape.global_batch, shape.seq_len, cards[0])))
     del whole
     gc.collect()
     _sync_all(mesh)
@@ -5137,9 +5184,10 @@ def _dry_train(phase, arch, sizes, dry_run, copies):
              for d, b in zip(cards, base)]
     loss = float(out[2]["loss"])
     dry, dry_s = dry_run()
-    label = f"{arch} train step at {sizes}"
+    label = f"{arch} train step at {sizes}" + (
+        f" ({cfg.num_layers} layers, {cfg.compute_dtype})" if cut else "")
     print(f"phase {phase}: {label}: {cfg.param_count() / 1e9:.3f}e9 "
-          f"parameters, batch {TRAIN_BATCH} x {TRAIN_SEQ} in "
+          f"parameters, batch {shape.global_batch} x {shape.seq_len} in "
           f"{steps.num_microbatches(cfg, shape, len(mesh.replicas))} "
           f"microbatches; loss {loss!r}; the card's step {step_s:.3f} s"
           f"{' under the counter' if copies else ''}; the dry run "
@@ -5166,6 +5214,7 @@ def _dry_train(phase, arch, sizes, dry_run, copies):
     del args, out, bundle
     gc.collect()
     torch.cuda.empty_cache()
+    return peaks
 
 
 def _dry_serve(phase, arch, sizes, dry_run):
@@ -5227,6 +5276,10 @@ def phase16():
     print(f"phase 16: {card_line()}")
     four = all([_four_cards("16b"), _four_cards("16c")])
     jobs = {"16a": (DRY_TRAIN_1, "train", (1, 1))}
+    for sizes in DRY_4K_MESHES:
+        jobs[f"16d {sizes}"] = (DRY_4K_ARCH, "train_4k", sizes)
+        jobs[f"16d {sizes} op by op"] = (DRY_4K_ARCH, "train_4k", sizes,
+                                         True)
     if four:
         jobs["16b"] = (DRY_TRAIN_4[0], "train", DRY_TRAIN_4[1])
         jobs["16c"] = (DRY_SERVE_4[0], "serve", DRY_SERVE_4[1])
@@ -5239,7 +5292,52 @@ def phase16():
         if four:
             _dry_train("16b", *DRY_TRAIN_4, runs["16b"].result, copies=True)
             _dry_serve("16c", *DRY_SERVE_4, runs["16c"].result)
+        for sizes in DRY_4K_MESHES:
+            _dry_train_4k(sizes, runs[f"16d {sizes}"].result,
+                          runs[f"16d {sizes} op by op"].result)
     print(f"phase 16: {time.perf_counter() - t0:.1f} s on the host")
+
+
+def _dry_train_4k(sizes, route_run, plain_run):
+    """Phase 16d: the train_4k step of ``_train_4k()`` at (data, model) =
+    ``sizes`` on one card against the dry run's shape-only count
+    (``route_run()``) and its op-by-op count (``plain_run()``), each a
+    worker's (``StepCount``, host seconds): each count's peak within
+    ``LIMIT_DRY_PEAK_REL`` of the card's, the two counts within
+    ``LIMIT_DRY_ROUTE_REL`` of each other (FLOPs equal), and the route
+    that ``DRY_4K_MESHES`` names taken."""
+    cut = _train_4k()
+    peaks = _dry_train("16d", DRY_4K_ARCH, sizes, route_run, copies=False,
+                       cut=cut, one_card=True)
+    route, route_s = route_run()
+    plain, plain_s = plain_run()
+    print(f"phase 16d: {DRY_4K_ARCH} train_4k at {sizes} on one card: "
+          f"the card's "
+          f"max_memory_allocated less what it held before "
+          f"{peaks[0] / 2**30:.3f} GiB; the shape-only route's count "
+          f"{route.peak_bytes[0] / 2**30:.3f} GiB in {route_s:.1f} s of "
+          f"host ({route.routes}); the op-by-op count "
+          f"{plain.peak_bytes[0] / 2**30:.3f} GiB in {plain_s:.1f} s "
+          f"(bytes: card {peaks[0]}, route {route.peak_bytes[0]}, op by "
+          f"op {plain.peak_bytes[0]})")
+    _held("16d", "peak, the op-by-op count", peaks, plain.peak_bytes,
+          LIMIT_DRY_PEAK_REL)
+    parts = {"peak": (route.peak_bytes, plain.peak_bytes),
+             "bytes accessed": (route.bytes_accessed, plain.bytes_accessed)}
+    errs = {k: max(abs(a - b) / b for a, b in zip(*v))
+            for k, v in parts.items()}
+    print(f"phase 16d: the route against op by op: FLOPs "
+          f"{route.flops[0]:.6e} / {plain.flops[0]:.6e}, " + ", ".join(
+              f"{k} {e:.4%}" for k, e in errs.items())
+          + f" (limit {LIMIT_DRY_ROUTE_REL:.0%})")
+    if route.flops != plain.flops or not max(errs.values()) \
+            <= LIMIT_DRY_ROUTE_REL:
+        raise AssertionError(f"phase 16d: the shape-only route's count "
+                             f"parts from the op-by-op count: {errs}")
+    if not route.routes.get(DRY_4K_MESHES[sizes]):
+        raise AssertionError(f"phase 16d: {DRY_4K_MESHES[sizes]} did not "
+                             f"take its shape-only route at {sizes}: "
+                             f"{route.routes}")
 
 
 # -- phase 17 ---------------------------------------------------------------

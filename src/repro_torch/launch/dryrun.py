@@ -25,10 +25,16 @@ With ``--use-pallas`` the step takes the kernels' routes, as
 ``launch/serve.py --use-pallas`` does: flash attention (B9) and the SSD
 chunk (B10) answer a fake tensor with an empty output of their shape and
 count their work in closed form (``kernels/flash_attention.py::
-flash_work``, ``kernels/ssd.py::ssd_work``).  Without it the plain
-blocked attention runs op by op, which at 32k-token prompts takes hours
-of host time.  Training is differentiated and keeps the plain route
-either way.
+flash_work``, ``kernels/ssd.py::ssd_work``).  Training is differentiated
+and keeps the plain route either way.  Three plain calls answer fake
+tensors by replaying their own op-by-op count, taken once per signature
+(``roofline/counting.py::counted_call``): the blocked attention
+(``models/attention.py::blocked_attention``, at 2048 query rows and
+more), the SSD scan (``models/mamba.py::_ssd_chunked``) and each layer
+of a mesh's training loss (``models/transformer.py::checkpoint_tp``):
+the same FLOPs, bytes, copies and peaks at a few dispatches a call.
+Each record's ``memory`` lists what the busiest device holds at its
+peak, by the op that made it.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-7b \\
@@ -78,6 +84,7 @@ def _run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
         rec["cost"] = extract_cost(count)
         rec["collectives"] = collective_bytes(count)
         rec["kernels"] = count.kernels
+        rec["routes"] = count.routes
         rec["roofline_counted"] = roofline_report(cfg, shape, mesh, rec)
         rec["roofline"] = roofline_terms(
             cfg, shape, mesh, num_microbatches(cfg, shape,

@@ -671,9 +671,12 @@ class LoweredStep:
         ``roofline/counting.py::StepCounter`` inside the fake mode:
         nothing is allocated and no kernel or plain version of one runs
         where a wrapper has a shape-only route (with ``use_pallas`` on,
-        B9 and B10).  Returns the counter's
+        B9 and B10), and the blocked attention, the SSD scan and each
+        layer of a mesh's loss replay their op-by-op count
+        (``counting.counted_call``).  Returns the counter's
         :class:`~repro_torch.roofline.counting.StepCount`; ``seconds`` is
-        the host time of the fake run."""
+        the host time of the fake run; its ``peak_by_op`` holds what each
+        device held at its peak, by the op that made it."""
         from repro_torch.roofline.counting import StepCounter
 
         counter = StepCounter(self.mesh.devices)

@@ -58,11 +58,12 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels._common import differentiated
+from repro_torch.kernels._common import differentiated, is_fake
 from repro_torch.models import layers as L
 from repro_torch.models import parallel as PL
 from repro_torch.models import sharding as SH
 from repro_torch.models.parallel import work
+from repro_torch.roofline.counting import counted_call
 
 NEG_INF = -1e30
 # sequence length at/above which the plain full-attention path switches
@@ -131,7 +132,30 @@ def blocked_attention(q, k, v, *, causal=True, window=None, softcap=None,
 
     q: (B, Sq, H, d); k/v: (B, T, K, dv) with H = K * G.  Returns
     (B, Sq, H, dv) in v's dtype.  ``scale`` defaults to 1/sqrt(d).
+
+    Fake tensors (the dry run's) take a shape-only route
+    (``roofline/counting.py::counted_call``): the op-by-op count of this
+    function, forward and backward, is taken once per signature on meta
+    tensors and replayed by one autograd node, so a call costs the dry
+    run a few dispatches instead of every op of every block.  Real
+    tensors never take it.
     """
+    def plain(q, k, v, q_positions, k_positions):
+        return _blocked_attention(
+            q, k, v, causal=causal, window=window, softcap=softcap,
+            q_positions=q_positions, k_positions=k_positions, scale=scale,
+            q_chunk=q_chunk, kv_chunk=kv_chunk)
+
+    if is_fake(q):
+        return counted_call(
+            "blocked_attention", plain, (q, k, v, q_positions, k_positions),
+            key=(causal, window, softcap, scale, q_chunk, kv_chunk))
+    return plain(q, k, v, q_positions, k_positions)
+
+
+def _blocked_attention(q, k, v, *, causal, window, softcap, q_positions,
+                       k_positions, scale, q_chunk, kv_chunk):
+    """:func:`blocked_attention`'s plain path, op by op."""
     B, Sq, H, dh = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K

@@ -14,7 +14,10 @@ launch of the SSD kernel (:func:`repro_torch.kernels.ops.ssd_chunk`,
 B10), then runs the inter-chunk recurrence as a loop over chunks in
 plain PyTorch: the split ``kernels/ssd_pallas.py`` prescribes.  With it
 off, or on a differentiated call (the training loss: the kernel has no
-backward), every chunk runs the JAX package's plain step.
+backward), every chunk runs the JAX package's plain step.  On fake
+tensors (the dry run's) that plain scan takes a shape-only route: its
+op-by-op count is taken once per signature on meta tensors and replayed
+(``roofline/counting.py::counted_call``).
 
 :func:`mamba_apply_tp` is the mixer over the ``model`` ranks of a
 :class:`repro_torch.models.parallel.Group`: the training loss's, and,
@@ -29,9 +32,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.kernels._common import differentiated
+from repro_torch.kernels._common import differentiated, is_fake
 from repro_torch.models import layers as L
 from repro_torch.models.parallel import held, work
+from repro_torch.roofline.counting import counted_call
 
 
 def mamba_init(gen, cfg, *, device=None):
@@ -120,8 +124,22 @@ def _ssd_chunked(xh, dt, A, Bm, Cm, cfg, h0):
     """Chunked SSD scan.
 
     xh (b,s,H,P), dt (b,s,H) post-softplus, A (H,) negative, Bm/Cm
-    (b,s,G,N).  Returns (y (b,s,H,P) f32, h_final (b,H,P,N) f32).
+    (b,s,G,N).  Returns (y (b,s,H,P) f32, h_final (b,H,P,N) f32).  Fake
+    tensors on the plain path (no kernel) replay its op-by-op count
+    (``counting.counted_call``).
     """
+    if is_fake(xh) and not (ops.use_pallas()
+                            and not differentiated(xh, dt, A, Bm, Cm)):
+        return counted_call(
+            "ssd_chunked",
+            lambda xh, dt, A, Bm, Cm, h0: _ssd_scan(xh, dt, A, Bm, Cm,
+                                                    cfg, h0),
+            (xh, dt, A, Bm, Cm, h0), key=(cfg.ssm.chunk_size,))
+    return _ssd_scan(xh, dt, A, Bm, Cm, cfg, h0)
+
+
+def _ssd_scan(xh, dt, A, Bm, Cm, cfg, h0):
+    """:func:`_ssd_chunked`'s scan, op by op (or B10's launch)."""
     s_cfg = cfg.ssm
     b, S, H, P = xh.shape
     G, N = Bm.shape[2:]

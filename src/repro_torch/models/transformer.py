@@ -41,7 +41,9 @@ the loss over every replica of a data x model mesh at once, layer by
 layer, because an MoE layer routes the whole microbatch's tokens
 (``models/moe.py::moe_apply_mesh``).  With ``remat`` each layer,
 collectives included, is recomputed in the backward pass by
-:func:`checkpoint_tp`.  :func:`lm_prefill_mesh` and
+:func:`checkpoint_tp`; on fake tensors (the dry run's) such a layer
+replays its op-by-op count, taken once per layer signature
+(``roofline/counting.py::counted_call``).  :func:`lm_prefill_mesh` and
 :func:`lm_decode_step_mesh` serve over such a mesh the same way, with
 each device's shards of the caches threaded through the blocks.
 """
@@ -53,14 +55,17 @@ import functools
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels._common import is_fake
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
+from repro_torch.models import parallel as PL
 from repro_torch.models import sharding as SH
 from repro_torch.models.parallel import work
-from repro_torch.tree import leaves, unflatten
+from repro_torch.roofline.counting import counted_call
+from repro_torch.tree import leaves, tree_map, unflatten
 
 
 # -- layer plan ---------------------------------------------------------------
@@ -298,19 +303,51 @@ def checkpoint_tp(fn, remat: bool, ps, *acts):
     ``torch.utils.checkpoint`` cannot take it: with the ranks on several
     cards the backward pass runs on a thread a card, and two threads
     would recompute one block at once; here one autograd node recomputes
-    the whole block and differentiates it."""
-    if not remat:
+    the whole block and differentiates it.  On fake tensors the block,
+    recomputation included, replays its op-by-op count, taken once for
+    every block of the same signature (``counting.counted_call``)."""
+    flat = [t for p in ps for t in leaves(p)] + [t for a in acts for t in a]
+    if not (remat or is_fake(flat[0])):
         return fn(ps, *acts)
+    # the trees' shapes, not their tensors: a count kept for later blocks
+    # holds no tensor of this one
+    shapes = [tree_map(lambda _: 0, p) for p in ps]
     counts = [len(leaves(p)) for p in ps]
+    sizes = [len(a) for a in acts]
 
     def run(tensors):
         it = iter(tensors)
         ranks = [unflatten(p, [next(it) for _ in range(n)])
-                 for p, n in zip(ps, counts)]
-        return fn(ranks, *[[next(it) for _ in a] for a in acts])
+                 for p, n in zip(shapes, counts)]
+        return fn(ranks, *[[next(it) for _ in range(n)] for n in sizes])
 
-    flat = [t for p in ps for t in leaves(p)] + [t for a in acts for t in a]
-    return list(_Remat.apply(run, *flat))
+    def block(*tensors):
+        return _Remat.apply(run, *tensors) if remat else tuple(run(tensors))
+
+    if is_fake(flat[0]):
+        static = _static(fn)
+        out = counted_call("block", block, flat, key=None if static is None
+                           else (static, remat, tuple(counts), tuple(sizes)))
+        return list(out) if isinstance(out, tuple) else [out]
+    return list(block(*flat))
+
+
+def _static(fn):
+    """A hashable stand-in for a block function: its function and its
+    bound arguments, a group of ranks as its devices; None for a closure
+    (made anew at each call, so no later block shares its count)."""
+    def value(v):
+        if isinstance(v, PL.Group):
+            return tuple(map(str, v.devices))
+        if isinstance(v, (list, tuple)):
+            return tuple(map(value, v))
+        return v
+    func = getattr(fn, "func", fn)
+    if getattr(func, "__closure__", None) is not None:
+        return None
+    kw = getattr(fn, "keywords", {})
+    return (func, tuple(map(value, getattr(fn, "args", ()))),
+            tuple(sorted((k, value(v)) for k, v in kw.items())))
 
 
 def moe_aux_loss(cfg, aux, device=None):

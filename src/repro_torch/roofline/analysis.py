@@ -41,6 +41,9 @@ class _HW:
 
 HW = _HW()
 
+#: the (op, dtype, shape) groups a record lists at the peak
+PEAK_GROUPS = 20
+
 
 def model_flops(cfg, shape) -> float:
     """Analytic 'useful' FLOPs: 6·N·D train, 2·N·D prefill, 2·N·B decode
@@ -56,7 +59,10 @@ def memory_of(count) -> dict:
     """The JAX record's ``memory`` from a ``StepCount``: the argument,
     output, temporary and peak bytes of the device with the largest peak
     (temp = peak - arguments, as the JAX record's peak = arguments +
-    temp), then under ``per_device`` each one's, in mesh order."""
+    temp), then under ``per_device`` each one's, in mesh order; then
+    what that device held at its peak: ``peak_by_op``, bytes by the op
+    that made them, and ``peak_by_tensor``, the largest (op, dtype,
+    shape) groups."""
     per = {"argument_bytes": count.argument_bytes,
            "output_bytes": count.output_bytes,
            "temp_bytes": count.temp_bytes, "peak_bytes": count.peak_bytes}
@@ -64,6 +70,15 @@ def memory_of(count) -> dict:
     out = {k: v[top] for k, v in per.items()}
     out["device"] = count.devices[top]
     out["per_device"] = {k: list(v) for k, v in per.items()}
+    groups = count.peak_by_op[top]
+    by_op: Dict[str, int] = {}
+    for (op, _, _), n in groups.items():
+        by_op[op] = by_op.get(op, 0) + n
+    out["peak_by_op"] = dict(sorted(by_op.items(), key=lambda kv: -kv[1]))
+    out["peak_by_tensor"] = [
+        {"op": op, "shape": f"{str(dtype)[6:]}{list(shape)}", "bytes": n}
+        for (op, dtype, shape), n in
+        sorted(groups.items(), key=lambda kv: -kv[1])[:PEAK_GROUPS]]
     return out
 
 

@@ -162,9 +162,12 @@ class BackgroundSolver:
                     self.stats["runs"] += 1
                 fn()
             except Exception:
+                error = traceback.format_exc()
+                # the error first: a reader that sees it counted (without
+                # the lock) finds it
                 with self._queue_lock:
+                    self.last_error = error
                     self.stats["errors"] += 1
-                    self.last_error = traceback.format_exc()
             finally:
                 with self._queue_lock:
                     self._inflight.discard(key)

@@ -308,7 +308,10 @@ def test_transformed_roots_on_the_port_tree():
                      "class _Redistribute(")),
             ("src/repro_torch/models/transformer.py",
              line_of(PORT / "models" / "transformer.py",
-                     "class _Remat("))}
+                     "class _Remat(")),
+            ("src/repro_torch/roofline/counting.py",
+             line_of(PORT / "roofline" / "counting.py",
+                     "class _Replay("))}
     assert got == want
     wrappers = {fi.qualname for fi in tree.kernel_wrappers()}
     assert wrappers == {
